@@ -1,0 +1,27 @@
+"""Configs of the ported architectures (--arch <id>).
+
+Each module exports CONFIG (full size) and SMOKE (reduced, CPU-runnable),
+copied from the reference package. ``get(name)`` resolves by id with '-' or
+'_' separators. The other architectures come with their slices (ROADMAP.md).
+"""
+from __future__ import annotations
+
+import importlib
+
+ARCHS = ["h2o_danube_1_8b", "smollm_360m"]
+
+
+def canon(name: str) -> str:
+    return name.replace("-", "_").replace(".", "_")
+
+
+def get(name: str, smoke: bool = False):
+    cname = canon(name)
+    if cname not in ARCHS:
+        raise KeyError(f"architecture {name!r} is not ported yet; have {ARCHS}")
+    mod = importlib.import_module(f"repro_torch.configs.{cname}")
+    return mod.SMOKE if smoke else mod.CONFIG
+
+
+def all_archs():
+    return list(ARCHS)

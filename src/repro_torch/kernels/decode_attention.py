@@ -1,0 +1,76 @@
+"""Decode attention: the CUDA kernel ``csrc/decode_attention.cu`` and its
+plain version.
+
+Counterpart of :mod:`repro.kernels.decode_attention`
+(``decode_attention_pallas``): one query token per sequence against a KV
+cache, masked to ``kpos < length[b]``. ``window`` is applied as
+``decode_attention_ref`` applies it (the Pallas kernel ignores it). A CUDA
+tensor goes to the kernel, a CPU tensor to :func:`decode_attention_plain`.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from . import _build
+from ._checks import DTYPE_CODES, require_cuda, require_head_dim
+from .ref import decode_attention_ref as decode_attention_plain
+
+
+def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          length: Optional[torch.Tensor] = None,
+                          window: Optional[int] = None,
+                          scale: Optional[float] = None) -> torch.Tensor:
+    """Launch the kernel. q: (B, Hq, D); k/v: (B, Hkv, S, D), contiguous,
+    bf16 or f32; length: (B,) int32 on the same device (None: all S valid)
+    -> (B, Hq, D) in q's dtype."""
+    if q.dim() != 3 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"decode_attention: want q (B,Hq,D), k = v "
+                         f"(B,Hkv,S,D); got {tuple(q.shape)}, {tuple(k.shape)},"
+                         f" {tuple(v.shape)}")
+    b, hq, d = q.shape
+    _, hkv, s, _ = k.shape
+    if length is None:
+        length = torch.full((b,), s, dtype=torch.int32, device=q.device)
+    require_cuda("decode_attention", q, k, v, length)
+    if k.shape[0] != b or k.shape[3] != d or hq % hkv or s == 0:
+        raise ValueError(f"decode_attention: q {tuple(q.shape)} does not match"
+                         f" k/v {tuple(k.shape)}")
+    if q.dtype not in DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"decode_attention: dtypes {q.dtype}/{k.dtype}/"
+                        f"{v.dtype}; want one of {list(DTYPE_CODES)} for all")
+    if length.dtype != torch.int32 or tuple(length.shape) != (b,):
+        raise ValueError(f"decode_attention: length must be int32 ({b},), got"
+                         f" {length.dtype} {tuple(length.shape)}")
+    require_head_dim("decode_attention", d)
+    if window is not None and window < 1:
+        raise ValueError(f"decode_attention: window {window} < 1")
+    if not all(t.is_contiguous() for t in (q, k, v, length)):
+        raise ValueError("decode_attention: q, k, v and length must be "
+                         "contiguous")
+    scale = scale if scale is not None else d ** -0.5
+    o = torch.empty_like(q)
+    if b == 0:
+        return o
+    lib = _build.load()
+    _build.check(lib.decode_attention_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), length.data_ptr(),
+        o.data_ptr(), b, hq, hkv, s, d, -1 if window is None else int(window),
+        float(scale), DTYPE_CODES[q.dtype], _build.stream_handle(q)),
+        "decode_attention_fwd")
+    decode_attention_cuda.launches += 1
+    return o
+
+
+decode_attention_cuda.launches = 0
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     length: Optional[torch.Tensor] = None,
+                     window: Optional[int] = None,
+                     scale: Optional[float] = None) -> torch.Tensor:
+    """The kernel for CUDA tensors, the plain version for CPU tensors."""
+    if q.device.type == "cpu":
+        return decode_attention_plain(q, k, v, length, window, scale)
+    return decode_attention_cuda(q, k, v, length, window, scale)

@@ -1,0 +1,86 @@
+"""Plain PyTorch versions of the kernels: the semantic references.
+
+Counterpart of :mod:`repro.kernels.ref`, with the same signatures and the
+same float32 internals.  Each one sits beside its kernel (the kernel modules
+re-export it as ``*_plain``); the CPU path runs them, and ``chip_smoke.py``
+holds every kernel against them on the card.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+NEG_INF = -1e30
+
+
+def rmsnorm_ref(x: torch.Tensor, scale: torch.Tensor,
+                eps: float = 1e-6) -> torch.Tensor:
+    x32 = x.float()
+    var = (x32 * x32).mean(dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+def _mask(sq: int, skv: int, causal: bool, window: Optional[int],
+          offset: int, device=None) -> torch.Tensor:
+    """(sq, skv) boolean mask. ``offset`` = absolute position of q row 0
+    minus that of kv row 0 (for caches/prefill continuation)."""
+    qpos = torch.arange(sq, device=device)[:, None] + offset
+    kpos = torch.arange(skv, device=device)[None, :]
+    m = torch.ones((sq, skv), dtype=torch.bool, device=device)
+    if causal:
+        m &= kpos <= qpos
+    if window is not None:
+        m &= kpos > qpos - window
+    return m
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool = True, window: Optional[int] = None,
+                  offset: int = 0,
+                  scale: Optional[float] = None) -> torch.Tensor:
+    """Naive attention. q: (B, Hq, Sq, D); k/v: (B, Hkv, Skv, D); GQA via
+    head-group broadcast. Returns (B, Hq, Sq, D)."""
+    b, hq, sq, d = q.shape
+    _, hkv, skv, _ = k.shape
+    if hq % hkv:
+        raise ValueError(f"q heads {hq} not a multiple of kv heads {hkv}")
+    g = hq // hkv
+    scale = scale if scale is not None else d ** -0.5
+    qg = q.reshape(b, hkv, g, sq, d).float()
+    logits = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.float()) * scale
+    m = _mask(sq, skv, causal, window, offset, device=q.device)
+    logits = torch.where(m[None, None, None], logits,
+                         torch.full_like(logits, NEG_INF))
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
+    return out.reshape(b, hq, sq, d).to(q.dtype)
+
+
+def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         length: Optional[torch.Tensor] = None,
+                         window: Optional[int] = None,
+                         scale: Optional[float] = None) -> torch.Tensor:
+    """Single-token attention against a KV cache.
+
+    q: (B, Hq, D); k/v: (B, Hkv, S, D); ``length``: (B,) valid cache length
+    (the new token sits at position length-1). Returns (B, Hq, D).
+    """
+    b, hq, d = q.shape
+    _, hkv, s, _ = k.shape
+    g = hq // hkv
+    scale = scale if scale is not None else d ** -0.5
+    qg = q.reshape(b, hkv, g, d).float()
+    logits = torch.einsum("bhgd,bhkd->bhgk", qg, k.float()) * scale
+    kpos = torch.arange(s, device=q.device)[None]
+    if length is None:
+        length = torch.full((b,), s, dtype=torch.int32, device=q.device)
+    length = length.to(q.device)
+    valid = kpos < length[:, None]
+    if window is not None:
+        valid &= kpos > (length[:, None] - 1 - window)
+    logits = torch.where(valid[:, None, None], logits,
+                         torch.full_like(logits, NEG_INF))
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgk,bhkd->bhgd", p, v.float())
+    return out.reshape(b, hq, d).to(q.dtype)

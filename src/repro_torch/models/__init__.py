@@ -1,0 +1,37 @@
+"""Model code of the port (dense decoder slice).
+
+Counterpart of :mod:`repro.models`: ``model_api(cfg)`` returns the
+family-appropriate (init, loss, init_cache, decode_step) tuple. The loss
+comes with the training slice, encoder-decoder models with their own
+(ROADMAP.md); until then those raise.
+"""
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+from . import transformer
+from .config import ModelConfig
+
+
+class ModelAPI(NamedTuple):
+    init: Callable          # (gen, cfg, device) -> params
+    loss: Callable          # (params, batch, cfg) -> (loss, metrics)
+    init_cache: Callable    # (cfg, batch, max_len, device) -> cache
+    decode_step: Callable   # (params, cache, tokens, pos, cfg) -> (logits, cache)
+
+
+def _loss_not_ported(params, batch, cfg):
+    raise NotImplementedError(
+        "lm_loss comes with the training slice (ROADMAP.md, queue 1, item 1)")
+
+
+def model_api(cfg: ModelConfig) -> ModelAPI:
+    if cfg.is_encdec:
+        raise NotImplementedError(
+            f"{cfg.name}: encoder-decoder models come with ROADMAP.md queue 1,"
+            " item 4")
+    return ModelAPI(transformer.init, _loss_not_ported,
+                    transformer.init_cache, transformer.decode_step)
+
+
+__all__ = ["ModelConfig", "ModelAPI", "model_api", "transformer"]

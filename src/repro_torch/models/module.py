@@ -1,0 +1,72 @@
+"""Minimal functional parameter utilities.
+
+Counterpart of :mod:`repro.models.module`. Parameters are nested dicts of
+tensors. Layer stacks hold *stacked* parameters (leading axis = repeat
+count), the layout the reference scans over; the port loops over that axis.
+Weights are drawn in float32 from an explicit ``torch.Generator`` and then
+cast, with the reference's scales.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Dict
+
+import torch
+
+Params = Dict[str, Any]
+
+
+def tree_map(fn: Callable, tree):
+    """Apply ``fn`` to every tensor leaf of nested dicts/lists."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def tree_leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
+def _normal(gen: torch.Generator, shape, device) -> torch.Tensor:
+    # A meta target draws nothing; otherwise draw where the generator lives.
+    dev = device if torch.device(device).type == "meta" else gen.device
+    return torch.randn(shape, generator=gen, dtype=torch.float32, device=dev)
+
+
+def dense_init(gen: torch.Generator, d_in: int, d_out: int,
+               scale: float = None, dtype=torch.bfloat16,
+               device="cpu") -> torch.Tensor:
+    scale = scale if scale is not None else d_in ** -0.5
+    return (_normal(gen, (d_in, d_out), device) * scale).to(dtype)
+
+
+def embed_init(gen: torch.Generator, vocab: int, d: int, dtype=torch.bfloat16,
+               device="cpu") -> torch.Tensor:
+    return (_normal(gen, (vocab, d), device) * 0.02).to(dtype)
+
+
+def stack_init(init_fn: Callable[[torch.Generator], Params],
+               gen: torch.Generator, n: int) -> Params:
+    """Stack n independent inits along a new leading axis."""
+    trees = [init_fn(gen) for _ in range(n)]
+
+    def stack(path_trees):
+        first = path_trees[0]
+        if isinstance(first, dict):
+            return {k: stack([t[k] for t in path_trees]) for k in first}
+        return torch.stack(path_trees)
+
+    return stack(trees)
+
+
+def param_bytes(params: Params) -> int:
+    return sum(x.numel() * x.element_size() for x in tree_leaves(params))
+
+
+def param_count(params: Params) -> int:
+    return sum(x.numel() for x in tree_leaves(params))

@@ -1,0 +1,181 @@
+"""Decoder-only LM assembled from periodic blocks (dense slice).
+
+Counterpart of :mod:`repro.models.transformer`. Parameters keep the
+reference's stacked layout (``params["stack"]["pos{i}"]`` with a leading
+``n_periods`` axis); where the reference runs ``lax.scan`` over that axis the
+port loops over it in Python.
+
+Entry points:
+  init(gen, cfg, device)                 -> params
+  forward(params, x, cfg, positions)     -> (hidden, aux_loss)
+  init_cache(cfg, batch, max_len, device) -> decode cache
+  decode_step(params, cache, tok, pos, cfg) -> (logits, cache)
+
+Only ("attn", "mlp") blocks are ported; the loss and the other mixers come
+with later slices (ROADMAP.md).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple
+
+import torch
+
+from repro_torch import resolve_device
+from . import layers as L
+from .config import ModelConfig
+from .module import dense_init, embed_init, stack_init, tree_map
+
+Params = Dict[str, Any]
+
+
+def _dtype(cfg: ModelConfig):
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+def _check_spec(spec) -> None:
+    mixer, ffn = spec
+    if mixer != "attn" or ffn not in ("mlp", None):
+        item = {"mamba": "item 2", "mlstm": "item 2", "slstm": "item 2",
+                "mla": "item 3"}.get(mixer, "item 3")
+        raise NotImplementedError(
+            f"block {spec} is not ported yet (ROADMAP.md, queue 1, {item})")
+
+
+def _check_supported(cfg: ModelConfig) -> None:
+    if cfg.is_encdec:
+        raise NotImplementedError(
+            "encoder-decoder models come with ROADMAP.md queue 1, item 4")
+    if cfg.first_k_dense or cfg.mtp or cfg.mla:
+        raise NotImplementedError(
+            f"{cfg.name}: dense prefix / MTP / MLA come with ROADMAP.md "
+            "queue 1, item 3")
+    for spec in cfg.period:
+        _check_spec(spec)
+
+
+def _layer(stacked: Params, j: int) -> Params:
+    """Layer j of a stacked tree (views, no copies)."""
+    return tree_map(lambda a: a[j], stacked)
+
+
+# --------------------------------------------------------------------------
+# Block init / apply / decode
+# --------------------------------------------------------------------------
+
+def block_init(gen, spec, cfg: ModelConfig, dtype, device="cpu") -> Params:
+    _check_spec(spec)
+    _, ffn = spec
+    bp: Params = {"ln1": L.rmsnorm_init(cfg.d_model, device),
+                  "mixer": L.attn_init(gen, cfg, dtype, device)}
+    if ffn is not None:
+        bp["ln2"] = L.rmsnorm_init(cfg.d_model, device)
+        bp["ffn"] = L.mlp_init(gen, cfg, dtype, device=device)
+    return bp
+
+
+def block_apply(bp, x, spec, cfg: ModelConfig, positions):
+    """Returns (x, aux); dense blocks carry no auxiliary loss (aux = 0.0)."""
+    _check_spec(spec)
+    _, ffn = spec
+    h = L.rmsnorm(x, bp["ln1"], cfg.norm_eps)
+    x = x + L.attn_apply(bp["mixer"], h, cfg, positions)
+    if ffn is not None:
+        h2 = L.rmsnorm(x, bp["ln2"], cfg.norm_eps)
+        x = x + L.mlp_apply(bp["ffn"], h2)
+    return x, 0.0
+
+
+def block_make_cache(spec, cfg: ModelConfig, batch: int, max_len: int, dtype,
+                     device="cpu"):
+    _check_spec(spec)
+    return L.attn_make_cache(cfg, batch, max_len, dtype, device)
+
+
+def block_decode(bp, x, cache, spec, cfg: ModelConfig, pos: int):
+    _check_spec(spec)
+    _, ffn = spec
+    h = L.rmsnorm(x, bp["ln1"], cfg.norm_eps)
+    mx, cache = L.attn_decode(bp["mixer"], h, cache, pos, cfg)
+    x = x + mx
+    if ffn is not None:
+        h2 = L.rmsnorm(x, bp["ln2"], cfg.norm_eps)
+        x = x + L.mlp_apply(bp["ffn"], h2)
+    return x, cache
+
+
+# --------------------------------------------------------------------------
+# Full model
+# --------------------------------------------------------------------------
+
+def init(gen: torch.Generator, cfg: ModelConfig, device="cuda") -> Params:
+    """Random parameters drawn from ``gen`` (on the generator's device, or
+    nowhere for ``device="meta"``) and placed on ``device``."""
+    dev = resolve_device(device)
+    _check_supported(cfg)
+    dtype = _dtype(cfg)
+    params: Params = {
+        "embed": embed_init(gen, cfg.vocab, cfg.d_model, dtype, device=dev),
+        "final_norm": L.rmsnorm_init(cfg.d_model),
+    }
+    if not cfg.tie_embeddings:
+        params["head"] = dense_init(gen, cfg.d_model, cfg.vocab, dtype=dtype,
+                                    device=dev)
+    params["stack"] = {
+        f"pos{i}": stack_init(
+            lambda g, spec=spec: block_init(g, spec, cfg, dtype, dev),
+            gen, cfg.n_periods)
+        for i, spec in enumerate(cfg.period)}
+    return tree_map(lambda a: a.to(dev), params)
+
+
+def forward(params, x, cfg: ModelConfig, positions) -> Tuple[torch.Tensor,
+                                                             torch.Tensor]:
+    """x: (B, S, D) embedded inputs -> (hidden (B,S,D), aux_loss).
+
+    Dense blocks carry no auxiliary loss, so aux_loss is 0."""
+    for j in range(cfg.n_periods):
+        for i, spec in enumerate(cfg.period):
+            x, _ = block_apply(_layer(params["stack"][f"pos{i}"], j), x, spec,
+                               cfg, positions)
+    x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def logits_fn(params, h, cfg: ModelConfig) -> torch.Tensor:
+    w = params["embed"].T if cfg.tie_embeddings else params["head"]
+    return (h @ w).float()
+
+
+def embed_tokens(params, tokens, cfg: ModelConfig) -> torch.Tensor:
+    return params["embed"][tokens]
+
+
+# --------------------------------------------------------------------------
+# Decode
+# --------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               device="cuda") -> Params:
+    dev = resolve_device(device)
+    _check_supported(cfg)
+    dtype = _dtype(cfg)
+    stack = {}
+    for i, spec in enumerate(cfg.period):
+        one = block_make_cache(spec, cfg, batch, max_len, dtype, device="meta")
+        stack[f"pos{i}"] = tree_map(
+            lambda a: torch.zeros((cfg.n_periods,) + tuple(a.shape),
+                                  dtype=a.dtype, device=dev), one)
+    return {"stack": stack}
+
+
+def decode_step(params, cache, tokens, pos: int, cfg: ModelConfig):
+    """tokens: (B,) int; pos: absolute position (a Python int).
+    Returns (logits (B, V) f32, cache); the cache is updated in place."""
+    x = params["embed"][tokens]
+    for j in range(cfg.n_periods):
+        for i, spec in enumerate(cfg.period):
+            key = f"pos{i}"
+            x, _ = block_decode(_layer(params["stack"][key], j), x,
+                                _layer(cache["stack"][key], j), spec, cfg, pos)
+    x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    return logits_fn(params, x, cfg), cache

@@ -1,0 +1,6 @@
+"""Pytest settings shared by the test files: marker registration only."""
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device; skips where there is none")

@@ -1,0 +1,95 @@
+"""The CUDA kernels against their plain versions, on the card.
+
+Marked ``cuda``: each test skips where there is no CUDA device. On a machine
+with one: ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``.
+This file imports no JAX, so it runs where only PyTorch is installed.
+"""
+import pytest
+import torch
+
+from repro_torch.kernels.decode_attention import (decode_attention_cuda,
+                                                  decode_attention_plain)
+from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                 flash_attention_plain)
+from repro_torch.kernels.rmsnorm import rmsnorm_cuda, rmsnorm_plain
+
+pytestmark = pytest.mark.cuda
+
+# float32: summation order only; bf16: one rounding of the output
+TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+
+
+@pytest.fixture
+def gen():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+def _randn(gen, shape, dtype):
+    return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+
+def _close(got, want, dtype):
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+
+
+@pytest.mark.parametrize("rows,d", [(4096, 960), (8, 960), (3, 1001),
+                                    (5, 8192), (7, 20)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm(gen, rows, d, dtype):
+    x = _randn(gen, (rows, d), dtype)
+    s = _randn(gen, (d,), torch.float32)
+    _close(rmsnorm_cuda(x, s, 1e-5), rmsnorm_plain(x, s, 1e-5), dtype)
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d,causal,window", [
+    (2, 15, 5, 512, 512, 64, True, None),
+    (1, 6, 2, 77, 77, 64, True, None),
+    (2, 32, 8, 100, 300, 80, True, 64),
+    (1, 8, 2, 64, 200, 32, False, None),
+    (1, 16, 2, 130, 130, 128, True, 40),
+    (2, 4, 4, 1, 33, 64, True, None),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention(gen, b, hq, hkv, sq, skv, d, causal, window, dtype):
+    q = _randn(gen, (b, hq, sq, d), dtype)
+    k = _randn(gen, (b, hkv, skv, d), dtype)
+    v = _randn(gen, (b, hkv, skv, d), dtype)
+    off = skv - sq
+    _close(flash_attention_cuda(q, k, v, causal, window, off),
+           flash_attention_plain(q, k, v, causal, window, off), dtype)
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d,window", [
+    (8, 15, 5, 129, 64, None), (3, 16, 2, 700, 128, None),
+    (4, 32, 8, 50, 80, 16), (2, 4, 4, 64, 32, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention(gen, b, hq, hkv, s, d, window, dtype):
+    q = _randn(gen, (b, hq, d), dtype)
+    k = _randn(gen, (b, hkv, s, d), dtype)
+    v = _randn(gen, (b, hkv, s, d), dtype)
+    length = torch.randint(1, s + 1, (b,), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    _close(decode_attention_cuda(q, k, v, length, window),
+           decode_attention_plain(q, k, v, length, window), dtype)
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
+    x = _randn(gen, (4, 64), torch.float16)
+    with pytest.raises(TypeError):
+        rmsnorm_cuda(x, torch.ones(64, device="cuda"))
+    q = _randn(gen, (1, 2, 8, 48), torch.float32)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        flash_attention_cuda(q, q, q)
+    q = _randn(gen, (1, 2, 8, 64), torch.float32)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention_cuda(q.transpose(2, 3).contiguous().transpose(2, 3),
+                             q, q)
+    with pytest.raises(ValueError, match="length"):
+        decode_attention_cuda(q[:, :, 0], q, q,
+                              torch.ones(1, dtype=torch.int64, device="cuda"))

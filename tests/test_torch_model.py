@@ -1,0 +1,181 @@
+"""The port's dense decoder, on the CPU, against the JAX model.
+
+JAX SMOKE parameters (``jax.random.PRNGKey``) are transplanted into the port
+with ``from_jax_params``; prefill logits, decode-step logits (past the
+sliding window on h2o-danube, which wraps its ring buffer) and greedy
+serving tokens must match.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get as jget
+from repro.launch.serve import Request as JRequest
+from repro.launch.serve import serve_batch as jserve_batch
+from repro.launch.steps import make_prefill_step as jmake_prefill_step
+from repro.models import model_api as jmodel_api
+from repro_torch.configs import get as tget
+from repro_torch.launch.serve import Request, serve_batch
+from repro_torch.launch.steps import make_decode_step, make_prefill_step
+from repro_torch.models import model_api, transformer
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.module import param_count, tree_leaves, tree_map
+from repro_torch.weights import from_jax_params
+
+ARCHS = ["smollm_360m", "h2o_danube_1_8b"]
+# float32 logits of order 1 after two layers; the two sides differ only in
+# summation order (observed ~2e-6)
+TOL = 5e-5
+
+
+def _pair(name, seed=0, **over):
+    jcfg = dataclasses.replace(jget(name, smoke=True), **over)
+    tcfg = dataclasses.replace(tget(name, smoke=True), **over)
+    jparams = jmodel_api(jcfg).init(jax.random.PRNGKey(seed), jcfg)
+    tparams = from_jax_params(jax.tree.map(np.asarray, jparams), tcfg,
+                              device="cpu")
+    return jcfg, jparams, tcfg, tparams
+
+
+def _np(t):
+    return t.detach().float().numpy() if isinstance(t, torch.Tensor) \
+        else np.asarray(t, np.float32)
+
+
+@pytest.mark.parametrize("name", ARCHS)
+def test_configs_are_copies(name):
+    for smoke in (False, True):
+        assert dataclasses.asdict(tget(name, smoke=smoke)) == \
+            dataclasses.asdict(jget(name, smoke=smoke))
+
+
+@pytest.mark.parametrize("name", ARCHS)
+def test_init_matches_reference_tree(name):
+    """Same keys, shapes, dtypes and scales as the reference's init."""
+    cfg = tget(name, smoke=True)
+    params = transformer.init(torch.Generator().manual_seed(0), cfg,
+                              device="cpu")
+    jparams = jmodel_api(cfg).init(jax.random.PRNGKey(0),
+                                   jget(name, smoke=True))
+    flat_j = jax.tree_util.tree_flatten_with_path(jparams)[0]
+    assert len(flat_j) == len(tree_leaves(params))
+    for path, leaf in flat_j:
+        t = params
+        for p in path:
+            t = t[p.key]
+        assert tuple(t.shape) == leaf.shape
+        assert str(t.dtype).split(".")[1] == str(leaf.dtype)
+        np.testing.assert_allclose(float(t.float().std()),
+                                   float(jnp.std(leaf)), rtol=0.25, atol=1e-6)
+    assert param_count(params) == sum(x.size for x in jax.tree.leaves(jparams))
+
+
+@pytest.mark.parametrize("name", ARCHS)
+@pytest.mark.parametrize("impl", ["jnp", "pallas"])
+def test_prefill_logits_match_jax(name, impl):
+    jcfg, jparams, tcfg, tparams = _pair(name, attn_impl=impl)
+    toks = np.random.default_rng(0).integers(0, jcfg.vocab, (2, 24),
+                                             dtype=np.int32)
+    want = jmake_prefill_step(jcfg)(jparams, {"inputs": jnp.asarray(toks)})
+    got = make_prefill_step(tcfg, device="cpu")(tparams, {"inputs": toks})
+    assert got.dtype == torch.float32 and tuple(got.shape) == (2, jcfg.vocab)
+    np.testing.assert_allclose(_np(got), _np(want), atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("name", ARCHS)
+def test_decode_steps_match_jax(name):
+    """24 teacher-forced decode steps; danube's window of 16 wraps its ring
+    buffer. The port updates its cache in place: the caches are compared
+    after each step, and the old cache is snapshotted to check that only
+    slot ``pos`` changed."""
+    jcfg, jparams, tcfg, tparams = _pair(name, seed=1)
+    japi, tapi = jmodel_api(jcfg), model_api(tcfg)
+    toks = np.random.default_rng(1).integers(0, jcfg.vocab, (2, 24),
+                                             dtype=np.int32)
+    jcache = japi.init_cache(jcfg, 2, max_len=32)
+    tcache = tapi.init_cache(tcfg, 2, max_len=32, device="cpu")
+    c = tcache["stack"]["pos0"]["k"].shape[3]
+    assert c == (16 if jcfg.window else 32)
+    for t in range(24):
+        jlogits, jcache = japi.decode_step(jparams, jcache,
+                                           jnp.asarray(toks[:, t]),
+                                           jnp.int32(t), jcfg)
+        before = tree_map(lambda a: a.clone(), tcache)
+        with torch.no_grad():
+            tlogits, out = tapi.decode_step(tparams, tcache,
+                                            torch.from_numpy(toks[:, t]), t,
+                                            tcfg)
+        assert out is tcache
+        np.testing.assert_allclose(_np(tlogits), _np(jlogits), atol=TOL,
+                                   rtol=TOL)
+        slot = t % c if jcfg.window else t
+        for kv in ("k", "v"):
+            new, old = tcache["stack"]["pos0"][kv], before["stack"]["pos0"][kv]
+            keep = torch.ones(c, dtype=torch.bool)
+            keep[slot] = False
+            assert torch.equal(new[:, :, :, keep], old[:, :, :, keep])
+            np.testing.assert_allclose(
+                _np(new), _np(jcache["stack"]["pos0"][kv]), atol=TOL,
+                rtol=TOL)
+
+
+@pytest.mark.parametrize("name", ARCHS)
+def test_serve_batch_greedy_tokens_match_jax(name):
+    jcfg, jparams, tcfg, tparams = _pair(name, seed=2)
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, jcfg.vocab, n, dtype=np.int32)
+               for n in (5, 3, 7)]
+    jreqs, _ = jserve_batch(jcfg, jparams,
+                            [JRequest(i, p, 12) for i, p in enumerate(prompts)],
+                            max_len=24)
+    treqs, dt = serve_batch(tcfg, tparams,
+                            [Request(i, p, 12) for i, p in enumerate(prompts)],
+                            max_len=24, device="cpu")
+    assert dt > 0
+    for j, t in zip(jreqs, treqs):
+        assert t.out.dtype == np.int32 and t.out.shape == (12,)
+        np.testing.assert_array_equal(t.out, j.out)
+
+
+def test_decode_step_returns_argmax_and_int32():
+    _, _, tcfg, tparams = _pair("smollm_360m")
+    step = make_decode_step(tcfg, device="cpu")
+    cache = model_api(tcfg).init_cache(tcfg, 2, 8, device="cpu")
+    nxt, logits, out = step(tparams, cache, np.array([1, 2], np.int32), 0)
+    assert out is cache and nxt.dtype == torch.int32
+    assert torch.equal(nxt, torch.argmax(logits, -1).to(torch.int32))
+
+
+def test_from_jax_params_rejects_mismatch():
+    jcfg = jget("smollm_360m", smoke=True)
+    tcfg = tget("smollm_360m", smoke=True)
+    tree = jax.tree.map(np.asarray, jmodel_api(jcfg).init(
+        jax.random.PRNGKey(0), jcfg))
+    missing = {k: v for k, v in tree.items() if k != "final_norm"}
+    with pytest.raises(ValueError, match="missing keys"):
+        from_jax_params(missing, tcfg, device="cpu")
+    extra = dict(tree, head=np.zeros((60, 256), np.float32))
+    with pytest.raises(ValueError, match="unexpected keys"):
+        from_jax_params(extra, tcfg, device="cpu")
+    bad = jax.tree.map(lambda a: a, tree)
+    bad["stack"]["pos0"]["mixer"]["wq"] = np.zeros((2, 60, 61), np.float32)
+    with pytest.raises(ValueError, match="wq: shape"):
+        from_jax_params(bad, tcfg, device="cpu")
+
+
+def test_unported_blocks_raise():
+    cfg = ModelConfig(name="hybrid", family="hybrid", n_layers=2, d_model=32,
+                      n_heads=2, n_kv_heads=2, d_ff=64, vocab=64,
+                      period=(("attn", "mlp"), ("mamba", "mlp")))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        transformer.init(torch.Generator(), cfg, device="cpu")
+    enc = dataclasses.replace(tget("smollm_360m", smoke=True),
+                              encoder_layers=1)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        model_api(enc)
+    with pytest.raises(NotImplementedError, match="training slice"):
+        model_api(tget("smollm_360m", smoke=True)).loss(None, None, None)

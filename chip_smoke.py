@@ -1,14 +1,18 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path for smollm-360M on one CUDA card.
+"""Drive the PyTorch port's serving paths on one CUDA card: smollm-360M
+(dense), Jamba (hybrid Mamba + attention) and xlstm-125m.
 
   python3 chip_smoke.py
 
 Run from the root of a checkout: it builds the CUDA kernels from
-``src/repro_torch/csrc`` and then, each phase on a line of its own,
+``src/repro_torch/csrc`` and then, each phase on a line of its own with its
+time,
   1. prints the card's name and power limit (nvidia-smi) and the build time;
   2. holds each kernel against its plain PyTorch version on the card, at the
-     main path's shapes, in bf16 and float32, with its device time, bound,
-     the plain version's time and a library call's time as a yardstick;
+     main paths' shapes (smollm and Jamba; xLSTM's RMSNorm widths), in bf16
+     and float32, with its device time, bound, the plain version's time and
+     a library call's time as a yardstick where one PyTorch call computes
+     the same function;
   3. runs full-width smollm-360M prefill (bf16, 8 x 512 tokens) through
      ``make_prefill_step`` and checks the kernels' launch counts;
   4. serves 8 requests (64-token prompts, 64 new tokens) through
@@ -16,8 +20,14 @@ Run from the root of a checkout: it builds the CUDA kernels from
   5. compares float32 logits, card against CPU (plain versions), at full
      width, for prefill and for teacher-forced decode steps;
   6. profiles one prefill and one decode step: device busy time, idle share
-     and the kernels that take the time.
-Then it prints the kernel table as one JSON line and, last,
+     and the kernels that take the time;
+  7-10. the same for Jamba at its published widths, cut to one period of 8
+     layers (attention + 7 Mamba) with a dense SwiGLU of Jamba's d_ff in
+     every FFN (MoE is not ported): prefill, serving, a profile, and float32
+     parity on a 2-layer cut (attention + Mamba);
+  11. xlstm-125m at full width and depth: prefill and serving.
+Every path runs with the launch counts set to 0 just before it and read just
+after. Then it prints the kernel table as one JSON line and, last,
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
 with no CUDA device, or outside a checkout, it exits non-zero at once. The
 full report goes to ``build/chip_smoke.json``, the compiler's output (ptxas
@@ -45,12 +55,18 @@ SEED = 0
 # input type (bf16 on the tensor cores, float32 on the CUDA cores).
 PEAK_BYTES = 3.35e12
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}
+# exponentials/s: 16 special-function results per SM per clock (Hopper
+# white paper), 132 SMs at the 1.98 GHz boost clock
+PEAK_EXP = 132 * 16 * 1.98e9
 
 # |kernel - plain| <= TOL * (1 + |plain|): the kernels accumulate in float32
 # like the plain versions, so float32 differs only in summation order; bf16
 # differs by the rounding of the output to bf16.
 TOL = {("rmsnorm", "float32"): 1e-5, ("rmsnorm", "bfloat16"): 2e-2,
-       ("attn", "float32"): 2e-5, ("attn", "bfloat16"): 3e-2}
+       ("attn", "float32"): 2e-5, ("attn", "bfloat16"): 3e-2,
+       # the scan: exp2f vs expf and FMA vs two roundings, over 512 steps
+       # of a decaying state (the tolerance of the JAX package's own test)
+       ("scan", "float32"): 1e-4, ("scan", "bfloat16"): 3e-2}
 # float32 logits, card vs CPU, after 32 layers: the same arithmetic in a
 # different accumulation order (cuBLAS vs CPU GEMMs, kernels vs einsum)
 # drifts by ~1e-5; a wrong mask, scale or cache slot moves logits by >1e-1.
@@ -65,7 +81,19 @@ KERNELS = {  # name: (source, TPU kernel it replaces, main-path case)
     "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
                          "src/repro/kernels/decode_attention.py:61",
                          "8x15/5x129x64 ragged length"),
+    "mamba_scan": ("src/repro_torch/csrc/mamba_scan.cu",
+                   "src/repro/kernels/mamba_scan.py:46",
+                   "8x512x16384 N16 dt f32"),
 }
+
+# Jamba at its published widths, cut to what the port runs: one period of 8
+# layers (attention at 0, Mamba at 1-7) with a dense SwiGLU of Jamba's own
+# d_ff in every FFN in place of the MoE layers (ROADMAP queue 1, item 3).
+JAMBA_DENSE = dict(n_layers=8, n_experts=0, top_k=0, d_expert=0,
+                   period=(("attn", "mlp"),) + (("mamba", "mlp"),) * 7)
+# the float32 parity cut: one attention and one Mamba layer at full width
+JAMBA_PARITY = dict(n_layers=2, dtype="float32",
+                    period=(("attn", "mlp"), ("mamba", "mlp")))
 
 
 def fail(msg: str):
@@ -119,30 +147,53 @@ def launch_ms(fn, reps: int = 7) -> float:
     return statistics.median(times)
 
 
-def bound(nbytes: float, ops: float, dtype: str):
-    t_bytes = nbytes / PEAK_BYTES * 1e3
-    t_ops = ops / PEAK_OPS[dtype] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+def bound(nbytes: float, ops: float, dtype: str, exps: float = 0.0):
+    """(least ms, "bytes" or "operations", each term in ms): bytes over the
+    memory rate against operations of ``dtype`` over their peak, and
+    exponentials over the special-function units' rate."""
+    terms = {"bytes_ms": nbytes / PEAK_BYTES * 1e3,
+             "ops_ms": ops / PEAK_OPS[dtype] * 1e3,
+             "exp_ms": exps / PEAK_EXP * 1e3}
+    t_ops = max(terms["ops_ms"], terms["exp_ms"])
+    if terms["bytes_ms"] >= t_ops:
+        return terms["bytes_ms"], "bytes", terms
+    return t_ops, "operations", terms
 
 
-def compare(kernel, case, dtype, got, want, tol_key, timed=None):
-    """One row of phase 2; with ``timed = (run, plain, library, nbytes,
-    ops)`` it also times the three calls and states the bound."""
-    err = (got.float() - want.float()).abs()
-    tol = TOL[(tol_key, dtype)]
-    row = dict(kernel=kernel, case=case, dtype=dtype, max_abs_err=float(err.max()),
-               tol=tol, ok=bool((err <= tol + tol * want.float().abs()).all()))
-    if timed is not None:
-        run, plain, library, nbytes, ops = timed
-        row["bound_ms"], row["bound_by"] = bound(nbytes, ops, dtype)
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def compare(kernel, case, dtype, got, want, tol_key, run=None, plain=None,
+            library=None, n_bytes=0, ops=0, exps=0, ops_dtype=None,
+            plain_iters=21):
+    """One row of phase 2. ``got``/``want`` are a tensor or a tuple of
+    tensors, each held to the tolerance of its own dtype. With ``run`` it
+    also times the kernel, its plain version and the library call (if any)
+    and states the bound from ``n_bytes``, ``ops`` of ``ops_dtype`` (default
+    ``dtype``) and ``exps`` exponentials."""
+    pieces = list(zip(got, want)) if isinstance(got, tuple) else [(got, want)]
+    ok, max_err = True, 0.0
+    for g, w in pieces:
+        err = (g.float() - w.float()).abs()
+        t = TOL[(tol_key, str(w.dtype).split(".")[1])]
+        ok = ok and bool((err <= t + t * w.float().abs()).all())
+        max_err = max(max_err, float(err.max()))
+    row = dict(kernel=kernel, case=case, dtype=dtype, max_abs_err=max_err,
+               tol=TOL[(tol_key, dtype)], ok=ok)
+    if run is not None:
+        row["bound_ms"], row["bound_by"], row["bound_terms"] = bound(
+            n_bytes, ops, ops_dtype or dtype, exps)
         row.update(ms=device_ms(run), launch_ms=launch_ms(run),
-                   plain_ms=device_ms(plain),
+                   plain_ms=device_ms(plain, plain_iters),
                    library_ms=None if library is None else device_ms(library))
     return row
 
 
-def phase_kernels(rms, fla, dec):
-    """Each kernel against its plain version on CUDA tensors."""
+def phase_kernels(rms, fla, dec, scan):
+    """Each kernel against its plain version on CUDA tensors, at the shapes
+    of smollm-360M (d 960; 15 q / 5 kv heads of 64), Jamba (d 8192; 64 q /
+    8 kv heads of 128; d_inner 16384, N 16) and xlstm-125m (d 768, 1536)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = []
 
@@ -151,59 +202,93 @@ def phase_kernels(rms, fla, dec):
 
     for dtype in (torch.bfloat16, torch.float32):
         dn = str(dtype).split(".")[1]
-        isz = torch.tensor([], dtype=dtype).element_size()
         # RMSNorm: prefill rows (8 x 512) and decode rows (8)
-        for n in (4096, 8):
-            x, s = randn((n, 960), dtype), randn((960,), torch.float32)
+        for n, d in ((4096, 960), (8, 960), (4096, 8192), (8, 8192),
+                     (4096, 768), (4096, 1536)):
+            x, s = randn((n, d), dtype), randn((d,), torch.float32)
             sw = s.to(dtype)
             rows.append(compare(
-                "rmsnorm", f"{n}x960", dn, rms.rmsnorm_cuda(x, s, 1e-5),
+                "rmsnorm", f"{n}x{d}", dn, rms.rmsnorm_cuda(x, s, 1e-5),
                 rms.rmsnorm_plain(x, s, 1e-5), "rmsnorm",
-                (lambda: rms.rmsnorm_cuda(x, s, 1e-5),
-                 lambda: rms.rmsnorm_plain(x, s, 1e-5),
-                 lambda: F.rms_norm(x, (960,), sw, 1e-5),
-                 2 * x.numel() * isz + s.numel() * 4, 4 * x.numel())))
+                run=lambda x=x, s=s: rms.rmsnorm_cuda(x, s, 1e-5),
+                plain=lambda x=x, s=s: rms.rmsnorm_plain(x, s, 1e-5),
+                library=lambda x=x, sw=sw, d=d: F.rms_norm(x, (d,), sw, 1e-5),
+                n_bytes=2 * nbytes(x) + nbytes(s), ops=4 * x.numel()))
         # flash attention: prefill causal, window + offset, ragged Sq
-        for case, b, sq, skv, window in (
-                ("causal 8x15/5x512x512x64", 8, 512, 512, None),
-                ("window256 offset384 8x15/5x128x512x64", 8, 128, 512, 256),
-                ("ragged 2x15/5x77x77x64", 2, 77, 77, None)):
-            q = randn((b, 15, sq, 64), dtype)
-            k, v = randn((b, 5, skv, 64), dtype), randn((b, 5, skv, 64), dtype)
+        for case, b, hq, hkv, sq, skv, hd, window in (
+                ("causal 8x15/5x512x512x64", 8, 15, 5, 512, 512, 64, None),
+                ("window256 offset384 8x15/5x128x512x64", 8, 15, 5, 128, 512,
+                 64, 256),
+                ("ragged 2x15/5x77x77x64", 2, 15, 5, 77, 77, 64, None),
+                ("causal 8x64/8x512x512x128", 8, 64, 8, 512, 512, 128, None)):
+            q = randn((b, hq, sq, hd), dtype)
+            k, v = randn((b, hkv, skv, hd), dtype), randn((b, hkv, skv, hd), dtype)
             off = skv - sq
             pairs = int(fla_mask(sq, skv, window, off).sum())
             library = None
             if window is None:
                 # yardstick: SDPA on K/V expanded to the q heads beforehand
-                ke, ve = (t.repeat_interleave(3, dim=1) for t in (k, v))
+                ke, ve = (t.repeat_interleave(hq // hkv, dim=1) for t in (k, v))
                 library = (lambda q=q, ke=ke, ve=ve:
                            F.scaled_dot_product_attention(q, ke, ve, is_causal=True))
             rows.append(compare(
                 "flash_attention", case, dn,
                 fla.flash_attention_cuda(q, k, v, True, window, off),
                 fla.flash_attention_plain(q, k, v, True, window, off), "attn",
-                (lambda: fla.flash_attention_cuda(q, k, v, True, window, off),
-                 lambda: fla.flash_attention_plain(q, k, v, True, window, off),
-                 library, (2 * q.numel() + 2 * k.numel()) * isz,
-                 4 * b * 15 * 64 * pairs)))
+                run=lambda q=q, k=k, v=v, w=window, o=off:
+                    fla.flash_attention_cuda(q, k, v, True, w, o),
+                plain=lambda q=q, k=k, v=v, w=window, o=off:
+                    fla.flash_attention_plain(q, k, v, True, w, o),
+                library=library, n_bytes=2 * nbytes(q) + 2 * nbytes(k),
+                ops=4 * b * hq * hd * pairs))
         # decode attention: the serving cache (64 + 64 + 1 slots), ragged length
-        q = randn((8, 15, 64), dtype)
-        k, v = randn((8, 5, 129, 64), dtype), randn((8, 5, 129, 64), dtype)
-        length = torch.randint(1, 130, (8,), generator=gen, device="cuda",
-                               dtype=torch.int32)
-        valid = int(length.sum())
-        mask = (torch.arange(129, device="cuda") < length[:, None])[:, None, None, :]
-        ke, ve = (t.repeat_interleave(3, dim=1) for t in (k, v))
+        for case, hq, hkv, hd in (("8x15/5x129x64 ragged length", 15, 5, 64),
+                                  ("8x64/8x129x128 ragged length", 64, 8, 128)):
+            q = randn((8, hq, hd), dtype)
+            k, v = randn((8, hkv, 129, hd), dtype), randn((8, hkv, 129, hd), dtype)
+            length = torch.randint(1, 130, (8,), generator=gen, device="cuda",
+                                   dtype=torch.int32)
+            valid = int(length.sum())
+            mask = (torch.arange(129, device="cuda") < length[:, None])[:, None, None, :]
+            ke, ve = (t.repeat_interleave(hq // hkv, dim=1) for t in (k, v))
+            rows.append(compare(
+                "decode_attention", case, dn,
+                dec.decode_attention_cuda(q, k, v, length),
+                dec.decode_attention_plain(q, k, v, length), "attn",
+                run=lambda q=q, k=k, v=v, n=length:
+                    dec.decode_attention_cuda(q, k, v, n),
+                plain=lambda q=q, k=k, v=v, n=length:
+                    dec.decode_attention_plain(q, k, v, n),
+                library=lambda q=q, ke=ke, ve=ve, m=mask:
+                    F.scaled_dot_product_attention(q[:, :, None], ke, ve,
+                                                   attn_mask=m),
+                n_bytes=(2 * hkv * hd * valid + 2 * q.numel()) * q.element_size(),
+                ops=4 * hq * hd * valid))
+        # the selective scan at Jamba's prefill shape: u, B, C in the model
+        # dtype, dt float32 (softplus promotes), A and D float32
+        bt, t, d_in, n = 8, 512, 16384, 16
+        u = randn((bt, t, d_in), dtype)
+        dt = F.softplus(randn((bt, t, d_in), torch.float32))
+        A = -torch.arange(1, n + 1, device="cuda",       # Mamba's init
+                          dtype=torch.float32).repeat(d_in, 1)
+        Bm, Cm = randn((bt, t, n), dtype), randn((bt, t, n), dtype)
+        D = randn((d_in,), torch.float32)
+        args = (u, dt, A, Bm, Cm, D)
+        elems = u.numel()
+        y_bytes = nbytes(u) + 4 * bt * d_in * n       # y and h_T
         rows.append(compare(
-            "decode_attention", "8x15/5x129x64 ragged length", dn,
-            dec.decode_attention_cuda(q, k, v, length),
-            dec.decode_attention_plain(q, k, v, length), "attn",
-            (lambda: dec.decode_attention_cuda(q, k, v, length),
-             lambda: dec.decode_attention_plain(q, k, v, length),
-             lambda: F.scaled_dot_product_attention(q[:, :, None], ke, ve,
-                                                    attn_mask=mask),
-             (2 * 5 * 64 * valid + 2 * q.numel()) * isz,
-             4 * 15 * 64 * valid)))
+            "mamba_scan", f"{bt}x{t}x{d_in} N{n} dt f32", dn,
+            scan.mamba_scan_cuda(*args), scan.mamba_scan_plain(*args), "scan",
+            run=lambda: scan.mamba_scan_cuda(*args),
+            plain=lambda: scan.mamba_scan_plain(*args), library=None,
+            n_bytes=nbytes(*args) + y_bytes, ops=6 * elems * n + 3 * elems,
+            exps=elems * n, ops_dtype="float32", plain_iters=3))
+        # with an initial state, checked for agreement only
+        h0 = randn((bt, d_in, n), torch.float32)
+        rows.append(compare(
+            "mamba_scan", f"h0 {bt}x{t}x{d_in} N{n} dt f32 check", dn,
+            scan.mamba_scan_cuda(*args, h0), scan.mamba_scan_plain(*args, h0),
+            "scan"))
     # decode with a sliding window, checked for agreement only
     q = randn((8, 15, 64), torch.float32)
     k, v = randn((8, 5, 129, 64), torch.float32), randn((8, 5, 129, 64), torch.float32)
@@ -220,6 +305,18 @@ def fla_mask(sq, skv, window, offset):
     return _mask(sq, skv, True, window, offset)
 
 
+def per_pass(cfg) -> dict:
+    """Kernel launches per forward or decode step of ``cfg``: RMSNorm once
+    per block (twice with an FFN, once more inside mLSTM) plus the final
+    norm; one attention kernel per attention layer; one scan per Mamba
+    layer (prefill only)."""
+    blocks = cfg.blocks()
+    return {"rmsnorm": 1 + sum(1 + (ffn is not None) + (mixer == "mlstm")
+                               for mixer, ffn in blocks),
+            "attn": sum(mixer == "attn" for mixer, _ in blocks),
+            "mamba": sum(mixer == "mamba" for mixer, _ in blocks)}
+
+
 def counts(kern):
     return {name: getattr(mod, f"{name}_cuda").launches
             for name, mod in kern.items()}
@@ -230,8 +327,17 @@ def reset_counts(kern):
         getattr(mod, f"{name}_cuda").launches = 0
 
 
-def delta(after, before):
-    return {k: after[k] - before[k] for k in after}
+def drive(kern, totals, want, fn, what):
+    """Run ``fn`` with every launch count at 0 and fail unless the counts
+    after it equal ``want``; add them to ``totals``. Returns fn()."""
+    reset_counts(kern)
+    out = fn()
+    got = counts(kern)
+    if got != want:
+        fail(f"{what}: launches {got}, expected {want}")
+    for k, v in got.items():
+        totals[k] += v
+    return out
 
 
 def profile_call(fn, top: int = 6):
@@ -260,6 +366,14 @@ def profile_call(fn, top: int = 6):
             "top": [{"kernel": k[:80], "ms": v} for k, v in tops]}
 
 
+def print_profile(tag, prof):
+    print(f"{tag} " + "; ".join(
+        f"{k}: wall {v['wall_ms']:.2f} ms, device busy {v['device_busy_ms']:.2f} ms "
+        f"over {v['device_ops']} kernels and copies, "
+        f"idle {v['idle_share']:.1%}, top {v['top'][0]['kernel'][:40]} "
+        f"{v['top'][0]['ms']:.2f} ms" for k, v in prof.items()), flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -273,18 +387,75 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels import decode_attention as dec
     from repro_torch.kernels import flash_attention as fla
+    from repro_torch.kernels import mamba_scan as scan
     from repro_torch.kernels import rmsnorm as rms
     from repro_torch.launch.serve import Request, serve_batch
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
     from repro_torch.models import model_api, transformer
-    from repro_torch.models.module import tree_map
+    from repro_torch.models.module import param_bytes, param_count, tree_map
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    kern = {"rmsnorm": rms, "flash_attention": fla, "decode_attention": dec}
+    kern = {"rmsnorm": rms, "flash_attention": fla, "decode_attention": dec,
+            "mamba_scan": scan}
+    totals = {name: 0 for name in kern}     # launches over every main path
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
-    report = {}
+    report = {"phase_s": {}}
+    clock = [time.perf_counter()]
+
+    def took(phase):
+        """Seconds since the previous phase ended; recorded in the report."""
+        now = time.perf_counter()
+        report["phase_s"][phase] = sec = now - clock[0]
+        clock[0] = now
+        return f"({sec:.1f} s)"
+
+    def zero(**nonzero):
+        return {name: nonzero.get(name, 0) for name in kern}
+
+    def timed_prefill(prefill, params, toks, n_runs):
+        times = []
+        for _ in range(n_runs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            logits = prefill(params, {"inputs": toks})
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        return logits, times
+
+    def requests(cfg, rng):
+        return [Request(i, torch.randint(0, cfg.vocab, (64,), generator=rng,
+                                         dtype=torch.int32).numpy(), 64)
+                for i in range(8)]
+
+    def check_served(reqs, cfg):
+        for r in reqs:
+            if r.out.shape != (64,) or not ((0 <= r.out) & (r.out < cfg.vocab)).all():
+                fail(f"{cfg.name} request {r.rid}: bad output {r.out}")
+
+    def parity(cfg32, p_cpu, p_gpu, rng, steps=8):
+        """Float32 logits card vs CPU: prefill (2 x 32) and teacher-forced
+        decode steps."""
+        ptoks = torch.randint(0, cfg32.vocab, (2, 32), generator=rng)
+        lg_cpu = make_prefill_step(cfg32, device="cpu")(p_cpu, {"inputs": ptoks})
+        lg_gpu = make_prefill_step(cfg32, device="cuda")(p_gpu, {"inputs": ptoks}).cpu()
+        pre_err = float((lg_cpu - lg_gpu).abs().max())
+        api = model_api(cfg32)
+        errs = []
+        with torch.no_grad():
+            c_cpu = api.init_cache(cfg32, 2, 16, device="cpu")
+            c_gpu = api.init_cache(cfg32, 2, 16, device="cuda")
+            for t in range(steps):
+                a, c_cpu = api.decode_step(p_cpu, c_cpu, ptoks[:, t], t, cfg32)
+                b, c_gpu = api.decode_step(p_gpu, c_gpu, ptoks[:, t].cuda(), t, cfg32)
+                errs.append(float((a - b.cpu()).abs().max()))
+        out = {"prefill_max_abs_err": pre_err, "decode_max_abs_err": errs,
+               "tol": PARITY_TOL, "logit_abs_max": float(lg_cpu.abs().max())}
+        if not (pre_err <= PARITY_TOL and max(errs) <= PARITY_TOL):
+            fail(f"{cfg32.name} float32 card vs CPU logits differ: prefill "
+                 f"{pre_err}, decode {errs}")
+        return out
 
     # 1. card and build
     card = subprocess.run(
@@ -298,42 +469,38 @@ def main() -> int:
     report.update(card=card, torch=torch.__version__, cuda=torch.version.cuda,
                   build_s=build_s)
     print(f"[1 card] {card} | torch {torch.__version__} cuda {torch.version.cuda}"
-          f" | kernels built in {build_s:.1f} s (cached={_build.last_build['cached']})",
-          flush=True)
+          f" | kernels built in {build_s:.1f} s (cached={_build.last_build['cached']})"
+          f" {took('1 card')}", flush=True)
 
     # 2. kernels against their plain versions
-    rows = phase_kernels(rms, fla, dec)
+    rows = phase_kernels(rms, fla, dec, scan)
     report["kernels"] = rows
     for r in rows:
         timing = "" if "ms" not in r else (
             f" | device ms {r['ms']:.4f} (back-to-back {r['launch_ms']:.4f}) bound "
-            f"{r['bound_ms']:.4f} ({r['bound_by']}) plain {r['plain_ms']:.4f} "
-            f"library {r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 4)}")
+            f"{r['bound_ms']:.4f} ({r['bound_by']}; "
+            + ", ".join(f"{k} {v:.4f}" for k, v in r["bound_terms"].items())
+            + f") plain {r['plain_ms']:.4f} library "
+            f"{r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 4)}")
         print(f"[2 kernel] {r['kernel']} {r['case']} {r['dtype']}: max_abs_err "
               f"{r['max_abs_err']:.3e} (tol {r['tol']:g}){timing}", flush=True)
     bad = [f"{r['kernel']} {r['case']} {r['dtype']}" for r in rows if not r["ok"]]
     if bad:
         fail(f"kernels disagree with their plain versions: {bad}")
+    print(f"[2 kernels] {len(rows)} rows agree {took('2 kernels')}", flush=True)
 
-    # 3. full-width prefill, bf16 (the main path: counts from 0)
+    # 3. smollm-360M: full-width prefill, bf16
     cfg = get("smollm_360m")
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     params = transformer.init(gen, cfg, device="cuda")
     toks = torch.randint(0, cfg.vocab, (8, 512), generator=gen, device="cuda")
     prefill = make_prefill_step(cfg, device="cuda")
-    reset_counts(kern)
-    n_runs, times = 4, []
-    for _ in range(n_runs):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        logits = prefill(params, {"inputs": toks})
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t)
-    c1 = counts(kern)
-    want = {"rmsnorm": 65 * n_runs, "flash_attention": 32 * n_runs,
-            "decode_attention": 0}
-    if c1 != want:
-        fail(f"prefill launches {c1}, expected {want}")
+    n_runs = 4
+    per = per_pass(cfg)                     # 65 RMSNorm, 32 attention
+    c1 = zero(rmsnorm=per["rmsnorm"] * n_runs,
+              flash_attention=per["attn"] * n_runs)
+    logits, times = drive(kern, totals, c1, lambda: timed_prefill(
+        prefill, params, toks, n_runs), "smollm prefill")
     if tuple(logits.shape) != (8, cfg.vocab) or not bool(torch.isfinite(logits).all()):
         fail(f"prefill logits shape {tuple(logits.shape)} or not finite")
     pre_s = statistics.median(times[1:])
@@ -341,82 +508,161 @@ def main() -> int:
                          "tokens_per_s": 8 * 512 / pre_s, "launches": c1}
     print(f"[3 prefill] smollm-360M bf16 8x512: {pre_s * 1e3:.1f} ms median of "
           f"{n_runs - 1} (after 1 warm-up), {8 * 512 / pre_s:.0f} tokens/s; "
-          f"launches per forward: rmsnorm 65, flash_attention 32", flush=True)
+          f"launches per forward: rmsnorm {per['rmsnorm']}, flash_attention "
+          f"{per['attn']} {took('3 prefill')}", flush=True)
 
-    # 4. serving, bf16
+    # 4. smollm-360M: serving, bf16
     rng = torch.Generator().manual_seed(SEED + 1)
-    reqs = [Request(i, torch.randint(0, cfg.vocab, (64,), generator=rng,
-                                     dtype=torch.int32).numpy(), 64)
-            for i in range(8)]
-    reqs, dt = serve_batch(cfg, params, reqs, max_len=64 + 64 + 1, device="cuda")
-    main_counts = counts(kern)      # the main path: phases 3 and 4
-    d = delta(main_counts, c1)
     steps = 64 + 64
-    want = {"rmsnorm": 65 * steps, "flash_attention": 0,
-            "decode_attention": 32 * steps}
-    if d != want:
-        fail(f"serving launches {d}, expected {want}")
-    for r in reqs:
-        if r.out.shape != (64,) or not ((0 <= r.out) & (r.out < cfg.vocab)).all():
-            fail(f"request {r.rid}: bad output {r.out}")
+    d = zero(rmsnorm=per["rmsnorm"] * steps,
+             decode_attention=per["attn"] * steps)
+    reqs, dt = drive(kern, totals, d, lambda: serve_batch(
+        cfg, params, requests(cfg, rng), max_len=64 + 64 + 1, device="cuda"),
+        "smollm serving")
+    check_served(reqs, cfg)
     report["serve"] = {"requests": 8, "prompt": 64, "max_new": 64, "seconds": dt,
                        "new_tokens_per_s": 8 * 64 / dt,
                        "steps_per_s": steps / dt, "launches": d}
     print(f"[4 serve] smollm-360M bf16, 8 requests x (64 prompt + 64 new): "
           f"{dt:.2f} s, {8 * 64 / dt:.1f} new tokens/s, {steps / dt:.1f} "
-          f"decode steps/s; launches per step: rmsnorm 65, decode_attention 32",
-          flush=True)
+          f"decode steps/s; launches per step: rmsnorm {per['rmsnorm']}, "
+          f"decode_attention {per['attn']} {took('4 serve')}", flush=True)
 
-    # 5. float32 parity, card against CPU, full width
+    # 5. smollm-360M: float32 parity, card against CPU, full width
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     p_cpu = transformer.init(torch.Generator().manual_seed(SEED), cfg32,
                              device="cpu")
     p_gpu = tree_map(lambda a: a.to("cuda"), p_cpu)
-    ptoks = torch.randint(0, cfg.vocab, (2, 32), generator=rng)
-    lg_cpu = make_prefill_step(cfg32, device="cpu")(p_cpu, {"inputs": ptoks})
-    lg_gpu = make_prefill_step(cfg32, device="cuda")(p_gpu, {"inputs": ptoks}).cpu()
-    pre_err = float((lg_cpu - lg_gpu).abs().max())
-    api = model_api(cfg32)
-    errs = []
-    with torch.no_grad():
-        c_cpu = api.init_cache(cfg32, 2, 16, device="cpu")
-        c_gpu = api.init_cache(cfg32, 2, 16, device="cuda")
-        for t in range(8):
-            a, c_cpu = api.decode_step(p_cpu, c_cpu, ptoks[:, t], t, cfg32)
-            b, c_gpu = api.decode_step(p_gpu, c_gpu, ptoks[:, t].cuda(), t, cfg32)
-            errs.append(float((a - b.cpu()).abs().max()))
-    report["parity"] = {"prefill_max_abs_err": pre_err, "decode_max_abs_err": errs,
-                        "tol": PARITY_TOL, "logit_abs_max": float(lg_cpu.abs().max())}
+    report["parity"] = par = parity(cfg32, p_cpu, p_gpu, rng)
     print(f"[5 parity] float32 full width, card vs CPU: prefill last-token logits"
-          f" max_abs_err {pre_err:.3e}, decode 8 steps max_abs_err "
-          f"{max(errs):.3e} (tol {PARITY_TOL:g}; |logits| up to "
-          f"{report['parity']['logit_abs_max']:.3f})", flush=True)
-    if not (pre_err <= PARITY_TOL and max(errs) <= PARITY_TOL):
-        fail(f"float32 card vs CPU logits differ: prefill {pre_err}, decode {errs}")
-    del p_gpu, c_gpu
+          f" max_abs_err {par['prefill_max_abs_err']:.3e}, decode 8 steps "
+          f"max_abs_err {max(par['decode_max_abs_err']):.3e} (tol {PARITY_TOL:g}; "
+          f"|logits| up to {par['logit_abs_max']:.3f}) {took('5 parity')}",
+          flush=True)
+    del p_gpu, p_cpu
 
-    # 6. where the time goes: one prefill, one decode step (bf16)
+    # 6. smollm-360M: where the time goes, one prefill, one decode step (bf16)
     step = make_decode_step(cfg, device="cuda")
     cache = model_api(cfg).init_cache(cfg, 8, 129, device="cuda")
     tok = toks[:, 0]
-    prof = {"prefill": profile_call(lambda: prefill(params, {"inputs": toks})),
-            "decode_step": profile_call(lambda: step(params, cache, tok, 64))}
-    report["profile"] = prof
-    print("[6 profile] " + "; ".join(
-        f"{k}: wall {v['wall_ms']:.2f} ms, device busy {v['device_busy_ms']:.2f} ms "
-        f"over {v['device_ops']} kernels and copies, "
-        f"idle {v['idle_share']:.1%}, top {v['top'][0]['kernel'][:40]} "
-        f"{v['top'][0]['ms']:.2f} ms" for k, v in prof.items()), flush=True)
+    report["profile"] = prof = {
+        "prefill": profile_call(lambda: prefill(params, {"inputs": toks})),
+        "decode_step": profile_call(lambda: step(params, cache, tok, 64))}
+    print_profile(f"[6 profile] {took('6 profile')}", prof)
+    del params, cache
 
-    # the kernel table: main-path shapes, bf16
+    # 7. Jamba (dense FFN, one period): full-width prefill, bf16
+    jcfg = dataclasses.replace(get("jamba_1_5_large_398b"), **JAMBA_DENSE)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    jparams = transformer.init(gen, jcfg, device="cuda")
+    n_params, p_bytes = param_count(jparams), param_bytes(jparams)
+    jtoks = torch.randint(0, jcfg.vocab, (8, 512), generator=gen, device="cuda")
+    jprefill = make_prefill_step(jcfg, device="cuda")
+    n_runs = 3
+    per = per_pass(jcfg)                    # 17 RMSNorm, 1 attention, 7 scans
+    c7 = zero(rmsnorm=per["rmsnorm"] * n_runs, flash_attention=per["attn"] * n_runs,
+              mamba_scan=per["mamba"] * n_runs)
+    logits, times = drive(kern, totals, c7, lambda: timed_prefill(
+        jprefill, jparams, jtoks, n_runs), "jamba prefill")
+    if tuple(logits.shape) != (8, jcfg.vocab) or not bool(torch.isfinite(logits).all()):
+        fail(f"jamba prefill logits shape {tuple(logits.shape)} or not finite")
+    pre_s = statistics.median(times[1:])
+    report["jamba"] = {"cut": "8 layers (attn + 7 mamba), dense SwiGLU FFN of "
+                              "d_ff 24576 for MoE; widths as published",
+                       "params": n_params, "param_bytes": p_bytes}
+    report["jamba"]["prefill"] = {
+        "batch": 8, "seq": 512, "median_s": pre_s, "runs_s": times,
+        "tokens_per_s": 8 * 512 / pre_s, "launches": c7}
+    print(f"[7 jamba prefill] jamba-1.5-large widths, 8 layers, dense FFN "
+          f"({n_params / 1e9:.2f} B params, {p_bytes / 1e9:.1f} GB bf16) 8x512: "
+          f"{pre_s * 1e3:.1f} ms median of {n_runs - 1} (after 1 warm-up), "
+          f"{8 * 512 / pre_s:.0f} tokens/s; launches per forward: rmsnorm "
+          f"{per['rmsnorm']}, flash_attention {per['attn']}, mamba_scan "
+          f"{per['mamba']} {took('7 jamba prefill')}", flush=True)
+
+    # 8. Jamba: serving, bf16 (prompts prefill through decode steps, so the
+    # Mamba layers take mamba_step and no scan)
+    d = zero(rmsnorm=per["rmsnorm"] * steps, decode_attention=per["attn"] * steps)
+    reqs, dt = drive(kern, totals, d, lambda: serve_batch(
+        jcfg, jparams, requests(jcfg, rng), max_len=64 + 64 + 1, device="cuda"),
+        "jamba serving")
+    check_served(reqs, jcfg)
+    report["jamba"]["serve"] = {
+        "requests": 8, "prompt": 64, "max_new": 64, "seconds": dt,
+        "new_tokens_per_s": 8 * 64 / dt, "steps_per_s": steps / dt,
+        "launches": d}
+    print(f"[8 jamba serve] 8 requests x (64 prompt + 64 new): {dt:.2f} s, "
+          f"{8 * 64 / dt:.1f} new tokens/s, {steps / dt:.1f} decode steps/s; "
+          f"launches per step: rmsnorm {per['rmsnorm']}, decode_attention "
+          f"{per['attn']}, mamba_scan 0 {took('8 jamba serve')}", flush=True)
+
+    # 9. Jamba: where the time goes, one prefill, one decode step (bf16)
+    jcache = model_api(jcfg).init_cache(jcfg, 8, 129, device="cuda")
+    jstep = make_decode_step(jcfg, device="cuda")
+    report["jamba"]["profile"] = prof = {
+        "prefill": profile_call(lambda: jprefill(jparams, {"inputs": jtoks})),
+        "decode_step": profile_call(lambda: jstep(jparams, jcache, jtoks[:, 0], 64))}
+    print_profile(f"[9 jamba profile] {took('9 jamba profile')}", prof)
+    del jparams, jcache
+    torch.cuda.empty_cache()
+
+    # 10. Jamba: float32 parity card vs CPU at full width, cut to 2 layers;
+    # drawn on the card (fast) and copied to the CPU
+    pcfg = dataclasses.replace(jcfg, **JAMBA_PARITY)
+    p_gpu = transformer.init(torch.Generator(device="cuda").manual_seed(SEED),
+                             pcfg, device="cuda")
+    p_cpu = tree_map(lambda a: a.cpu(), p_gpu)
+    report["jamba"]["parity"] = par = parity(pcfg, p_cpu, p_gpu, rng)
+    par.update(cut="2 layers: (attn, mlp), (mamba, mlp)",
+               params=param_count(p_gpu))
+    print(f"[10 jamba parity] float32, full width cut to 2 layers (attention "
+          f"+ Mamba, {par['params'] / 1e9:.2f} B params), card vs CPU: prefill"
+          f" max_abs_err {par['prefill_max_abs_err']:.3e}, decode 8 steps "
+          f"max_abs_err {max(par['decode_max_abs_err']):.3e} (tol {PARITY_TOL:g};"
+          f" |logits| up to {par['logit_abs_max']:.3f}) {took('10 jamba parity')}",
+          flush=True)
+    del p_gpu, p_cpu
+    torch.cuda.empty_cache()
+
+    # 11. xlstm-125m: full width and depth, prefill and serving (bf16)
+    xcfg = get("xlstm_125m")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    xparams = transformer.init(gen, xcfg, device="cuda")
+    xtoks = torch.randint(0, xcfg.vocab, (8, 512), generator=gen, device="cuda")
+    xprefill = make_prefill_step(xcfg, device="cuda")
+    n_runs = 2
+    per = per_pass(xcfg)                    # 19 RMSNorm
+    logits, times = drive(kern, totals, zero(rmsnorm=per["rmsnorm"] * n_runs), lambda:
+                          timed_prefill(xprefill, xparams, xtoks, n_runs),
+                          "xlstm prefill")
+    if tuple(logits.shape) != (8, xcfg.vocab) or not bool(torch.isfinite(logits).all()):
+        fail(f"xlstm prefill logits shape {tuple(logits.shape)} or not finite")
+    reqs, dt = drive(kern, totals, zero(rmsnorm=per["rmsnorm"] * steps), lambda: serve_batch(
+        xcfg, xparams, requests(xcfg, rng), max_len=64 + 64 + 1, device="cuda"),
+        "xlstm serving")
+    check_served(reqs, xcfg)
+    report["xlstm"] = {
+        "params": param_count(xparams),
+        "prefill": {"batch": 8, "seq": 512, "runs_s": times,
+                    "tokens_per_s": 8 * 512 / times[-1]},
+        "serve": {"seconds": dt, "new_tokens_per_s": 8 * 64 / dt,
+                  "steps_per_s": steps / dt}}
+    print(f"[11 xlstm] xlstm-125m bf16: prefill 8x512 {times[-1] * 1e3:.1f} ms "
+          f"(after 1 warm-up), {8 * 512 / times[-1]:.0f} tokens/s; serving 8 x "
+          f"(64 + 64): {dt:.2f} s, {8 * 64 / dt:.1f} new tokens/s; rmsnorm "
+          f"{per['rmsnorm']} launches per forward and per step "
+          f"{took('11 xlstm')}", flush=True)
+
+    # the kernel table: main-path shapes, bf16; launches over every main path
     table = []
     for name, (source, replaces, case) in KERNELS.items():
         r = next(r for r in rows if r["kernel"] == name and r["case"] == case
                  and r["dtype"] == "bfloat16")
-        if main_counts[name] == 0:
+        if totals[name] == 0:
             fail(f"{name} was never launched on the main path")
         table.append({"name": name, "route": "cuda", "source": source,
-                      "replaces": replaces, "launches": main_counts[name],
+                      "replaces": replaces, "case": case,
+                      "launches": totals[name],
                       "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                       "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                       "bound_by": r["bound_by"], "library_ms": r["library_ms"]})

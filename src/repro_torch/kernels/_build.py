@@ -28,6 +28,7 @@ NVCC_FLAGS = ARCH + ["-std=c++17", "-O3", "-lineinfo", "-Xcompiler", "-fPIC",
                      "-Xptxas", "-v"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 SIGNATURES = {
     # x, scale, y, rows, d, eps, dtype, stream
     "rmsnorm_fwd": [_P, _P, _P, _I, _I, _F, _I, _P],
@@ -38,6 +39,10 @@ SIGNATURES = {
     # q, k, v, length, o, B, Hq, Hkv, S, D, window, scale, dtype, stream
     "decode_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                              _I, _P],
+    # u, dt, A, B, C, D, h0, y, hT, Bt, T, d_in, n, B batch/time strides,
+    # C batch/time strides, u dtype, stream
+    "mamba_scan_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                       _L, _L, _L, _L, _I, _P],
 }
 
 _lock = threading.Lock()

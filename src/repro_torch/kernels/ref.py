@@ -84,3 +84,29 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgk,bhkd->bhgd", p, v.float())
     return out.reshape(b, hq, d).to(q.dtype)
+
+
+def mamba_scan_ref(u: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                   B: torch.Tensor, C: torch.Tensor, D: torch.Tensor,
+                   h0: Optional[torch.Tensor] = None):
+    """Selective state-space scan (Mamba), sequential reference.
+
+    u/dt: (Bt, T, d_in); A: (d_in, N); B/C: (Bt, T, N); D: (d_in,).
+    h_t = exp(dt_t * A) * h_{t-1} + dt_t * B_t * u_t ;  y_t = C_t . h_t + D u_t
+    Returns (y (Bt, T, d_in) in u's dtype, h_T (Bt, d_in, N) float32).
+    """
+    bt, t, d_in = u.shape
+    n = A.shape[1]
+    uf, dtf = u.float(), dt.float()
+    Bf, Cf = B.float(), C.float()
+    Af = A.float()
+    h = torch.zeros((bt, d_in, n), dtype=torch.float32, device=u.device) \
+        if h0 is None else h0.float()
+    ys = []
+    for i in range(t):
+        da = torch.exp(dtf[:, i, :, None] * Af[None])          # (Bt, d_in, N)
+        db = dtf[:, i, :, None] * Bf[:, i, None, :]            # (Bt, d_in, N)
+        h = da * h + db * uf[:, i, :, None]
+        y = torch.einsum("bdn,bn->bd", h, Cf[:, i]) + D * uf[:, i]
+        ys.append(y)
+    return torch.stack(ys, 1).to(u.dtype), h

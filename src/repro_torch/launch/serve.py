@@ -1,12 +1,14 @@
 """Batched decode server (example driver).
 
 Counterpart of :mod:`repro.launch.serve`. A batch of requests is grouped
-into fixed slots, prompts are prefilled token by token into per-slot caches,
-then decode steps run the whole batch in lockstep. Steps run eagerly on the
-device; copying each step's next tokens to the host is the one sync per
-step.
+into fixed slots, prompts are prefilled token by token into per-slot caches
+(KV caches, and the Mamba/xLSTM states, which therefore take the one-step
+``mamba_step`` and never the prefill scan), then decode steps run the whole
+batch in lockstep. Steps run eagerly on the device; copying each step's
+next tokens to the host is the one sync per step.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m --full
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm_125m --full
 """
 from __future__ import annotations
 

@@ -2,8 +2,10 @@
 
 Counterpart of :mod:`repro.launch.steps`. The port runs eagerly: where the
 reference jits a step, the port returns a plain function that runs under
-``torch.no_grad``. ``make_train_step`` comes with the training slice
-(ROADMAP.md, queue 1, item 1).
+``torch.no_grad``. The prefill runs every ported family (dense, the Jamba
+hybrid through the CUDA selective scan, xLSTM); the decode step updates
+the KV cache and the recurrent states in place. ``make_train_step`` comes
+with the training slice (ROADMAP.md, queue 1, item 1).
 """
 from __future__ import annotations
 

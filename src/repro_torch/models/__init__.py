@@ -1,9 +1,10 @@
-"""Model code of the port (dense decoder slice).
+"""Model code of the port: decoder-only LMs of dense attention, Mamba
+(the Jamba hybrid), mLSTM and sLSTM (xLSTM) blocks.
 
 Counterpart of :mod:`repro.models`: ``model_api(cfg)`` returns the
 family-appropriate (init, loss, init_cache, decode_step) tuple. The loss
-comes with the training slice, encoder-decoder models with their own
-(ROADMAP.md); until then those raise.
+comes with the training slice, MoE/MLA blocks and encoder-decoder models
+with their own (ROADMAP.md); until then those raise.
 """
 from __future__ import annotations
 

@@ -38,16 +38,22 @@ def _normal(gen: torch.Generator, shape, device) -> torch.Tensor:
     return torch.randn(shape, generator=gen, dtype=torch.float32, device=dev)
 
 
+def normal_init(gen: torch.Generator, shape, scale: float,
+                dtype=torch.bfloat16, device="cpu") -> torch.Tensor:
+    """Standard normal draws of ``shape`` times ``scale``, cast to dtype."""
+    return (_normal(gen, shape, device) * scale).to(dtype)
+
+
 def dense_init(gen: torch.Generator, d_in: int, d_out: int,
                scale: float = None, dtype=torch.bfloat16,
                device="cpu") -> torch.Tensor:
     scale = scale if scale is not None else d_in ** -0.5
-    return (_normal(gen, (d_in, d_out), device) * scale).to(dtype)
+    return normal_init(gen, (d_in, d_out), scale, dtype, device)
 
 
 def embed_init(gen: torch.Generator, vocab: int, d: int, dtype=torch.bfloat16,
                device="cpu") -> torch.Tensor:
-    return (_normal(gen, (vocab, d), device) * 0.02).to(dtype)
+    return normal_init(gen, (vocab, d), 0.02, dtype, device)
 
 
 def stack_init(init_fn: Callable[[torch.Generator], Params],

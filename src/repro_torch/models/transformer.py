@@ -1,4 +1,4 @@
-"""Decoder-only LM assembled from periodic blocks (dense slice).
+"""Decoder-only LM assembled from periodic blocks.
 
 Counterpart of :mod:`repro.models.transformer`. Parameters keep the
 reference's stacked layout (``params["stack"]["pos{i}"]`` with a leading
@@ -11,8 +11,9 @@ Entry points:
   init_cache(cfg, batch, max_len, device) -> decode cache
   decode_step(params, cache, tok, pos, cfg) -> (logits, cache)
 
-Only ("attn", "mlp") blocks are ported; the loss and the other mixers come
-with later slices (ROADMAP.md).
+Ported blocks: an attention, Mamba, mLSTM or sLSTM mixer with a dense MLP
+or no FFN. MoE and MLA blocks, and the loss, come with later slices
+(ROADMAP.md) and raise until then.
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ import torch
 
 from repro_torch import resolve_device
 from . import layers as L
+from . import ssm as S
 from .config import ModelConfig
 from .module import dense_init, embed_init, stack_init, tree_map
 
@@ -32,13 +34,25 @@ def _dtype(cfg: ModelConfig):
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
 
+# recurrent mixer -> (init, apply, make_cache, decode); attention takes
+# positions and a cache length besides, and is called by name
+_RECURRENT = {
+    "mamba": (S.mamba_init, S.mamba_apply, S.mamba_make_cache,
+              S.mamba_decode),
+    "mlstm": (S.mlstm_init, S.mlstm_apply, S.mlstm_make_cache,
+              S.mlstm_decode),
+    "slstm": (S.slstm_init, S.slstm_apply, S.slstm_make_cache,
+              S.slstm_decode),
+}
+
+
 def _check_spec(spec) -> None:
     mixer, ffn = spec
-    if mixer != "attn" or ffn not in ("mlp", None):
-        item = {"mamba": "item 2", "mlstm": "item 2", "slstm": "item 2",
-                "mla": "item 3"}.get(mixer, "item 3")
+    ported = mixer == "attn" or mixer in _RECURRENT
+    if not ported or ffn not in ("mlp", None):
         raise NotImplementedError(
-            f"block {spec} is not ported yet (ROADMAP.md, queue 1, {item})")
+            f"block {spec} is not ported yet (ROADMAP.md, queue 1, item 3: "
+            "MoE, MLA and MTP)")
 
 
 def _check_supported(cfg: ModelConfig) -> None:
@@ -64,9 +78,10 @@ def _layer(stacked: Params, j: int) -> Params:
 
 def block_init(gen, spec, cfg: ModelConfig, dtype, device="cpu") -> Params:
     _check_spec(spec)
-    _, ffn = spec
+    mixer, ffn = spec
+    init_fn = L.attn_init if mixer == "attn" else _RECURRENT[mixer][0]
     bp: Params = {"ln1": L.rmsnorm_init(cfg.d_model, device),
-                  "mixer": L.attn_init(gen, cfg, dtype, device)}
+                  "mixer": init_fn(gen, cfg, dtype, device)}
     if ffn is not None:
         bp["ln2"] = L.rmsnorm_init(cfg.d_model, device)
         bp["ffn"] = L.mlp_init(gen, cfg, dtype, device=device)
@@ -74,11 +89,15 @@ def block_init(gen, spec, cfg: ModelConfig, dtype, device="cpu") -> Params:
 
 
 def block_apply(bp, x, spec, cfg: ModelConfig, positions):
-    """Returns (x, aux); dense blocks carry no auxiliary loss (aux = 0.0)."""
+    """Returns (x, aux); blocks without MoE carry no auxiliary loss
+    (aux = 0.0)."""
     _check_spec(spec)
-    _, ffn = spec
+    mixer, ffn = spec
     h = L.rmsnorm(x, bp["ln1"], cfg.norm_eps)
-    x = x + L.attn_apply(bp["mixer"], h, cfg, positions)
+    if mixer == "attn":
+        x = x + L.attn_apply(bp["mixer"], h, cfg, positions)
+    else:
+        x = x + _RECURRENT[mixer][1](bp["mixer"], h, cfg)
     if ffn is not None:
         h2 = L.rmsnorm(x, bp["ln2"], cfg.norm_eps)
         x = x + L.mlp_apply(bp["ffn"], h2)
@@ -88,14 +107,20 @@ def block_apply(bp, x, spec, cfg: ModelConfig, positions):
 def block_make_cache(spec, cfg: ModelConfig, batch: int, max_len: int, dtype,
                      device="cpu"):
     _check_spec(spec)
-    return L.attn_make_cache(cfg, batch, max_len, dtype, device)
+    mixer, _ = spec
+    if mixer == "attn":
+        return L.attn_make_cache(cfg, batch, max_len, dtype, device)
+    return _RECURRENT[mixer][2](cfg, batch, dtype, device)
 
 
 def block_decode(bp, x, cache, spec, cfg: ModelConfig, pos: int):
     _check_spec(spec)
-    _, ffn = spec
+    mixer, ffn = spec
     h = L.rmsnorm(x, bp["ln1"], cfg.norm_eps)
-    mx, cache = L.attn_decode(bp["mixer"], h, cache, pos, cfg)
+    if mixer == "attn":
+        mx, cache = L.attn_decode(bp["mixer"], h, cache, pos, cfg)
+    else:
+        mx, cache = _RECURRENT[mixer][3](bp["mixer"], h, cache, cfg)
     x = x + mx
     if ffn is not None:
         h2 = L.rmsnorm(x, bp["ln2"], cfg.norm_eps)
@@ -132,7 +157,7 @@ def forward(params, x, cfg: ModelConfig, positions) -> Tuple[torch.Tensor,
                                                              torch.Tensor]:
     """x: (B, S, D) embedded inputs -> (hidden (B,S,D), aux_loss).
 
-    Dense blocks carry no auxiliary loss, so aux_loss is 0."""
+    Blocks without MoE carry no auxiliary loss, so aux_loss is 0."""
     for j in range(cfg.n_periods):
         for i, spec in enumerate(cfg.period):
             x, _ = block_apply(_layer(params["stack"][f"pos{i}"], j), x, spec,
@@ -161,10 +186,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     dtype = _dtype(cfg)
     stack = {}
     for i, spec in enumerate(cfg.period):
-        one = block_make_cache(spec, cfg, batch, max_len, dtype, device="meta")
+        # one layer's cache (zeros, or -1e30 for the mLSTM stabiliser),
+        # repeated over the stacked axis
+        one = block_make_cache(spec, cfg, batch, max_len, dtype, device=dev)
         stack[f"pos{i}"] = tree_map(
-            lambda a: torch.zeros((cfg.n_periods,) + tuple(a.shape),
-                                  dtype=a.dtype, device=dev), one)
+            lambda a: a.unsqueeze(0).repeat((cfg.n_periods,) + (1,) * a.dim()),
+            one)
     return {"stack": stack}
 
 

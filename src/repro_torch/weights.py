@@ -19,7 +19,9 @@ def from_jax_params(tree, cfg: ModelConfig, device="cuda"):
 
     Key sets and shapes are checked against the port's ``init(cfg)``; any
     mismatch raises ValueError. Each leaf takes the dtype the port's ``init``
-    gives it: the config's dtype for weights, float32 for norm scales.
+    gives it: the config's dtype for weights; float32 for norm scales,
+    Mamba's ``A_log``, ``D`` and ``dt_bias`` and xLSTM's gate weights and
+    biases, as in the reference, so a bf16 model does not round them.
     """
     dev = resolve_device(device)
     template = transformer.init(torch.Generator(), cfg, device="meta")

@@ -11,6 +11,7 @@ from repro_torch.kernels.decode_attention import (decode_attention_cuda,
                                                   decode_attention_plain)
 from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                  flash_attention_plain)
+from repro_torch.kernels.mamba_scan import mamba_scan_cuda, mamba_scan_plain
 from repro_torch.kernels.rmsnorm import rmsnorm_cuda, rmsnorm_plain
 
 pytestmark = pytest.mark.cuda
@@ -79,6 +80,50 @@ def test_decode_attention(gen, b, hq, hkv, s, d, window, dtype):
            decode_attention_plain(q, k, v, length, window), dtype)
 
 
+def _scan_inputs(gen, bt, t, d_in, n, u_dtype, with_h0):
+    """u, B, C in ``u_dtype``; dt, A, D, h0 float32, as the model has them."""
+    u = _randn(gen, (bt, t, d_in), u_dtype)
+    dt = torch.nn.functional.softplus(_randn(gen, (bt, t, d_in),
+                                             torch.float32))
+    A = -torch.nn.functional.softplus(_randn(gen, (d_in, n), torch.float32))
+    B, C = _randn(gen, (bt, t, n), u_dtype), _randn(gen, (bt, t, n), u_dtype)
+    D = _randn(gen, (d_in,), torch.float32)
+    h0 = _randn(gen, (bt, d_in, n), torch.float32) if with_h0 else None
+    return u, dt, A, B, C, D, h0
+
+
+def _close_scan(got, want, u_dtype):
+    torch.cuda.synchronize()
+    tol = 1e-4 if u_dtype == torch.float32 else 3e-2
+    assert got[0].dtype == u_dtype and got[1].dtype == torch.float32
+    torch.testing.assert_close(got[0].float(), want[0].float(), atol=tol,
+                               rtol=tol)
+    torch.testing.assert_close(got[1], want[1], atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("bt,t,d_in,n,with_h0", [
+    (2, 300, 512, 16, False), (2, 64, 256, 4, False),
+    (3, 100, 100, 16, True),        # ragged d_in, initial state
+    (1, 1, 64, 16, False),          # one step, batch 1
+    (2, 70, 384, 8, True), (1, 33, 130, 5, False)])
+@pytest.mark.parametrize("u_dtype", [torch.float32, torch.bfloat16])
+def test_mamba_scan(gen, bt, t, d_in, n, with_h0, u_dtype):
+    args = _scan_inputs(gen, bt, t, d_in, n, u_dtype, with_h0)
+    _close_scan(mamba_scan_cuda(*args), mamba_scan_plain(*args), u_dtype)
+
+
+def test_mamba_scan_takes_column_slices(gen):
+    """B and C as the model passes them: column slices of the x_proj
+    output, strided over batch and time."""
+    u, dt, A, _, _, D, h0 = _scan_inputs(gen, 2, 50, 256, 16, torch.bfloat16,
+                                         True)
+    proj = _randn(gen, (2, 50, 8 + 32), torch.bfloat16)
+    B, C = proj[..., 8:24], proj[..., 24:]
+    assert not B.is_contiguous()
+    _close_scan(mamba_scan_cuda(u, dt, A, B, C, D, h0),
+                mamba_scan_plain(u, dt, A, B, C, D, h0), torch.bfloat16)
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
     x = _randn(gen, (4, 64), torch.float16)
     with pytest.raises(TypeError):
@@ -93,3 +138,11 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
     with pytest.raises(ValueError, match="length"):
         decode_attention_cuda(q[:, :, 0], q, q,
                               torch.ones(1, dtype=torch.int64, device="cuda"))
+    u, dt, A, B, C, D, _ = _scan_inputs(gen, 1, 4, 32, 17, torch.float32,
+                                        False)
+    with pytest.raises(NotImplementedError, match="state width"):
+        mamba_scan_cuda(u, dt, A, B, C, D)
+    with pytest.raises(TypeError, match="u's dtype"):
+        mamba_scan_cuda(u, dt, A[:, :4], B[..., :4].bfloat16(), C[..., :4], D)
+    with pytest.raises(TypeError, match="dt float32"):
+        mamba_scan_cuda(u, dt.bfloat16(), A[:, :4], B[..., :4], C[..., :4], D)

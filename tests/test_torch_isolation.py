@@ -16,6 +16,7 @@ from repro_torch.configs import get
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels.decode_attention import decode_attention_cuda
 from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.mamba_scan import mamba_scan_cuda
 from repro_torch.kernels.rmsnorm import rmsnorm_cuda
 from repro_torch.launch.serve import Request, serve_batch
 from repro_torch.launch.steps import make_decode_step, make_prefill_step
@@ -121,18 +122,25 @@ def test_non_cpu_tensors_never_take_the_plain_version():
         ops.decode_attention(q[:, :, 0], k, k,
                              length=torch.ones(1, dtype=torch.int32,
                                                device="meta"))
-    for fn in (rmsnorm_cuda, flash_attention_cuda, decode_attention_cuda):
+    u = torch.empty(2, 5, 8, device="meta")
+    bc = torch.empty(2, 5, 4, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.mamba_scan(u, u, torch.empty(8, 4, device="meta"), bc, bc,
+                       torch.empty(8, device="meta"))
+    for fn in (rmsnorm_cuda, flash_attention_cuda, decode_attention_cuda,
+               mamba_scan_cuda):
         assert fn.launches == 0
 
 
 def test_cuda_sources_exist_and_target_sm90a():
     names = {p.name for p in (PKG / "csrc").glob("*.cu")}
-    assert {"rmsnorm.cu", "flash_attention.cu",
-            "decode_attention.cu"} <= names
+    assert {"rmsnorm.cu", "flash_attention.cu", "decode_attention.cu",
+            "mamba_scan.cu"} <= names
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     for name, replaced in (("rmsnorm.cu", "rmsnorm_pallas"),
                            ("flash_attention.cu", "flash_attention_pallas"),
-                           ("decode_attention.cu", "decode_attention_pallas")):
+                           ("decode_attention.cu", "decode_attention_pallas"),
+                           ("mamba_scan.cu", "mamba_scan_pallas")):
         head = (PKG / "csrc" / name).read_text().split("#include")[0]
         assert "Replaces: src/repro/kernels/" in head and replaced in head
         assert "Bound on an H100" in head and "Design" in head

@@ -12,14 +12,17 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.decode_attention import decode_attention_pallas
 from repro.kernels.flash_attention import flash_attention_pallas
+from repro.kernels.mamba_scan import mamba_scan_pallas
 from repro.kernels.rmsnorm import rmsnorm_pallas
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.decode_attention import decode_attention_plain
 from repro_torch.kernels.flash_attention import flash_attention_plain
+from repro_torch.kernels.mamba_scan import mamba_scan_cuda, mamba_scan_plain
 from repro_torch.kernels.rmsnorm import rmsnorm_plain
 
 # float32: the tolerance of test_kernels_pallas.py; bf16: one bf16 rounding
@@ -152,3 +155,105 @@ def test_mask_matches_jax(sq, skv, causal, window, offset):
     np.testing.assert_array_equal(
         tref._mask(sq, skv, causal, window, offset).numpy(),
         np.asarray(jref._mask(sq, skv, causal, window, offset)))
+
+
+# the scan's float32 tolerance is that of test_kernels_pallas.py's Mamba test
+SCAN_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+
+
+def _scan_inputs(seed, bt, t, d_in, n, with_h0=False):
+    """u, dt = softplus(normal), A = -softplus(normal), B, C, D and h0 (or
+    None) as float32 numpy arrays."""
+    rng = np.random.default_rng(seed)
+
+    def normal(*shape):
+        return rng.standard_normal(shape).astype(np.float32)
+
+    def softplus(x):
+        return np.logaddexp(x, 0).astype(np.float32)
+
+    return (normal(bt, t, d_in), softplus(normal(bt, t, d_in)),
+            -softplus(normal(d_in, n)), normal(bt, t, n), normal(bt, t, n),
+            normal(d_in), normal(bt, d_in, n) if with_h0 else None)
+
+
+def _close_scan(got, want, dtype):
+    (gy, gh), (wy, wh) = got, want
+    np.testing.assert_allclose(gy.float().numpy(), np.asarray(wy, np.float32),
+                               atol=SCAN_TOL[dtype], rtol=SCAN_TOL[dtype])
+    np.testing.assert_allclose(gh.numpy(), np.asarray(wh, np.float32),
+                               atol=SCAN_TOL["float32"],
+                               rtol=SCAN_TOL["float32"])
+
+
+@pytest.mark.parametrize("bt,t,d_in,n,d_blk,with_h0", [
+    (2, 16, 64, 8, 32, False),      # the shapes of test_kernels_pallas.py
+    (1, 32, 128, 16, 64, False),
+    (3, 8, 32, 4, 32, False),
+    (2, 12, 64, 16, 64, True),      # a given initial state
+    (2, 9, 100, 16, 100, False),    # ragged d_in
+    (1, 1, 48, 4, 48, True),        # one step, batch 1
+])
+def test_mamba_scan_matches_jax(bt, t, d_in, n, d_blk, with_h0):
+    arrays = _scan_inputs(7, bt, t, d_in, n, with_h0)
+    jargs = [None if a is None else jnp.asarray(a) for a in arrays]
+    targs = [None if a is None else torch.from_numpy(a) for a in arrays]
+    want = jref.mamba_scan_ref(*jargs)
+    pallas = mamba_scan_pallas(*jargs, d_blk=d_blk)
+    for got in (mamba_scan_plain(*targs), ops.mamba_scan(*targs),
+                tref.mamba_scan_ref(*targs)):
+        assert got[0].dtype == torch.float32 and got[0].shape == (bt, t, d_in)
+        assert got[1].dtype == torch.float32 and got[1].shape == (bt, d_in, n)
+        _close_scan(got, want, "float32")
+        _close_scan(got, pallas, "float32")
+
+
+def test_mamba_scan_bf16_u_with_float32_dt():
+    """The model's mix: u, B, C bf16, dt float32 (softplus promotes), A and
+    D float32; y comes back bf16, h_T float32."""
+    u, dt, A, B, C, D, h0 = _scan_inputs(8, 2, 20, 64, 16, with_h0=True)
+    (uj, ut), (bj, bt), (cj, ct) = (both(a, "bfloat16") for a in (u, B, C))
+    dtj, aj, dj, h0j = (jnp.asarray(a) for a in (dt, A, D, h0))
+    want = jref.mamba_scan_ref(uj, dtj, aj, bj, cj, dj, h0j)
+    pallas = mamba_scan_pallas(uj, dtj, aj, bj, cj, dj, h0j, d_blk=64)
+    got = ops.mamba_scan(ut, *(torch.from_numpy(a) for a in (dt, A)), bt, ct,
+                         *(torch.from_numpy(a) for a in (D, h0)))
+    assert got[0].dtype == torch.bfloat16 and got[1].dtype == torch.float32
+    _close_scan(got, want, "bfloat16")
+    _close_scan(got, pallas, "bfloat16")
+
+
+def test_mamba_step_matches_jax_and_the_scan():
+    """One step against the reference's ``ops.mamba_step``, and T steps
+    against one scan over the same T (how serving prefills a prompt)."""
+    u, dt, A, B, C, D, h0 = _scan_inputs(9, 2, 6, 32, 8, with_h0=True)
+    jy, jh = jops.mamba_step(*(jnp.asarray(a) for a in
+                               (u[:, 0], dt[:, 0], A, B[:, 0], C[:, 0], D,
+                                h0)))
+    tu, tdt, tA, tB, tC, tD, th0 = (torch.from_numpy(a)
+                                    for a in (u, dt, A, B, C, D, h0))
+    ty, th = ops.mamba_step(tu[:, 0], tdt[:, 0], tA, tB[:, 0], tC[:, 0], tD,
+                            th0)
+    _close_scan((ty, th), (jy, jh), "float32")
+    h, ys = th0, []
+    for i in range(u.shape[1]):
+        y, h = ops.mamba_step(tu[:, i], tdt[:, i], tA, tB[:, i], tC[:, i], tD,
+                              h)
+        ys.append(y)
+    sy, sh = ops.mamba_scan(tu, tdt, tA, tB, tC, tD, th0)
+    _close_scan((torch.stack(ys, 1), h), (sy.numpy(), sh.numpy()), "float32")
+
+
+def test_mamba_scan_wrapper_checks_shapes_before_device():
+    """The kernel wrapper refuses mismatched shapes and, for well-shaped
+    tensors that are not on a CUDA device, says so; it counts no launch."""
+    u = torch.empty(2, 5, 16, device="meta")
+    A, D = torch.empty(16, 4, device="meta"), torch.empty(16, device="meta")
+    B = torch.empty(2, 5, 4, device="meta")
+    with pytest.raises(ValueError, match="B has shape"):
+        mamba_scan_cuda(u, u, A, B[:, :4], B, D)
+    with pytest.raises(ValueError, match="h0 has shape"):
+        mamba_scan_cuda(u, u, A, B, B, D, h0=torch.empty(2, 16, 5))
+    with pytest.raises(ValueError, match="CUDA"):
+        mamba_scan_cuda(u, u, A, B, B, D)
+    assert mamba_scan_cuda.launches == 0

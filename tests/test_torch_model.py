@@ -1,9 +1,11 @@
-"""The port's dense decoder, on the CPU, against the JAX model.
+"""The port's models, on the CPU, against the JAX model.
 
 JAX SMOKE parameters (``jax.random.PRNGKey``) are transplanted into the port
-with ``from_jax_params``; prefill logits, decode-step logits (past the
-sliding window on h2o-danube, which wraps its ring buffer) and greedy
-serving tokens must match.
+with ``from_jax_params``; prefill logits, decode-step logits and caches (past
+the sliding window on h2o-danube, which wraps its ring buffer; the Mamba and
+xLSTM recurrent states of jamba and xlstm) and greedy serving tokens must
+match. Jamba runs with a dense SwiGLU in place of each MoE FFN (MoE is not
+ported yet), the same replacement on both sides.
 """
 import dataclasses
 
@@ -26,13 +28,26 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.module import param_count, tree_leaves, tree_map
 from repro_torch.weights import from_jax_params
 
-ARCHS = ["smollm_360m", "h2o_danube_1_8b"]
-# float32 logits of order 1 after two layers; the two sides differ only in
-# summation order (observed ~2e-6)
+ARCHS = ["smollm_360m", "h2o_danube_1_8b", "jamba_1_5_large_398b",
+         "xlstm_125m"]
+# float32 logits of order 1 after two to eight layers; the two sides differ
+# only in summation order (observed ~2e-6, ~8e-6 on jamba's 8 layers)
 TOL = 5e-5
+# prompt lengths: mLSTM's chunk (16 in xlstm SMOKE) must divide the prompt
+SEQ = {"xlstm_125m": 32}
+
+
+def _ported(name):
+    """Overrides that keep ``name`` on ported blocks: Jamba's period with a
+    dense SwiGLU in every FFN, one period deep (8 layers), no experts."""
+    if name != "jamba_1_5_large_398b":
+        return {}
+    return dict(n_layers=8, n_experts=0, top_k=0, d_expert=0,
+                period=tuple((m, "mlp") for m, _ in jget(name).period))
 
 
 def _pair(name, seed=0, **over):
+    over = {**_ported(name), **over}
     jcfg = dataclasses.replace(jget(name, smoke=True), **over)
     tcfg = dataclasses.replace(tget(name, smoke=True), **over)
     jparams = jmodel_api(jcfg).init(jax.random.PRNGKey(seed), jcfg)
@@ -56,11 +71,11 @@ def test_configs_are_copies(name):
 @pytest.mark.parametrize("name", ARCHS)
 def test_init_matches_reference_tree(name):
     """Same keys, shapes, dtypes and scales as the reference's init."""
-    cfg = tget(name, smoke=True)
+    cfg = dataclasses.replace(tget(name, smoke=True), **_ported(name))
     params = transformer.init(torch.Generator().manual_seed(0), cfg,
                               device="cpu")
-    jparams = jmodel_api(cfg).init(jax.random.PRNGKey(0),
-                                   jget(name, smoke=True))
+    jcfg = dataclasses.replace(jget(name, smoke=True), **_ported(name))
+    jparams = jmodel_api(jcfg).init(jax.random.PRNGKey(0), jcfg)
     flat_j = jax.tree_util.tree_flatten_with_path(jparams)[0]
     assert len(flat_j) == len(tree_leaves(params))
     for path, leaf in flat_j:
@@ -78,8 +93,8 @@ def test_init_matches_reference_tree(name):
 @pytest.mark.parametrize("impl", ["jnp", "pallas"])
 def test_prefill_logits_match_jax(name, impl):
     jcfg, jparams, tcfg, tparams = _pair(name, attn_impl=impl)
-    toks = np.random.default_rng(0).integers(0, jcfg.vocab, (2, 24),
-                                             dtype=np.int32)
+    toks = np.random.default_rng(0).integers(
+        0, jcfg.vocab, (2, SEQ.get(name, 24)), dtype=np.int32)
     want = jmake_prefill_step(jcfg)(jparams, {"inputs": jnp.asarray(toks)})
     got = make_prefill_step(tcfg, device="cpu")(tparams, {"inputs": toks})
     assert got.dtype == torch.float32 and tuple(got.shape) == (2, jcfg.vocab)
@@ -89,17 +104,20 @@ def test_prefill_logits_match_jax(name, impl):
 @pytest.mark.parametrize("name", ARCHS)
 def test_decode_steps_match_jax(name):
     """24 teacher-forced decode steps; danube's window of 16 wraps its ring
-    buffer. The port updates its cache in place: the caches are compared
-    after each step, and the old cache is snapshotted to check that only
-    slot ``pos`` changed."""
+    buffer. The port updates its cache in place: after each step every cache
+    leaf (K/V, Mamba conv/h, mLSTM conv/C/n/m, sLSTM h/c/n/m) is compared
+    with the reference's returned cache, and the old cache is snapshotted
+    to check that only slot ``pos`` of each K/V cache changed."""
     jcfg, jparams, tcfg, tparams = _pair(name, seed=1)
     japi, tapi = jmodel_api(jcfg), model_api(tcfg)
     toks = np.random.default_rng(1).integers(0, jcfg.vocab, (2, 24),
                                              dtype=np.int32)
     jcache = japi.init_cache(jcfg, 2, max_len=32)
     tcache = tapi.init_cache(tcfg, 2, max_len=32, device="cpu")
-    c = tcache["stack"]["pos0"]["k"].shape[3]
-    assert c == (16 if jcfg.window else 32)
+    attn = [f"pos{i}" for i, (m, _) in enumerate(tcfg.period) if m == "attn"]
+    c = 16 if jcfg.window else 32
+    for key in attn:
+        assert tcache["stack"][key]["k"].shape[3] == c
     for t in range(24):
         jlogits, jcache = japi.decode_step(jparams, jcache,
                                            jnp.asarray(toks[:, t]),
@@ -113,14 +131,19 @@ def test_decode_steps_match_jax(name):
         np.testing.assert_allclose(_np(tlogits), _np(jlogits), atol=TOL,
                                    rtol=TOL)
         slot = t % c if jcfg.window else t
-        for kv in ("k", "v"):
-            new, old = tcache["stack"]["pos0"][kv], before["stack"]["pos0"][kv]
-            keep = torch.ones(c, dtype=torch.bool)
-            keep[slot] = False
-            assert torch.equal(new[:, :, :, keep], old[:, :, :, keep])
-            np.testing.assert_allclose(
-                _np(new), _np(jcache["stack"]["pos0"][kv]), atol=TOL,
-                rtol=TOL)
+        for key in attn:
+            for kv in ("k", "v"):
+                new = tcache["stack"][key][kv]
+                old = before["stack"][key][kv]
+                keep = torch.ones(c, dtype=torch.bool)
+                keep[slot] = False
+                assert torch.equal(new[:, :, :, keep], old[:, :, :, keep])
+        for key, layer in tcache["stack"].items():
+            assert set(layer) == set(jcache["stack"][key])
+            for leaf, val in layer.items():
+                np.testing.assert_allclose(
+                    _np(val), _np(jcache["stack"][key][leaf]), atol=TOL,
+                    rtol=TOL, err_msg=f"step {t}: cache {key}/{leaf}")
 
 
 @pytest.mark.parametrize("name", ARCHS)
@@ -168,14 +191,34 @@ def test_from_jax_params_rejects_mismatch():
 
 
 def test_unported_blocks_raise():
-    cfg = ModelConfig(name="hybrid", family="hybrid", n_layers=2, d_model=32,
+    cfg = ModelConfig(name="moe", family="moe", n_layers=2, d_model=32,
                       n_heads=2, n_kv_heads=2, d_ff=64, vocab=64,
-                      period=(("attn", "mlp"), ("mamba", "mlp")))
+                      period=(("attn", "mlp"), ("attn", "moe")),
+                      n_experts=4, top_k=2, d_expert=32)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         transformer.init(torch.Generator(), cfg, device="cpu")
+    # the full Jamba config has MoE on every other layer
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 3"):
+        transformer.init(torch.Generator(), tget("jamba_1_5_large_398b"),
+                         device="cpu")
     enc = dataclasses.replace(tget("smollm_360m", smoke=True),
                               encoder_layers=1)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         model_api(enc)
     with pytest.raises(NotImplementedError, match="training slice"):
         model_api(tget("smollm_360m", smoke=True)).loss(None, None, None)
+
+
+def test_mamba_float32_leaves_survive_a_bf16_transplant():
+    """A_log, D and dt_bias are float32 in a bf16 model on both sides, so
+    the transplant carries them over exactly (a bf16 A would be rounded)."""
+    jcfg, jparams, tcfg, tparams = _pair("jamba_1_5_large_398b",
+                                         dtype="bfloat16")
+    mamba = tparams["stack"]["pos1"]["mixer"]
+    jmamba = jparams["stack"]["pos1"]["mixer"]
+    assert mamba["in_proj"].dtype == torch.bfloat16
+    for key in ("A_log", "D", "dt_bias"):
+        assert mamba[key].dtype == torch.float32
+        np.testing.assert_array_equal(mamba[key].numpy(),
+                                      np.asarray(jmamba[key]))
+    assert tparams["stack"]["pos0"]["mixer"]["wq"].dtype == torch.bfloat16

@@ -7,12 +7,16 @@
 Run from the root of a checkout: it builds the CUDA kernels from
 ``src/repro_torch/csrc`` and then, each phase on a line of its own with its
 time,
-  1. prints the card's name and power limit (nvidia-smi) and the build time;
+  1. prints the card's name and power limit (nvidia-smi), the build time,
+     ptxas's registers and spills for the bf16 flash-attention kernel, and
+     the HGMMA (tensor-core) instructions in its SASS (cuobjdump), failing
+     if there are none;
   2. holds each kernel against its plain PyTorch version on the card, at the
      main paths' shapes (smollm and Jamba; xLSTM's RMSNorm widths), in bf16
-     and float32, with its device time, bound, the plain version's time and
-     a library call's time as a yardstick where one PyTorch call computes
-     the same function;
+     and float32, with its device time, back-to-back time, bound, the plain
+     version's time and a library call's time as a yardstick where one
+     PyTorch call computes the same function (flash rows also name the
+     instance that ran: wgmma for bf16, simt for float32);
   3. runs full-width smollm-360M prefill (bf16, 8 x 512 tokens) through
      ``make_prefill_step`` and checks the kernels' launch counts;
   4. serves 8 requests (64-token prompts, 64 new tokens) through
@@ -38,6 +42,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -75,7 +80,7 @@ PARITY_TOL = 1e-3
 KERNELS = {  # name: (source, TPU kernel it replaces, main-path case)
     "rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu",
                 "src/repro/kernels/rmsnorm.py:23", "4096x960"),
-    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+    "flash_attention": ("src/repro_torch/csrc/flash_attention_sm90.cu",
                         "src/repro/kernels/flash_attention.py:84",
                         "causal 8x15/5x512x512x64"),
     "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
@@ -100,6 +105,22 @@ def fail(msg: str):
     raise RuntimeError(f"chip_smoke: {msg}")
 
 
+def profiled(fn, iters: int = 1, attempts: int = 3):
+    """The profiler (CUPTI) around ``iters`` calls of ``fn``. A session that
+    records no device activity (seen now and then on the first session of a
+    process) is run again, up to ``attempts`` times, before the phase
+    fails."""
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        if any(e.device_type == torch.autograd.DeviceType.CUDA
+               for e in prof.events()):
+            return prof
+    fail("the profiler recorded no device time")
+
+
 def device_ms(fn, iters: int = 21) -> float:
     """Device time per call, from the profiler (CUPTI), after a warm-up: the
     median over ``iters`` calls of the summed duration of the kernels and
@@ -107,15 +128,10 @@ def device_ms(fn, iters: int = 21) -> float:
     numbers of them)."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
+    prof = profiled(fn, iters)
     ev = sorted((e for e in prof.events()
                  if e.device_type == torch.autograd.DeviceType.CUDA),
                 key=lambda e: e.time_range.start)
-    if not ev:
-        fail("the profiler recorded no device time")
     if len(ev) % iters:
         return sum(e.time_range.end - e.time_range.start for e in ev) / iters / 1e3
     per = len(ev) // iters
@@ -241,6 +257,7 @@ def phase_kernels(rms, fla, dec, scan):
                     fla.flash_attention_plain(q, k, v, True, w, o),
                 library=library, n_bytes=2 * nbytes(q) + 2 * nbytes(k),
                 ops=4 * b * hq * hd * pairs))
+            rows[-1]["instance"] = fla.INSTANCES[dtype]
         # decode attention: the serving cache (64 + 64 + 1 slots), ragged length
         for case, hq, hkv, hd in (("8x15/5x129x64 ragged length", 15, 5, 64),
                                   ("8x64/8x129x128 ragged length", 64, 8, 128)):
@@ -352,9 +369,7 @@ def profile_call(fn, top: int = 6):
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
     wall = statistics.median(walls[1:])
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
+    prof = profiled(fn)
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA]
     by_name = {e.key: e.self_device_time_total / 1e3 for e in events}
@@ -372,6 +387,39 @@ def print_profile(tag, prof):
         f"over {v['device_ops']} kernels and copies, "
         f"idle {v['idle_share']:.1%}, top {v['top'][0]['kernel'][:40]} "
         f"{v['top'][0]['ms']:.2f} ms" for k, v in prof.items()), flush=True)
+
+
+# mangled name of flash_attention_wgmma<DP, NC> (flash_attention_sm90.cu)
+WGMMA_NAME = r"flash_attention_wgmmaILi(\d+)ELi(\d+)E"
+
+
+def flash_sass(build, lib_path: str) -> dict:
+    """For each instance of the bf16 flash-attention kernel (head dim padded
+    to DP, NC consumer warpgroups): ptxas's registers and spills from the
+    build log, and the HGMMA (tensor-core) instructions in its SASS, counted
+    with cuobjdump from the toolkit beside nvcc; and every compiler warning
+    or ptxas performance-loss note."""
+    lib = Path(lib_path)
+    log = lib.parent / lib.name.replace("libreprotorch_", "build_").replace(".so", ".log")
+    ptxas, warnings, inst = {}, [], None
+    for line in log.read_text().splitlines():
+        m = re.search(WGMMA_NAME, line)
+        if "warning" in line or "Performance Loss" in line:
+            warnings.append(line.strip())
+        elif "Compiling entry function" in line:
+            inst = "DP{} NC{}".format(*m.groups()) if m else None
+        elif inst and ("spill" in line or "Used" in line):
+            ptxas[inst] = (ptxas.get(inst, "") + " " + line.split(":")[-1].strip()).strip()
+    cuobjdump = Path(build._find_nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "--dump-sass", lib_path], check=True,
+                          capture_output=True, text=True).stdout
+    hgmma = {}
+    for chunk in sass.split("Function : ")[1:]:
+        m = re.search(WGMMA_NAME, chunk.split(None, 1)[0])
+        if m:
+            hgmma["DP{} NC{}".format(*m.groups())] = chunk.count("HGMMA")
+    return {"ptxas": ptxas, "warnings": warnings, "hgmma": hgmma,
+            "hgmma_total": sum(hgmma.values())}
 
 
 def main() -> int:
@@ -468,9 +516,14 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     report.update(card=card, torch=torch.__version__, cuda=torch.version.cuda,
                   build_s=build_s)
+    report["flash_sass"] = sass = flash_sass(_build, _build.last_build["path"])
+    if sass["hgmma_total"] == 0:
+        fail(f"no HGMMA instruction in the bf16 flash-attention kernel: {sass}")
     print(f"[1 card] {card} | torch {torch.__version__} cuda {torch.version.cuda}"
           f" | kernels built in {build_s:.1f} s (cached={_build.last_build['cached']})"
-          f" {took('1 card')}", flush=True)
+          f" | bf16 flash kernel, HGMMA instructions: {sass['hgmma_total']} "
+          f"{sass['hgmma']}; ptxas: {sass['ptxas']}; compiler warnings: "
+          f"{sass['warnings'] or 'none'} {took('1 card')}", flush=True)
 
     # 2. kernels against their plain versions
     rows = phase_kernels(rms, fla, dec, scan)
@@ -482,7 +535,8 @@ def main() -> int:
             + ", ".join(f"{k} {v:.4f}" for k, v in r["bound_terms"].items())
             + f") plain {r['plain_ms']:.4f} library "
             f"{r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 4)}")
-        print(f"[2 kernel] {r['kernel']} {r['case']} {r['dtype']}: max_abs_err "
+        inst = f" ({r['instance']})" if "instance" in r else ""
+        print(f"[2 kernel] {r['kernel']}{inst} {r['case']} {r['dtype']}: max_abs_err "
               f"{r['max_abs_err']:.3e} (tol {r['tol']:g}){timing}", flush=True)
     bad = [f"{r['kernel']} {r['case']} {r['dtype']}" for r in rows if not r["ok"]]
     if bad:

@@ -1,44 +1,47 @@
-// Flash attention forward for Hopper (sm_90a): causal, sliding-window or full
-// masking, GQA, an offset for q row 0, and an explicit softmax scale.
+// Flash attention forward for Hopper (sm_90a), float32 instance, and the C
+// entry point of both instances: causal, sliding-window or full masking,
+// GQA, an offset for q row 0, an explicit softmax scale, and q, k, v, o read
+// and written through their batch, head and sequence strides.
 //
 // Replaces: src/repro/kernels/flash_attention.py, flash_attention_pallas
-// (_kernel).
+// (_kernel), for float32 inputs. bf16 inputs go to the tensor-core kernel of
+// flash_attention_sm90.cu; this one stays on the CUDA cores because the
+// tensor cores take no float32 input (TF32 keeps ~3 digits, too few for the
+// float32 tolerance of 2e-5).
 //
 // Bound on an H100 SXM: the larger of 4 * B * Hq * Sq * Skv_eff * D
-// operations over the peak rate of the input type (989 TFLOP/s bf16 on the
-// tensor cores, 67 TFLOP/s float32) and bytes(q, k, v, o) / 3.35 TB/s, with
-// Skv_eff the keys each query actually attends (about Skv / 2 under a causal
-// mask). At smollm-360M's prefill shapes (Sq = Skv = 512, D = 64) in bf16
-// the bytes bound it, since the tensor-core rate makes the operations cheap.
+// operations over 67 TFLOP/s of float32 on the CUDA cores and
+// bytes(q, k, v, o) / 3.35 TB/s, with Skv_eff the keys each query actually
+// attends (about Skv / 2 under a causal mask): the operations bound it at
+// the model's prefill shapes.
 //
-// Design. This version runs on the CUDA cores in float32, so it sits far
-// above the tensor-core bound; wgmma and TMA are later work. One block per
-// (q tile, kv head, batch) serves all G = Hq / Hkv query heads of its kv
-// head: its R = G * BQ rows (row r = g * BQ + qi) share every K/V tile, so
-// K/V are read from device memory once per group, not once per q head as the
-// Pallas grid does. The block walks kv tiles of 64 keys from the first tile
-// of the sliding window to the causal frontier (the Pallas kernel's pl.when
-// skip) and masks the ragged ends of Sq and Skv itself, where Pallas asserts
-// tile multiples. Per tile:
-//   1. K (transposed) and V are staged in shared memory as float32 with
-//      16-byte loads;
+// Design. One block per (q tile, kv head, batch) serves all G = Hq / Hkv
+// query heads of its kv head: its R = G * BQ rows (row r = g * BQ + qi) share
+// every K/V tile, so K/V are read from device memory once per group, not
+// once per q head as the Pallas grid does. The block walks kv tiles of 64
+// keys from the first tile of the sliding window to the causal frontier (the
+// Pallas kernel's pl.when skip) and masks the ragged ends of Sq and Skv
+// itself, where Pallas asserts tile multiples. Per tile:
+//   1. K (transposed) and V are staged in shared memory with 16-byte loads;
 //   2. each thread computes a 4 x 4 block of logits from float4 loads of
-//      Q^T and K^T (16 FMAs per two loads), masks them to NEG_INF as
-//      repro.kernels.ref._mask does, and stores them;
+//      Q^T and K^T (16 FMAs per two loads), masks them to -inf, and stores
+//      them;
 //   3. one warp per row updates the running max and denominator and turns
-//      the logits into probabilities (expf, float32);
-//   4. each thread rescales a 4-row x 4-column block of the float32
-//      accumulator and adds P @ V, one float4 of V and four P values per key.
+//      the logits into probabilities (expf);
+//   4. each thread rescales a 4-row x 4-column block of the accumulator and
+//      adds P @ V, one float4 of V and four P values per key.
 // Q, the accumulator, P and the tiles live in shared memory (up to 227 KB;
-// the q tile shrinks from 64 rows until they fit). A row whose every key is
-// masked returns 0, as the Pallas kernel does.
+// the q tile shrinks from 64 rows until they fit). Q is read and O written
+// one row per warp: each row's address is one 64-bit block base plus 32-bit
+// head and sequence steps, so the strides cost little per element. A row
+// whose every key is masked returns 0: its running max stays -inf and its
+// denominator 0.
 #include "common.cuh"
 
-namespace {
+#include <climits>
+#include <math.h>
 
-using repro::from_float;
-using repro::kNegInf;
-using repro::to_float;
+namespace {
 
 constexpr int kBK = 64;          // keys per kv tile
 constexpr int kKS = kBK + 4;     // row stride of K^T and P (keeps float4 alignment)
@@ -53,6 +56,21 @@ size_t smem_floats(int rows, int d) {
          + 3 * (size_t)rows;      // m, l, corr
 }
 
+// Element strides (batch, head, sequence) of q, k, v and o, in that order.
+// The head and sequence strides fit in 32 bits (checked on the host), so the
+// per-row offsets inside a block are 32 x 32 -> 64-bit products.
+struct Strides {
+  long long s[4][3];
+  // start of (batch b, head h, row i) of tensor t, in 64 bits
+  __device__ __forceinline__ long long base(int t, int b, int h, int i) const {
+    return b * s[t][0] + h * s[t][1] + i * s[t][2];
+  }
+  // offset of (head h, row i) from a base
+  __device__ __forceinline__ long long step(int t, int h, int i) const {
+    return (long long)h * (int)s[t][1] + (long long)i * (int)s[t][2];
+  }
+};
+
 __device__ __forceinline__ void fma4(float4& o, float p, const float4& v) {
   o.x = fmaf(p, v.x, o.x);
   o.y = fmaf(p, v.y, o.y);
@@ -60,13 +78,13 @@ __device__ __forceinline__ void fma4(float4& o, float p, const float4& v) {
   o.w = fmaf(p, v.w, o.w);
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o, int Hq,
-                       int Hkv, int Sq, int Skv, int G, int BQ, int causal,
-                       int window, int offset, float scale) {
-  constexpr int VEC = 16 / sizeof(T);   // elements per 16-byte load
+flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                       const float* __restrict__ v, float* __restrict__ o, Strides st,
+                       int Sq, int Skv, int G, int BQ, int causal, int window,
+                       int offset, float scale) {
+  constexpr int VEC = 4;                // floats per 16-byte load
   constexpr int TXD = D / 4;            // threads across D in step 4
   constexpr int TYD = kThreads / TXD;   // row groups in step 4
   extern __shared__ __align__(16) float smem[];
@@ -84,14 +102,18 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int kvh = blockIdx.y, b = blockIdx.z;
   const int q0 = blockIdx.x * BQ;
   const int n_q = min(BQ, Sq - q0);
-  const size_t head0 = (size_t)b * Hq + (size_t)kvh * G;
+  const int head0 = kvh * G;
 
-  for (int idx = tid; idx < R * D; idx += kThreads) {
-    const int r = idx / D, dd = idx - r * D;
-    const int g = r / BQ, qi = r - g * BQ;
-    qt[dd * R + r] = qi < n_q ? to_float<T>(q[((head0 + g) * Sq + q0 + qi) * D + dd]) : 0.f;
-    acc[idx] = 0.f;
+  // Q^T: one warp per row r = g * BQ + qi, its lanes along D
+  {
+    const float* qb = q + st.base(0, b, head0, q0);
+    for (int r = warp; r < R; r += kThreads / 32) {
+      const int g = r / BQ, qi = r - g * BQ;
+      const float* qr = qb + st.step(0, g, qi);
+      for (int dd = lane; dd < D; dd += 32) qt[dd * R + r] = qi < n_q ? qr[dd] : 0.f;
+    }
   }
+  for (int idx = tid; idx < R * D; idx += kThreads) acc[idx] = 0.f;
   for (int r = tid; r < R; r += kThreads) {
     m[r] = __int_as_float(0xff800000);  // -inf
     l[r] = 0.f;
@@ -103,9 +125,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int kv_start = window >= 0 ? max(0, q_lo - window + 1) : 0;
   const int t_begin = kv_start / kBK;
   const int t_end = kv_end > kv_start ? (kv_end + kBK - 1) / kBK : t_begin;
-  const size_t kv_off = ((size_t)b * Hkv + kvh) * Skv * D;
-  const T* kb = k + kv_off;
-  const T* vb = v + kv_off;
+  const float* kb = k + st.base(1, b, kvh, 0);
+  const float* vb = v + st.base(2, b, kvh, 0);
 
   for (int t = t_begin; t < t_end; ++t) {
     const int k0 = t * kBK;
@@ -113,25 +134,16 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     // 1. stage K^T and V
     for (int idx = tid; idx < kBK * D / VEC; idx += kThreads) {
       const int c = idx / (D / VEC), d0 = (idx - c * (D / VEC)) * VEC;
-      float kf[VEC], vf[VEC];
+      float4 kf = make_float4(0.f, 0.f, 0.f, 0.f), vf = kf;
       if (k0 + c < Skv) {
-        const uint4 kr = *reinterpret_cast<const uint4*>(kb + (size_t)(k0 + c) * D + d0);
-        const uint4 vr = *reinterpret_cast<const uint4*>(vb + (size_t)(k0 + c) * D + d0);
-        const T* ke = reinterpret_cast<const T*>(&kr);
-        const T* ve = reinterpret_cast<const T*>(&vr);
-#pragma unroll
-        for (int e = 0; e < VEC; ++e) {
-          kf[e] = to_float<T>(ke[e]);
-          vf[e] = to_float<T>(ve[e]);
-        }
-      } else {
-#pragma unroll
-        for (int e = 0; e < VEC; ++e) kf[e] = vf[e] = 0.f;
+        kf = *reinterpret_cast<const float4*>(kb + st.step(1, 0, k0 + c) + d0);
+        vf = *reinterpret_cast<const float4*>(vb + st.step(2, 0, k0 + c) + d0);
       }
+      const float ke[VEC] = {kf.x, kf.y, kf.z, kf.w}, ve[VEC] = {vf.x, vf.y, vf.z, vf.w};
 #pragma unroll
       for (int e = 0; e < VEC; ++e) {
-        kt[(d0 + e) * kKS + c] = kf[e];
-        vs[c * D + d0 + e] = vf[e];
+        kt[(d0 + e) * kKS + c] = ke[e];
+        vs[c * D + d0 + e] = ve[e];
       }
     }
     __syncthreads();
@@ -166,7 +178,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
             bool ok = kpos < Skv;
             if (causal) ok = ok && kpos <= qpos;
             if (window >= 0) ok = ok && kpos > qpos - window;
-            out[j] = ok ? s[i][j] * scale : kNegInf;
+            out[j] = ok ? s[i][j] * scale : -INFINITY;
           }
           *reinterpret_cast<float4*>(sp + r * kKS + tx * 4) =
               make_float4(out[0], out[1], out[2], out[3]);
@@ -181,12 +193,14 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float mx = repro::warp_max(fmaxf(s0, s1));
       const float m_old = m[r];
       const float m_new = fmaxf(m_old, mx);
-      const float p0 = expf(s0 - m_new), p1 = expf(s1 - m_new);
+      // a row with no unmasked key so far keeps max -inf: subtract 0 instead
+      const float m_use = m_new == -INFINITY ? 0.f : m_new;
+      const float p0 = expf(s0 - m_use), p1 = expf(s1 - m_use);
       sr[lane] = p0;
       sr[lane + 32] = p1;
       const float sum = repro::warp_sum(p0 + p1);
       if (lane == 0) {
-        const float c = expf(m_old - m_new);
+        const float c = expf(m_old - m_use);
         corr[r] = c;
         l[r] = l[r] * c + sum;
         m[r] = m_new;
@@ -219,18 +233,19 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
   __syncthreads();
-  for (int idx = tid; idx < R * D; idx += kThreads) {
-    const int r = idx / D, dd = idx - r * D;
+  float* ob = o + st.base(3, b, head0, q0);
+  for (int r = warp; r < R; r += kThreads / 32) {
     const int g = r / BQ, qi = r - g * BQ;
-    if (qi < n_q)
-      o[((head0 + g) * Sq + q0 + qi) * D + dd] =
-          from_float<T>(acc[idx] / fmaxf(l[r], 1e-30f));
+    if (qi >= n_q) continue;
+    float* orow = ob + st.step(3, g, qi);
+    const float lr = l[r];
+    for (int dd = lane; dd < D; dd += 32) orow[dd] = lr > 0.f ? acc[r * D + dd] / lr : 0.f;
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B,
-                   int Hq, int Hkv, int Sq, int Skv, int causal, int window,
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, const Strides& st,
+                   int B, int Hq, int Hkv, int Sq, int Skv, int causal, int window,
                    int offset, float scale, cudaStream_t stream) {
   const int G = Hq / Hkv;
   int BQ = 64;
@@ -238,46 +253,57 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B,
   while (BQ > 8 && smem_floats(G * BQ, D) * sizeof(float) > kMaxSmem) BQ /= 2;
   const size_t bytes = smem_floats(G * BQ, D) * sizeof(float);
   if (bytes > kMaxSmem) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(flash_attention_kernel<T, D>,
+  cudaError_t err = cudaFuncSetAttribute(flash_attention_kernel<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((Sq + BQ - 1) / BQ, Hkv, B);
-  flash_attention_kernel<T, D><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), Hq, Hkv, Sq, Skv, G, BQ, causal, window, offset, scale);
+  flash_attention_kernel<D><<<grid, kThreads, bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), st, Sq, Skv, G, BQ, causal, window, offset, scale);
   return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v, void* o,
-                       int B, int Hq, int Hkv, int Sq, int Skv, int causal,
-                       int window, int offset, float scale, cudaStream_t st) {
-  switch (D) {
-    case 32: return launch<T, 32>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window, offset, scale, st);
-    case 64: return launch<T, 64>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window, offset, scale, st);
-    case 80: return launch<T, 80>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window, offset, scale, st);
-    case 128: return launch<T, 128>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window, offset, scale, st);
-    default: return cudaErrorInvalidValue;
-  }
 }
 
 }  // namespace
 
-// window < 0 means no sliding window. q, k, v and o must be 16-byte aligned.
-// Returns a cudaError_t code.
+namespace repro {
+cudaError_t flash_attention_wgmma_bf16(const void* q, const void* k, const void* v, void* o,
+                                       const long long* sq, const long long* sk,
+                                       const long long* sv, const long long* so, int B,
+                                       int Hq, int Hkv, int Sq, int Skv, int D, int causal,
+                                       int window, int offset, float scale,
+                                       cudaStream_t stream);
+}  // namespace repro
+
+// Strides are in elements, three per tensor: batch, head, sequence (the last
+// dim is contiguous); every stride and pointer is 16-byte aligned. window < 0
+// means no sliding window. float32 runs on the CUDA cores (above), bf16 on
+// the tensor cores (flash_attention_sm90.cu). Returns a cudaError_t code.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
-                                   void* o, int B, int Hq, int Hkv, int Sq, int Skv,
-                                   int D, int causal, int window, int offset,
-                                   float scale, int dtype, void* stream) {
+                                   void* o, const long long* sq, const long long* sk,
+                                   const long long* sv, const long long* so, int B,
+                                   int Hq, int Hkv, int Sq, int Skv, int D, int causal,
+                                   int window, int offset, float scale, int dtype,
+                                   void* stream) {
   if (B <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Sq <= 0 || Skv <= 0 || offset < 0)
     return cudaErrorInvalidValue;
-  if ((reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v)) % 16 != 0)
+  if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v)) % 16 != 0)
     return cudaErrorMisalignedAddress;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == repro::kFloat32)
-    return dispatch_d<float>(D, q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window, offset, scale, st);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == repro::kBFloat16)
-    return dispatch_d<__nv_bfloat16>(D, q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window, offset, scale, st);
-  return cudaErrorInvalidValue;
+    return repro::flash_attention_wgmma_bf16(q, k, v, o, sq, sk, sv, so, B, Hq, Hkv, Sq, Skv,
+                                             D, causal, window, offset, scale, s);
+  if (dtype != repro::kFloat32) return cudaErrorInvalidValue;
+  const Strides st{{{sq[0], sq[1], sq[2]}, {sk[0], sk[1], sk[2]}, {sv[0], sv[1], sv[2]},
+                    {so[0], so[1], so[2]}}};
+  for (const auto& t : st.s)
+    if (t[1] > INT_MAX || t[2] > INT_MAX) return cudaErrorInvalidValue;
+  switch (D) {
+    case 32: return launch<32>(q, k, v, o, st, B, Hq, Hkv, Sq, Skv, causal, window, offset, scale, s);
+    case 64: return launch<64>(q, k, v, o, st, B, Hq, Hkv, Sq, Skv, causal, window, offset, scale, s);
+    case 80: return launch<80>(q, k, v, o, st, B, Hq, Hkv, Sq, Skv, causal, window, offset, scale, s);
+    case 128: return launch<128>(q, k, v, o, st, B, Hq, Hkv, Sq, Skv, causal, window, offset, scale, s);
+    default: return cudaErrorInvalidValue;
+  }
 }

@@ -32,10 +32,10 @@ _L = ctypes.c_longlong
 SIGNATURES = {
     # x, scale, y, rows, d, eps, dtype, stream
     "rmsnorm_fwd": [_P, _P, _P, _I, _I, _F, _I, _P],
-    # q, k, v, o, B, Hq, Hkv, Sq, Skv, D, causal, window, offset, scale,
-    # dtype, stream
-    "flash_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                            _I, _F, _I, _P],
+    # q, k, v, o, their strides (3 int64 each: batch, head, sequence), B,
+    # Hq, Hkv, Sq, Skv, D, causal, window, offset, scale, dtype, stream
+    "flash_attention_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                            _I, _I, _I, _I, _I, _F, _I, _P],
     # q, k, v, length, o, B, Hq, Hkv, S, D, window, scale, dtype, stream
     "decode_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                              _I, _P],

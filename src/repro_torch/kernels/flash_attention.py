@@ -1,14 +1,18 @@
-"""Flash attention forward: the CUDA kernel ``csrc/flash_attention.cu`` and
-its plain version.
+"""Flash attention forward: the CUDA kernels ``csrc/flash_attention_sm90.cu``
+(bf16, tensor cores) and ``csrc/flash_attention.cu`` (float32, CUDA cores),
+and their plain version.
 
 Counterpart of :mod:`repro.kernels.flash_attention`
 (``flash_attention_pallas``). Causal, sliding-window or full masking, GQA
 (q head h reads kv head h // G), ``offset`` placing q row 0, and ragged
-``Sq``/``Skv`` masked inside the kernel. A CUDA tensor goes to the kernel, a
-CPU tensor to :func:`flash_attention_plain`.
+``Sq``/``Skv`` masked inside the kernel. The kernels read q, k, v and write o
+through their batch, head and sequence strides, so (B, H, S, D) views of
+(B, S, H, D) tensors need no copy. A CUDA tensor goes to the kernel of its
+dtype, a CPU tensor to :func:`flash_attention_plain`.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
@@ -17,21 +21,48 @@ from . import _build
 from ._checks import DTYPE_CODES, require_cuda, require_head_dim
 from .ref import attention_ref as flash_attention_plain
 
+# which kernel instance each dtype runs
+INSTANCES = {torch.bfloat16: "wgmma", torch.float32: "simt"}
+
+
+def _strides(name: str, t: torch.Tensor):
+    """The batch, head and sequence strides of a (B, H, S, D) tensor, as the
+    kernels take them: in elements, multiples of 16 bytes, the last dim
+    contiguous. A dim of size 1 is never stepped over; it gets the stride a
+    contiguous tensor would have. Raises ValueError otherwise."""
+    if t.shape[-1] > 1 and t.stride(-1) != 1:
+        raise ValueError(f"flash_attention: {name}'s last dim must be contiguous "
+                         f"(unit stride); strides {t.stride()}")
+    align = 16 // t.element_size()
+    dense = (t.shape[1] * t.shape[2] * t.shape[3], t.shape[2] * t.shape[3],
+             t.shape[3])
+    out = []
+    for n, s, s_dense in zip(t.shape[:3], t.stride()[:3], dense):
+        if n > 1 and (s <= 0 or s % align):
+            raise ValueError(f"flash_attention: {name}'s strides {t.stride()} "
+                             "must be positive multiples of 16 bytes")
+        out.append(s if n > 1 else s_dense)
+    if t.data_ptr() % 16:
+        raise ValueError(f"flash_attention: {name} must be 16-byte aligned")
+    return (ctypes.c_longlong * 3)(*out)
+
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          causal: bool = True, window: Optional[int] = None,
                          offset: int = 0,
                          scale: Optional[float] = None) -> torch.Tensor:
-    """Launch the kernel. q: (B, Hq, Sq, D); k/v: (B, Hkv, Skv, D), all
-    contiguous, bf16 or f32 -> (B, Hq, Sq, D) in q's dtype."""
-    require_cuda("flash_attention", q, k, v)
+    """Launch the kernel of q's dtype (``INSTANCES``). q: (B, Hq, Sq, D);
+    k/v: (B, Hkv, Skv, D), bf16 or f32, any strides with a contiguous last
+    dim and 16-byte aligned rows -> (B, Hq, Sq, D) in q's dtype, laid out
+    in memory as q is (``torch.empty_like``). The shapes, dtypes and strides
+    are checked before the device."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"flash_attention: want q (B,Hq,Sq,D), k = v "
                          f"(B,Hkv,Skv,D); got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
     b, hq, sq, d = q.shape
     _, hkv, skv, _ = k.shape
-    if k.shape[0] != b or k.shape[3] != d or hq % hkv:
+    if k.shape[0] != b or k.shape[3] != d or hkv == 0 or hq % hkv:
         raise ValueError(f"flash_attention: q {tuple(q.shape)} does not match "
                          f"k/v {tuple(k.shape)}")
     if q.dtype not in DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -42,11 +73,12 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention: offset {offset} < 0")
     if window is not None and window < 1:
         raise ValueError(f"flash_attention: window {window} < 1")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("flash_attention: q, k and v must be contiguous")
-    if k.data_ptr() % 16 or v.data_ptr() % 16:
-        raise ValueError("flash_attention: k and v must be 16-byte aligned")
     scale = scale if scale is not None else d ** -0.5
+    if not scale > 0:
+        raise ValueError(f"flash_attention: scale {scale} must be positive (the "
+                         "kernels take the row max of the unscaled logits)")
+    strides = [_strides(name, t) for name, t in (("q", q), ("k", k), ("v", v))]
+    require_cuda("flash_attention", q, k, v)
     o = torch.empty_like(q)
     if b == 0 or hq == 0 or sq == 0:
         return o
@@ -54,10 +86,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("flash_attention: empty key sequence")
     lib = _build.load()
     _build.check(lib.flash_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, hq, hkv, sq,
-        skv, d, int(bool(causal)), -1 if window is None else int(window),
-        int(offset), float(scale), DTYPE_CODES[q.dtype],
-        _build.stream_handle(q)), "flash_attention_fwd")
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), *strides,
+        _strides("o", o), b, hq, hkv, sq, skv, d, int(bool(causal)),
+        -1 if window is None else int(window), int(offset), float(scale),
+        DTYPE_CODES[q.dtype], _build.stream_handle(q)), "flash_attention_fwd")
     flash_attention_cuda.launches += 1
     return o
 

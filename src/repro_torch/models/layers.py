@@ -77,9 +77,12 @@ def attn_apply(p, x, cfg: ModelConfig, positions, causal=True,
     if use_rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-    # the kernel takes contiguous (B, H, S, D)
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    out = ops.flash_attention(qt, kt, vt, causal=causal, window=cfg.window)
+    # (B, H, S, D) views: the kernel reads them through their strides and
+    # lays its output out as q is, so the reshape back to (B, S, H * D) is
+    # free on the card
+    out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2), causal=causal,
+                              window=cfg.window)
     out = out.transpose(1, 2).reshape(b, s, h * hd)
     return out @ p["wo"]
 

@@ -51,10 +51,15 @@ def test_rmsnorm(gen, rows, d, dtype):
 @pytest.mark.parametrize("b,hq,hkv,sq,skv,d,causal,window", [
     (2, 15, 5, 512, 512, 64, True, None),
     (1, 6, 2, 77, 77, 64, True, None),
-    (2, 32, 8, 100, 300, 80, True, 64),
+    (2, 32, 8, 100, 300, 80, True, 64),     # D 80, window, offset 200
     (1, 8, 2, 64, 200, 32, False, None),
     (1, 16, 2, 130, 130, 128, True, 40),
-    (2, 4, 4, 1, 33, 64, True, None),
+    (2, 4, 4, 1, 33, 64, True, None),       # Sq = 1
+    (2, 15, 5, 2048, 2048, 64, True, None),  # 32 kv tiles: the stage ring wraps
+    (1, 64, 8, 512, 512, 128, True, None),  # Jamba's G = 8, D = 128
+    (2, 6, 2, 200, 300, 64, False, None),   # ragged Skv, not causal
+    (1, 4, 1, 96, 160, 32, True, 48),       # D 32, window, offset 64
+    (1, 5, 1, 70, 70, 128, True, None),     # G = 5: one q head per block
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention(gen, b, hq, hkv, sq, skv, d, causal, window, dtype):
@@ -64,6 +69,34 @@ def test_flash_attention(gen, b, hq, hkv, sq, skv, d, causal, window, dtype):
     off = skv - sq
     _close(flash_attention_cuda(q, k, v, causal, window, off),
            flash_attention_plain(q, k, v, causal, window, off), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_takes_strided_views(gen, dtype):
+    """(B, H, S, D) views of (B, S, H, D) tensors, as the model passes them;
+    the output is laid out as q is, so its (B, S, H, D) view is contiguous."""
+    q = _randn(gen, (2, 300, 15, 64), dtype).transpose(1, 2)
+    kv = _randn(gen, (2, 300, 2, 5, 64), dtype)
+    k, v = kv[:, :, 0].transpose(1, 2), kv[:, :, 1].transpose(1, 2)
+    assert not (q.is_contiguous() or k.is_contiguous() or v.is_contiguous())
+    got = flash_attention_cuda(q, k, v, True, None, 0)
+    assert got.transpose(1, 2).is_contiguous()
+    _close(got, flash_attention_plain(q, k, v, True, None, 0), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_fully_masked_rows_are_zero(gen, dtype):
+    """A window shorter than the gap between the offset and Skv leaves rows
+    with no key: the kernel's contract is 0 there (attention_ref would give
+    the mean of V); every other row matches the plain version."""
+    b, hq, hkv, sq, skv, d, window, offset = 2, 6, 2, 80, 100, 64, 8, 60
+    q = _randn(gen, (b, hq, sq, d), dtype)
+    k, v = _randn(gen, (b, hkv, skv, d), dtype), _randn(gen, (b, hkv, skv, d), dtype)
+    want = flash_attention_plain(q, k, v, True, window, offset)
+    empty = (torch.arange(sq, device="cuda") + offset - window + 1) >= skv
+    assert 0 < int(empty.sum()) < sq
+    want[:, :, empty] = 0
+    _close(flash_attention_cuda(q, k, v, True, window, offset), want, dtype)
 
 
 @pytest.mark.parametrize("b,hq,hkv,s,d,window", [
@@ -132,7 +165,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         flash_attention_cuda(q, q, q)
     q = _randn(gen, (1, 2, 8, 64), torch.float32)
-    with pytest.raises(ValueError, match="contiguous"):
+    with pytest.raises(ValueError, match="contiguous"):  # last dim strided
         flash_attention_cuda(q.transpose(2, 3).contiguous().transpose(2, 3),
                              q, q)
     with pytest.raises(ValueError, match="length"):

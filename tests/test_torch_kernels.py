@@ -21,7 +21,8 @@ from repro.kernels.rmsnorm import rmsnorm_pallas
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.decode_attention import decode_attention_plain
-from repro_torch.kernels.flash_attention import flash_attention_plain
+from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                 flash_attention_plain)
 from repro_torch.kernels.mamba_scan import mamba_scan_cuda, mamba_scan_plain
 from repro_torch.kernels.rmsnorm import rmsnorm_plain
 
@@ -96,6 +97,49 @@ def test_flash_attention_ragged_and_scale():
     vj, vt = both(rng.standard_normal((2, 2, 77, 32), np.float32), "float32")
     want = jref.attention_ref(qj, kj, vj, True, None, 0, scale=0.3)
     close(ops.flash_attention(qt, kt, vt, scale=0.3), want, "float32")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_takes_strided_views(dtype):
+    """q, k, v as the model passes them: (B, H, S, D) views of (B, S, H, D)
+    tensors, GQA group 3 with a window and an offset."""
+    rng = np.random.default_rng(3)
+    b, hq, hkv, sq, skv, d, window = 2, 6, 2, 32, 64, 32, 40
+    q = rng.standard_normal((b, sq, hq, d), np.float32)
+    k = rng.standard_normal((b, skv, hkv, d), np.float32)
+    v = rng.standard_normal((b, skv, hkv, d), np.float32)
+    (qj, qt), (kj, kt), (vj, vt) = (both(x.transpose(0, 2, 1, 3).copy(), dtype)
+                                    for x in (q, k, v))
+    views = [torch.from_numpy(x).to(getattr(torch, dtype)).transpose(1, 2)
+             for x in (q, k, v)]
+    assert not any(t.is_contiguous() for t in views)
+    got = ops.flash_attention(*views, causal=True, window=window, offset=32)
+    assert got.dtype == qt.dtype and got.shape == qt.shape
+    close(got, jref.attention_ref(qj, kj, vj, True, window, 32), dtype)
+    close(got, flash_attention_pallas(qj, kj, vj, causal=True, window=window,
+                                      offset=32, q_blk=32, kv_blk=32), dtype)
+
+
+def test_flash_attention_wrapper_checks_strides_before_device():
+    """The kernel wrapper refuses a last dim that is not contiguous, a stride
+    or a pointer off 16 bytes and a scale that is not positive, before it
+    looks for a CUDA device; it counts no launch."""
+    q = torch.zeros(1, 2, 8, 64, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="last dim must be contiguous"):
+        flash_attention_cuda(
+            torch.zeros(1, 2, 8, 128, dtype=torch.bfloat16)[..., ::2], q, q)
+    with pytest.raises(ValueError, match="multiples of 16 bytes"):
+        flash_attention_cuda(torch.zeros(1, 2, 8, 68, dtype=torch.bfloat16)
+                             [..., :64], q, q)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention_cuda(q, torch.zeros(1 + 2 * 8 * 64, dtype=torch.bfloat16)
+                             [1:].view(1, 2, 8, 64), q)
+    with pytest.raises(ValueError, match="must be positive"):
+        flash_attention_cuda(q, q, q, scale=0.0)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_cuda(q.transpose(1, 2).contiguous().transpose(1, 2),
+                             q, q)
+    assert flash_attention_cuda.launches == 0
 
 
 DECODE_CASES = [

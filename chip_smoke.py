@@ -8,15 +8,18 @@ Run from the root of a checkout: it builds the CUDA kernels from
 ``src/repro_torch/csrc`` and then, each phase on a line of its own with its
 time,
   1. prints the card's name and power limit (nvidia-smi), the build time,
-     ptxas's registers and spills for the bf16 flash-attention kernel, and
-     the HGMMA (tensor-core) instructions in its SASS (cuobjdump), failing
-     if there are none;
+     ptxas's registers and spills for the instances of the bf16
+     flash-attention, decode-attention and RMSNorm kernels, and the HGMMA
+     (tensor-core) instructions in the flash kernel's SASS (cuobjdump),
+     failing if there are none;
   2. holds each kernel against its plain PyTorch version on the card, at the
      main paths' shapes (smollm and Jamba; xLSTM's RMSNorm widths), in bf16
-     and float32, with its device time, back-to-back time, bound, the plain
-     version's time and a library call's time as a yardstick where one
-     PyTorch call computes the same function (flash rows also name the
-     instance that ran: wgmma for bf16, simt for float32);
+     and float32, with its device time, the kernels one call runs (from
+     the profiler; 1 for decode attention and RMSNorm, or the phase fails),
+     back-to-back time, bound, the plain version's time and a library
+     call's time as a yardstick where one PyTorch call computes the same
+     function (flash rows also name the instance that ran: wgmma for bf16,
+     simt for float32; bf16 decode rows add a sweep of the split count);
   3. runs full-width smollm-360M prefill (bf16, 8 x 512 tokens) through
      ``make_prefill_step`` and checks the kernels' launch counts;
   4. serves 8 requests (64-token prompts, 64 new tokens) through
@@ -121,23 +124,31 @@ def profiled(fn, iters: int = 1, attempts: int = 3):
     fail("the profiler recorded no device time")
 
 
-def device_ms(fn, iters: int = 21) -> float:
-    """Device time per call, from the profiler (CUPTI), after a warm-up: the
-    median over ``iters`` calls of the summed duration of the kernels and
-    copies each call launches (the mean, should the calls launch unequal
-    numbers of them)."""
+def device_profile(fn, iters: int = 21):
+    """(device ms per call, kernels and copies per call), from the profiler
+    (CUPTI), after a warm-up: the median over ``iters`` calls of the summed
+    duration of the kernels and copies each call launches (the mean, should
+    the profiler have kept another number of them than ``iters`` times a
+    whole number)."""
     fn()
     torch.cuda.synchronize()
     prof = profiled(fn, iters)
     ev = sorted((e for e in prof.events()
                  if e.device_type == torch.autograd.DeviceType.CUDA),
                 key=lambda e: e.time_range.start)
-    if len(ev) % iters:
-        return sum(e.time_range.end - e.time_range.start for e in ev) / iters / 1e3
-    per = len(ev) // iters
+    per = max(1, round(len(ev) / iters))
+    if len(ev) != per * iters:
+        # the profiler now and then drops an event of a session, so the calls
+        # cannot be told apart: the mean over the events it kept
+        return (sum(e.time_range.end - e.time_range.start for e in ev)
+                / len(ev) * per / 1e3, per)
     calls = [sum(e.time_range.end - e.time_range.start
                  for e in ev[i * per:(i + 1) * per]) for i in range(iters)]
-    return statistics.median(calls) / 1e3
+    return statistics.median(calls) / 1e3, per
+
+
+def device_ms(fn, iters: int = 21) -> float:
+    return device_profile(fn, iters)[0]
 
 
 def launch_ms(fn, reps: int = 7) -> float:
@@ -200,7 +211,8 @@ def compare(kernel, case, dtype, got, want, tol_key, run=None, plain=None,
     if run is not None:
         row["bound_ms"], row["bound_by"], row["bound_terms"] = bound(
             n_bytes, ops, ops_dtype or dtype, exps)
-        row.update(ms=device_ms(run), launch_ms=launch_ms(run),
+        row["ms"], row["kernels_per_call"] = device_profile(run)
+        row.update(launch_ms=launch_ms(run),
                    plain_ms=device_ms(plain, plain_iters),
                    library_ms=None if library is None else device_ms(library))
     return row
@@ -258,15 +270,18 @@ def phase_kernels(rms, fla, dec, scan):
                 library=library, n_bytes=2 * nbytes(q) + 2 * nbytes(k),
                 ops=4 * b * hq * hd * pairs))
             rows[-1]["instance"] = fla.INSTANCES[dtype]
-        # decode attention: the serving cache (64 + 64 + 1 slots), ragged length
-        for case, hq, hkv, hd in (("8x15/5x129x64 ragged length", 15, 5, 64),
-                                  ("8x64/8x129x128 ragged length", 64, 8, 128)):
+        # decode attention: the serving cache (64 + 64 + 1 slots), ragged
+        # length; and a long context (4096 slots), where the split pays
+        for case, hq, hkv, s, hd in (
+                ("8x15/5x129x64 ragged length", 15, 5, 129, 64),
+                ("8x64/8x129x128 ragged length", 64, 8, 129, 128),
+                ("8x15/5x4096x64 ragged length", 15, 5, 4096, 64)):
             q = randn((8, hq, hd), dtype)
-            k, v = randn((8, hkv, 129, hd), dtype), randn((8, hkv, 129, hd), dtype)
-            length = torch.randint(1, 130, (8,), generator=gen, device="cuda",
+            k, v = randn((8, hkv, s, hd), dtype), randn((8, hkv, s, hd), dtype)
+            length = torch.randint(1, s + 1, (8,), generator=gen, device="cuda",
                                    dtype=torch.int32)
             valid = int(length.sum())
-            mask = (torch.arange(129, device="cuda") < length[:, None])[:, None, None, :]
+            mask = (torch.arange(s, device="cuda") < length[:, None])[:, None, None, :]
             ke, ve = (t.repeat_interleave(hq // hkv, dim=1) for t in (k, v))
             rows.append(compare(
                 "decode_attention", case, dn,
@@ -281,6 +296,8 @@ def phase_kernels(rms, fla, dec, scan):
                                                    attn_mask=m),
                 n_bytes=(2 * hkv * hd * valid + 2 * q.numel()) * q.element_size(),
                 ops=4 * hq * hd * valid))
+            if dtype == torch.bfloat16:
+                rows[-1].update(split_sweep(dec, q, k, v, length))
         # the selective scan at Jamba's prefill shape: u, B, C in the model
         # dtype, dt float32 (softplus promotes), A and D float32
         bt, t, d_in, n = 8, 512, 16384, 16
@@ -306,15 +323,39 @@ def phase_kernels(rms, fla, dec, scan):
             "mamba_scan", f"h0 {bt}x{t}x{d_in} N{n} dt f32 check", dn,
             scan.mamba_scan_cuda(*args, h0), scan.mamba_scan_plain(*args, h0),
             "scan"))
-    # decode with a sliding window, checked for agreement only
-    q = randn((8, 15, 64), torch.float32)
-    k, v = randn((8, 5, 129, 64), torch.float32), randn((8, 5, 129, 64), torch.float32)
-    length = torch.randint(1, 130, (8,), generator=gen, device="cuda", dtype=torch.int32)
-    rows.append(compare("decode_attention", "window32 check", "float32",
-                        dec.decode_attention_cuda(q, k, v, length, window=32),
-                        dec.decode_attention_plain(q, k, v, length, window=32),
-                        "attn"))
+    # decode with a sliding window that crosses the splits (of 33 keys at
+    # S 129, of 512 at S 4096), checked for agreement only
+    for s, window in ((129, 32), (4096, 600)):
+        q = randn((8, 15, 64), torch.float32)
+        k, v = randn((8, 5, s, 64), torch.float32), randn((8, 5, s, 64), torch.float32)
+        length = torch.randint(1, s + 1, (8,), generator=gen, device="cuda",
+                               dtype=torch.int32)
+        rows.append(compare(
+            "decode_attention", f"window{window} 8x15/5x{s}x64 check", "float32",
+            dec.decode_attention_cuda(q, k, v, length, window=window),
+            dec.decode_attention_plain(q, k, v, length, window=window), "attn"))
     return rows
+
+
+def split_sweep(dec, q, k, v, length, counts=(1, 2, 3, 4, 8)) -> dict:
+    """Device ms of one decode-attention call with the cache cut into each
+    of ``counts`` splits (``dec.split_plan`` replaced for the sweep), beside
+    the plan's own choice."""
+    b, hq, _ = q.shape
+    _, hkv, s, _ = k.shape
+    plan = dec.split_plan
+    sweep = {}
+    try:
+        for n in counts:
+            chunk = -(-s // n)
+            if (n - 1) * chunk >= s:
+                continue
+            dec.split_plan = lambda *_, n=n, chunk=chunk: (n, chunk)
+            sweep[n] = device_ms(lambda: dec.decode_attention_cuda(q, k, v, length))
+    finally:
+        dec.split_plan = plan
+    n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
+    return {"split_plan": plan(b, hkv, hq // hkv, s, n_sm), "split_sweep_ms": sweep}
 
 
 def fla_mask(sq, skv, window, offset):
@@ -389,37 +430,61 @@ def print_profile(tag, prof):
         f"{v['top'][0]['ms']:.2f} ms" for k, v in prof.items()), flush=True)
 
 
-# mangled name of flash_attention_wgmma<DP, NC> (flash_attention_sm90.cu)
+# mangled names of the kernel instances whose registers and spills phase 1
+# prints: flash_attention_wgmma<DP, NC> (flash_attention_sm90.cu),
+# decode_attention_kernel<T, D> (decode_attention.cu) and
+# rmsnorm_{warp,block}_kernel<T, NV> (rmsnorm.cu); T is f (float32) or
+# 13__nv_bfloat16
 WGMMA_NAME = r"flash_attention_wgmmaILi(\d+)ELi(\d+)E"
+INSTANCE_NAMES = {
+    "flash": (WGMMA_NAME, "DP{} NC{}"),
+    "decode": (r"decode_attention_kernelI(f|13__nv_bfloat16)Li(\d+)EE", "{} D{}"),
+    "rmsnorm": (r"rmsnorm_(warp|block)_kernelI(f|13__nv_bfloat16)Li(\d+)E",
+                "{} {} NV{}"),
+}
 
 
-def flash_sass(build, lib_path: str) -> dict:
-    """For each instance of the bf16 flash-attention kernel (head dim padded
-    to DP, NC consumer warpgroups): ptxas's registers and spills from the
-    build log, and the HGMMA (tensor-core) instructions in its SASS, counted
-    with cuobjdump from the toolkit beside nvcc; and every compiler warning
-    or ptxas performance-loss note."""
+def instance_label(family: str, name: str):
+    pattern, fmt = INSTANCE_NAMES[family]
+    m = re.search(pattern, name)
+    if not m:
+        return None
+    return fmt.format(*("f32" if g == "f" else "bf16" if g == "13__nv_bfloat16"
+                        else g for g in m.groups()))
+
+
+def kernel_build_report(build, lib_path: str) -> dict:
+    """ptxas's registers and spills, from the build log, for each instance
+    of the bf16 flash-attention kernel (head dim padded to DP, NC consumer
+    warpgroups), of decode attention (dtype, head dim D) and of the vector
+    RMSNorm paths (warp or block per row, NV vectors per thread); every compiler warning or ptxas performance-loss
+    note; and the HGMMA (tensor-core) instructions in the flash kernel's
+    SASS, counted with cuobjdump from the toolkit beside nvcc."""
     lib = Path(lib_path)
     log = lib.parent / lib.name.replace("libreprotorch_", "build_").replace(".so", ".log")
-    ptxas, warnings, inst = {}, [], None
+    ptxas = {family: {} for family in INSTANCE_NAMES}
+    warnings, inst = [], None
     for line in log.read_text().splitlines():
-        m = re.search(WGMMA_NAME, line)
         if "warning" in line or "Performance Loss" in line:
             warnings.append(line.strip())
         elif "Compiling entry function" in line:
-            inst = "DP{} NC{}".format(*m.groups()) if m else None
+            inst = next(((f, lab) for f in INSTANCE_NAMES
+                         if (lab := instance_label(f, line))), None)
         elif inst and ("spill" in line or "Used" in line):
-            ptxas[inst] = (ptxas.get(inst, "") + " " + line.split(":")[-1].strip()).strip()
+            fam, lab = inst
+            ptxas[fam][lab] = (ptxas[fam].get(lab, "") + " "
+                               + line.split(":")[-1].strip()).strip()
     cuobjdump = Path(build._find_nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(cuobjdump), "--dump-sass", lib_path], check=True,
                           capture_output=True, text=True).stdout
     hgmma = {}
     for chunk in sass.split("Function : ")[1:]:
-        m = re.search(WGMMA_NAME, chunk.split(None, 1)[0])
-        if m:
-            hgmma["DP{} NC{}".format(*m.groups())] = chunk.count("HGMMA")
-    return {"ptxas": ptxas, "warnings": warnings, "hgmma": hgmma,
-            "hgmma_total": sum(hgmma.values())}
+        lab = instance_label("flash", chunk.split(None, 1)[0])
+        if lab:
+            hgmma[lab] = chunk.count("HGMMA")
+    return {"ptxas": ptxas["flash"], "ptxas_decode": ptxas["decode"],
+            "ptxas_rmsnorm": ptxas["rmsnorm"], "warnings": warnings,
+            "hgmma": hgmma, "hgmma_total": sum(hgmma.values())}
 
 
 def main() -> int:
@@ -516,31 +581,45 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     report.update(card=card, torch=torch.__version__, cuda=torch.version.cuda,
                   build_s=build_s)
-    report["flash_sass"] = sass = flash_sass(_build, _build.last_build["path"])
+    report["kernel_build"] = sass = kernel_build_report(_build, _build.last_build["path"])
     if sass["hgmma_total"] == 0:
         fail(f"no HGMMA instruction in the bf16 flash-attention kernel: {sass}")
+    if not (sass["ptxas_decode"] and sass["ptxas_rmsnorm"]):
+        fail(f"no ptxas report of the decode or RMSNorm instances: {sass}")
     print(f"[1 card] {card} | torch {torch.__version__} cuda {torch.version.cuda}"
           f" | kernels built in {build_s:.1f} s (cached={_build.last_build['cached']})"
           f" | bf16 flash kernel, HGMMA instructions: {sass['hgmma_total']} "
-          f"{sass['hgmma']}; ptxas: {sass['ptxas']}; compiler warnings: "
-          f"{sass['warnings'] or 'none'} {took('1 card')}", flush=True)
+          f"{sass['hgmma']}; ptxas: {sass['ptxas']}; decode attention ptxas: "
+          f"{sass['ptxas_decode']}; RMSNorm ptxas: {sass['ptxas_rmsnorm']}; "
+          f"compiler warnings: {sass['warnings'] or 'none'} {took('1 card')}",
+          flush=True)
 
     # 2. kernels against their plain versions
     rows = phase_kernels(rms, fla, dec, scan)
     report["kernels"] = rows
     for r in rows:
         timing = "" if "ms" not in r else (
-            f" | device ms {r['ms']:.4f} (back-to-back {r['launch_ms']:.4f}) bound "
+            f" | device ms {r['ms']:.4f} over {r['kernels_per_call']:g} kernel(s) "
+            f"a call (back-to-back {r['launch_ms']:.4f}) bound "
             f"{r['bound_ms']:.4f} ({r['bound_by']}; "
             + ", ".join(f"{k} {v:.4f}" for k, v in r["bound_terms"].items())
             + f") plain {r['plain_ms']:.4f} library "
             f"{r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 4)}")
+        if "split_sweep_ms" in r:
+            timing += (f" | splits (n_split, chunk) {tuple(r['split_plan'])}; device ms "
+                       "by n_split " + ", ".join(f"{n}: {ms:.4f}" for n, ms
+                                                 in r["split_sweep_ms"].items()))
         inst = f" ({r['instance']})" if "instance" in r else ""
         print(f"[2 kernel] {r['kernel']}{inst} {r['case']} {r['dtype']}: max_abs_err "
               f"{r['max_abs_err']:.3e} (tol {r['tol']:g}){timing}", flush=True)
     bad = [f"{r['kernel']} {r['case']} {r['dtype']}" for r in rows if not r["ok"]]
     if bad:
         fail(f"kernels disagree with their plain versions: {bad}")
+    many = [f"{r['kernel']} {r['case']} {r['dtype']}: {r['kernels_per_call']}"
+            for r in rows if "ms" in r and r["kernel"] in ("decode_attention", "rmsnorm")
+            and r["kernels_per_call"] != 1]
+    if many:
+        fail(f"a decode-attention or RMSNorm call ran other than one kernel: {many}")
     print(f"[2 kernels] {len(rows)} rows agree {took('2 kernels')}", flush=True)
 
     # 3. smollm-360M: full-width prefill, bf16

@@ -36,9 +36,10 @@ SIGNATURES = {
     # Hq, Hkv, Sq, Skv, D, causal, window, offset, scale, dtype, stream
     "flash_attention_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                             _I, _I, _I, _I, _I, _F, _I, _P],
-    # q, k, v, length, o, B, Hq, Hkv, S, D, window, scale, dtype, stream
-    "decode_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
-                             _I, _P],
+    # q, k, v, length, o, B, Hq, Hkv, S, D, n_split, chunk, window, scale,
+    # dtype, stream
+    "decode_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                             _I, _F, _I, _P],
     # u, dt, A, B, C, D, h0, y, hT, Bt, T, d_in, n, B batch/time strides,
     # C batch/time strides, u dtype, stream
     "mamba_scan_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,

@@ -6,10 +6,13 @@ Counterpart of :mod:`repro.kernels.decode_attention`
 cache, masked to ``kpos < length[b]``. ``window`` is applied as
 ``decode_attention_ref`` applies it (the Pallas kernel ignores it). A CUDA
 tensor goes to the kernel, a CPU tensor to :func:`decode_attention_plain`.
+The kernel splits the cache over several blocks (:func:`split_plan`) and
+combines their partial results in the same launch.
 """
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import Optional, Tuple
 
 import torch
 
@@ -17,14 +20,45 @@ from . import _build
 from ._checks import DTYPE_CODES, require_cuda, require_head_dim
 from .ref import decode_attention_ref as decode_attention_plain
 
+# The splits of one (batch, kv head, tile of q heads) form a thread-block
+# cluster; 8 blocks is the portable cluster size.
+MAX_SPLITS = 8
+# no split shorter than this many keys (a block walks 16-64 keys per step)
+MIN_CHUNK = 32
+# a longer cache takes more splits up to the cap, at most this many keys each
+LONG_CHUNK = 512
+# query rows of one kv head that a block serves (the kernel's kRows)
+ROWS_PER_BLOCK = 4
+
+
+def split_plan(b: int, hkv: int, g: int, s: int, n_sm: int) -> Tuple[int, int]:
+    """(n_split, chunk): the cache of S keys cut into ``n_split`` chunks of
+    ``chunk`` keys, the last one shorter, none empty. Enough splits that
+    the grid (b * hkv * ceil(g / ROWS_PER_BLOCK) * n_split blocks) covers
+    ``n_sm`` SMs, or that no chunk is longer than LONG_CHUNK keys; at most
+    MAX_SPLITS, and no chunk shorter than MIN_CHUNK keys unless S is. Pure:
+    S and the SM count only, never the device-side ``length``."""
+    if min(b, hkv, g, s, n_sm) < 1:
+        raise ValueError(f"split_plan: b={b} hkv={hkv} g={g} s={s} n_sm={n_sm}")
+    pairs = b * hkv * -(-g // ROWS_PER_BLOCK)
+    want = max(-(-n_sm // pairs), -(-s // LONG_CHUNK))
+    n = max(1, min(MAX_SPLITS, want, -(-s // MIN_CHUNK)))
+    chunk = -(-s // n)
+    return -(-s // chunk), chunk
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
 
 def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           length: Optional[torch.Tensor] = None,
                           window: Optional[int] = None,
                           scale: Optional[float] = None) -> torch.Tensor:
-    """Launch the kernel. q: (B, Hq, D); k/v: (B, Hkv, S, D), contiguous,
-    bf16 or f32; length: (B,) int32 on the same device (None: all S valid)
-    -> (B, Hq, D) in q's dtype."""
+    """Launch the kernel. q: (B, Hq, D); k/v: (B, Hkv, S, D), contiguous
+    and 16-byte aligned, bf16 or f32; length: (B,) int32 on the same device
+    (None: all S valid) -> (B, Hq, D) in q's dtype."""
     if q.dim() != 3 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"decode_attention: want q (B,Hq,D), k = v "
                          f"(B,Hkv,S,D); got {tuple(q.shape)}, {tuple(k.shape)},"
@@ -49,15 +83,20 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not all(t.is_contiguous() for t in (q, k, v, length)):
         raise ValueError("decode_attention: q, k, v and length must be "
                          "contiguous")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("decode_attention: q, k and v must be 16-byte "
+                         "aligned (the kernel reads rows in 16-byte vectors)")
     scale = scale if scale is not None else d ** -0.5
     o = torch.empty_like(q)
     if b == 0:
         return o
+    n_split, chunk = split_plan(b, hkv, hq // hkv, s, _sm_count(q.device.index))
     lib = _build.load()
     _build.check(lib.decode_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), length.data_ptr(),
-        o.data_ptr(), b, hq, hkv, s, d, -1 if window is None else int(window),
-        float(scale), DTYPE_CODES[q.dtype], _build.stream_handle(q)),
+        o.data_ptr(), b, hq, hkv, s, d, n_split, chunk,
+        -1 if window is None else int(window), float(scale),
+        DTYPE_CODES[q.dtype], _build.stream_handle(q)),
         "decode_attention_fwd")
     decode_attention_cuda.launches += 1
     return o

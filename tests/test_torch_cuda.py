@@ -8,7 +8,8 @@ import pytest
 import torch
 
 from repro_torch.kernels.decode_attention import (decode_attention_cuda,
-                                                  decode_attention_plain)
+                                                  decode_attention_plain,
+                                                  split_plan)
 from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                  flash_attention_plain)
 from repro_torch.kernels.mamba_scan import mamba_scan_cuda, mamba_scan_plain
@@ -39,11 +40,28 @@ def _close(got, want, dtype):
                                rtol=TOL[dtype])
 
 
+# and row counts that are no multiple of the rows a block or a persistent
+# grid takes, at widths of every path: warp per row (768, 960, 1536 in
+# bf16), block per row (8192; 1536 in float32), scalar (20 and 1001 are no
+# multiple of the vector width)
 @pytest.mark.parametrize("rows,d", [(4096, 960), (8, 960), (3, 1001),
-                                    (5, 8192), (7, 20)])
+                                    (5, 8192), (7, 20)] + [
+    (rows, d) for rows in (1, 3, 4097)
+    for d in (20, 768, 960, 1001, 1536, 8192)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_rmsnorm(gen, rows, d, dtype):
     x = _randn(gen, (rows, d), dtype)
+    s = _randn(gen, (d,), torch.float32)
+    _close(rmsnorm_cuda(x, s, 1e-5), rmsnorm_plain(x, s, 1e-5), dtype)
+
+
+@pytest.mark.parametrize("d", [960, 8192])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_unaligned_view_takes_the_scalar_path(gen, d, dtype):
+    rows = 5
+    buf = _randn(gen, (rows * d + 1,), dtype)
+    x = buf[1:].view(rows, d)
+    assert x.is_contiguous() and x.data_ptr() % 16
     s = _randn(gen, (d,), torch.float32)
     _close(rmsnorm_cuda(x, s, 1e-5), rmsnorm_plain(x, s, 1e-5), dtype)
 
@@ -101,7 +119,11 @@ def test_flash_attention_fully_masked_rows_are_zero(gen, dtype):
 
 @pytest.mark.parametrize("b,hq,hkv,s,d,window", [
     (8, 15, 5, 129, 64, None), (3, 16, 2, 700, 128, None),
-    (4, 32, 8, 50, 80, 16), (2, 4, 4, 64, 32, 1)])
+    (4, 32, 8, 50, 80, 16), (2, 4, 4, 64, 32, 1),
+    (8, 64, 8, 129, 128, None),    # Jamba's G 8, D 128: two tiles of 4 rows
+    (3, 16, 2, 300, 80, None),     # D 80: masked lanes in each row's group
+    (2, 32, 2, 200, 128, None),    # G 16: four tiles
+    (2, 10, 2, 90, 32, None)])     # G 5: tiles of 4 and 1 rows
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_decode_attention(gen, b, hq, hkv, s, d, window, dtype):
     q = _randn(gen, (b, hq, d), dtype)
@@ -111,6 +133,65 @@ def test_decode_attention(gen, b, hq, hkv, s, d, window, dtype):
                            dtype=torch.int32)
     _close(decode_attention_cuda(q, k, v, length, window),
            decode_attention_plain(q, k, v, length, window), dtype)
+
+
+def _decode_inputs(gen, b, hq, hkv, s, d, dtype):
+    q = _randn(gen, (b, hq, d), dtype)
+    k = _randn(gen, (b, hkv, s, d), dtype)
+    v = _randn(gen, (b, hkv, s, d), dtype)
+    return q, k, v
+
+
+def _lengths(*values):
+    return torch.tensor(values, dtype=torch.int32, device="cuda")
+
+
+@pytest.mark.parametrize("s", [700, 4096])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_long_cache(gen, s, dtype):
+    """Caches cut into several splits: lengths of 1, S, inside the last
+    split only, and ragged ones in between."""
+    q, k, v = _decode_inputs(gen, 6, 15, 5, s, 64, dtype)
+    n_split, chunk = split_plan(6, 5, 3, s, 132)
+    assert n_split > 1
+    length = _lengths(1, s, (n_split - 1) * chunk + 1, s - 1, s // 2, 37)
+    _close(decode_attention_cuda(q, k, v, length),
+           decode_attention_plain(q, k, v, length), dtype)
+
+
+@pytest.mark.parametrize("window", [1, 40, 300])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_window_crosses_splits(gen, window, dtype):
+    s = 700
+    q, k, v = _decode_inputs(gen, 4, 8, 2, s, 64, dtype)
+    _, chunk = split_plan(4, 2, 4, s, 132)
+    length = _lengths(chunk + window // 2, s, 2 * chunk + 3, window)
+    _close(decode_attention_cuda(q, k, v, length, window),
+           decode_attention_plain(q, k, v, length, window), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_zero_length_row_is_zero(gen, dtype):
+    """A sequence with no valid key returns 0 (the plain version would give
+    the mean of V); the other rows of the batch match the plain version."""
+    q, k, v = _decode_inputs(gen, 3, 15, 5, 700, 64, dtype)
+    length = _lengths(300, 0, 700)
+    want = decode_attention_plain(q, k, v, length)
+    want[1] = 0
+    _close(decode_attention_cuda(q, k, v, length), want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_back_to_back_calls(gen, dtype):
+    """Two calls in a row on one stream, with other lengths: the second
+    sees nothing of the first (each cluster combines its own splits)."""
+    q, k, v = _decode_inputs(gen, 8, 15, 5, 700, 64, dtype)
+    first, second = _lengths(700, 1, 350, 5, 699, 64, 128, 600), \
+        _lengths(3, 700, 1, 400, 2, 650, 700, 90)
+    got1 = decode_attention_cuda(q, k, v, first)
+    got2 = decode_attention_cuda(q, k, v, second)
+    _close(got1, decode_attention_plain(q, k, v, first), dtype)
+    _close(got2, decode_attention_plain(q, k, v, second), dtype)
 
 
 def _scan_inputs(gen, bt, t, d_in, n, u_dtype, with_h0):
@@ -171,6 +252,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
     with pytest.raises(ValueError, match="length"):
         decode_attention_cuda(q[:, :, 0], q, q,
                               torch.ones(1, dtype=torch.int64, device="cuda"))
+    buf = _randn(gen, (1 * 2 * 64 + 1,), torch.float32)  # rows of 16-byte loads
+    with pytest.raises(ValueError, match="aligned"):
+        decode_attention_cuda(buf[1:].view(1, 2, 64), q, q)
     u, dt, A, B, C, D, _ = _scan_inputs(gen, 1, 4, 32, 17, torch.float32,
                                         False)
     with pytest.raises(NotImplementedError, match="state width"):

@@ -9,9 +9,11 @@ Run from the root of a checkout: it builds the CUDA kernels from
 time,
   1. prints the card's name and power limit (nvidia-smi), the build time,
      ptxas's registers and spills for the instances of the bf16
-     flash-attention, decode-attention and RMSNorm kernels, and the HGMMA
+     flash-attention, decode-attention, RMSNorm and scan kernels, the HGMMA
      (tensor-core) instructions in the flash kernel's SASS (cuobjdump),
-     failing if there are none;
+     failing if there are none, and for each scan instance its SASS
+     instructions, MUFU.EX2 and LDL/STL counts and resident blocks per SM,
+     failing if one spills or holds fewer blocks than its launch plan;
   2. holds each kernel against its plain PyTorch version on the card, at the
      main paths' shapes (smollm and Jamba; xLSTM's RMSNorm widths), in bf16
      and float32, with its device time, the kernels one call runs (from
@@ -19,7 +21,9 @@ time,
      back-to-back time, bound, the plain version's time and a library
      call's time as a yardstick where one PyTorch call computes the same
      function (flash rows also name the instance that ran: wgmma for bf16,
-     simt for float32; bf16 decode rows add a sweep of the split count);
+     simt for float32; bf16 decode rows add a sweep of the split count;
+     the scan runs with Mamba's initial A and with a random A, and its
+     timed rows add the SM clock while it runs back to back);
   3. runs full-width smollm-360M prefill (bf16, 8 x 512 tokens) through
      ``make_prefill_step`` and checks the kernels' launch counts;
   4. serves 8 requests (64-token prompts, 64 new tokens) through
@@ -38,7 +42,8 @@ after. Then it prints the kernel table as one JSON line and, last,
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
 with no CUDA device, or outside a checkout, it exits non-zero at once. The
 full report goes to ``build/chip_smoke.json``, the compiler's output (ptxas
-registers and spills) to ``build/kernels/build_<hash>.log``.
+registers and spills) to ``build/kernels/build_<hash>.log``, the scan
+instances' SASS to ``build/scan_sass.txt``.
 """
 from __future__ import annotations
 
@@ -91,7 +96,7 @@ KERNELS = {  # name: (source, TPU kernel it replaces, main-path case)
                          "8x15/5x129x64 ragged length"),
     "mamba_scan": ("src/repro_torch/csrc/mamba_scan.cu",
                    "src/repro/kernels/mamba_scan.py:46",
-                   "8x512x16384 N16 dt f32"),
+                   "8x512x16384 N16 dt f32 random A"),
 }
 
 # Jamba at its published widths, cut to what the port runs: one period of 8
@@ -172,6 +177,28 @@ def launch_ms(fn, reps: int = 7) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / iters)
     return statistics.median(times)
+
+
+def sm_clock_mhz(fn, seconds: float = 0.5):
+    """The SM clock (MHz, median of nvidia-smi's samples every 20 ms) while
+    ``fn`` runs back to back for about ``seconds``."""
+    fn()
+    torch.cuda.synchronize()
+    smi = subprocess.Popen(
+        ["nvidia-smi", "-i", str(torch.cuda.current_device()),
+         "--query-gpu=clocks.sm", "--format=csv,noheader,nounits", "-lms", "20"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        t_end = time.perf_counter() + seconds
+        while time.perf_counter() < t_end:
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+    finally:
+        smi.terminate()
+        out, _ = smi.communicate()
+    mhz = [float(v) for v in out.split() if v.replace(".", "").isdigit()]
+    return statistics.median(mhz) if mhz else None
 
 
 def bound(nbytes: float, ops: float, dtype: str, exps: float = 0.0):
@@ -299,28 +326,34 @@ def phase_kernels(rms, fla, dec, scan):
             if dtype == torch.bfloat16:
                 rows[-1].update(split_sweep(dec, q, k, v, length))
         # the selective scan at Jamba's prefill shape: u, B, C in the model
-        # dtype, dt float32 (softplus promotes), A and D float32
+        # dtype, dt float32 (softplus promotes), A and D float32; A both as
+        # Mamba initialises it, -(1..N) on every channel, and drawn per (d, n)
+        # so that the time is that of the general kernel
         bt, t, d_in, n = 8, 512, 16384, 16
         u = randn((bt, t, d_in), dtype)
         dt = F.softplus(randn((bt, t, d_in), torch.float32))
-        A = -torch.arange(1, n + 1, device="cuda",       # Mamba's init
-                          dtype=torch.float32).repeat(d_in, 1)
         Bm, Cm = randn((bt, t, n), dtype), randn((bt, t, n), dtype)
         D = randn((d_in,), torch.float32)
-        args = (u, dt, A, Bm, Cm, D)
         elems = u.numel()
         y_bytes = nbytes(u) + 4 * bt * d_in * n       # y and h_T
-        rows.append(compare(
-            "mamba_scan", f"{bt}x{t}x{d_in} N{n} dt f32", dn,
-            scan.mamba_scan_cuda(*args), scan.mamba_scan_plain(*args), "scan",
-            run=lambda: scan.mamba_scan_cuda(*args),
-            plain=lambda: scan.mamba_scan_plain(*args), library=None,
-            n_bytes=nbytes(*args) + y_bytes, ops=6 * elems * n + 3 * elems,
-            exps=elems * n, ops_dtype="float32", plain_iters=3))
-        # with an initial state, checked for agreement only
+        for a_case, A in (
+                ("", -torch.arange(1, n + 1, device="cuda",
+                                   dtype=torch.float32).repeat(d_in, 1)),
+                (" random A", -torch.exp(randn((d_in, n), torch.float32)))):
+            args = (u, dt, A, Bm, Cm, D)
+            rows.append(compare(
+                "mamba_scan", f"{bt}x{t}x{d_in} N{n} dt f32{a_case}", dn,
+                scan.mamba_scan_cuda(*args), scan.mamba_scan_plain(*args), "scan",
+                run=lambda args=args: scan.mamba_scan_cuda(*args),
+                plain=lambda args=args: scan.mamba_scan_plain(*args), library=None,
+                n_bytes=nbytes(*args) + y_bytes, ops=6 * elems * n + 3 * elems,
+                exps=elems * n, ops_dtype="float32", plain_iters=3))
+            rows[-1]["sm_clock_mhz"] = sm_clock_mhz(
+                lambda args=args: scan.mamba_scan_cuda(*args))
+        # with an initial state (and the random A), checked for agreement only
         h0 = randn((bt, d_in, n), torch.float32)
         rows.append(compare(
-            "mamba_scan", f"h0 {bt}x{t}x{d_in} N{n} dt f32 check", dn,
+            "mamba_scan", f"h0 {bt}x{t}x{d_in} N{n} dt f32 random A check", dn,
             scan.mamba_scan_cuda(*args, h0), scan.mamba_scan_plain(*args, h0),
             "scan"))
     # decode with a sliding window that crosses the splits (of 33 keys at
@@ -432,16 +465,19 @@ def print_profile(tag, prof):
 
 # mangled names of the kernel instances whose registers and spills phase 1
 # prints: flash_attention_wgmma<DP, NC> (flash_attention_sm90.cu),
-# decode_attention_kernel<T, D> (decode_attention.cu) and
-# rmsnorm_{warp,block}_kernel<T, NV> (rmsnorm.cu); T is f (float32) or
-# 13__nv_bfloat16
+# decode_attention_kernel<T, D> (decode_attention.cu),
+# rmsnorm_{warp,block}_kernel<T, NV> (rmsnorm.cu) and mamba_scan_kernel<T,
+# NM> (mamba_scan.cu); T is f (float32) or 13__nv_bfloat16
 WGMMA_NAME = r"flash_attention_wgmmaILi(\d+)ELi(\d+)E"
 INSTANCE_NAMES = {
     "flash": (WGMMA_NAME, "DP{} NC{}"),
     "decode": (r"decode_attention_kernelI(f|13__nv_bfloat16)Li(\d+)EE", "{} D{}"),
     "rmsnorm": (r"rmsnorm_(warp|block)_kernelI(f|13__nv_bfloat16)Li(\d+)E",
                 "{} {} NV{}"),
+    "scan": (r"mamba_scan_kernelI(f|13__nv_bfloat16)Li(\d+)EE", "{} N{}"),
 }
+# the scan instance of the main path (Jamba: bf16 u, N 16)
+SCAN_MAIN = "bf16 N16"
 
 
 def instance_label(family: str, name: str):
@@ -456,13 +492,18 @@ def instance_label(family: str, name: str):
 def kernel_build_report(build, lib_path: str) -> dict:
     """ptxas's registers and spills, from the build log, for each instance
     of the bf16 flash-attention kernel (head dim padded to DP, NC consumer
-    warpgroups), of decode attention (dtype, head dim D) and of the vector
-    RMSNorm paths (warp or block per row, NV vectors per thread); every compiler warning or ptxas performance-loss
-    note; and the HGMMA (tensor-core) instructions in the flash kernel's
-    SASS, counted with cuobjdump from the toolkit beside nvcc."""
+    warpgroups), of decode attention (dtype, head dim D), of the vector
+    RMSNorm paths (warp or block per row, NV vectors per thread) and of the
+    scan (dtype of u, state width rounded up to NM); every compiler warning
+    or ptxas performance-loss note; from the SASS (cuobjdump, beside nvcc),
+    the HGMMA (tensor-core) instructions of the flash kernel and, for each
+    scan instance, its instructions, MUFU.EX2 and local-memory loads and
+    stores (LDL/STL: spills). The scan instances' SASS goes to
+    ``build/scan_sass.txt``."""
     lib = Path(lib_path)
     log = lib.parent / lib.name.replace("libreprotorch_", "build_").replace(".so", ".log")
     ptxas = {family: {} for family in INSTANCE_NAMES}
+    spills = {}
     warnings, inst = [], None
     for line in log.read_text().splitlines():
         if "warning" in line or "Performance Loss" in line:
@@ -474,16 +515,32 @@ def kernel_build_report(build, lib_path: str) -> dict:
             fam, lab = inst
             ptxas[fam][lab] = (ptxas[fam].get(lab, "") + " "
                                + line.split(":")[-1].strip()).strip()
+            if fam == "scan" and "spill" in line:
+                spills[lab] = sum(int(b) for b in re.findall(
+                    r"(\d+) bytes spill (?:stores|loads)", line))
     cuobjdump = Path(build._find_nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(cuobjdump), "--dump-sass", lib_path], check=True,
                           capture_output=True, text=True).stdout
-    hgmma = {}
+    hgmma, scan_sass, scan_text = {}, {}, []
     for chunk in sass.split("Function : ")[1:]:
-        lab = instance_label("flash", chunk.split(None, 1)[0])
+        name = chunk.split(None, 1)[0]
+        lab = instance_label("flash", name)
         if lab:
             hgmma[lab] = chunk.count("HGMMA")
+        lab = instance_label("scan", name)
+        if lab:
+            ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)",
+                             chunk)
+            scan_sass[lab] = {
+                "instructions": len(ops),
+                "mufu_ex2": sum(op.startswith("MUFU.EX2") for op in ops),
+                "ldl_stl": sum(op.split(".")[0] in ("LDL", "STL") for op in ops),
+                "spill_bytes": spills.get(lab)}
+            scan_text.append(f"Function : {chunk}")
+    (ROOT / "build" / "scan_sass.txt").write_text("".join(scan_text))
     return {"ptxas": ptxas["flash"], "ptxas_decode": ptxas["decode"],
-            "ptxas_rmsnorm": ptxas["rmsnorm"], "warnings": warnings,
+            "ptxas_rmsnorm": ptxas["rmsnorm"], "ptxas_scan": ptxas["scan"],
+            "scan_sass": scan_sass, "warnings": warnings,
             "hgmma": hgmma, "hgmma_total": sum(hgmma.values())}
 
 
@@ -584,15 +641,38 @@ def main() -> int:
     report["kernel_build"] = sass = kernel_build_report(_build, _build.last_build["path"])
     if sass["hgmma_total"] == 0:
         fail(f"no HGMMA instruction in the bf16 flash-attention kernel: {sass}")
-    if not (sass["ptxas_decode"] and sass["ptxas_rmsnorm"]):
-        fail(f"no ptxas report of the decode or RMSNorm instances: {sass}")
+    if not (sass["ptxas_decode"] and sass["ptxas_rmsnorm"] and sass["ptxas_scan"]):
+        fail(f"no ptxas report of the decode, RMSNorm or scan instances: {sass}")
+    scan_sass = sass["scan_sass"]
+    if SCAN_MAIN not in scan_sass or any(
+            v["spill_bytes"] is None for v in scan_sass.values()):
+        fail(f"no SASS or spill report of the scan instances: {scan_sass}")
+    spilled = {k: v for k, v in scan_sass.items()
+               if v["spill_bytes"] or v["ldl_stl"]}
+    # the scan's launch plan on this card: resident blocks per SM of each
+    # instance, and the waves of Jamba's prefill (8 x 16384 channels)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    sass["scan_blocks_per_sm"] = occ = {
+        f"{'bf16' if dt == torch.bfloat16 else 'f32'} N{n}": scan.blocks_per_sm(n, dt)
+        for dt in (torch.bfloat16, torch.float32) for n in (4, 8, 16)}
+    sass["scan_waves"] = waves = (8 * 16384 / scan.CHANNELS_PER_BLOCK
+                                  / (n_sm * occ[SCAN_MAIN]))
     print(f"[1 card] {card} | torch {torch.__version__} cuda {torch.version.cuda}"
           f" | kernels built in {build_s:.1f} s (cached={_build.last_build['cached']})"
           f" | bf16 flash kernel, HGMMA instructions: {sass['hgmma_total']} "
           f"{sass['hgmma']}; ptxas: {sass['ptxas']}; decode attention ptxas: "
           f"{sass['ptxas_decode']}; RMSNorm ptxas: {sass['ptxas_rmsnorm']}; "
-          f"compiler warnings: {sass['warnings'] or 'none'} {took('1 card')}",
+          f"scan ptxas: {sass['ptxas_scan']}; scan SASS (instructions, "
+          f"MUFU.EX2, LDL/STL): " + ", ".join(
+              f"{k} {v['instructions']}/{v['mufu_ex2']}/{v['ldl_stl']}"
+              for k, v in sorted(scan_sass.items()))
+          + f"; scan blocks per SM {occ}, Jamba prefill {waves:.2f} waves on "
+          f"{n_sm} SMs; compiler warnings: {sass['warnings'] or 'none'} {took('1 card')}",
           flush=True)
+    if spilled:
+        fail(f"scan instances spill (the main path's is {SCAN_MAIN}): {spilled}")
+    if min(occ.values()) < scan.BLOCKS_PER_SM:
+        fail(f"scan instances hold fewer than {scan.BLOCKS_PER_SM} blocks per SM: {occ}")
 
     # 2. kernels against their plain versions
     rows = phase_kernels(rms, fla, dec, scan)
@@ -609,6 +689,8 @@ def main() -> int:
             timing += (f" | splits (n_split, chunk) {tuple(r['split_plan'])}; device ms "
                        "by n_split " + ", ".join(f"{n}: {ms:.4f}" for n, ms
                                                  in r["split_sweep_ms"].items()))
+        if r.get("sm_clock_mhz"):
+            timing += f" | SM clock {r['sm_clock_mhz']:.0f} MHz back to back"
         inst = f" ({r['instance']})" if "instance" in r else ""
         print(f"[2 kernel] {r['kernel']}{inst} {r['case']} {r['dtype']}: max_abs_err "
               f"{r['max_abs_err']:.3e} (tol {r['tol']:g}){timing}", flush=True)

@@ -44,6 +44,8 @@ SIGNATURES = {
     # C batch/time strides, u dtype, stream
     "mamba_scan_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                        _L, _L, _L, _L, _I, _P],
+    # n, u dtype -> resident blocks per SM of that scan instance
+    "mamba_scan_blocks_per_sm": [_I, _I],
 }
 
 _lock = threading.Lock()

@@ -17,6 +17,22 @@ from ._checks import DTYPE_CODES, require_cuda
 from .ref import mamba_scan_ref as mamba_scan_plain
 
 MAX_N = 16
+# The kernel's launch plan (csrc/mamba_scan.cu): blocks of this many
+# channels of one batch row, sized for this many resident blocks per SM.
+CHANNELS_PER_BLOCK = 128
+BLOCKS_PER_SM = 4
+
+
+def blocks_per_sm(n: int, dtype: torch.dtype) -> int:
+    """Blocks of the scan instance for state width ``n`` and u's ``dtype``
+    that one SM of the current card holds at once (CUDA's occupancy
+    calculator); the plan is sized for at least BLOCKS_PER_SM."""
+    if dtype not in DTYPE_CODES or not 1 <= n <= MAX_N:
+        raise ValueError(f"mamba_scan: no instance for n={n}, {dtype}")
+    blocks = _build.load().mamba_scan_blocks_per_sm(n, DTYPE_CODES[dtype])
+    if blocks < 0:
+        raise RuntimeError("mamba_scan: the occupancy query failed")
+    return blocks
 
 
 def mamba_scan_cuda(u: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,

@@ -12,7 +12,9 @@ from repro_torch.kernels.decode_attention import (decode_attention_cuda,
                                                   split_plan)
 from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                  flash_attention_plain)
-from repro_torch.kernels.mamba_scan import mamba_scan_cuda, mamba_scan_plain
+from repro_torch.kernels.mamba_scan import (BLOCKS_PER_SM, CHANNELS_PER_BLOCK,
+                                            blocks_per_sm, mamba_scan_cuda,
+                                            mamba_scan_plain)
 from repro_torch.kernels.rmsnorm import rmsnorm_cuda, rmsnorm_plain
 
 pytestmark = pytest.mark.cuda
@@ -236,6 +238,63 @@ def test_mamba_scan_takes_column_slices(gen):
     assert not B.is_contiguous()
     _close_scan(mamba_scan_cuda(u, dt, A, B, C, D, h0),
                 mamba_scan_plain(u, dt, A, B, C, D, h0), torch.bfloat16)
+
+
+# edges of the kernel's pipeline (stages of 16 time steps, blocks of 128
+# channels; u and dt rows by bulk copy when d_in is a multiple of 8 for bf16
+# or 4 for float32, else by the producer's element loads)
+@pytest.mark.parametrize("bt,t,d_in,n,with_h0", [
+    (1, 7, 256, 16, False),     # T shorter than one stage
+    (1, 16, 128, 1, True),      # exactly one stage, N 1
+    (2, 37, 200, 5, True),      # T past whole stages; last block of 72 channels
+    (2, 49, 100, 16, True),     # d_in 100: bulk rows in float32, not in bf16
+    (1, 33, 130, 1, False),     # d_in 130: element loads in both dtypes
+    (3, 100, 384, 5, False),    # the ring wraps; N 5 in the 8-wide instance
+])
+@pytest.mark.parametrize("u_dtype", [torch.float32, torch.bfloat16])
+def test_mamba_scan_pipeline_edges(gen, bt, t, d_in, n, with_h0, u_dtype):
+    args = _scan_inputs(gen, bt, t, d_in, n, u_dtype, with_h0)
+    _close_scan(mamba_scan_cuda(*args), mamba_scan_plain(*args), u_dtype)
+
+
+@pytest.mark.parametrize("n", [1, 5, 16])
+@pytest.mark.parametrize("u_dtype", [torch.float32, torch.bfloat16])
+def test_mamba_scan_takes_unaligned_column_slices(gen, n, u_dtype):
+    """B and C at an offset of 3 elements in rows of an odd width: neither
+    their start nor their time stride is 16-byte aligned."""
+    u, dt, A, _, _, D, h0 = _scan_inputs(gen, 2, 40, 256, n, u_dtype, True)
+    proj = _randn(gen, (2, 40, 2 * n + 5), u_dtype)   # an odd width
+    B, C = proj[..., 3:3 + n], proj[..., 3 + n:3 + 2 * n]
+    assert B.data_ptr() % 16 and (B.stride(1) * B.element_size()) % 16
+    _close_scan(mamba_scan_cuda(u, dt, A, B, C, D, h0),
+                mamba_scan_plain(u, dt, A, B, C, D, h0), u_dtype)
+
+
+@pytest.mark.parametrize("u_dtype", [torch.float32, torch.bfloat16])
+def test_mamba_scan_unaligned_u_takes_element_loads(gen, u_dtype):
+    """u and dt contiguous but one element past a 16-byte boundary."""
+    bt, t, d_in, n = 2, 30, 256, 16
+    _, _, A, B, C, D, h0 = _scan_inputs(gen, bt, t, d_in, n, u_dtype, True)
+    u = _randn(gen, (bt * t * d_in + 1,), u_dtype)[1:].view(bt, t, d_in)
+    dt = torch.nn.functional.softplus(_randn(gen, (bt * t * d_in + 1,),
+                                             torch.float32))[1:].view(bt, t, d_in)
+    assert u.data_ptr() % 16 and dt.data_ptr() % 16
+    _close_scan(mamba_scan_cuda(u, dt, A, B, C, D, h0),
+                mamba_scan_plain(u, dt, A, B, C, D, h0), u_dtype)
+
+
+@pytest.mark.parametrize("n", [4, 8, 16])
+@pytest.mark.parametrize("u_dtype", [torch.float32, torch.bfloat16])
+def test_mamba_scan_plan_fits_the_card(gen, n, u_dtype):
+    """Every instance holds at least the plan's blocks per SM; at N 16,
+    Jamba's prefill (8 x 16384 channels) fills a whole number of waves to
+    within 10%."""
+    blocks = blocks_per_sm(n, u_dtype)
+    assert blocks >= BLOCKS_PER_SM
+    if n == 16:
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        waves = 8 * 16384 / CHANNELS_PER_BLOCK / (sms * blocks)
+        assert waves - int(waves) >= 0.9 or waves == int(waves), waves
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(gen):

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving paths on one CUDA card: smollm-360M
-(dense), Jamba (hybrid Mamba + attention) and xlstm-125m.
+"""Drive the PyTorch port's paths on one CUDA card: serving smollm-360M
+(dense), Jamba (hybrid Mamba + attention) and xlstm-125m, the SMOKE configs
+the server and trainer default to, and training smollm-360M.
 
   python3 chip_smoke.py
 
@@ -23,7 +24,13 @@ time,
      function (flash rows also name the instance that ran: wgmma for bf16,
      simt for float32; bf16 decode rows add a sweep of the split count;
      the scan runs with Mamba's initial A and with a random A, and its
-     timed rows add the SM clock while it runs back to back);
+     timed rows add the SM clock while it runs back to back); the SMOKE
+     configs' head dims (16, 20) in the attention kernels; and the two
+     backward kernels (flash attention at smollm's training shape and at
+     SMOKE shapes with a window, an offset and ragged lengths; RMSNorm at
+     d 960, 768, 1536), whose library yardstick is the backward of
+     ``scaled_dot_product_attention`` (``enable_gqa``) or ``F.rms_norm``:
+     autograd forward + backward less the forward;
   3. runs full-width smollm-360M prefill (bf16, 8 x 512 tokens) through
      ``make_prefill_step`` and checks the kernels' launch counts;
   4. serves 8 requests (64-token prompts, 64 new tokens) through
@@ -36,7 +43,21 @@ time,
      layers (attention + 7 Mamba) with a dense SwiGLU of Jamba's d_ff in
      every FFN (MoE is not ported): prefill, serving, a profile, and float32
      parity on a 2-layer cut (attention + Mamba);
-  11. xlstm-125m at full width and depth: prefill and serving.
+  11. xlstm-125m at full width and depth: prefill and serving;
+  12. the SMOKE configs (head dims 16 and 20): ``serve.main([])`` with its
+     defaults, and the float32 logits of smollm, h2o-danube and Jamba (dense
+     FFN) SMOKE, card against CPU, as phase 5;
+  13. trains full-width smollm-360M (bf16, 8 x 512 tokens a step) through
+     ``launch.train.train``: step time, tokens/s, the loss at the first and
+     last step (finite, falling), grad norms, peak device memory, the
+     launches per step of every forward and backward kernel against the
+     counts worked out from the config (remat runs each period's forward
+     twice), and a profile of one step;
+  14. float32 train-step parity, card against CPU, at full width cut to 2
+     layers (batch 2 x 128): the loss, the grad norm and every gradient
+     leaf, then the params after one ``make_train_step``; and decode
+     attention and the scan, which have no backward kernel, raise when asked
+     for a gradient.
 Every path runs with the launch counts set to 0 just before it and read just
 after. Then it prints the kernel table as one JSON line and, last,
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -79,7 +100,21 @@ TOL = {("rmsnorm", "float32"): 1e-5, ("rmsnorm", "bfloat16"): 2e-2,
        ("attn", "float32"): 2e-5, ("attn", "bfloat16"): 3e-2,
        # the scan: exp2f vs expf and FMA vs two roundings, over 512 steps
        # of a decaying state (the tolerance of the JAX package's own test)
-       ("scan", "float32"): 1e-4, ("scan", "bfloat16"): 3e-2}
+       ("scan", "float32"): 1e-4, ("scan", "bfloat16"): 3e-2,
+       # backward kernels: dq/dk/dv and dx sum over more terms than the
+       # forward's outputs (dk/dv over every q row of G heads) in another
+       # order; bf16 adds one rounding of each output
+       ("attn_bwd", "float32"): 1e-4, ("attn_bwd", "bfloat16"): 5e-2,
+       ("rmsnorm_bwd", "float32"): 1e-4, ("rmsnorm_bwd", "bfloat16"): 2e-2}
+# RMSNorm's dscale sums dy * x * r over every row, float32 on both sides:
+# the norm of the difference over the norm of the plain version's
+DSCALE_TOL = 1e-4
+# training, float32, card vs CPU after one backward at full width (2 layers):
+# each gradient leaf to GRAD_TOL * max|g| + 1e-6 (summation order), the
+# loss to LOSS_TOL; the params after one AdamW step to 2 lr + 1e-6 (its first
+# update is about lr * sign(g), and a near-zero gradient's sign may differ)
+GRAD_TOL = 1e-4
+LOSS_TOL = 1e-4
 # float32 logits, card vs CPU, after 32 layers: the same arithmetic in a
 # different accumulation order (cuBLAS vs CPU GEMMs, kernels vs einsum)
 # drifts by ~1e-5; a wrong mask, scale or cache slot moves logits by >1e-1.
@@ -97,7 +132,14 @@ KERNELS = {  # name: (source, TPU kernel it replaces, main-path case)
     "mamba_scan": ("src/repro_torch/csrc/mamba_scan.cu",
                    "src/repro/kernels/mamba_scan.py:46",
                    "8x512x16384 N16 dt f32 random A"),
+    "rmsnorm_bwd": ("src/repro_torch/csrc/rmsnorm_bwd.cu",
+                    "src/repro/kernels/rmsnorm.py:23", "4096x960"),
+    "flash_attention_bwd": ("src/repro_torch/csrc/flash_attention_bwd.cu",
+                            "src/repro/kernels/flash_attention.py:84",
+                            "causal 8x15/5x512x512x64"),
 }
+# smollm-360M training in phase 13: steps of 8 x 512 tokens
+TRAIN_STEPS = 16
 
 # Jamba at its published widths, cut to what the port runs: one period of 8
 # layers (attention at 0, Mamba at 1-7) with a dense SwiGLU of Jamba's own
@@ -131,25 +173,24 @@ def profiled(fn, iters: int = 1, attempts: int = 3):
 
 def device_profile(fn, iters: int = 21):
     """(device ms per call, kernels and copies per call), from the profiler
-    (CUPTI), after a warm-up: the median over ``iters`` calls of the summed
-    duration of the kernels and copies each call launches (the mean, should
-    the profiler have kept another number of them than ``iters`` times a
-    whole number)."""
+    (CUPTI), after a warm-up, over ``iters`` calls of ``fn``: for each
+    kernel or copy (by name), the median of its durations times the times
+    one call runs it (its events over ``iters``, rounded). Counting by name
+    keeps both numbers right when a session drops events, which the
+    profiler now and then does (up to a dozen of 42 seen in one session)."""
     fn()
     torch.cuda.synchronize()
     prof = profiled(fn, iters)
-    ev = sorted((e for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA),
-                key=lambda e: e.time_range.start)
-    per = max(1, round(len(ev) / iters))
-    if len(ev) != per * iters:
-        # the profiler now and then drops an event of a session, so the calls
-        # cannot be told apart: the mean over the events it kept
-        return (sum(e.time_range.end - e.time_range.start for e in ev)
-                / len(ev) * per / 1e3, per)
-    calls = [sum(e.time_range.end - e.time_range.start
-                 for e in ev[i * per:(i + 1) * per]) for i in range(iters)]
-    return statistics.median(calls) / 1e3, per
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name.setdefault(e.name, []).append(e.time_range.end - e.time_range.start)
+    ms, per = 0.0, 0
+    for durations in by_name.values():
+        n = max(1, round(len(durations) / iters))
+        ms += statistics.median(durations) * n / 1e3
+        per += n
+    return ms, per
 
 
 def device_ms(fn, iters: int = 21) -> float:
@@ -220,12 +261,14 @@ def nbytes(*tensors) -> int:
 
 def compare(kernel, case, dtype, got, want, tol_key, run=None, plain=None,
             library=None, n_bytes=0, ops=0, exps=0, ops_dtype=None,
-            plain_iters=21):
+            plain_iters=21, library_fwd=None):
     """One row of phase 2. ``got``/``want`` are a tensor or a tuple of
     tensors, each held to the tolerance of its own dtype. With ``run`` it
-    also times the kernel, its plain version and the library call (if any)
-    and states the bound from ``n_bytes``, ``ops`` of ``ops_dtype`` (default
-    ``dtype``) and ``exps`` exponentials."""
+    also times the kernel, its plain version and the library call (if any;
+    less ``library_fwd``'s time where that is given, for a backward timed
+    as autograd forward + backward) and states the bound from ``n_bytes``,
+    ``ops`` of ``ops_dtype`` (default ``dtype``) and ``exps``
+    exponentials."""
     pieces = list(zip(got, want)) if isinstance(got, tuple) else [(got, want)]
     ok, max_err = True, 0.0
     for g, w in pieces:
@@ -239,9 +282,11 @@ def compare(kernel, case, dtype, got, want, tol_key, run=None, plain=None,
         row["bound_ms"], row["bound_by"], row["bound_terms"] = bound(
             n_bytes, ops, ops_dtype or dtype, exps)
         row["ms"], row["kernels_per_call"] = device_profile(run)
+        lib_ms = None if library is None else device_ms(library)
+        if library_fwd is not None:
+            lib_ms -= device_ms(library_fwd)
         row.update(launch_ms=launch_ms(run),
-                   plain_ms=device_ms(plain, plain_iters),
-                   library_ms=None if library is None else device_ms(library))
+                   plain_ms=device_ms(plain, plain_iters), library_ms=lib_ms)
     return row
 
 
@@ -367,6 +412,128 @@ def phase_kernels(rms, fla, dec, scan):
             "decode_attention", f"window{window} 8x15/5x{s}x64 check", "float32",
             dec.decode_attention_cuda(q, k, v, length, window=window),
             dec.decode_attention_plain(q, k, v, length, window=window), "attn"))
+    rows += smoke_head_dim_rows(fla, dec, randn, gen)
+    rows += backward_rows(rms, fla, randn)
+    return rows
+
+
+# the SMOKE configs' attention shapes (head dims 16 and 20): smollm (3 q / 1
+# kv heads of 20), h2o-danube (4 / 2 of 16, window 16), and both with a
+# window, an offset and ragged lengths
+SMOKE_ATTN = (
+    ("smollm SMOKE causal 2x3/1x32x32x20", 2, 3, 1, 32, 32, 20, None),
+    ("danube SMOKE window16 2x4/2x32x32x16", 2, 4, 2, 32, 32, 16, 16),
+    ("window24 offset30 ragged 2x3/1x70x100x20", 2, 3, 1, 70, 100, 20, 24),
+    ("window16 offset45 ragged 2x4/2x83x128x16", 2, 4, 2, 83, 128, 16, 16))
+
+
+def smoke_head_dim_rows(fla, dec, randn, gen):
+    """Forward rows of the SMOKE head dims: flash attention (float32 16 and
+    20, bf16 16) and decode attention over a ragged cache (the same), timed
+    like the main paths' rows."""
+    rows = []
+    for case, b, hq, hkv, sq, skv, hd, window in SMOKE_ATTN:
+        for dtype in (torch.float32, torch.bfloat16):
+            if dtype == torch.bfloat16 and hd == 20:
+                continue        # bf16 rows of 20 are 40 bytes: no instance
+            q = randn((b, hq, sq, hd), dtype)
+            k, v = randn((b, hkv, skv, hd), dtype), randn((b, hkv, skv, hd), dtype)
+            off = skv - sq
+            pairs = int(fla_mask(sq, skv, window, off).sum())
+            args = (q, k, v, True, window, off)
+            rows.append(compare(
+                "flash_attention", case, str(dtype).split(".")[1],
+                fla.flash_attention_cuda(*args), fla.flash_attention_plain(*args),
+                "attn", run=lambda args=args: fla.flash_attention_cuda(*args),
+                plain=lambda args=args: fla.flash_attention_plain(*args),
+                n_bytes=2 * nbytes(q) + 2 * nbytes(k), ops=4 * b * hq * hd * pairs))
+            rows[-1]["instance"] = fla.INSTANCES[dtype]
+    for case, hq, hkv, s, hd in (("smollm SMOKE 8x3/1x48x20 ragged length", 3, 1, 48, 20),
+                                 ("danube SMOKE 8x4/2x16x16 ragged length", 4, 2, 16, 16)):
+        for dtype in (torch.float32, torch.bfloat16):
+            if dtype == torch.bfloat16 and hd == 20:
+                continue
+            q = randn((8, hq, hd), dtype)
+            k, v = randn((8, hkv, s, hd), dtype), randn((8, hkv, s, hd), dtype)
+            length = torch.randint(1, s + 1, (8,), generator=gen, device="cuda",
+                                   dtype=torch.int32)
+            valid = int(length.sum())
+            rows.append(compare(
+                "decode_attention", case, str(dtype).split(".")[1],
+                dec.decode_attention_cuda(q, k, v, length),
+                dec.decode_attention_plain(q, k, v, length), "attn",
+                run=lambda q=q, k=k, v=v, n=length: dec.decode_attention_cuda(q, k, v, n),
+                plain=lambda q=q, k=k, v=v, n=length: dec.decode_attention_plain(q, k, v, n),
+                n_bytes=(2 * hkv * hd * valid + 2 * q.numel()) * q.element_size(),
+                ops=4 * hq * hd * valid))
+    return rows
+
+
+def backward_rows(rms, fla, randn):
+    """The backward kernels against their plain versions: flash attention at
+    smollm-360M's training shape (bf16 and float32) and at the SMOKE shapes
+    (float32), RMSNorm over rows of 960, 768 and 1536. The library
+    yardstick is autograd's forward + backward of one PyTorch call
+    (``scaled_dot_product_attention`` with ``enable_gqa``, and a boolean
+    mask where a window or an offset applies; ``F.rms_norm``) less its
+    forward."""
+    rows = []
+    main = (KERNELS["flash_attention_bwd"][2], 8, 15, 5, 512, 512, 64, None)
+    for dtype, cases in ((torch.bfloat16, (main,)),
+                         (torch.float32, (main,) + SMOKE_ATTN)):
+        dn = str(dtype).split(".")[1]
+        for case, b, hq, hkv, sq, skv, hd, window in cases:
+            q, do = randn((b, hq, sq, hd), dtype), randn((b, hq, sq, hd), dtype)
+            k, v = randn((b, hkv, skv, hd), dtype), randn((b, hkv, skv, hd), dtype)
+            off = skv - sq
+            o = fla.flash_attention_cuda(q, k, v, True, window, off)
+            mask = fla_mask(sq, skv, window, off)
+            pairs = int(mask.sum())
+            args = (q, k, v, o, do, True, window, off)
+            ql, kl, vl = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+            lib_mask = None if window is None and off == 0 else mask.cuda()
+
+            def lib_f(ql=ql, kl=kl, vl=vl, m=lib_mask):
+                return F.scaled_dot_product_attention(
+                    ql, kl, vl, attn_mask=m, is_causal=m is None, enable_gqa=True)
+
+            rows.append(compare(
+                "flash_attention_bwd", case, dn, fla.flash_attention_bwd_cuda(*args),
+                fla.flash_attention_bwd_plain(*args), "attn_bwd",
+                run=lambda args=args: fla.flash_attention_bwd_cuda(*args),
+                plain=lambda args=args: fla.flash_attention_bwd_plain(*args),
+                library=lambda f=lib_f, ins=(ql, kl, vl), do=do:
+                    torch.autograd.grad(f(), ins, do),
+                library_fwd=lib_f,
+                # q, o, dO, dq and k, v, dk, dv once each; five products of
+                # 2 D operations per (query, key) pair the mask keeps: S
+                # again, dP, dV, dQ, dK
+                n_bytes=4 * nbytes(q) + 4 * nbytes(k), ops=10 * b * hq * hd * pairs))
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).split(".")[1]
+        for n, d in ((4096, 960), (4096, 768), (4096, 1536)):
+            x, dy = randn((n, d), dtype), randn((n, d), dtype)
+            s = randn((d,), torch.float32)
+            dx, ds = rms.rmsnorm_bwd_cuda(x, s, dy, 1e-5)
+            dx_p, ds_p = rms.rmsnorm_bwd_plain(x, s, dy, 1e-5)
+            xl = x.clone().requires_grad_(True)
+            sl = s.to(dtype).clone().requires_grad_(True)
+
+            def lib_f(xl=xl, sl=sl, d=d):
+                return F.rms_norm(xl, (d,), sl, 1e-5)
+
+            row = compare(
+                "rmsnorm_bwd", f"{n}x{d}", dn, dx, dx_p, "rmsnorm_bwd",
+                run=lambda a=(x, s, dy): rms.rmsnorm_bwd_cuda(*a, 1e-5),
+                plain=lambda a=(x, s, dy): rms.rmsnorm_bwd_plain(*a, 1e-5),
+                library=lambda f=lib_f, ins=(xl, sl), dy=dy:
+                    torch.autograd.grad(f(), ins, dy),
+                library_fwd=lib_f,
+                # x and dy read, dx written, scale read and dscale written
+                n_bytes=3 * nbytes(x) + 2 * nbytes(s), ops=8 * x.numel())
+            row["dscale_rel_err"] = rel = float((ds - ds_p).norm() / ds_p.norm())
+            row["ok"] = row["ok"] and rel <= DSCALE_TOL
+            rows.append(row)
     return rows
 
 
@@ -408,14 +575,27 @@ def per_pass(cfg) -> dict:
             "mamba": sum(mixer == "mamba" for mixer, _ in blocks)}
 
 
+def per_train_step(cfg) -> dict:
+    """Kernel launches per train step of ``cfg`` (attention and dense blocks
+    only; the scan has no backward kernel): with ``cfg.remat`` every
+    period's forward runs twice (once in the forward pass, once again in
+    the backward pass), the final norm once; each norm and attention layer
+    runs its backward once."""
+    per = per_pass(cfg)
+    twice = 2 if cfg.remat else 1
+    return {"rmsnorm": twice * (per["rmsnorm"] - 1) + 1,
+            "rmsnorm_bwd": per["rmsnorm"],
+            "flash_attention": twice * per["attn"],
+            "flash_attention_bwd": per["attn"]}
+
+
 def counts(kern):
-    return {name: getattr(mod, f"{name}_cuda").launches
-            for name, mod in kern.items()}
+    return {name: fn.launches for name, fn in kern.items()}
 
 
 def reset_counts(kern):
-    for name, mod in kern.items():
-        getattr(mod, f"{name}_cuda").launches = 0
+    for fn in kern.values():
+        fn.launches = 0
 
 
 def drive(kern, totals, want, fn, what):
@@ -475,6 +655,10 @@ INSTANCE_NAMES = {
     "rmsnorm": (r"rmsnorm_(warp|block)_kernelI(f|13__nv_bfloat16)Li(\d+)E",
                 "{} {} NV{}"),
     "scan": (r"mamba_scan_kernelI(f|13__nv_bfloat16)Li(\d+)EE", "{} N{}"),
+    "flash_bwd": (r"flash_bwd_(dq|dkdv)_kernelI(f|13__nv_bfloat16)Li(\d+)EE",
+                  "{} {} D{}"),
+    "rmsnorm_bwd": (r"rmsnorm_bwd_rows_kernelI(f|13__nv_bfloat16)Li(\d+)EE",
+                    "{} ITEMS{}"),
 }
 # the scan instance of the main path (Jamba: bf16 u, N 16)
 SCAN_MAIN = "bf16 N16"
@@ -540,8 +724,64 @@ def kernel_build_report(build, lib_path: str) -> dict:
     (ROOT / "build" / "scan_sass.txt").write_text("".join(scan_text))
     return {"ptxas": ptxas["flash"], "ptxas_decode": ptxas["decode"],
             "ptxas_rmsnorm": ptxas["rmsnorm"], "ptxas_scan": ptxas["scan"],
+            "ptxas_flash_bwd": ptxas["flash_bwd"],
+            "ptxas_rmsnorm_bwd": ptxas["rmsnorm_bwd"],
             "scan_sass": scan_sass, "warnings": warnings,
             "hgmma": hgmma, "hgmma_total": sum(hgmma.values())}
+
+
+def train_parity(cfg, p_cpu, p_gpu, batch, loss_fn, make_train_step, adamw,
+                 lr: float = 1e-3) -> dict:
+    """Float32 training card vs CPU from the same params and batch: the loss,
+    the global grad norm and every gradient leaf after one backward, then
+    the params after one ``make_train_step`` (AdamW, lr ``lr``)."""
+    from repro_torch.models.module import tree_leaves, tree_map
+    from repro_torch.optim.optimizers import global_norm
+
+    def grads(params, dev):
+        p = tree_map(lambda a: a.detach().requires_grad_(True), params)
+        loss, _ = loss_fn(p, {k: v.to(dev) for k, v in batch.items()}, cfg)
+        loss.backward()
+        return float(loss.detach()), tree_map(lambda a: a.grad, p)
+
+    loss_c, g_c = grads(p_cpu, "cpu")
+    loss_g, g_g = grads(p_gpu, "cuda")
+    out = {"params": sum(t.numel() for t in tree_leaves(p_cpu)), "loss_cpu": loss_c,
+           "loss_err": abs(loss_c - loss_g), "leaves": 0, "worst_grad": None,
+           "worst_grad_ratio": 0.0, "missing": []}
+    n_c, n_g = float(global_norm(g_c)), float(global_norm(g_g))
+    out["grad_norm_rel_err"] = abs(n_c - n_g) / n_c
+    for path, gc, gg in _paired_leaves(g_c, g_g):
+        out["leaves"] += 1
+        if gg is None or gc is None:
+            out["missing"].append(path)
+            continue
+        tol = GRAD_TOL * float(gc.abs().max()) + 1e-6
+        ratio = float((gg.cpu() - gc).abs().max()) / tol
+        if ratio >= out["worst_grad_ratio"]:
+            out["worst_grad"], out["worst_grad_ratio"] = path, ratio
+    opt = adamw(lr)
+    new_c, _, _ = make_train_step(cfg, opt, device="cpu")(p_cpu, opt.init(p_cpu), batch)
+    new_g, _, _ = make_train_step(cfg, opt, device="cuda")(p_gpu, opt.init(p_gpu), batch)
+    errs = [(gg.cpu() - gc).abs() for _, gc, gg in _paired_leaves(new_c, new_g)]
+    out["param_tol"] = 2 * lr + 1e-6
+    out["param_max_err"] = max(float(e.max()) for e in errs)
+    out["param_share_within_1e-6"] = (sum(int((e <= 1e-6).sum()) for e in errs)
+                                      / sum(e.numel() for e in errs))
+    out["ok"] = (not out["missing"] and out["loss_err"] <= LOSS_TOL
+                 and out["worst_grad_ratio"] <= 1.0
+                 and out["grad_norm_rel_err"] <= GRAD_TOL
+                 and out["param_max_err"] <= out["param_tol"])
+    return out
+
+
+def _paired_leaves(a, b, path=""):
+    """(path, leaf of a, leaf of b) over two trees of nested dicts."""
+    if isinstance(a, dict):
+        for k in sorted(a):
+            yield from _paired_leaves(a[k], b[k], f"{path}/{k}")
+    else:
+        yield path, a, b
 
 
 def main() -> int:
@@ -559,15 +799,23 @@ def main() -> int:
     from repro_torch.kernels import flash_attention as fla
     from repro_torch.kernels import mamba_scan as scan
     from repro_torch.kernels import rmsnorm as rms
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as serve_mod
     from repro_torch.launch.serve import Request, serve_batch
-    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.launch.steps import (make_decode_step, make_prefill_step,
+                                          make_train_step)
+    from repro_torch.launch.train import train
     from repro_torch.models import model_api, transformer
+    from repro_torch.optim.optimizers import adamw, warmup_cosine
     from repro_torch.models.module import param_bytes, param_count, tree_map
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    kern = {"rmsnorm": rms, "flash_attention": fla, "decode_attention": dec,
-            "mamba_scan": scan}
+    # each kernel's wrapper, which counts its launches
+    kern = {"rmsnorm": rms.rmsnorm_cuda, "flash_attention": fla.flash_attention_cuda,
+            "decode_attention": dec.decode_attention_cuda,
+            "mamba_scan": scan.mamba_scan_cuda, "rmsnorm_bwd": rms.rmsnorm_bwd_cuda,
+            "flash_attention_bwd": fla.flash_attention_bwd_cuda}
     totals = {name: 0 for name in kern}     # launches over every main path
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
@@ -641,8 +889,10 @@ def main() -> int:
     report["kernel_build"] = sass = kernel_build_report(_build, _build.last_build["path"])
     if sass["hgmma_total"] == 0:
         fail(f"no HGMMA instruction in the bf16 flash-attention kernel: {sass}")
-    if not (sass["ptxas_decode"] and sass["ptxas_rmsnorm"] and sass["ptxas_scan"]):
-        fail(f"no ptxas report of the decode, RMSNorm or scan instances: {sass}")
+    if not all(sass[k] for k in ("ptxas_decode", "ptxas_rmsnorm", "ptxas_scan",
+                                 "ptxas_flash_bwd", "ptxas_rmsnorm_bwd")):
+        fail(f"no ptxas report of the decode, RMSNorm, scan or backward "
+             f"instances: {sass}")
     scan_sass = sass["scan_sass"]
     if SCAN_MAIN not in scan_sass or any(
             v["spill_bytes"] is None for v in scan_sass.values()):
@@ -662,7 +912,9 @@ def main() -> int:
           f" | bf16 flash kernel, HGMMA instructions: {sass['hgmma_total']} "
           f"{sass['hgmma']}; ptxas: {sass['ptxas']}; decode attention ptxas: "
           f"{sass['ptxas_decode']}; RMSNorm ptxas: {sass['ptxas_rmsnorm']}; "
-          f"scan ptxas: {sass['ptxas_scan']}; scan SASS (instructions, "
+          f"scan ptxas: {sass['ptxas_scan']}; backward ptxas: flash "
+          f"{sass['ptxas_flash_bwd']}, RMSNorm {sass['ptxas_rmsnorm_bwd']}; "
+          f"scan SASS (instructions, "
           f"MUFU.EX2, LDL/STL): " + ", ".join(
               f"{k} {v['instructions']}/{v['mufu_ex2']}/{v['ldl_stl']}"
               for k, v in sorted(scan_sass.items()))
@@ -692,16 +944,22 @@ def main() -> int:
         if r.get("sm_clock_mhz"):
             timing += f" | SM clock {r['sm_clock_mhz']:.0f} MHz back to back"
         inst = f" ({r['instance']})" if "instance" in r else ""
+        dscale = (f", dscale rel err {r['dscale_rel_err']:.2e} (tol {DSCALE_TOL:g})"
+                  if "dscale_rel_err" in r else "")
         print(f"[2 kernel] {r['kernel']}{inst} {r['case']} {r['dtype']}: max_abs_err "
-              f"{r['max_abs_err']:.3e} (tol {r['tol']:g}){timing}", flush=True)
+              f"{r['max_abs_err']:.3e} (tol {r['tol']:g}){dscale}{timing}", flush=True)
     bad = [f"{r['kernel']} {r['case']} {r['dtype']}" for r in rows if not r["ok"]]
     if bad:
         fail(f"kernels disagree with their plain versions: {bad}")
     many = [f"{r['kernel']} {r['case']} {r['dtype']}: {r['kernels_per_call']}"
             for r in rows if "ms" in r and r["kernel"] in ("decode_attention", "rmsnorm")
             and r["kernels_per_call"] != 1]
+    many += [f"{r['kernel']} {r['case']} {r['dtype']}: {r['kernels_per_call']}"
+             for r in rows if "ms" in r and r["kernel"].endswith("_bwd")
+             and r["kernels_per_call"] != 2]
     if many:
-        fail(f"a decode-attention or RMSNorm call ran other than one kernel: {many}")
+        fail(f"a decode-attention or RMSNorm call ran other than one kernel, or a "
+             f"backward call other than two: {many}")
     print(f"[2 kernels] {len(rows)} rows agree {took('2 kernels')}", flush=True)
 
     # 3. smollm-360M: full-width prefill, bf16
@@ -867,6 +1125,115 @@ def main() -> int:
           f"(64 + 64): {dt:.2f} s, {8 * 64 / dt:.1f} new tokens/s; rmsnorm "
           f"{per['rmsnorm']} launches per forward and per step "
           f"{took('11 xlstm')}", flush=True)
+
+    del xparams
+    torch.cuda.empty_cache()
+
+    # 12. the SMOKE configs (head dims 16 and 20) on the card: the server's
+    # defaults (smollm SMOKE: 8 requests x (16 prompt + 32 new)), then
+    # float32 logits card vs CPU for smollm, h2o-danube and Jamba (dense FFN)
+    scfg = get("smollm_360m", smoke=True)
+    per = per_pass(scfg)
+    n12 = 16 + 32
+    drive(kern, totals, zero(rmsnorm=per["rmsnorm"] * n12,
+                             decode_attention=per["attn"] * n12),
+          lambda: serve_mod.main([]), "serve.main([]) (smollm SMOKE)")
+    report["smoke"] = smoke = {"serve_main": "ok"}
+    for name, over in (("smollm_360m", {}), ("h2o_danube_1_8b", {}),
+                       ("jamba_1_5_large_398b", JAMBA_DENSE)):
+        c = dataclasses.replace(get(name, smoke=True), **over)
+        p_cpu = transformer.init(torch.Generator().manual_seed(SEED), c, device="cpu")
+        smoke[name] = parity(c, p_cpu, tree_map(lambda a: a.to("cuda"), p_cpu), rng)
+        smoke[name]["head_dim"] = c.hd
+    print(f"[12 smoke] serve.main([]) ran (smollm SMOKE, head dim 20, on cuda); "
+          "float32 SMOKE logits card vs CPU: " + "; ".join(
+              f"{n} (hd {v['head_dim']}) prefill {v['prefill_max_abs_err']:.3e}, decode "
+              f"{max(v['decode_max_abs_err']):.3e}" for n, v in smoke.items()
+              if n != "serve_main") + f" (tol {PARITY_TOL:g}) {took('12 smoke')}",
+          flush=True)
+
+    # 13. smollm-360M training at full width and depth, bf16, 8 x 512 tokens
+    # a step, through the trainer's entry point
+    cfg = get("smollm_360m")
+    per_t = per_train_step(cfg)       # 129 / 65 RMSNorm, 64 / 32 attention
+    torch.cuda.reset_peak_memory_stats()
+    out = drive(kern, totals, zero(**{k: v * TRAIN_STEPS for k, v in per_t.items()}),
+                lambda: train("smollm_360m", smoke=False, steps=TRAIN_STEPS, batch=8,
+                              seq=512, log_every=TRAIN_STEPS // 2, device="cuda"),
+                "smollm training")
+    peak = torch.cuda.max_memory_allocated()
+    losses = out["losses"]
+    if len(losses) != TRAIN_STEPS or not all(math.isfinite(x) for x in losses):
+        fail(f"training losses not finite: {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"training loss did not fall: {losses}")
+    step_s = statistics.median(out["step_s"][1:])
+    opt = adamw(warmup_cosine(3e-4, warmup=max(TRAIN_STEPS // 10, 1), total=TRAIN_STEPS))
+    step_fn = make_train_step(out["cfg"], opt, device="cuda")
+    src = torch.Generator().manual_seed(SEED + 2)
+    toks = torch.randint(0, cfg.vocab, (8, 513), generator=src).to("cuda")
+    tb = {"inputs": toks[:, :-1], "labels": toks[:, 1:]}
+    tparams, tstate = out["params"], out["opt_state"]
+    report["train"] = tr = {
+        "steps": TRAIN_STEPS, "batch": 8, "seq": 512, "losses": losses,
+        "grad_norms": out["grad_norms"], "step_s": out["step_s"],
+        "median_step_s": step_s, "tokens_per_s": 8 * 512 / step_s,
+        "max_memory_allocated": peak, "launches_per_step": per_t,
+        "profile": profile_call(lambda: step_fn(tparams, tstate, tb))}
+    del out, tparams, tstate
+    torch.cuda.empty_cache()
+    prof = tr["profile"]
+    print(f"[13 train] smollm-360M bf16, {TRAIN_STEPS} steps of 8x512 through "
+          f"launch.train.train: median step {step_s * 1e3:.1f} ms (after step 0), "
+          f"{8 * 512 / step_s:.0f} tokens/s; loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
+          f"grad_norm {tr['grad_norms'][0]:.3f} at step 0, {tr['grad_norms'][-1]:.3f} "
+          f"at the last; peak device memory {peak / 2**30:.2f} GiB; "
+          f"launches per step: " + ", ".join(f"{k} {v}" for k, v in per_t.items())
+          + f"; one step profiled: wall {prof['wall_ms']:.1f} ms, device busy "
+          f"{prof['device_busy_ms']:.1f} ms over {prof['device_ops']} kernels and "
+          f"copies, idle {prof['idle_share']:.1%}, top: " + ", ".join(
+              f"{t['kernel'][:40]} {t['ms']:.2f} ms" for t in prof["top"])
+          + f" {took('13 train')}", flush=True)
+
+    # 14. float32 train-step parity, card vs CPU, full width cut to 2 layers
+    pcfg = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    p_cpu = transformer.init(torch.Generator().manual_seed(SEED), pcfg, device="cpu")
+    p_gpu = tree_map(lambda a: a.to("cuda"), p_cpu)
+    toks = torch.randint(0, pcfg.vocab, (2, 129), generator=src)
+    batch = {"inputs": toks[:, :-1], "labels": toks[:, 1:]}
+    report["train_parity"] = tp = train_parity(
+        pcfg, p_cpu, p_gpu, batch, model_api(pcfg).loss, make_train_step, adamw)
+    if not tp["ok"]:
+        fail(f"float32 training card vs CPU differs: {tp}")
+    # kernels without a backward refuse a gradient rather than cut the graph
+    raised = []
+    q = torch.randn(2, 6, 64, device="cuda", requires_grad=True)
+    kv = torch.randn(2, 2, 40, 64, device="cuda")
+    u = torch.randn(1, 8, 32, device="cuda", requires_grad=True)
+    bc = torch.randn(1, 8, 4, device="cuda")
+    for what, call in (
+            ("decode_attention", lambda: ops.decode_attention(q, kv, kv)),
+            ("mamba_scan", lambda: ops.mamba_scan(
+                u, u.detach().abs(), -torch.ones(32, 4, device="cuda"), bc, bc,
+                torch.ones(32, device="cuda")))):
+        try:
+            call()
+        except NotImplementedError:
+            raised.append(what)
+    if raised != ["decode_attention", "mamba_scan"]:
+        fail(f"kernels without a backward ran with a gradient asked: raised {raised}")
+    tp["no_backward_raises"] = raised
+    print(f"[14 train parity] float32, full width cut to 2 layers ({tp['params'] / 1e6:.1f}"
+          f" M params), batch 2x128, card vs CPU: loss {tp['loss_cpu']:.6f} (err "
+          f"{tp['loss_err']:.2e}, tol {LOSS_TOL:g}), grad_norm err {tp['grad_norm_rel_err']:.2e}"
+          f" relative, {tp['leaves']} gradient leaves, worst {tp['worst_grad']} at "
+          f"{tp['worst_grad_ratio']:.3f} of its tolerance ({GRAD_TOL:g} max|g| + 1e-6); "
+          f"params after one AdamW step: max err {tp['param_max_err']:.2e} (tol "
+          f"{tp['param_tol']:.2e}), {tp['param_share_within_1e-6']:.4%} within 1e-6; "
+          f"decode_attention and mamba_scan raise for a gradient {took('14 train parity')}",
+          flush=True)
+    del p_cpu, p_gpu
+    torch.cuda.empty_cache()
 
     # the kernel table: main-path shapes, bf16; launches over every main path
     table = []

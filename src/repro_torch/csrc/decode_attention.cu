@@ -54,7 +54,9 @@
 // cluster barriers (a block of a cluster cannot leave before them). Rows
 // with no valid key return 0. The window is applied as
 // repro.kernels.ref.decode_attention_ref does: kpos >= length - window (the
-// Pallas kernel ignores it). Static shared memory only (at most 11 KB), so
+// Pallas kernel ignores it). Head dims: 16, 32, 64, 80 and 128, and 20 in
+// float32 (the SMOKE configs' 16 and 20; a bf16 row of 20 is not a whole
+// number of 16-byte loads). Static shared memory only (at most 11 KB), so
 // no cudaFuncSetAttribute call is needed; the cluster size (<= 8, the
 // portable limit) goes in the launch attributes of cudaLaunchKernelEx.
 #include <cooperative_groups.h>
@@ -326,6 +328,12 @@ cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v,
                        int n_split, int chunk, int window, float scale_log2,
                        cudaStream_t st) {
   switch (D) {
+    case 16: return launch<T, 16>(q, k, v, length, o, B, Hq, Hkv, S, n_split, chunk, window, scale_log2, st);
+    case 20:  // a row of 20 bf16 is 40 bytes, no whole number of 16-byte loads
+      if constexpr (Shape<T, 16>::VEC == 4)
+        return launch<T, 20>(q, k, v, length, o, B, Hq, Hkv, S, n_split, chunk, window, scale_log2, st);
+      else
+        return cudaErrorInvalidValue;
     case 32: return launch<T, 32>(q, k, v, length, o, B, Hq, Hkv, S, n_split, chunk, window, scale_log2, st);
     case 64: return launch<T, 64>(q, k, v, length, o, B, Hq, Hkv, S, n_split, chunk, window, scale_log2, st);
     case 80: return launch<T, 80>(q, k, v, length, o, B, Hq, Hkv, S, n_split, chunk, window, scale_log2, st);

@@ -35,7 +35,9 @@
 // one row per warp: each row's address is one 64-bit block base plus 32-bit
 // head and sequence steps, so the strides cost little per element. A row
 // whose every key is masked returns 0: its running max stays -inf and its
-// denominator 0.
+// denominator 0. The template takes any D that is a multiple of 4 (one float4
+// of a row); it is instantiated for 16 and 20 (the SMOKE configs' head dims,
+// rows of 64 and 80 bytes) besides 32, 64, 80 and 128.
 #include "common.cuh"
 
 #include <climits>
@@ -300,6 +302,8 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
   for (const auto& t : st.s)
     if (t[1] > INT_MAX || t[2] > INT_MAX) return cudaErrorInvalidValue;
   switch (D) {
+    case 16: return launch<16>(q, k, v, o, st, B, Hq, Hkv, Sq, Skv, causal, window, offset, scale, s);
+    case 20: return launch<20>(q, k, v, o, st, B, Hq, Hkv, Sq, Skv, causal, window, offset, scale, s);
     case 32: return launch<32>(q, k, v, o, st, B, Hq, Hkv, Sq, Skv, causal, window, offset, scale, s);
     case 64: return launch<64>(q, k, v, o, st, B, Hq, Hkv, Sq, Skv, causal, window, offset, scale, s);
     case 80: return launch<80>(q, k, v, o, st, B, Hq, Hkv, Sq, Skv, causal, window, offset, scale, s);

@@ -46,8 +46,8 @@
 //      contiguous) the MN-major B operand (transposed descriptor).
 // Tile i's S product is issued together with tile i - 1's P V, and tile i's
 // softmax runs while the tensor cores do that P V. Head dims 64 and 128 are
-// native; 32 and 80 run as 64 and 128 (DP), the columns beyond D
-// zero-filled by TMA. The softmax and both accumulations are float32 and
+// native; 16 and 32 run as 64, 80 as 128 (DP), the columns beyond D
+// zero-filled by TMA and never written back. The softmax and both accumulations are float32 and
 // the output is rounded once to bf16. A row whose every key is masked
 // returns 0: its running max stays -inf and its sum 0.
 #include "common.cuh"
@@ -581,7 +581,7 @@ cudaError_t flash_attention_wgmma_bf16(const void* q, const void* k, const void*
                                        int Hq, int Hkv, int Sq, int Skv, int D, int causal,
                                        int window, int offset, float scale,
                                        cudaStream_t stream) {
-  if (D != 32 && D != 64 && D != 80 && D != 128) return cudaErrorInvalidValue;
+  if (D != 16 && D != 32 && D != 64 && D != 80 && D != 128) return cudaErrorInvalidValue;
   if (B > 65535 || (Sq + kRows - 1) / kRows > 65535) return cudaErrorInvalidConfiguration;
   // D <= 64: the three q heads of a kv head per block where G is a multiple
   // of 3 (smollm), else one per block, small enough that two blocks share an

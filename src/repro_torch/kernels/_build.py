@@ -11,6 +11,7 @@ build: nothing falls back.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -32,10 +33,17 @@ _L = ctypes.c_longlong
 SIGNATURES = {
     # x, scale, y, rows, d, eps, dtype, stream
     "rmsnorm_fwd": [_P, _P, _P, _I, _I, _F, _I, _P],
+    # x, scale, dy, dx, partial (blocks, d), dscale, rows, d, rows per
+    # block, blocks, eps, dtype, stream
+    "rmsnorm_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
     # q, k, v, o, their strides (3 int64 each: batch, head, sequence), B,
     # Hq, Hkv, Sq, Skv, D, causal, window, offset, scale, dtype, stream
     "flash_attention_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                             _I, _I, _I, _I, _I, _F, _I, _P],
+    # q, k, v, o, dout, dq, dk, dv, lse, delta, 24 strides (int64: batch,
+    # head, sequence of each of those 8 tensors), B, Hq, Hkv, Sq, Skv, D,
+    # causal, window, offset, scale, dtype, stream
+    "flash_attention_bwd": [_P] * 11 + [_I] * 9 + [_F, _I, _P],
     # q, k, v, length, o, B, Hq, Hkv, S, D, n_split, chunk, window, scale,
     # dtype, stream
     "decode_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
@@ -149,6 +157,12 @@ def check(code: int, name: str) -> None:
     if code != 0:
         msg = load().repro_error_string(code).decode()
         raise RuntimeError(f"{name}: CUDA error {code} ({msg})")
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def stream_handle(t: torch.Tensor) -> int:

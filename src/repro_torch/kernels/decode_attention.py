@@ -11,13 +11,13 @@ combines their partial results in the same launch.
 """
 from __future__ import annotations
 
-import functools
 from typing import Optional, Tuple
 
 import torch
 
 from . import _build
-from ._checks import DTYPE_CODES, require_cuda, require_head_dim
+from ._checks import (DTYPE_CODES, require_cuda, require_head_dim,
+                      require_no_grad)
 from .ref import decode_attention_ref as decode_attention_plain
 
 # The splits of one (batch, kv head, tile of q heads) form a thread-block
@@ -47,11 +47,6 @@ def split_plan(b: int, hkv: int, g: int, s: int, n_sm: int) -> Tuple[int, int]:
     return -(-s // chunk), chunk
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           length: Optional[torch.Tensor] = None,
                           window: Optional[int] = None,
@@ -77,7 +72,7 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if length.dtype != torch.int32 or tuple(length.shape) != (b,):
         raise ValueError(f"decode_attention: length must be int32 ({b},), got"
                          f" {length.dtype} {tuple(length.shape)}")
-    require_head_dim("decode_attention", d)
+    require_head_dim("decode_attention", d, q.dtype)
     if window is not None and window < 1:
         raise ValueError(f"decode_attention: window {window} < 1")
     if not all(t.is_contiguous() for t in (q, k, v, length)):
@@ -90,7 +85,7 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     o = torch.empty_like(q)
     if b == 0:
         return o
-    n_split, chunk = split_plan(b, hkv, hq // hkv, s, _sm_count(q.device.index))
+    n_split, chunk = split_plan(b, hkv, hq // hkv, s, _build.sm_count(q.device.index))
     lib = _build.load()
     _build.check(lib.decode_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), length.data_ptr(),
@@ -109,7 +104,10 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      length: Optional[torch.Tensor] = None,
                      window: Optional[int] = None,
                      scale: Optional[float] = None) -> torch.Tensor:
-    """The kernel for CUDA tensors, the plain version for CPU tensors."""
+    """The kernel for CUDA tensors, the plain version for CPU tensors. The
+    kernel has no backward (serving only): on the card a call that autograd
+    would need a gradient of raises."""
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, length, window, scale)
+    require_no_grad("decode_attention", q, k, v)
     return decode_attention_cuda(q, k, v, length, window, scale)

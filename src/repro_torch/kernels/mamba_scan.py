@@ -13,7 +13,7 @@ from typing import Optional
 import torch
 
 from . import _build
-from ._checks import DTYPE_CODES, require_cuda
+from ._checks import DTYPE_CODES, require_cuda, require_no_grad
 from .ref import mamba_scan_ref as mamba_scan_plain
 
 MAX_N = 16
@@ -100,7 +100,11 @@ mamba_scan_cuda.launches = 0
 def mamba_scan(u: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                B: torch.Tensor, C: torch.Tensor, D: torch.Tensor,
                h0: Optional[torch.Tensor] = None):
-    """The kernel for CUDA tensors, the plain version for CPU tensors."""
+    """The kernel for CUDA tensors, the plain version for CPU tensors. The
+    kernel has no backward yet: on the card a call that autograd would need
+    a gradient of raises (Jamba trains after the scan's backward kernel,
+    ROADMAP.md queue 2)."""
     if u.device.type == "cpu":
         return mamba_scan_plain(u, dt, A, B, C, D, h0)
+    require_no_grad("mamba_scan", u, dt, A, B, C, D, h0)
     return mamba_scan_cuda(u, dt, A, B, C, D, h0)

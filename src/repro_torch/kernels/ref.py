@@ -21,6 +21,22 @@ def rmsnorm_ref(x: torch.Tensor, scale: torch.Tensor,
     return (x32 * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
 
 
+def rmsnorm_bwd_ref(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
+                    eps: float = 1e-6):
+    """Gradients of :func:`rmsnorm_ref`, as explicit float32 formulas:
+    with r = rsqrt(mean(x^2) + eps), dx = r * (scale * dy - x * r^2 *
+    mean(scale * dy * x)) in x's dtype, and dscale = the sum over rows of
+    dy * x * r, float32 of shape (d,)."""
+    d = x.shape[-1]
+    x32, dy32, s = x.float(), dy.float(), scale.float()
+    r = torch.rsqrt((x32 * x32).mean(dim=-1, keepdim=True) + eps)
+    gs = dy32 * s
+    dot = (gs * x32).mean(dim=-1, keepdim=True)
+    dx = r * (gs - x32 * (r * r) * dot)
+    dscale = (dy32 * x32 * r).reshape(-1, d).sum(dim=0)
+    return dx.to(x.dtype), dscale
+
+
 def _mask(sq: int, skv: int, causal: bool, window: Optional[int],
           offset: int, device=None) -> torch.Tensor:
     """(sq, skv) boolean mask. ``offset`` = absolute position of q row 0
@@ -55,6 +71,44 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
     return out.reshape(b, hq, sq, d).to(q.dtype)
+
+
+def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      o: torch.Tensor, do: torch.Tensor, causal: bool = True,
+                      window: Optional[int] = None, offset: int = 0,
+                      scale: Optional[float] = None):
+    """Gradients (dq, dk, dv) of masked softmax attention (shapes and GQA as
+    :func:`attention_ref`) as explicit float32 formulas: P = softmax of the
+    masked logits, dP = dO V^T, delta = rowsum(dO * O), dS = P (dP - delta),
+    dq = scale dS K, dk = scale dS^T Q summed over the G q heads of a kv
+    head, dv = P^T dO likewise. ``o`` is the forward's output as stored (its
+    rounding enters delta, as in the kernel). A row whose every key is
+    masked has P = 0 (the kernels' forward returns 0 there) and contributes
+    nothing. Outputs in the inputs' dtypes."""
+    b, hq, sq, d = q.shape
+    _, hkv, skv, _ = k.shape
+    g = hq // hkv
+    scale = scale if scale is not None else d ** -0.5
+    qg = q.reshape(b, hkv, g, sq, d).float()
+    dog = do.reshape(b, hkv, g, sq, d).float()
+    og = o.reshape(b, hkv, g, sq, d).float()
+    kf, vf = k.float(), v.float()
+    logits = torch.einsum("bhgqd,bhkd->bhgqk", qg, kf) * scale
+    m = _mask(sq, skv, causal, window, offset, device=q.device)
+    logits = logits.masked_fill(~m, float("-inf"))
+    mx = logits.amax(dim=-1, keepdim=True)
+    e = torch.exp(logits - torch.where(torch.isfinite(mx), mx,
+                                       torch.zeros_like(mx)))
+    den = e.sum(dim=-1, keepdim=True)
+    p = torch.where(den > 0, e / den.clamp_min(1e-30), torch.zeros_like(e))
+    dp = torch.einsum("bhgqd,bhkd->bhgqk", dog, vf)
+    delta = (dog * og).sum(dim=-1, keepdim=True)
+    ds = p * (dp - delta)
+    dq = torch.einsum("bhgqk,bhkd->bhgqd", ds, kf) * scale
+    dk = torch.einsum("bhgqk,bhgqd->bhkd", ds, qg) * scale
+    dv = torch.einsum("bhgqk,bhgqd->bhkd", p, dog)
+    return (dq.reshape(b, hq, sq, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -2,9 +2,9 @@
 (the Jamba hybrid), mLSTM and sLSTM (xLSTM) blocks.
 
 Counterpart of :mod:`repro.models`: ``model_api(cfg)`` returns the
-family-appropriate (init, loss, init_cache, decode_step) tuple. The loss
-comes with the training slice, MoE/MLA blocks and encoder-decoder models
-with their own (ROADMAP.md); until then those raise.
+family-appropriate (init, loss, init_cache, decode_step) tuple. MoE/MLA
+blocks and encoder-decoder models come with their own slices (ROADMAP.md);
+until then those raise.
 """
 from __future__ import annotations
 
@@ -21,17 +21,12 @@ class ModelAPI(NamedTuple):
     decode_step: Callable   # (params, cache, tokens, pos, cfg) -> (logits, cache)
 
 
-def _loss_not_ported(params, batch, cfg):
-    raise NotImplementedError(
-        "lm_loss comes with the training slice (ROADMAP.md, queue 1, item 1)")
-
-
 def model_api(cfg: ModelConfig) -> ModelAPI:
     if cfg.is_encdec:
         raise NotImplementedError(
             f"{cfg.name}: encoder-decoder models come with ROADMAP.md queue 1,"
             " item 4")
-    return ModelAPI(transformer.init, _loss_not_ported,
+    return ModelAPI(transformer.init, transformer.lm_loss,
                     transformer.init_cache, transformer.decode_step)
 
 

@@ -15,13 +15,16 @@ import torch
 Params = Dict[str, Any]
 
 
-def tree_map(fn: Callable, tree):
-    """Apply ``fn`` to every tensor leaf of nested dicts/lists."""
+def tree_map(fn: Callable, tree, *rest):
+    """Apply ``fn`` to every leaf of nested dicts/lists, and to the matching
+    parts of the trees in ``rest`` (which have ``tree``'s structure down to
+    its leaves; below them they are passed whole)."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v) for v in tree)
-    return fn(tree)
+        return type(tree)(tree_map(fn, *vs) for vs in zip(tree, *rest))
+    return fn(tree, *rest)
 
 
 def tree_leaves(tree) -> list:

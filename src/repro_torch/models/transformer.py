@@ -8,18 +8,20 @@ port loops over it in Python.
 Entry points:
   init(gen, cfg, device)                 -> params
   forward(params, x, cfg, positions)     -> (hidden, aux_loss)
+  lm_loss(params, batch, cfg)            -> (loss, metrics)
   init_cache(cfg, batch, max_len, device) -> decode cache
   decode_step(params, cache, tok, pos, cfg) -> (logits, cache)
 
 Ported blocks: an attention, Mamba, mLSTM or sLSTM mixer with a dense MLP
-or no FFN. MoE and MLA blocks, and the loss, come with later slices
-(ROADMAP.md) and raise until then.
+or no FFN. MoE and MLA blocks, and the MTP branch of the loss, come with
+later slices (ROADMAP.md) and raise until then.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from . import layers as L
@@ -157,11 +159,23 @@ def forward(params, x, cfg: ModelConfig, positions) -> Tuple[torch.Tensor,
                                                              torch.Tensor]:
     """x: (B, S, D) embedded inputs -> (hidden (B,S,D), aux_loss).
 
-    Blocks without MoE carry no auxiliary loss, so aux_loss is 0."""
-    for j in range(cfg.n_periods):
+    Blocks without MoE carry no auxiliary loss, so aux_loss is 0. With
+    ``cfg.remat`` and grad enabled each period runs under
+    ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` with
+    nothing saveable): only its input is kept, and its forward runs again in
+    the backward pass."""
+    def period_body(x, layers):
         for i, spec in enumerate(cfg.period):
-            x, _ = block_apply(_layer(params["stack"][f"pos{i}"], j), x, spec,
-                               cfg, positions)
+            x, _ = block_apply(layers[i], x, spec, cfg, positions)
+        return x
+
+    for j in range(cfg.n_periods):
+        layers = [_layer(params["stack"][f"pos{i}"], j)
+                  for i in range(len(cfg.period))]
+        if cfg.remat and torch.is_grad_enabled():
+            x = checkpoint(period_body, x, layers, use_reentrant=False)
+        else:
+            x = period_body(x, layers)
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
@@ -173,6 +187,48 @@ def logits_fn(params, h, cfg: ModelConfig) -> torch.Tensor:
 
 def embed_tokens(params, tokens, cfg: ModelConfig) -> torch.Tensor:
     return params["embed"][tokens]
+
+
+def _chunked_ce(params, h, labels, mask, cfg: ModelConfig,
+                chunk: int = 256) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cross-entropy summed over chunks of ``chunk`` positions, so the
+    float32 logits never hold (B, S, V) at once. Returns (sum of the masked
+    token losses, sum of the mask)."""
+    s = h.shape[1]
+    chunk = min(chunk, s)
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(0, s, chunk):
+        lg = logits_fn(params, h[:, i:i + chunk], cfg)       # (B, c, V) f32
+        lab = labels[:, i:i + chunk].long()
+        msk = mask[:, i:i + chunk]
+        lse = torch.logsumexp(lg, dim=-1)
+        gold = torch.gather(lg, -1, lab[..., None])[..., 0]
+        tot = tot + torch.sum((lse - gold) * msk)
+        cnt = cnt + torch.sum(msk)
+    return tot, cnt
+
+
+def lm_loss(params, batch, cfg: ModelConfig) -> Tuple[torch.Tensor, Dict]:
+    """batch: {'inputs': (B,S) int | 'embeds': (B,S,D), 'labels': (B,S),
+    optional 'mask': (B,S)}, tensors on the params' device. Returns (loss,
+    {'ce', 'aux', 'tokens'}) as 0-d float32 tensors; loss = ce + aux."""
+    _check_supported(cfg)
+    if "embeds" in batch:
+        x = batch["embeds"].to(_dtype(cfg))
+    else:
+        x = embed_tokens(params, batch["inputs"], cfg)
+    positions = torch.arange(x.shape[1], device=x.device)
+    labels = batch["labels"]
+    mask = batch.get("mask")
+    if mask is None:
+        mask = torch.ones(labels.shape, dtype=torch.float32,
+                          device=labels.device)
+    h, aux = forward(params, x, cfg, positions)
+    tot, cnt = _chunked_ce(params, h, labels, mask, cfg)
+    loss = tot / torch.clamp(cnt, min=1.0)
+    metrics = {"ce": loss, "aux": aux, "tokens": cnt}
+    return loss + aux, metrics
 
 
 # --------------------------------------------------------------------------

@@ -1,7 +1,8 @@
-"""Transplant reference parameters into the port.
+"""Transplant reference parameters and optimizer states into the port.
 
 The port keeps the reference's parameter tree (same dict keys, same
-``x @ W`` layouts, same stacked leading axis), so a transplant is a tree map.
+``x @ W`` layouts, same stacked leading axis) and its optimizer states'
+layout, so a transplant is a tree map.
 """
 from __future__ import annotations
 
@@ -46,3 +47,52 @@ def from_jax_params(tree, cfg: ModelConfig, device="cuda"):
         return t.to(device=dev, dtype=tmpl.dtype)
 
     return convert(tree, template, "")
+
+
+def from_jax_opt_state(tree, params_template, device="cuda"):
+    """The reference's AdamW state ({'mu', 'nu', 'step'}) or Adafactor state
+    ({'stats', 'step'}), as numpy (``np.asarray`` of each leaf), -> the
+    port's, on ``device``: float32 moments and statistics in the params'
+    tree, ``step`` an int. ``params_template`` is the port's parameter tree
+    (its leaves' shapes are checked; any mismatch raises ValueError)."""
+    dev = resolve_device(device)
+
+    def f32(src, shape, path):
+        arr = np.asarray(src)
+        if tuple(arr.shape) != tuple(shape):
+            raise ValueError(f"{path}: shape {tuple(arr.shape)}, expected "
+                             f"{tuple(shape)}")
+        return torch.from_numpy(np.array(arr, dtype=np.float32)).to(dev)
+
+    def walk(src, tmpl, path, leaf):
+        if isinstance(tmpl, dict):
+            if not isinstance(src, dict) or set(src) != set(tmpl):
+                raise ValueError(f"{path or '<root>'}: keys "
+                                 f"{sorted(src) if isinstance(src, dict) else src}"
+                                 f" do not match the params' {sorted(tmpl)}")
+            return {k: walk(src[k], tmpl[k], f"{path}/{k}", leaf)
+                    for k in tmpl}
+        return leaf(src, tmpl, path)
+
+    def moments(src, p, path):
+        return f32(src, p.shape, path)
+
+    def stats(src, p, path):
+        if p.dim() >= 2:
+            want = {"vr": p.shape[:-1], "vc": p.shape[:-2] + p.shape[-1:]}
+        else:
+            want = {"v": p.shape}
+        if set(src) != set(want):
+            raise ValueError(f"{path}: statistics {sorted(src)}, expected "
+                             f"{sorted(want)}")
+        return {k: f32(src[k], want[k], f"{path}/{k}") for k in want}
+
+    step = int(np.asarray(tree["step"]))
+    if set(tree) == {"mu", "nu", "step"}:
+        return {"mu": walk(tree["mu"], params_template, "mu", moments),
+                "nu": walk(tree["nu"], params_template, "nu", moments),
+                "step": step}
+    if set(tree) == {"stats", "step"}:
+        return {"stats": walk(tree["stats"], params_template, "stats", stats),
+                "step": step}
+    raise ValueError(f"not an AdamW or Adafactor state: keys {sorted(tree)}")

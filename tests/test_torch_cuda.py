@@ -4,18 +4,28 @@ Marked ``cuda``: each test skips where there is no CUDA device. On a machine
 with one: ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``.
 This file imports no JAX, so it runs where only PyTorch is installed.
 """
+import dataclasses
+
 import pytest
 import torch
 
+from repro_torch.configs import get
+from repro_torch.kernels import ops
 from repro_torch.kernels.decode_attention import (decode_attention_cuda,
                                                   decode_attention_plain,
                                                   split_plan)
-from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
+                                                 flash_attention_bwd_plain,
+                                                 flash_attention_cuda,
                                                  flash_attention_plain)
 from repro_torch.kernels.mamba_scan import (BLOCKS_PER_SM, CHANNELS_PER_BLOCK,
                                             blocks_per_sm, mamba_scan_cuda,
                                             mamba_scan_plain)
-from repro_torch.kernels.rmsnorm import rmsnorm_cuda, rmsnorm_plain
+from repro_torch.kernels.rmsnorm import (rmsnorm_bwd_cuda, rmsnorm_bwd_plain,
+                                         rmsnorm_cuda, rmsnorm_plain)
+from repro_torch.launch import serve
+from repro_torch.models import model_api, transformer
+from repro_torch.models.module import tree_map
 
 pytestmark = pytest.mark.cuda
 
@@ -322,3 +332,247 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
         mamba_scan_cuda(u, dt, A[:, :4], B[..., :4].bfloat16(), C[..., :4], D)
     with pytest.raises(TypeError, match="dt float32"):
         mamba_scan_cuda(u, dt.bfloat16(), A[:, :4], B[..., :4], C[..., :4], D)
+
+
+# ---------------------------------------------------------------------------
+# small head dims (the SMOKE configs'), backward kernels, autograd
+# ---------------------------------------------------------------------------
+
+# dq/dk/dv sum over more rows than the forward's outputs (every q row of G
+# heads for dk/dv): float32 differs in summation order only; bf16 by one
+# rounding of the output
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+
+
+def _close_tol(got, want, tol):
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d,causal,window", [
+    (2, 3, 1, 24, 24, 20, True, None),      # smollm SMOKE
+    (2, 4, 2, 32, 32, 16, True, 16),        # danube SMOKE: window 16
+    (1, 4, 2, 70, 150, 16, True, 33),       # ragged, window, offset 80
+    (2, 6, 3, 65, 65, 20, False, None)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_small_head_dims(gen, b, hq, hkv, sq, skv, d, causal,
+                                         window, dtype):
+    if dtype == torch.bfloat16 and d == 20:
+        pytest.skip("bf16 rows of 20 are not 16-byte multiples: no instance")
+    q = _randn(gen, (b, hq, sq, d), dtype)
+    k = _randn(gen, (b, hkv, skv, d), dtype)
+    v = _randn(gen, (b, hkv, skv, d), dtype)
+    off = skv - sq
+    _close(flash_attention_cuda(q, k, v, causal, window, off),
+           flash_attention_plain(q, k, v, causal, window, off), dtype)
+
+
+@pytest.mark.parametrize("d", [16, 20])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_small_head_dims(gen, d, dtype):
+    if dtype == torch.bfloat16 and d == 20:
+        with pytest.raises(NotImplementedError, match="head dim 20"):
+            decode_attention_cuda(*_decode_inputs(gen, 2, 3, 1, 40, d, dtype))
+        return
+    for b, hq, hkv, s in ((2, 3, 1, 40), (3, 4, 2, 129), (2, 4, 2, 16)):
+        q, k, v = _decode_inputs(gen, b, hq, hkv, s, d, dtype)
+        length = torch.randint(1, s + 1, (b,), generator=gen, device="cuda",
+                               dtype=torch.int32)
+        _close(decode_attention_cuda(q, k, v, length),
+               decode_attention_plain(q, k, v, length), dtype)
+
+
+def _bwd_case(gen, b, hq, hkv, sq, skv, d, dtype):
+    q = _randn(gen, (b, hq, sq, d), dtype)
+    k = _randn(gen, (b, hkv, skv, d), dtype)
+    v = _randn(gen, (b, hkv, skv, d), dtype)
+    do = _randn(gen, (b, hq, sq, d), dtype)
+    return q, k, v, do
+
+
+BWD_CASES = [
+    # b, hq, hkv, sq, skv, d, causal, window: G 1, 3 and 8; D 16-128
+    (2, 15, 5, 512, 512, 64, True, None),   # smollm's training shape, cut
+    (1, 3, 1, 77, 77, 20, True, None),      # G 3, D 20, ragged
+    (2, 4, 2, 32, 32, 16, True, 16),        # danube SMOKE, window
+    (1, 8, 1, 100, 300, 32, True, 64),      # G 8, window, offset 200
+    (1, 2, 2, 70, 130, 80, True, None),     # G 1, D 80, offset 60
+    (1, 16, 2, 130, 130, 128, True, 40),    # G 8, D 128, window
+    (2, 6, 2, 90, 200, 64, False, None),    # not causal, ragged Skv
+    (1, 4, 4, 1, 33, 16, True, None),       # Sq 1
+    (1, 6, 2, 64, 64, 20, False, 10),       # window without causal
+]
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d,causal,window", BWD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd(gen, b, hq, hkv, sq, skv, d, causal, window,
+                             dtype):
+    if dtype == torch.bfloat16 and d == 20:
+        pytest.skip("bf16 rows of 20 are not 16-byte multiples: no instance")
+    q, k, v, do = _bwd_case(gen, b, hq, hkv, sq, skv, d, dtype)
+    off = skv - sq
+    o = flash_attention_cuda(q, k, v, causal, window, off)
+    got = flash_attention_bwd_cuda(q, k, v, o, do, causal, window, off)
+    want = flash_attention_bwd_plain(q, k, v, o, do, causal, window, off)
+    for g, w in zip(got, want):
+        _close_tol(g, w, BWD_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_takes_strided_and_broadcast_grads(gen, dtype):
+    """q/k/v as the model passes them ((B, H, S, D) views of (B, S, H, D));
+    dO transposed the same way is read through its strides with no copy,
+    and dO of a ``sum()`` (every stride 0) takes one counted copy. dq, dk,
+    dv come back in q's (B, S, H, D) order (``empty_like``; k and v, slices
+    of one packed tensor, get dense strides of that order)."""
+    q = _randn(gen, (2, 100, 6, 64), dtype).transpose(1, 2)
+    kv = _randn(gen, (2, 100, 2, 2, 64), dtype)
+    k, v = kv[:, :, 0].transpose(1, 2), kv[:, :, 1].transpose(1, 2)
+    o = flash_attention_cuda(q, k, v, True, None, 0)
+    do = _randn(gen, (2, 100, 6, 64), dtype).transpose(1, 2)
+    copies = flash_attention_bwd_cuda.copies
+    got = flash_attention_bwd_cuda(q, k, v, o, do, True, None, 0)
+    assert flash_attention_bwd_cuda.copies == copies
+    assert got[0].stride() == q.stride()
+    for g in got:
+        assert g.transpose(1, 2).is_contiguous()
+    for g, w in zip(got, flash_attention_bwd_plain(q, k, v, o, do, True,
+                                                   None, 0)):
+        _close_tol(g, w, BWD_TOL[dtype])
+    ones = torch.ones((), dtype=dtype, device="cuda").expand(o.shape)
+    got = flash_attention_bwd_cuda(q, k, v, o, ones, True, None, 0)
+    assert flash_attention_bwd_cuda.copies == copies + 1
+    for g, w in zip(got, flash_attention_bwd_plain(q, k, v, o, ones, True,
+                                                   None, 0)):
+        _close_tol(g, w, BWD_TOL[dtype])
+
+
+@pytest.mark.parametrize("rows,d", [(4096, 960), (8, 960), (4096, 768),
+                                    (4096, 1536), (5, 8192), (1, 20),
+                                    (1000, 60), (777, 1001)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_bwd(gen, rows, d, dtype):
+    x = _randn(gen, (rows, d), dtype)
+    s = _randn(gen, (d,), torch.float32)
+    dy = _randn(gen, (rows, d), dtype)
+    dx, ds = rmsnorm_bwd_cuda(x, s, dy, 1e-5)
+    want_dx, want_ds = rmsnorm_bwd_plain(x, s, dy, 1e-5)
+    _close_tol(dx, want_dx, BWD_TOL[dtype])
+    # dscale sums dy * x * r over every row, in float32 on both sides from
+    # the same inputs: relative to its norm, the summation order only
+    torch.cuda.synchronize()
+    assert ds.dtype == torch.float32 and ds.shape == (d,)
+    err = float((ds - want_ds).norm() / want_ds.norm())
+    assert err <= 1e-4, err
+    again = rmsnorm_bwd_cuda(x, s, dy, 1e-5)
+    assert torch.equal(again[0], dx) and torch.equal(again[1], ds)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ops_gradients_go_through_the_backward_kernels(gen, dtype):
+    """With inputs that require grad, ``ops`` routes through the autograd
+    Functions: the gradients equal the backward kernels' and the plain
+    versions', and each backward wrapper counts one launch per backward.
+    Without grad (or under no_grad) the forward kernel runs alone."""
+    q, k, v, do = _bwd_case(gen, 2, 6, 2, 50, 50, 64, dtype)
+    x = _randn(gen, (2, 50, 64), dtype)
+    s = _randn(gen, (64,), torch.float32)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v, x, s)]
+    n_f, n_b = flash_attention_bwd_cuda.launches, rmsnorm_bwd_cuda.launches
+    o = ops.flash_attention(*leaves[:3], causal=True)
+    y = ops.rmsnorm(leaves[3], leaves[4], 1e-5)
+    assert o.grad_fn is not None and y.grad_fn is not None
+    dy = _randn(gen, y.shape, dtype)
+    torch.autograd.backward((o, y), (do, dy))
+    assert flash_attention_bwd_cuda.launches == n_f + 1
+    assert rmsnorm_bwd_cuda.launches == n_b + 1
+    o_plain = flash_attention_plain(q, k, v, True)
+    for g, w in zip((t.grad for t in leaves[:3]),
+                    flash_attention_bwd_plain(q, k, v, o_plain, do, True)):
+        _close_tol(g, w, BWD_TOL[dtype])
+    dx, ds = rmsnorm_bwd_plain(x, s, dy, 1e-5)
+    _close_tol(leaves[3].grad, dx, BWD_TOL[dtype])
+    torch.testing.assert_close(leaves[4].grad, ds, atol=1e-2, rtol=1e-2)
+    with torch.no_grad():
+        assert ops.flash_attention(*leaves[:3]).grad_fn is None
+        assert ops.rmsnorm(leaves[3], leaves[4], 1e-5).grad_fn is None
+
+
+def test_kernels_without_backward_raise_for_a_gradient(gen):
+    """decode attention and the scan have no backward kernel: asked for a
+    gradient on the card they raise instead of returning an output cut off
+    from the graph; under no_grad they run."""
+    q, k, v = _decode_inputs(gen, 2, 6, 2, 40, 64, torch.float32)
+    length = _lengths(40, 17)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        ops.decode_attention(q.requires_grad_(True), k, v, length)
+    with torch.no_grad():
+        ops.decode_attention(q, k, v, length)
+    u, dt, A, B, C, D, _ = _scan_inputs(gen, 1, 8, 32, 4, torch.float32, False)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        ops.mamba_scan(u.requires_grad_(True), dt, A, B, C, D)
+    with torch.no_grad():
+        ops.mamba_scan(u, dt, A, B, C, D)
+
+
+def _loss_and_grads(cfg, params, batch, device):
+    p = tree_map(lambda a: a.detach().to(device).requires_grad_(True), params)
+    loss, _ = model_api(cfg).loss(
+        p, {k: v.to(device) for k, v in batch.items()}, cfg)
+    loss.backward()
+    return float(loss.detach()), tree_map(lambda a: a.grad, p)
+
+
+def _leaf_pairs(a, b, path=""):
+    if isinstance(a, dict):
+        for k in sorted(a):
+            yield from _leaf_pairs(a[k], b[k], f"{path}/{k}")
+    else:
+        yield path, a, b
+
+
+@pytest.mark.parametrize("name", ["smollm_360m", "h2o_danube_1_8b",
+                                  "granite_3_2b", "stablelm_3b"])
+def test_every_param_leaf_gets_the_cpu_gradient(gen, name):
+    """The detachment guard: the SMOKE models' loss on the card, through the
+    forward and backward kernels under remat, gives every param leaf a
+    gradient equal to the CPU's (plain versions, autograd): |diff| <=
+    1e-4 max|g| + 1e-6 per leaf, float32."""
+    cfg = get(name, smoke=True)
+    params = transformer.init(torch.Generator().manual_seed(0), cfg,
+                              device="cpu")
+    toks = torch.randint(0, cfg.vocab, (2, 33), generator=torch.Generator()
+                         .manual_seed(1))
+    batch = {"inputs": toks[:, :-1], "labels": toks[:, 1:]}
+    n_f, n_b = flash_attention_bwd_cuda.launches, rmsnorm_bwd_cuda.launches
+    loss_c, g_c = _loss_and_grads(cfg, params, batch, "cpu")
+    loss_g, g_g = _loss_and_grads(cfg, params, batch, "cuda")
+    n_attn = sum(m == "attn" for m, _ in cfg.blocks())
+    assert flash_attention_bwd_cuda.launches - n_f == n_attn
+    assert rmsnorm_bwd_cuda.launches - n_b == 1 + 2 * len(cfg.blocks())
+    assert abs(loss_c - loss_g) <= 1e-4
+    for path, gc, gg in _leaf_pairs(g_c, g_g):
+        assert gg is not None and gg.is_cuda, path
+        tol = 1e-4 * float(gc.abs().max()) + 1e-6
+        torch.testing.assert_close(gg.cpu(), gc, atol=tol, rtol=0, msg=path)
+
+
+def test_jamba_loss_refuses_a_gradient_through_the_scan(gen):
+    cfg = dataclasses.replace(get("jamba_1_5_large_398b", smoke=True),
+                              n_experts=0, top_k=0, d_expert=0,
+                              period=(("attn", "mlp"),) + (("mamba", "mlp"),) * 7)
+    params = transformer.init(torch.Generator(device="cuda").manual_seed(0),
+                              cfg, device="cuda")
+    toks = torch.randint(0, cfg.vocab, (2, 17), device="cuda", generator=gen)
+    with pytest.raises(NotImplementedError, match="mamba_scan"):
+        _loss_and_grads(cfg, params, {"inputs": toks[:, :-1],
+                                      "labels": toks[:, 1:]}, "cuda")
+
+
+def test_serve_main_runs_with_its_defaults(gen, capsys):
+    """``python -m repro_torch.launch.serve`` with no arguments: smollm SMOKE
+    (head dim 20) on the card."""
+    serve.main([])
+    assert "[serve] smollm-smoke on cuda" in capsys.readouterr().out

@@ -19,7 +19,10 @@ from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.mamba_scan import mamba_scan_cuda
 from repro_torch.kernels.rmsnorm import rmsnorm_cuda
 from repro_torch.launch.serve import Request, serve_batch
-from repro_torch.launch.steps import make_decode_step, make_prefill_step
+from repro_torch.launch.steps import (make_decode_step, make_prefill_step,
+                                      make_train_step)
+from repro_torch.launch.train import train
+from repro_torch.optim.optimizers import adamw
 from repro_torch.models import transformer
 from repro_torch.weights import from_jax_params
 
@@ -80,6 +83,10 @@ def test_entry_points_raise_without_gpu():
         make_prefill_step(cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make_decode_step(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_train_step(cfg, adamw(1e-3))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train("smollm_360m", steps=1)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         transformer.init(torch.Generator(), cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):

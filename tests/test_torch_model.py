@@ -205,8 +205,10 @@ def test_unported_blocks_raise():
                               encoder_layers=1)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         model_api(enc)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        model_api(tget("smollm_360m", smoke=True)).loss(None, None, None)
+    # the loss is ported, its MTP branch is not
+    mtp = dataclasses.replace(tget("smollm_360m", smoke=True), mtp=True)
+    with pytest.raises(NotImplementedError, match="MTP"):
+        model_api(mtp).loss(None, None, mtp)
 
 
 def test_mamba_float32_leaves_survive_a_bf16_transplant():

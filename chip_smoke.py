@@ -10,9 +10,11 @@ Run from the root of a checkout: it builds the CUDA kernels from
 time,
   1. prints the card's name and power limit (nvidia-smi), the build time,
      ptxas's registers and spills for the instances of the bf16
-     flash-attention, decode-attention, RMSNorm and scan kernels, the HGMMA
-     (tensor-core) instructions in the flash kernel's SASS (cuobjdump),
-     failing if there are none, and for each scan instance its SASS
+     flash-attention forward and backward, decode-attention, RMSNorm and
+     scan kernels, the HGMMA (tensor-core) instructions in the flash
+     kernels' SASS (cuobjdump), failing if the forward has none, if a bf16
+     backward instance has none or if the head-dim-64 backward instances
+     spill, and for each scan instance its SASS
      instructions, MUFU.EX2 and LDL/STL counts and resident blocks per SM,
      failing if one spills or holds fewer blocks than its launch plan;
   2. holds each kernel against its plain PyTorch version on the card, at the
@@ -26,9 +28,11 @@ time,
      the scan runs with Mamba's initial A and with a random A, and its
      timed rows add the SM clock while it runs back to back); the SMOKE
      configs' head dims (16, 20) in the attention kernels; and the two
-     backward kernels (flash attention at smollm's training shape and at
-     SMOKE shapes with a window, an offset and ragged lengths; RMSNorm at
-     d 960, 768, 1536), whose library yardstick is the backward of
+     backward kernels (flash attention at smollm's and, in bf16, Jamba's
+     training shapes, with the forward's log-sum-exp as training passes
+     it, and at SMOKE shapes with a window, an offset and ragged lengths;
+     RMSNorm at d 960, 768, 1536), and the bf16 forward that also writes
+     the log-sum-exp; the backward's library yardstick is the backward of
      ``scaled_dot_product_attention`` (``enable_gqa``) or ``F.rms_norm``:
      autograd forward + backward less the forward;
   3. runs full-width smollm-360M prefill (bf16, 8 x 512 tokens) through
@@ -52,7 +56,9 @@ time,
      last step (finite, falling), grad norms, peak device memory, the
      launches per step of every forward and backward kernel against the
      counts worked out from the config (remat runs each period's forward
-     twice), and a profile of one step;
+     twice), no extra forward for the backward's log-sum-exp, the 16
+     losses, and a profile of one step with the flash backward's device
+     time and share;
   14. float32 train-step parity, card against CPU, at full width cut to 2
      layers (batch 2 x 128): the loss, the grad norm and every gradient
      leaf, then the params after one ``make_train_step``; and decode
@@ -105,6 +111,10 @@ TOL = {("rmsnorm", "float32"): 1e-5, ("rmsnorm", "bfloat16"): 2e-2,
        # forward's outputs (dk/dv over every q row of G heads) in another
        # order; bf16 adds one rounding of each output
        ("attn_bwd", "float32"): 1e-4, ("attn_bwd", "bfloat16"): 5e-2,
+       # the bf16 forward's log-sum-exp: float32 from the same bf16 inputs
+       # on both sides (ex2/lg2 approximations, summation order); its O as
+       # ("attn", "bfloat16")
+       ("attn_lse", "float32"): 1e-4, ("attn_lse", "bfloat16"): 3e-2,
        ("rmsnorm_bwd", "float32"): 1e-4, ("rmsnorm_bwd", "bfloat16"): 2e-2}
 # RMSNorm's dscale sums dy * x * r over every row, float32 on both sides:
 # the norm of the difference over the norm of the plain version's
@@ -134,7 +144,7 @@ KERNELS = {  # name: (source, TPU kernel it replaces, main-path case)
                    "8x512x16384 N16 dt f32 random A"),
     "rmsnorm_bwd": ("src/repro_torch/csrc/rmsnorm_bwd.cu",
                     "src/repro/kernels/rmsnorm.py:23", "4096x960"),
-    "flash_attention_bwd": ("src/repro_torch/csrc/flash_attention_bwd.cu",
+    "flash_attention_bwd": ("src/repro_torch/csrc/flash_attention_bwd_sm90.cu",
                             "src/repro/kernels/flash_attention.py:84",
                             "causal 8x15/5x512x512x64"),
 }
@@ -172,7 +182,8 @@ def profiled(fn, iters: int = 1, attempts: int = 3):
 
 
 def device_profile(fn, iters: int = 21):
-    """(device ms per call, kernels and copies per call), from the profiler
+    """(device ms per call, kernels and copies per call, device ms per call
+    of each kernel by name), from the profiler
     (CUPTI), after a warm-up, over ``iters`` calls of ``fn``: for each
     kernel or copy (by name), the median of its durations times the times
     one call runs it (its events over ``iters``, rounded). Counting by name
@@ -185,12 +196,13 @@ def device_profile(fn, iters: int = 21):
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             by_name.setdefault(e.name, []).append(e.time_range.end - e.time_range.start)
-    ms, per = 0.0, 0
-    for durations in by_name.values():
+    each = {}
+    per = 0
+    for name, durations in by_name.items():
         n = max(1, round(len(durations) / iters))
-        ms += statistics.median(durations) * n / 1e3
+        each[name] = statistics.median(durations) * n / 1e3
         per += n
-    return ms, per
+    return sum(each.values()), per, each
 
 
 def device_ms(fn, iters: int = 21) -> float:
@@ -268,7 +280,7 @@ def compare(kernel, case, dtype, got, want, tol_key, run=None, plain=None,
     less ``library_fwd``'s time where that is given, for a backward timed
     as autograd forward + backward) and states the bound from ``n_bytes``,
     ``ops`` of ``ops_dtype`` (default ``dtype``) and ``exps``
-    exponentials."""
+    exponentials; a backward row also keeps each kernel's device ms."""
     pieces = list(zip(got, want)) if isinstance(got, tuple) else [(got, want)]
     ok, max_err = True, 0.0
     for g, w in pieces:
@@ -281,7 +293,11 @@ def compare(kernel, case, dtype, got, want, tol_key, run=None, plain=None,
     if run is not None:
         row["bound_ms"], row["bound_by"], row["bound_terms"] = bound(
             n_bytes, ops, ops_dtype or dtype, exps)
-        row["ms"], row["kernels_per_call"] = device_profile(run)
+        row["ms"], row["kernels_per_call"], each = device_profile(run)
+        if kernel.endswith("_bwd"):
+            row["kernel_ms"] = {
+                re.sub(r"^void |\(.*$", "", k.replace("(anonymous namespace)::", ""))[:60]: v
+                for k, v in each.items()}
         lib_ms = None if library is None else device_ms(library)
         if library_fwd is not None:
             lib_ms -= device_ms(library_fwd)
@@ -342,6 +358,20 @@ def phase_kernels(rms, fla, dec, scan):
                 library=library, n_bytes=2 * nbytes(q) + 2 * nbytes(k),
                 ops=4 * b * hq * hd * pairs))
             rows[-1]["instance"] = fla.INSTANCES[dtype]
+            if dtype == torch.bfloat16 and window is None and sq == 512:
+                # the forward as training runs it: O and each row's L
+                rows.append(compare(
+                    "flash_attention", f"{case} with L", dn,
+                    fla.flash_attention_cuda(q, k, v, True, None, off, return_lse=True),
+                    fla.flash_attention_plain(q, k, v, True, None, off, return_lse=True),
+                    "attn_lse",
+                    run=lambda q=q, k=k, v=v, o=off:
+                        fla.flash_attention_cuda(q, k, v, True, None, o, return_lse=True),
+                    plain=lambda q=q, k=k, v=v, o=off:
+                        fla.flash_attention_plain(q, k, v, True, None, o, return_lse=True),
+                    library=library, n_bytes=2 * nbytes(q) + 2 * nbytes(k) + 4 * q.numel() // hd,
+                    ops=4 * b * hq * hd * pairs))
+                rows[-1]["instance"] = fla.INSTANCES[dtype]
         # decode attention: the serving cache (64 + 64 + 1 slots), ragged
         # length; and a long context (4096 slots), where the split pays
         for case, hq, hkv, s, hd in (
@@ -471,22 +501,30 @@ def smoke_head_dim_rows(fla, dec, randn, gen):
 
 def backward_rows(rms, fla, randn):
     """The backward kernels against their plain versions: flash attention at
-    smollm-360M's training shape (bf16 and float32) and at the SMOKE shapes
-    (float32), RMSNorm over rows of 960, 768 and 1536. The library
+    smollm-360M's training shape (bf16 and float32), at Jamba's attention
+    shape (bf16, head dim 128) and at the SMOKE shapes (float32), RMSNorm
+    over rows of 960, 768 and 1536. The bf16 flash rows pass the forward's
+    L, as training does (``instance`` names the kernel that ran). The library
     yardstick is autograd's forward + backward of one PyTorch call
     (``scaled_dot_product_attention`` with ``enable_gqa``, and a boolean
     mask where a window or an offset applies; ``F.rms_norm``) less its
     forward."""
     rows = []
     main = (KERNELS["flash_attention_bwd"][2], 8, 15, 5, 512, 512, 64, None)
-    for dtype, cases in ((torch.bfloat16, (main,)),
+    jamba = ("causal 8x64/8x512x512x128", 8, 64, 8, 512, 512, 128, None)
+    for dtype, cases in ((torch.bfloat16, (main, jamba)),
                          (torch.float32, (main,) + SMOKE_ATTN)):
         dn = str(dtype).split(".")[1]
         for case, b, hq, hkv, sq, skv, hd, window in cases:
             q, do = randn((b, hq, sq, hd), dtype), randn((b, hq, sq, hd), dtype)
             k, v = randn((b, hkv, skv, hd), dtype), randn((b, hkv, skv, hd), dtype)
             off = skv - sq
-            o = fla.flash_attention_cuda(q, k, v, True, window, off)
+            lse = None
+            if dtype == torch.bfloat16:
+                o, lse = fla.flash_attention_cuda(q, k, v, True, window, off,
+                                                  return_lse=True)
+            else:
+                o = fla.flash_attention_cuda(q, k, v, True, window, off)
             mask = fla_mask(sq, skv, window, off)
             pairs = int(mask.sum())
             args = (q, k, v, o, do, True, window, off)
@@ -498,17 +536,20 @@ def backward_rows(rms, fla, randn):
                     ql, kl, vl, attn_mask=m, is_causal=m is None, enable_gqa=True)
 
             rows.append(compare(
-                "flash_attention_bwd", case, dn, fla.flash_attention_bwd_cuda(*args),
+                "flash_attention_bwd", case, dn,
+                fla.flash_attention_bwd_cuda(*args, lse=lse),
                 fla.flash_attention_bwd_plain(*args), "attn_bwd",
-                run=lambda args=args: fla.flash_attention_bwd_cuda(*args),
+                run=lambda args=args, lse=lse: fla.flash_attention_bwd_cuda(*args, lse=lse),
                 plain=lambda args=args: fla.flash_attention_bwd_plain(*args),
                 library=lambda f=lib_f, ins=(ql, kl, vl), do=do:
                     torch.autograd.grad(f(), ins, do),
                 library_fwd=lib_f,
                 # q, o, dO, dq and k, v, dk, dv once each; five products of
                 # 2 D operations per (query, key) pair the mask keeps: S
-                # again, dP, dV, dQ, dK
+                # again, dP, dV, dQ, dK (the bf16 kernel runs seven: S and
+                # dP in each launch)
                 n_bytes=4 * nbytes(q) + 4 * nbytes(k), ops=10 * b * hq * hd * pairs))
+            rows[-1]["instance"] = fla.INSTANCES[dtype]
     for dtype in (torch.bfloat16, torch.float32):
         dn = str(dtype).split(".")[1]
         for n, d in ((4096, 960), (4096, 768), (4096, 1536)):
@@ -611,10 +652,11 @@ def drive(kern, totals, want, fn, what):
     return out
 
 
-def profile_call(fn, top: int = 6):
+def profile_call(fn, top: int = 6, groups=()):
     """Wall time of one call (median of 3, unprofiled), its device busy time
-    (profiled), the idle share between them, and the kernels that took the
-    most device time."""
+    (profiled), the idle share between them, the kernels that took the
+    most device time, and the device ms and launches of the kernels whose
+    names contain each of ``groups``."""
     walls = []
     for _ in range(4):
         torch.cuda.synchronize()
@@ -632,7 +674,11 @@ def profile_call(fn, top: int = 6):
     return {"wall_ms": wall, "device_busy_ms": busy,
             "device_ops": sum(e.count for e in events),
             "idle_share": max(0.0, 1 - busy / wall),
-            "top": [{"kernel": k[:80], "ms": v} for k, v in tops]}
+            "top": [{"kernel": k[:80], "ms": v} for k, v in tops],
+            "groups": {g: {"ms": sum(e.self_device_time_total for e in events
+                                     if g in e.key) / 1e3,
+                           "launches": sum(e.count for e in events if g in e.key)}
+                       for g in groups}}
 
 
 def print_profile(tag, prof):
@@ -645,6 +691,7 @@ def print_profile(tag, prof):
 
 # mangled names of the kernel instances whose registers and spills phase 1
 # prints: flash_attention_wgmma<DP, NC> (flash_attention_sm90.cu),
+# flash_bwd_{dq,dkdv}_wgmma<DP> (flash_attention_bwd_sm90.cu),
 # decode_attention_kernel<T, D> (decode_attention.cu),
 # rmsnorm_{warp,block}_kernel<T, NV> (rmsnorm.cu) and mamba_scan_kernel<T,
 # NM> (mamba_scan.cu); T is f (float32) or 13__nv_bfloat16
@@ -657,11 +704,14 @@ INSTANCE_NAMES = {
     "scan": (r"mamba_scan_kernelI(f|13__nv_bfloat16)Li(\d+)EE", "{} N{}"),
     "flash_bwd": (r"flash_bwd_(dq|dkdv)_kernelI(f|13__nv_bfloat16)Li(\d+)EE",
                   "{} {} D{}"),
+    "flash_bwd_wgmma": (r"flash_bwd_(dq|dkdv)_wgmmaILi(\d+)E", "{} DP{}"),
     "rmsnorm_bwd": (r"rmsnorm_bwd_rows_kernelI(f|13__nv_bfloat16)Li(\d+)EE",
                     "{} ITEMS{}"),
 }
 # the scan instance of the main path (Jamba: bf16 u, N 16)
 SCAN_MAIN = "bf16 N16"
+# the bf16 backward instances of the main path (smollm: head dim 64)
+FLASH_BWD_MAIN = ("dq DP64", "dkdv DP64")
 
 
 def instance_label(family: str, name: str):
@@ -678,16 +728,18 @@ def kernel_build_report(build, lib_path: str) -> dict:
     of the bf16 flash-attention kernel (head dim padded to DP, NC consumer
     warpgroups), of decode attention (dtype, head dim D), of the vector
     RMSNorm paths (warp or block per row, NV vectors per thread) and of the
-    scan (dtype of u, state width rounded up to NM); every compiler warning
-    or ptxas performance-loss note; from the SASS (cuobjdump, beside nvcc),
-    the HGMMA (tensor-core) instructions of the flash kernel and, for each
+    scan (dtype of u, state width rounded up to NM), and of the bf16 flash
+    backward's two kernels (head dim padded to DP), with their spill bytes;
+    every compiler warning or ptxas performance-loss note; from the SASS
+    (cuobjdump, beside nvcc), the HGMMA (tensor-core) instructions of the
+    flash forward and backward kernels and, for each
     scan instance, its instructions, MUFU.EX2 and local-memory loads and
     stores (LDL/STL: spills). The scan instances' SASS goes to
     ``build/scan_sass.txt``."""
     lib = Path(lib_path)
     log = lib.parent / lib.name.replace("libreprotorch_", "build_").replace(".so", ".log")
     ptxas = {family: {} for family in INSTANCE_NAMES}
-    spills = {}
+    spills, bwd_spills = {}, {}
     warnings, inst = [], None
     for line in log.read_text().splitlines():
         if "warning" in line or "Performance Loss" in line:
@@ -699,18 +751,21 @@ def kernel_build_report(build, lib_path: str) -> dict:
             fam, lab = inst
             ptxas[fam][lab] = (ptxas[fam].get(lab, "") + " "
                                + line.split(":")[-1].strip()).strip()
-            if fam == "scan" and "spill" in line:
-                spills[lab] = sum(int(b) for b in re.findall(
-                    r"(\d+) bytes spill (?:stores|loads)", line))
+            if fam in ("scan", "flash_bwd_wgmma") and "spill" in line:
+                (spills if fam == "scan" else bwd_spills)[lab] = sum(
+                    int(b) for b in re.findall(r"(\d+) bytes spill (?:stores|loads)", line))
     cuobjdump = Path(build._find_nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(cuobjdump), "--dump-sass", lib_path], check=True,
                           capture_output=True, text=True).stdout
-    hgmma, scan_sass, scan_text = {}, {}, []
+    hgmma, bwd_hgmma, scan_sass, scan_text = {}, {}, {}, []
     for chunk in sass.split("Function : ")[1:]:
         name = chunk.split(None, 1)[0]
         lab = instance_label("flash", name)
         if lab:
             hgmma[lab] = chunk.count("HGMMA")
+        lab = instance_label("flash_bwd_wgmma", name)
+        if lab:
+            bwd_hgmma[lab] = chunk.count("HGMMA")
         lab = instance_label("scan", name)
         if lab:
             ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)",
@@ -725,6 +780,8 @@ def kernel_build_report(build, lib_path: str) -> dict:
     return {"ptxas": ptxas["flash"], "ptxas_decode": ptxas["decode"],
             "ptxas_rmsnorm": ptxas["rmsnorm"], "ptxas_scan": ptxas["scan"],
             "ptxas_flash_bwd": ptxas["flash_bwd"],
+            "ptxas_flash_bwd_wgmma": ptxas["flash_bwd_wgmma"],
+            "flash_bwd_wgmma_spill_bytes": bwd_spills, "flash_bwd_wgmma_hgmma": bwd_hgmma,
             "ptxas_rmsnorm_bwd": ptxas["rmsnorm_bwd"],
             "scan_sass": scan_sass, "warnings": warnings,
             "hgmma": hgmma, "hgmma_total": sum(hgmma.values())}
@@ -889,6 +946,11 @@ def main() -> int:
     report["kernel_build"] = sass = kernel_build_report(_build, _build.last_build["path"])
     if sass["hgmma_total"] == 0:
         fail(f"no HGMMA instruction in the bf16 flash-attention kernel: {sass}")
+    bwd_hgmma, bwd_spills = sass["flash_bwd_wgmma_hgmma"], sass["flash_bwd_wgmma_spill_bytes"]
+    if len(bwd_hgmma) != 4 or not all(bwd_hgmma.values()):
+        fail(f"a bf16 flash-backward instance has no HGMMA instruction: {bwd_hgmma}")
+    if any(bwd_spills.get(lab) != 0 for lab in FLASH_BWD_MAIN):
+        fail(f"the DP 64 flash-backward instances spill: {bwd_spills}")
     if not all(sass[k] for k in ("ptxas_decode", "ptxas_rmsnorm", "ptxas_scan",
                                  "ptxas_flash_bwd", "ptxas_rmsnorm_bwd")):
         fail(f"no ptxas report of the decode, RMSNorm, scan or backward "
@@ -912,7 +974,9 @@ def main() -> int:
           f" | bf16 flash kernel, HGMMA instructions: {sass['hgmma_total']} "
           f"{sass['hgmma']}; ptxas: {sass['ptxas']}; decode attention ptxas: "
           f"{sass['ptxas_decode']}; RMSNorm ptxas: {sass['ptxas_rmsnorm']}; "
-          f"scan ptxas: {sass['ptxas_scan']}; backward ptxas: flash "
+          f"scan ptxas: {sass['ptxas_scan']}; bf16 flash backward (wgmma) ptxas: "
+          f"{sass['ptxas_flash_bwd_wgmma']}, HGMMA {bwd_hgmma}, spill bytes {bwd_spills}; "
+          f"backward ptxas: flash (simt) "
           f"{sass['ptxas_flash_bwd']}, RMSNorm {sass['ptxas_rmsnorm_bwd']}; "
           f"scan SASS (instructions, "
           f"MUFU.EX2, LDL/STL): " + ", ".join(
@@ -943,6 +1007,9 @@ def main() -> int:
                                                  in r["split_sweep_ms"].items()))
         if r.get("sm_clock_mhz"):
             timing += f" | SM clock {r['sm_clock_mhz']:.0f} MHz back to back"
+        if "kernel_ms" in r:
+            timing += " | by kernel " + ", ".join(
+                f"{k} {v:.4f}" for k, v in r["kernel_ms"].items())
         inst = f" ({r['instance']})" if "instance" in r else ""
         dscale = (f", dscale rel err {r['dscale_rel_err']:.2e} (tol {DSCALE_TOL:g})"
                   if "dscale_rel_err" in r else "")
@@ -1157,11 +1224,15 @@ def main() -> int:
     cfg = get("smollm_360m")
     per_t = per_train_step(cfg)       # 129 / 65 RMSNorm, 64 / 32 attention
     torch.cuda.reset_peak_memory_stats()
+    fla.flash_attention_bwd_cuda.lse_forwards = 0
     out = drive(kern, totals, zero(**{k: v * TRAIN_STEPS for k, v in per_t.items()}),
                 lambda: train("smollm_360m", smoke=False, steps=TRAIN_STEPS, batch=8,
                               seq=512, log_every=TRAIN_STEPS // 2, device="cuda"),
                 "smollm training")
     peak = torch.cuda.max_memory_allocated()
+    if fla.flash_attention_bwd_cuda.lse_forwards != 0:
+        fail(f"training ran {fla.flash_attention_bwd_cuda.lse_forwards} extra forwards "
+             "for the backward's log-sum-exp (the forward's L was not passed)")
     losses = out["losses"]
     if len(losses) != TRAIN_STEPS or not all(math.isfinite(x) for x in losses):
         fail(f"training losses not finite: {losses}")
@@ -1179,19 +1250,26 @@ def main() -> int:
         "grad_norms": out["grad_norms"], "step_s": out["step_s"],
         "median_step_s": step_s, "tokens_per_s": 8 * 512 / step_s,
         "max_memory_allocated": peak, "launches_per_step": per_t,
-        "profile": profile_call(lambda: step_fn(tparams, tstate, tb))}
+        "lse_forwards": fla.flash_attention_bwd_cuda.lse_forwards,
+        "profile": profile_call(lambda: step_fn(tparams, tstate, tb),
+                                groups=("flash_bwd", "flash_attention_wgmma"))}
     del out, tparams, tstate
     torch.cuda.empty_cache()
     prof = tr["profile"]
+    fb = prof["groups"]["flash_bwd"]
     print(f"[13 train] smollm-360M bf16, {TRAIN_STEPS} steps of 8x512 through "
           f"launch.train.train: median step {step_s * 1e3:.1f} ms (after step 0), "
           f"{8 * 512 / step_s:.0f} tokens/s; loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
           f"grad_norm {tr['grad_norms'][0]:.3f} at step 0, {tr['grad_norms'][-1]:.3f} "
           f"at the last; peak device memory {peak / 2**30:.2f} GiB; "
           f"launches per step: " + ", ".join(f"{k} {v}" for k, v in per_t.items())
-          + f"; one step profiled: wall {prof['wall_ms']:.1f} ms, device busy "
+          + f"; losses {[round(x, 4) for x in losses]}; extra forwards for L "
+          f"{tr['lse_forwards']}; one step profiled: wall {prof['wall_ms']:.1f} ms, device busy "
           f"{prof['device_busy_ms']:.1f} ms over {prof['device_ops']} kernels and "
-          f"copies, idle {prof['idle_share']:.1%}, top: " + ", ".join(
+          f"copies, idle {prof['idle_share']:.1%}, flash backward {fb['ms']:.2f} ms "
+          f"({fb['ms'] / prof['device_busy_ms']:.1%}) over {fb['launches']} kernels, "
+          f"flash forward {prof['groups']['flash_attention_wgmma']['ms']:.2f} ms, top: "
+          + ", ".join(
               f"{t['kernel'][:40]} {t['ms']:.2f} ms" for t in prof["top"])
           + f" {took('13 train')}", flush=True)
 

@@ -270,7 +270,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, const S
 
 namespace repro {
 cudaError_t flash_attention_wgmma_bf16(const void* q, const void* k, const void* v, void* o,
-                                       const long long* sq, const long long* sk,
+                                       float* lse, const long long* sq, const long long* sk,
                                        const long long* sv, const long long* so, int B,
                                        int Hq, int Hkv, int Sq, int Skv, int D, int causal,
                                        int window, int offset, float scale,
@@ -280,9 +280,11 @@ cudaError_t flash_attention_wgmma_bf16(const void* q, const void* k, const void*
 // Strides are in elements, three per tensor: batch, head, sequence (the last
 // dim is contiguous); every stride and pointer is 16-byte aligned. window < 0
 // means no sliding window. float32 runs on the CUDA cores (above), bf16 on
-// the tensor cores (flash_attention_sm90.cu). Returns a cudaError_t code.
+// the tensor cores (flash_attention_sm90.cu). lse: null, or (B, Hq, Sq)
+// float32 for each row's log-sum-exp, which only the bf16 kernel writes.
+// Returns a cudaError_t code.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
-                                   void* o, const long long* sq, const long long* sk,
+                                   void* o, void* lse, const long long* sq, const long long* sk,
                                    const long long* sv, const long long* so, int B,
                                    int Hq, int Hkv, int Sq, int Skv, int D, int causal,
                                    int window, int offset, float scale, int dtype,
@@ -294,9 +296,10 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
     return cudaErrorMisalignedAddress;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == repro::kBFloat16)
-    return repro::flash_attention_wgmma_bf16(q, k, v, o, sq, sk, sv, so, B, Hq, Hkv, Sq, Skv,
-                                             D, causal, window, offset, scale, s);
-  if (dtype != repro::kFloat32) return cudaErrorInvalidValue;
+    return repro::flash_attention_wgmma_bf16(q, k, v, o, static_cast<float*>(lse), sq, sk, sv,
+                                             so, B, Hq, Hkv, Sq, Skv, D, causal, window,
+                                             offset, scale, s);
+  if (dtype != repro::kFloat32 || lse != nullptr) return cudaErrorInvalidValue;
   const Strides st{{{sq[0], sq[1], sq[2]}, {sk[0], sk[1], sk[2]}, {sv[0], sv[1], sv[2]},
                     {so[0], so[1], so[2]}}};
   for (const auto& t : st.s)

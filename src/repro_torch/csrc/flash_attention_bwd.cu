@@ -1,24 +1,23 @@
-// Flash attention backward for Hopper (sm_90a), bf16 and float32, on the
-// CUDA cores: dq, dk, dv of o = softmax(scale * q k^T + mask) v with causal,
+// Flash attention backward for Hopper (sm_90a), float32, on the CUDA
+// cores: dq, dk, dv of o = softmax(scale * q k^T + mask) v with causal,
 // sliding-window or full masking, GQA, an offset for q row 0, and every
 // tensor read and written through its batch, head and sequence strides.
 //
 // Replaces: src/repro/kernels/flash_attention.py, flash_attention_pallas
 // (_kernel). The Pallas kernel has no backward; the reference trains
 // through the blockwise jnp attention (_flash_jnp) and lets JAX
-// differentiate it. This is that gradient as a kernel, beside the port's
-// forward kernels (flash_attention.cu, flash_attention_sm90.cu).
+// differentiate it. This is that gradient as a kernel for float32 inputs,
+// beside the float32 forward (flash_attention.cu); bf16 runs on the tensor
+// cores (flash_attention_bwd_sm90.cu).
 //
 // Bound on an H100 SXM: the larger of 10 * B * Hq * D * pairs operations
 // (pairs = the (query, key) pairs the mask keeps; five products of 2 D
 // each: S = q k^T again, since the forward keeps nothing, dP = dO v^T,
 // dv = P^T dO, dq = dS k, dk = dS^T q) over the peak of the input type
 // (989 TFLOP/s bf16 on the tensor cores, 67 float32 on the CUDA cores), and
-// the bytes of q, k, v, o, dO, dq, dk, dv over 3.35 TB/s. This kernel runs
-// on the CUDA cores in float32 whatever the input type, and does ~16 D per
-// pair (S and dP twice, once in each launch, and the row sums of the
-// log-sum-exp pass), so in bf16 it is far from the tensor cores' bound;
-// moving the products onto wgmma is queued (ROADMAP, queue 2).
+// the bytes of q, k, v, o, dO, dq, dk, dv over 3.35 TB/s. This kernel does
+// ~16 D per pair (S and dP twice, once in each launch, and the row sums of
+// the log-sum-exp pass), 1.6x the float32 operations bound.
 //
 // Design: two launches, no atomics, every sum in a fixed order.
 //   1. flash_bwd_dq_kernel, one block of 256 threads per (64-row q tile, q
@@ -457,7 +456,8 @@ cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v, const
 // strides: 24 int64 element strides, (batch, head, sequence) of q, k, v, o,
 // dout, dq, dk, dv in that order; the last dim of each is contiguous. lse
 // and delta: (B, Hq, Sq) float32 workspaces. window < 0 means no sliding
-// window. Returns a cudaError_t code.
+// window. dtype: float32 only (bf16 has flash_attention_bwd_wgmma). Returns
+// a cudaError_t code.
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
                                    const void* dout, void* dq, void* dk, void* dv, void* lse,
                                    void* delta, const long long* strides, int B, int Hq,
@@ -472,11 +472,7 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
   float* l = static_cast<float*>(lse);
   float* dl = static_cast<float*>(delta);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == repro::kFloat32)
-    return dispatch_d<float>(D, q, k, v, o, dout, dq, dk, dv, l, dl, st, B, Hq, Hkv, Sq, Skv,
-                             causal, window, offset, scale, s);
-  if (dtype == repro::kBFloat16)
-    return dispatch_d<__nv_bfloat16>(D, q, k, v, o, dout, dq, dk, dv, l, dl, st, B, Hq, Hkv,
-                                     Sq, Skv, causal, window, offset, scale, s);
-  return cudaErrorInvalidValue;
+  if (dtype != repro::kFloat32) return cudaErrorInvalidValue;
+  return dispatch_d<float>(D, q, k, v, o, dout, dq, dk, dv, l, dl, st, B, Hq, Hkv, Sq, Skv,
+                           causal, window, offset, scale, s);
 }

@@ -50,9 +50,16 @@
 // zero-filled by TMA and never written back. The softmax and both accumulations are float32 and
 // the output is rounded once to bf16. A row whose every key is masked
 // returns 0: its running max stays -inf and its sum 0.
-#include "common.cuh"
+//
+// The log-sum-exp. With a non-null `lse` ((B, Hq, Sq) float32) the epilogue
+// also writes each row's L = m * scale + ln(l), m the row's max of the
+// unscaled logits and l its sum of exp(scale (s - m)), so that the backward
+// (flash_attention_bwd_sm90.cu) takes P = exp(scale s - L) without a pass
+// of its own; a row with no visible key gets L = +inf (P = 0 there). One
+// thread of each quad writes it. A null `lse` (serving, prefill) writes
+// nothing and leaves every other instruction as it was.
+#include "sm90.cuh"
 
-#include <cuda.h>  // CUtensorMap and its enums; no driver library is linked
 #include <math.h>
 
 namespace {
@@ -90,191 +97,6 @@ struct Plan {
           : 240;
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-
-// Wait until the phase of parity `parity` of the barrier has completed. A
-// wait beyond 10 s traps, so a broken pipeline fails the launch instead of
-// hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  if (mbar_try_wait(bar, parity)) return;
-  uint64_t t0, t;
-  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t0));
-  while (!mbar_try_wait(bar, parity)) {
-    asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
-    if (t - t0 > 10000000000ull) __trap();
-  }
-}
-
-// One 64 x 64 box of a (D, S, H, B) tensor map into shared memory.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int d0, int s0, int h, int b) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(d0), "r"(s0), "r"(h), "r"(b)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle. K-major operands (Q, K):
-// rows of 128 bytes, 8-row groups 1024 bytes apart (SBO); a k16 step moves
-// the start 32 bytes along the row. MN-major V: LBO = 8192 bytes between the
-// 64-column panels of D, SBO = 1024 bytes between groups of 8 keys.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32) |
-         (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// Wait until at most N committed groups of this warpgroup are in flight.
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Keep the compiler from moving reads or writes of registers across the
-// asynchronous product that reads or writes them.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
-
-// D (64 x 64, float32) = A (64 x 16) * B (16 x 64), A and B K-major in shared memory;
-// D += A * B when scale_d is nonzero, D = A * B otherwise.
-__device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[32], uint64_t da, uint64_t db,
-                                                int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// D (64 x 64, float32) += A (64 x 16, bf16 pairs in registers) * B (16 x 64),
-// B MN-major (transposed) in shared memory.
-__device__ __forceinline__ void wgmma_rs_m64n64k16(float (&d)[32], uint32_t a0, uint32_t a1,
-                                                uint32_t a2, uint32_t a3, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
-}
-
-// D (64 x 128, float32) += A (64 x 16, bf16 pairs in registers) * B (16 x 128),
-// B MN-major (transposed) in shared memory.
-__device__ __forceinline__ void wgmma_rs_m64n128k16(float (&d)[64], uint32_t a0, uint32_t a1,
-                                                uint32_t a2, uint32_t a3, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
-}
-
-template <int DP>
-__device__ __forceinline__ void wgmma_pv(float (&o)[DP / 2], uint32_t a0, uint32_t a1,
-                                         uint32_t a2, uint32_t a3, uint64_t db) {
-  if constexpr (DP == 64) {
-    wgmma_rs_m64n64k16(o, a0, a1, a2, a3, db);
-  } else {
-    wgmma_rs_m64n128k16(o, a0, a1, a2, a3, db);
-  }
-}
-
-// 2^x on the special-function unit, subnormal results flushed to 0 (a
-// probability below 2^-126 of the row's largest is 0 in bf16 anyway).
-__device__ __forceinline__ float exp2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 // Accumulator element r of a thread (lane l of warp w in its warpgroup)
 // sits at row 16 w + l / 4 + 8 ((r >> 1) & 1) and column
 // 8 (r >> 2) + 2 (l % 4) + (r & 1).
@@ -283,8 +105,9 @@ __global__ void __launch_bounds__(Plan<DP, NC>::kThreads, Plan<DP, NC>::kMinBloc
 flash_attention_wgmma(const __grid_constant__ CUtensorMap tmq,
                       const __grid_constant__ CUtensorMap tmk,
                       const __grid_constant__ CUtensorMap tmv, __nv_bfloat16* __restrict__ o,
-                      long long sob, long long soh, long long sos, int Sq, int Skv, int D,
-                      int G, int causal, int window, int offset, float scale_log2) {
+                      long long sob, long long soh, long long sos, float* __restrict__ lse,
+                      int Hq, int Sq, int Skv, int D, int G, int causal, int window,
+                      int offset, float scale_log2) {
   using P = Plan<DP, NC>;
   constexpr int ST = P::kStages;
   extern __shared__ uint8_t smem_raw[];
@@ -432,7 +255,7 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap tmq,
       const uint32_t v_tile = base + P::kV + s * P::kKVTile;
 #pragma unroll
       for (int kk = 0; kk < kBN / 16; ++kk)
-        wgmma_pv<DP>(acc, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3],
+        wgmma_rs<DP>(acc, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3],
                      smem_desc(v_tile + kk * 2048, P::kKVPanel, 1024));
       wgmma_commit();
     };
@@ -494,52 +317,22 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap tmq,
               pack_bf16(acc[4 * j + 2] * inv1, acc[4 * j + 3] * inv1);
       }
     }
+    if (lse != nullptr && lane % 4 == 0) {
+      // L = (m * scale_log2 + log2 l) * ln 2; +inf where l is 0
+      float* lrow = lse + ((long long)b * Hq + head0 + wg) * Sq + q0;
+      if (r0 < n_q)
+        lrow[r0] = l0 > 0.f ? (m0 * scale_log2 + __log2f(l0)) * 0.6931471805599453f : INFINITY;
+      if (r0 + 8 < n_q)
+        lrow[r0 + 8] =
+            l1 > 0.f ? (m1 * scale_log2 + __log2f(l1)) * 0.6931471805599453f : INFINITY;
+    }
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                       cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                                              &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// A (D, S, H, B) tensor map of a bf16 (B, H, S, D) tensor with the given
-// element strides (the last dim contiguous), read in boxes of `rows` x 64
-// with the 128-byte swizzle; rows and columns outside the tensor read as
-// zero.
-bool encode(CUtensorMap* map, const void* ptr, int B, int H, int S, int D, long long sb,
-            long long sh, long long ss, int rows) {
-  EncodeTiled fn = encoder();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)H, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)sh * 2, (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
-            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int DP, int NC>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, const long long* sq,
-                   const long long* sk, const long long* sv, const long long* so, int B, int Hq,
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse,
+                   const long long* sq, const long long* sk, const long long* sv,
+                   const long long* so, int B, int Hq,
                    int Hkv, int Sq, int Skv, int D, int causal, int window, int offset,
                    float scale, cudaStream_t stream) {
   using P = Plan<DP, NC>;
@@ -563,8 +356,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, const l
   const int G = Hq / Hkv;
   const dim3 grid(Hkv * (G / NC), B, (Sq + kRows - 1) / kRows);
   kernel<<<grid, P::kThreads, P::kBytes, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), so[0], so[1], so[2], Sq, Skv, D, G, causal,
-      window, offset, scale * 1.4426950408889634f);
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), so[0], so[1], so[2], lse, Hq, Sq, Skv, D, G,
+      causal, window, offset, scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
 
@@ -574,8 +367,10 @@ namespace repro {
 
 // The bf16 instance of flash_attention_fwd (flash_attention.cu). Strides are
 // in elements, (batch, head, sequence) for each of q, k, v, o; every stride
-// and pointer is 16-byte aligned and the last dim contiguous.
+// and pointer is 16-byte aligned and the last dim contiguous. `lse`, when
+// not null, receives each row's log-sum-exp, (B, Hq, Sq) float32.
 cudaError_t flash_attention_wgmma_bf16(const void* q, const void* k, const void* v, void* o,
+                                       float* lse,
                                        const long long* sq, const long long* sk,
                                        const long long* sv, const long long* so, int B,
                                        int Hq, int Hkv, int Sq, int Skv, int D, int causal,
@@ -588,7 +383,7 @@ cudaError_t flash_attention_wgmma_bf16(const void* q, const void* k, const void*
   // SM; D > 64: two q heads per block where G is even.
   const int G = Hq / Hkv;
 #define REPRO_GO(DP, NC)                                                                   \
-  return launch<DP, NC>(q, k, v, o, sq, sk, sv, so, B, Hq, Hkv, Sq, Skv, D, causal, window, \
+  return launch<DP, NC>(q, k, v, o, lse, sq, sk, sv, so, B, Hq, Hkv, Sq, Skv, D, causal, window, \
                         offset, scale, stream)
   if (D <= 64 && G % 3 == 0) REPRO_GO(64, 3);
   if (D <= 64) REPRO_GO(64, 1);

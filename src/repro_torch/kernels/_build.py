@@ -36,14 +36,16 @@ SIGNATURES = {
     # x, scale, dy, dx, partial (blocks, d), dscale, rows, d, rows per
     # block, blocks, eps, dtype, stream
     "rmsnorm_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
-    # q, k, v, o, their strides (3 int64 each: batch, head, sequence), B,
-    # Hq, Hkv, Sq, Skv, D, causal, window, offset, scale, dtype, stream
-    "flash_attention_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                            _I, _I, _I, _I, _I, _F, _I, _P],
+    # q, k, v, o, lse (or null), their strides (3 int64 each of q, k, v,
+    # o: batch, head, sequence), B, Hq, Hkv, Sq, Skv, D, causal, window,
+    # offset, scale, dtype, stream
+    "flash_attention_fwd": [_P] * 9 + [_I] * 9 + [_F, _I, _P],
     # q, k, v, o, dout, dq, dk, dv, lse, delta, 24 strides (int64: batch,
     # head, sequence of each of those 8 tensors), B, Hq, Hkv, Sq, Skv, D,
     # causal, window, offset, scale, dtype, stream
     "flash_attention_bwd": [_P] * 11 + [_I] * 9 + [_F, _I, _P],
+    # the same, bf16 only (no dtype), lse read: the forward's log-sum-exp
+    "flash_attention_bwd_wgmma": [_P] * 11 + [_I] * 9 + [_F, _P],
     # q, k, v, length, o, B, Hq, Hkv, S, D, n_split, chunk, window, scale,
     # dtype, stream
     "decode_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,

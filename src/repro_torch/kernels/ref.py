@@ -53,10 +53,13 @@ def _mask(sq: int, skv: int, causal: bool, window: Optional[int],
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   causal: bool = True, window: Optional[int] = None,
-                  offset: int = 0,
-                  scale: Optional[float] = None) -> torch.Tensor:
+                  offset: int = 0, scale: Optional[float] = None,
+                  return_lse: bool = False):
     """Naive attention. q: (B, Hq, Sq, D); k/v: (B, Hkv, Skv, D); GQA via
-    head-group broadcast. Returns (B, Hq, Sq, D)."""
+    head-group broadcast. Returns (B, Hq, Sq, D); with ``return_lse`` also
+    L, (B, Hq, Sq) float32: the log-sum-exp over the visible keys of each
+    row's scaled logits, +inf for a row that sees no key (so that
+    ``exp(scale * s - L)`` is 0 there, as the kernels' output is)."""
     b, hq, sq, d = q.shape
     _, hkv, skv, _ = k.shape
     if hq % hkv:
@@ -70,13 +73,19 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          torch.full_like(logits, NEG_INF))
     p = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
-    return out.reshape(b, hq, sq, d).to(q.dtype)
+    out = out.reshape(b, hq, sq, d).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.logsumexp(logits.masked_fill(~m, float("-inf")), dim=-1)
+    lse = lse.masked_fill(~m.any(dim=-1), float("inf"))
+    return out, lse.reshape(b, hq, sq)
 
 
 def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       o: torch.Tensor, do: torch.Tensor, causal: bool = True,
                       window: Optional[int] = None, offset: int = 0,
-                      scale: Optional[float] = None):
+                      scale: Optional[float] = None,
+                      lse: Optional[torch.Tensor] = None):
     """Gradients (dq, dk, dv) of masked softmax attention (shapes and GQA as
     :func:`attention_ref`) as explicit float32 formulas: P = softmax of the
     masked logits, dP = dO V^T, delta = rowsum(dO * O), dS = P (dP - delta),
@@ -84,7 +93,9 @@ def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     head, dv = P^T dO likewise. ``o`` is the forward's output as stored (its
     rounding enters delta, as in the kernel). A row whose every key is
     masked has P = 0 (the kernels' forward returns 0 there) and contributes
-    nothing. Outputs in the inputs' dtypes."""
+    nothing. With ``lse`` ((B, Hq, Sq), as :func:`attention_ref` returns
+    it) P = exp(scale * s - L) of the visible keys, as the bf16 kernel takes
+    it, instead of a softmax of its own. Outputs in the inputs' dtypes."""
     b, hq, sq, d = q.shape
     _, hkv, skv, _ = k.shape
     g = hq // hkv
@@ -96,11 +107,14 @@ def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     logits = torch.einsum("bhgqd,bhkd->bhgqk", qg, kf) * scale
     m = _mask(sq, skv, causal, window, offset, device=q.device)
     logits = logits.masked_fill(~m, float("-inf"))
-    mx = logits.amax(dim=-1, keepdim=True)
-    e = torch.exp(logits - torch.where(torch.isfinite(mx), mx,
-                                       torch.zeros_like(mx)))
-    den = e.sum(dim=-1, keepdim=True)
-    p = torch.where(den > 0, e / den.clamp_min(1e-30), torch.zeros_like(e))
+    if lse is not None:
+        p = torch.exp(logits - lse.float().reshape(b, hkv, g, sq, 1))
+    else:
+        mx = logits.amax(dim=-1, keepdim=True)
+        e = torch.exp(logits - torch.where(torch.isfinite(mx), mx,
+                                           torch.zeros_like(mx)))
+        den = e.sum(dim=-1, keepdim=True)
+        p = torch.where(den > 0, e / den.clamp_min(1e-30), torch.zeros_like(e))
     dp = torch.einsum("bhgqd,bhkd->bhgqk", dog, vf)
     delta = (dog * og).sum(dim=-1, keepdim=True)
     ds = p * (dp - delta)

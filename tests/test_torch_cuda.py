@@ -8,13 +8,15 @@ import dataclasses
 
 import pytest
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs import get
 from repro_torch.kernels import ops
 from repro_torch.kernels.decode_attention import (decode_attention_cuda,
                                                   decode_attention_plain,
                                                   split_plan)
-from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
+from repro_torch.kernels.flash_attention import (INSTANCES,
+                                                 flash_attention_bwd_cuda,
                                                  flash_attention_bwd_plain,
                                                  flash_attention_cuda,
                                                  flash_attention_plain)
@@ -418,6 +420,76 @@ def test_flash_attention_bwd(gen, b, hq, hkv, sq, skv, d, causal, window,
     want = flash_attention_bwd_plain(q, k, v, o, do, causal, window, off)
     for g, w in zip(got, want):
         _close_tol(g, w, BWD_TOL[dtype])
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d,causal,window", BWD_CASES)
+def test_flash_attention_bwd_bf16_takes_the_forwards_lse(gen, b, hq, hkv, sq, skv,
+                                                         d, causal, window):
+    """bf16 runs the tensor-core kernel: with L from the forward (as
+    ``_FlashAttention`` passes it) and without (the wrapper runs the forward
+    once more for it, counted in ``lse_forwards``), both against the plain
+    version at BWD_TOL, and both give the same bits, call after call (no
+    atomics)."""
+    if d == 20:
+        pytest.skip("bf16 rows of 20 are not 16-byte multiples: no instance")
+    dtype = torch.bfloat16
+    assert INSTANCES[dtype] == "wgmma"
+    q, k, v, do = _bwd_case(gen, b, hq, hkv, sq, skv, d, dtype)
+    off = skv - sq
+    o, lse = flash_attention_cuda(q, k, v, causal, window, off, return_lse=True)
+    n = flash_attention_bwd_cuda.lse_forwards
+    got = flash_attention_bwd_cuda(q, k, v, o, do, causal, window, off, lse=lse)
+    assert flash_attention_bwd_cuda.lse_forwards == n
+    want = flash_attention_bwd_plain(q, k, v, o, do, causal, window, off)
+    for g, w in zip(got, want):
+        _close_tol(g, w, BWD_TOL[dtype])
+    again = flash_attention_bwd_cuda(q, k, v, o, do, causal, window, off, lse=lse)
+    without = flash_attention_bwd_cuda(q, k, v, o, do, causal, window, off)
+    assert flash_attention_bwd_cuda.lse_forwards == n + 1
+    torch.cuda.synchronize()
+    for g, a, w in zip(got, again, without):
+        assert torch.equal(g, a) and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d,causal,window,offset", [
+    (2, 15, 5, 512, 512, 64, True, None, 0),     # smollm's prefill
+    (1, 16, 2, 130, 130, 128, True, 40, 0),      # G 8, D 128, window
+    (1, 2, 2, 70, 130, 80, False, None, 60),     # D 80, offset, not causal
+    (2, 6, 2, 80, 100, 16, True, 8, 60),         # rows with no key: L = +inf
+])
+def test_flash_attention_forward_writes_lse(gen, b, hq, hkv, sq, skv, d, causal,
+                                            window, offset):
+    """The bf16 forward with the L output gives the same bits of O as
+    without it, and an L that matches the plain version's (float32 on both
+    sides from the same bf16 inputs: ex2/lg2 approximations and summation
+    order, 1e-4), +inf where a row sees no key."""
+    dtype = torch.bfloat16
+    q = _randn(gen, (b, hq, sq, d), dtype)
+    k, v = _randn(gen, (b, hkv, skv, d), dtype), _randn(gen, (b, hkv, skv, d), dtype)
+    o = flash_attention_cuda(q, k, v, causal, window, offset)
+    o2, lse = flash_attention_cuda(q, k, v, causal, window, offset, return_lse=True)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o2)
+    _, want = flash_attention_plain(q, k, v, causal, window, offset, return_lse=True)
+    assert lse.shape == (b, hq, sq) and lse.dtype == torch.float32
+    assert torch.equal(torch.isinf(lse), torch.isinf(want))
+    torch.testing.assert_close(lse, want, atol=1e-4, rtol=1e-4)
+
+
+def test_flash_attention_autograd_passes_the_forwards_lse(gen):
+    """Through ``ops.flash_attention`` with grad (under remat too), the bf16
+    backward reads the L its forward wrote: no forward runs again for it."""
+    q, k, v, do = _bwd_case(gen, 2, 6, 2, 100, 100, 64, torch.bfloat16)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    n, f = flash_attention_bwd_cuda.lse_forwards, flash_attention_cuda.launches
+    o = torch.utils.checkpoint.checkpoint(
+        lambda *a: ops.flash_attention(*a, causal=True), *leaves, use_reentrant=False)
+    o.backward(do)
+    assert flash_attention_bwd_cuda.lse_forwards == n
+    assert flash_attention_cuda.launches == f + 2      # the forward, and again under remat
+    want = flash_attention_bwd_plain(q, k, v, o.detach(), do, True)
+    for leaf, w in zip(leaves, want):
+        _close_tol(leaf.grad, w, BWD_TOL[torch.bfloat16])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -142,11 +142,14 @@ def test_non_cpu_tensors_never_take_the_plain_version():
 def test_cuda_sources_exist_and_target_sm90a():
     names = {p.name for p in (PKG / "csrc").glob("*.cu")}
     assert {"rmsnorm.cu", "flash_attention.cu", "flash_attention_sm90.cu",
-            "decode_attention.cu", "mamba_scan.cu"} <= names
+            "flash_attention_bwd_sm90.cu", "decode_attention.cu",
+            "mamba_scan.cu"} <= names
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     for name, replaced in (("rmsnorm.cu", "rmsnorm_pallas"),
                            ("flash_attention.cu", "flash_attention_pallas"),
                            ("flash_attention_sm90.cu",
+                            "flash_attention_pallas"),
+                           ("flash_attention_bwd_sm90.cu",
                             "flash_attention_pallas"),
                            ("decode_attention.cu", "decode_attention_pallas"),
                            ("mamba_scan.cu", "mamba_scan_pallas")):

@@ -7,6 +7,7 @@ Inputs come from ``numpy.random.default_rng`` and go to both sides. The
 CUDA kernels themselves are checked on the card (``tests/test_torch_cuda.py``
 and ``chip_smoke.py``).
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -21,7 +22,8 @@ from repro.kernels.rmsnorm import rmsnorm_pallas
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.decode_attention import decode_attention_plain
-from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
+                                                 flash_attention_cuda,
                                                  flash_attention_plain)
 from repro_torch.kernels.mamba_scan import mamba_scan_cuda, mamba_scan_plain
 from repro_torch.kernels.rmsnorm import rmsnorm_plain
@@ -89,6 +91,37 @@ def test_flash_attention_matches_jax(b, hq, hkv, sq, skv, d, causal, window,
         close(got, pallas, dtype)
 
 
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d,causal,window,offset",
+                         [c + (c[4] - c[3],) for c in FLASH_CASES] + [
+    (1, 4, 2, 16, 24, 16, True, 4, 22),     # rows 5.. see no key: L = +inf
+    (2, 6, 2, 20, 20, 32, False, 3, 30),    # not causal, every row empty
+])
+def test_flash_attention_lse_matches_jax(b, hq, hkv, sq, skv, d, causal, window,
+                                         offset):
+    """The plain version's log-sum-exp (what the bf16 forward kernel writes
+    and its backward reads) against ``jax.nn.logsumexp`` of the scaled
+    logits masked with jnp, float32 at 2e-5; +inf where a row sees no key,
+    and the output unchanged by asking for L."""
+    rng = np.random.default_rng(7)
+    q = rng.standard_normal((b, hq, sq, d), np.float32)
+    k = rng.standard_normal((b, hkv, skv, d), np.float32)
+    v = rng.standard_normal((b, hkv, skv, d), np.float32)
+    logits = jnp.einsum("bhgqd,bhkd->bhgqk",
+                        jnp.asarray(q).reshape(b, hkv, hq // hkv, sq, d),
+                        jnp.asarray(k)) * d ** -0.5
+    m = jref._mask(sq, skv, causal, window, offset)
+    lse = jax.nn.logsumexp(jnp.where(m, logits, -jnp.inf), axis=-1)
+    want = np.asarray(jnp.where(m.any(axis=-1), lse, jnp.inf)).reshape(b, hq, sq)
+    qt, kt, vt = (torch.from_numpy(x) for x in (q, k, v))
+    out, got = flash_attention_plain(qt, kt, vt, causal, window, offset,
+                                     return_lse=True)
+    assert got.dtype == torch.float32 and got.shape == (b, hq, sq)
+    np.testing.assert_array_equal(np.isinf(got.numpy()), np.isinf(want))
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-5, rtol=2e-5)
+    assert torch.equal(out, flash_attention_plain(qt, kt, vt, causal, window,
+                                                  offset))
+
+
 def test_flash_attention_ragged_and_scale():
     """Ragged Sq (no tile multiple) and an explicit scale, vs the oracle."""
     rng = np.random.default_rng(2)
@@ -139,7 +172,28 @@ def test_flash_attention_wrapper_checks_strides_before_device():
     with pytest.raises(ValueError, match="CUDA"):
         flash_attention_cuda(q.transpose(1, 2).contiguous().transpose(1, 2),
                              q, q)
+    with pytest.raises(ValueError, match="log-sum-exp"):
+        flash_attention_cuda(q.float(), q.float(), q.float(), return_lse=True)
     assert flash_attention_cuda.launches == 0
+
+
+@pytest.mark.parametrize("lse", [
+    torch.zeros(1, 2, 7),                            # wrong shape
+    torch.zeros(1, 2, 8, dtype=torch.bfloat16),      # wrong dtype
+    torch.zeros(1, 2, 8, dtype=torch.float64),
+    torch.zeros(1, 2, 16)[..., ::2],                 # not contiguous
+])
+def test_flash_attention_bwd_wrapper_checks_lse_before_device(lse):
+    """The backward wrapper refuses an ``lse`` of the wrong shape, dtype or
+    layout before it looks for a CUDA device, and counts nothing."""
+    q = torch.zeros(1, 2, 8, 64, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="lse must be contiguous float32"):
+        flash_attention_bwd_cuda(q, q, q, q, q, lse=lse)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_bwd_cuda(q, q, q, q, q, lse=torch.zeros(1, 2, 8))
+    assert flash_attention_bwd_cuda.launches == 0
+    assert flash_attention_bwd_cuda.lse_forwards == 0
+    assert flash_attention_bwd_cuda.copies == 0
 
 
 DECODE_CASES = [

@@ -26,7 +26,8 @@ from repro.optim import optimizers as jopt
 from repro_torch.ckpt import checkpoint as tckpt
 from repro_torch.configs import get as tget
 from repro_torch.data.pipeline import SyntheticLM
-from repro_torch.kernels.flash_attention import flash_attention_bwd_plain
+from repro_torch.kernels.flash_attention import (flash_attention_bwd_plain,
+                                                 flash_attention_plain)
 from repro_torch.kernels.rmsnorm import rmsnorm_bwd_plain
 from repro_torch.launch.steps import make_train_step
 from repro_torch.launch.train import train
@@ -248,11 +249,14 @@ def test_six_train_steps_match_jax():
     (2, 3, 1, 17, 17, 20, True, None),      # smollm SMOKE's D 20, ragged
     (1, 4, 4, 16, 30, 16, False, None),     # full, MHA
 ])
+@pytest.mark.parametrize("use_lse", [False, True])
 def test_attention_bwd_plain_matches_jax_vjp(b, hq, hkv, sq, skv, d, causal,
-                                             window):
+                                             window, use_lse):
     """``flash_attention_bwd_plain`` against ``jax.vjp`` of the blockwise jnp
     attention the reference trains through (chunks of 16, so several kv
-    blocks and, at 17, 20 and 30 rows, a padded tail)."""
+    blocks and, at 17, 20 and 30 rows, a padded tail); with ``use_lse`` it
+    takes P from the plain forward's log-sum-exp, as the bf16 kernel does,
+    and equals itself without it."""
     rng = np.random.default_rng(6)
     q = rng.standard_normal((b, hq, sq, d)).astype(np.float32)
     k = rng.standard_normal((b, hkv, skv, d)).astype(np.float32)
@@ -267,12 +271,19 @@ def test_attention_bwd_plain_matches_jax_vjp(b, hq, hkv, sq, skv, d, causal,
 
     o, vjp = jax.vjp(fwd, *(jnp.asarray(x) for x in (q, k, v)))
     want = vjp(jnp.asarray(do))
-    got = flash_attention_bwd_plain(
-        *(torch.from_numpy(x) for x in (q, k, v, np.array(o), do)),
-        causal, window, off)
+    args = [torch.from_numpy(x) for x in (q, k, v, np.array(o), do)]
+    lse = None
+    if use_lse:
+        _, lse = flash_attention_plain(*args[:3], causal, window, off,
+                                       return_lse=True)
+    got = flash_attention_bwd_plain(*args, causal, window, off, lse=lse)
     for g, w in zip(got, want):
         np.testing.assert_allclose(_np(g), np.asarray(w), atol=2e-5,
                                    rtol=2e-5)
+    if use_lse:
+        for g, w in zip(got, flash_attention_bwd_plain(*args, causal, window,
+                                                       off)):
+            np.testing.assert_allclose(_np(g), _np(w), atol=2e-5, rtol=2e-5)
 
 
 @pytest.mark.parametrize("shape", [(64, 128), (2, 7, 60), (8, 20)])

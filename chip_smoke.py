@@ -36,36 +36,46 @@ time,
      ``scaled_dot_product_attention`` (``enable_gqa``) or ``F.rms_norm``:
      autograd forward + backward less the forward;
   3. runs full-width smollm-360M prefill (bf16, 8 x 512 tokens) through
-     ``make_prefill_step`` and checks the kernels' launch counts;
+     ``make_prefill_step``, eagerly (``graphs=False``) and from its CUDA
+     graph (the default on the card), on the same weights and tokens: each
+     path's tokens/s, the graphed logits equal to the eager ones bit for
+     bit, the graph's capture time (after its warm-up calls) and pool bytes,
+     and the launches a replay adds against one forward's;
   4. serves 8 requests (64-token prompts, 64 new tokens) through
-     ``serve_batch`` and checks the launch counts per decode step;
+     ``serve_batch``, eagerly and from the decode step's graph: new tokens/s
+     of each (the graphed one also after its capture), the graphed tokens
+     equal to the eager ones, the launches per decode step and per replay;
   5. compares float32 logits, card against CPU (plain versions), at full
      width, for prefill and for teacher-forced decode steps;
-  6. profiles one prefill and one decode step: device busy time, idle share
-     and the kernels that take the time;
+  6. profiles one prefill and one decode step, eager and graphed: device
+     busy time, idle share and the kernels that take the time; and for each
+     graph, the kernels and copies of one replay against one eager call of
+     the same step on the same tensors (equal, or the phase fails), and the
+     launches the wrappers' counters add per replay against the kernels the
+     profiler sees in it;
   7-10. the same for Jamba at its published widths, cut to one period of 8
      layers (attention + 7 Mamba) with a dense SwiGLU of Jamba's d_ff in
      every FFN (MoE is not ported): prefill, serving, a profile, and float32
      parity on a 2-layer cut (attention + Mamba);
-  11. xlstm-125m at full width and depth: prefill and serving;
+  11. xlstm-125m at full width and depth: prefill and serving, eager and
+     graphed (the sLSTM loop over time runs inside the graph);
   12. the SMOKE configs (head dims 16 and 20): ``serve.main([])`` with its
-     defaults, and the float32 logits of smollm, h2o-danube and Jamba (dense
-     FFN) SMOKE, card against CPU, as phase 5;
+     defaults, graphed, and ``serve.main(["--eager"])``, with equal tokens;
+     h2o-danube SMOKE served past its window of 16, eager and graphed, with
+     equal tokens; and the float32 logits of smollm, h2o-danube and Jamba
+     (dense FFN) SMOKE, card against CPU, as phase 5;
   13. trains full-width smollm-360M (bf16, 8 x 512 tokens a step) through
-     ``launch.train.train``: step time, tokens/s, the loss at the first and
-     last step (finite, falling), grad norms, peak device memory, the
-     launches per step of every forward and backward kernel against the
-     counts worked out from the config (remat runs each period's forward
-     twice), no extra forward for the backward's log-sum-exp, the 16
-     losses, and a profile of one step with the flash backward's device
-     time and share;
-  14. float32 train-step parity, card against CPU, at full width cut to 2
-     layers (batch 2 x 128): the loss, the grad norm and every gradient
-     leaf, then the params after one ``make_train_step``; and decode
-     attention and the scan, which have no backward kernel, raise when asked
-     for a gradient.
+     ``launch.train.train``, eagerly and from the train step's graph: step
+     time, tokens/s, the 16 losses and grad norms (the graphed ones equal to
+     the eager ones bit for bit; finite, falling), peak device memory of
+     each, the launches per step of every forward and backward kernel
+     against the counts worked out from the config (remat runs each
+     period's forward twice), no extra forward for the backward's
+     log-sum-exp, the graph's capture, and a profile of one step eager and
+     replayed with the flash backward's device time and share;
 Every path runs with the launch counts set to 0 just before it and read just
-after. Then it prints the kernel table as one JSON line and, last,
+after; a graphed path's counts include its warm-up calls (``WARMUP`` eager
+calls before capture), and a replay adds what the capture recorded. Then it prints the kernel table as one JSON line and, last,
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
 with no CUDA device, or outside a checkout, it exits non-zero at once. The
 full report goes to ``build/chip_smoke.json``, the compiler's output (ptxas
@@ -74,6 +84,7 @@ instances' SASS to ``build/scan_sass.txt``.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import math
@@ -84,6 +95,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile
@@ -630,6 +642,56 @@ def per_train_step(cfg) -> dict:
             "flash_attention_bwd": per["attn"]}
 
 
+# each wrapper's kernels in a profiler trace: (name pattern, kernels a call)
+KERNEL_EVENTS = {"rmsnorm": (r"rmsnorm_(warp|block|scalar)_kernel", 1),
+                 "flash_attention": (r"flash_attention_(wgmma|kernel)", 1),
+                 "decode_attention": (r"decode_attention_kernel", 1),
+                 "mamba_scan": (r"mamba_scan_kernel", 1),
+                 "rmsnorm_bwd": (r"rmsnorm_bwd_", 2),
+                 "flash_attention_bwd": (r"flash_bwd_", 2)}
+
+
+def kernel_counts(fn, iters: int = 5, sessions: int = 3) -> dict:
+    """Kernels and copies per call of ``fn`` by name (profiler, after a
+    warm-up): each name's events over ``iters`` calls, rounded. Each session
+    runs one call first that it does not record (a session can miss the
+    device events of its first launches), and a session can drop events
+    later too, never add any: so the count of each name is the largest of
+    ``sessions`` sessions."""
+    fn()
+    torch.cuda.synchronize()
+    best = collections.Counter()
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=torch.profiler.schedule(wait=0, warmup=1, active=iters),
+                     acc_events=True) as prof:
+            for _ in range(iters + 1):
+                fn()
+                torch.cuda.synchronize()
+                prof.step()
+        seen = collections.Counter(e.name for e in prof.events()
+                                   if e.device_type == torch.autograd.DeviceType.CUDA)
+        for name, n in seen.items():
+            best[name] = max(best[name], round(n / iters))
+    return {name: n for name, n in best.items() if n}
+
+
+def wrapper_calls(counts: dict) -> dict:
+    """The calls of each kernel wrapper that kernels by name show."""
+    return {w: sum(n for name, n in counts.items() if re.search(pat, name)) // per
+            for w, (pat, per) in KERNEL_EVENTS.items()}
+
+
+def require_same(what, got, want) -> dict:
+    """Graphed against eager: the same kernels on the same inputs in the same
+    order, so the same bits (cuBLAS picks its algorithm from the problem and
+    the workspace size, which capture keeps). Fails unless bit-identical."""
+    diff = float((got.float() - want.float()).abs().max())
+    if not torch.equal(got, want):
+        fail(f"{what}: graphed differs from eager (max abs diff {diff})")
+    return {"bit_equal": True, "max_abs_diff": diff}
+
+
 def counts(kern):
     return {name: fn.launches for name, fn in kern.items()}
 
@@ -682,11 +744,22 @@ def profile_call(fn, top: int = 6, groups=()):
 
 
 def print_profile(tag, prof):
+    """Each profiled call (wall, device busy, idle, the top kernel), then the
+    kernels and copies of each replay against one eager call."""
+    calls = {k: v for k, v in prof.items() if "wall_ms" in v}
+    checks = prof.get("replay_check", {})
     print(f"{tag} " + "; ".join(
         f"{k}: wall {v['wall_ms']:.2f} ms, device busy {v['device_busy_ms']:.2f} ms "
         f"over {v['device_ops']} kernels and copies, "
-        f"idle {v['idle_share']:.1%}, top {v['top'][0]['kernel'][:40]} "
-        f"{v['top'][0]['ms']:.2f} ms" for k, v in prof.items()), flush=True)
+        f"idle {v['idle_share']:.1%}, top " + ", ".join(
+            f"{t['kernel'][:40]} {t['ms']:.2f} ms" for t in v["top"][:3])
+        + "".join(f", {g} {x['ms']:.2f} ms ({x['ms'] / v['device_busy_ms']:.1%}) over "
+                  f"{x['launches']} kernels" for g, x in v["groups"].items())
+        for k, v in calls.items())
+        + "".join(f"; {k} replay: {c['kernels_per_replay']} kernels and copies (eager "
+                  f"call {c['kernels_per_eager_call']}), launches "
+                  + ", ".join(f"{n} {m}" for n, m in c["launches_per_replay"].items() if m)
+                  + " (counters = profiler)" for k, c in checks.items()), flush=True)
 
 
 # mangled names of the kernel instances whose registers and spills phase 1
@@ -858,6 +931,7 @@ def main() -> int:
     from repro_torch.kernels import rmsnorm as rms
     from repro_torch.kernels import ops
     from repro_torch.launch import serve as serve_mod
+    from repro_torch.launch.graphs import WARMUP
     from repro_torch.launch.serve import Request, serve_batch
     from repro_torch.launch.steps import (make_decode_step, make_prefill_step,
                                           make_train_step)
@@ -904,10 +978,138 @@ def main() -> int:
                                          dtype=torch.int32).numpy(), 64)
                 for i in range(8)]
 
-    def check_served(reqs, cfg):
+    def check_served(reqs, cfg, max_new):
         for r in reqs:
-            if r.out.shape != (64,) or not ((0 <= r.out) & (r.out < cfg.vocab)).all():
+            if r.out.shape != (max_new,) or not ((0 <= r.out) & (r.out < cfg.vocab)).all():
                 fail(f"{cfg.name} request {r.rid}: bad output {r.out}")
+
+    def graph_of(step):
+        (g,) = step.graphs.values()
+        return g
+
+    def launches_of(stats) -> dict:
+        return {name: stats["per_replay"].get(f"{fn.__name__}.launches", 0)
+                for name, fn in kern.items()}
+
+    def capture_report(stats, want, what) -> dict:
+        """A capture's cost, and the launches its replays add, which must be
+        one step's (``want``)."""
+        got = launches_of(stats)
+        if got != want:
+            fail(f"{what}: a replay launches {got}, one step {want}")
+        return dict(stats, launches_per_replay=got)
+
+    def replay_check(what, g, eager_fn, iters=5) -> dict:
+        """The kernels and copies of one replay of ``g`` against one eager
+        call of the same step on the same tensors (profiler), and the
+        launches the wrappers' counters add per replay against the kernels
+        the replay ran."""
+        rc = kernel_counts(g.replay, iters)
+        ec = kernel_counts(lambda: eager_fn(*g.args), iters)
+        counted, seen = launches_of(g.stats), wrapper_calls(rc)
+        if counted != seen:
+            fail(f"{what}: the counters add {counted} a replay, the profiler sees {seen}")
+        if rc != ec:
+            fail(f"{what}: a replay runs other kernels than an eager call: "
+                 f"{ {k: (rc.get(k), ec.get(k)) for k in set(rc) | set(ec) if rc.get(k) != ec.get(k)} }")
+        return {"kernels_per_replay": sum(rc.values()),
+                "kernels_per_eager_call": sum(ec.values()), "launches_per_replay": counted}
+
+    def prefill_pair(what, cfg, params, toks, n_runs):
+        """Eager and graphed prefill, ``n_runs`` calls each on the same
+        weights and tokens (times: median after the first); the graphed
+        logits must equal the eager ones bit for bit. Returns (record, eager
+        step, graphed step)."""
+        per = per_pass(cfg)
+        one = zero(rmsnorm=per["rmsnorm"], flash_attention=per["attn"],
+                   mamba_scan=per["mamba"])
+        eager = make_prefill_step(cfg, device="cuda", graphs=False)
+        graphed = make_prefill_step(cfg, device="cuda")
+        rec = {"batch": toks.shape[0], "seq": toks.shape[1], "launches_per_forward": one}
+        logits = {}
+        for mode, step, n in (("eager", eager, n_runs), ("graphed", graphed, n_runs + WARMUP)):
+            lg, times = drive(kern, totals, {k: v * n for k, v in one.items()},
+                              lambda: timed_prefill(step, params, toks, n_runs),
+                              f"{what} ({mode})")
+            if tuple(lg.shape) != (toks.shape[0], cfg.vocab) or not bool(
+                    torch.isfinite(lg).all()):
+                fail(f"{what} ({mode}) logits shape {tuple(lg.shape)} or not finite")
+            med = statistics.median(times[1:])
+            rec[mode] = {"runs_s": times, "median_s": med, "tokens_per_s": toks.numel() / med}
+            logits[mode] = lg
+        rec["graphed"]["capture"] = capture_report(graph_of(graphed).stats, one, what)
+        rec["graphed_vs_eager"] = require_same(f"{what} logits", logits["graphed"],
+                                               logits["eager"])
+        return rec, eager, graphed
+
+    def serve_pair(what, cfg, params, prompts, max_new):
+        """``serve_batch`` eager and graphed on the same weights and prompts;
+        the graphed tokens must equal the eager ones."""
+        per = per_pass(cfg)
+        one = zero(rmsnorm=per["rmsnorm"], decode_attention=per["attn"])
+        n_steps = len(prompts[0]) + max_new
+        new = len(prompts) * max_new
+        rec = {"requests": len(prompts), "prompt": len(prompts[0]), "max_new": max_new,
+               "launches_per_step": one}
+        outs, steps = {}, {"eager": make_decode_step(cfg, device="cuda", graphs=False),
+                           "graphed": make_decode_step(cfg, device="cuda")}
+        for mode, n in (("eager", n_steps), ("graphed", n_steps + WARMUP)):
+            reqs = [Request(i, p, max_new) for i, p in enumerate(prompts)]
+            reqs, dt = drive(kern, totals, {k: v * n for k, v in one.items()},
+                             lambda: serve_batch(cfg, params, reqs, max_len=n_steps + 1,
+                                                 device="cuda", step_fn=steps[mode]),
+                             f"{what} ({mode})")
+            check_served(reqs, cfg, max_new)
+            rec[mode] = {"seconds": dt, "new_tokens_per_s": new / dt,
+                         "steps_per_s": n_steps / dt}
+            outs[mode] = np.stack([r.out for r in reqs])
+        cap = rec["graphed"]["capture"] = capture_report(graph_of(steps["graphed"]).stats,
+                                                         one, what)
+        steps["graphed"].release()
+        rec["graphed"]["steady_new_tokens_per_s"] = new / (
+            rec["graphed"]["seconds"] - cap["warmup_s"] - cap["capture_s"])
+        if not np.array_equal(outs["graphed"], outs["eager"]):
+            fail(f"{what}: graphed tokens differ from eager ones")
+        rec["tokens_equal"] = True
+        return rec
+
+    def profile_pair(what, cfg, params, toks, eager_prefill, prefill):
+        """One prefill and one decode step (8 sequences, position 64 of a
+        cache of 129), eager and graphed, profiled; and each graph's replay
+        against an eager call."""
+        api = model_api(cfg)
+        step_e = make_decode_step(cfg, device="cuda", graphs=False)
+        step_g = make_decode_step(cfg, device="cuda")
+        cache_e, cache_g = (api.init_cache(cfg, 8, 129, device="cuda") for _ in range(2))
+        tok = toks[:, 0]
+        step_g(params, cache_g, tok, 64)
+        out = {"prefill": profile_call(lambda: eager_prefill(params, {"inputs": toks})),
+               "prefill_graphed": profile_call(lambda: prefill(params, {"inputs": toks})),
+               "decode_step": profile_call(lambda: step_e(params, cache_e, tok, 64)),
+               "decode_step_graphed": profile_call(lambda: step_g(params, cache_g, tok, 64)),
+               "replay_check": {
+                   "prefill": replay_check(f"{what} prefill", graph_of(prefill),
+                                           eager_prefill),
+                   "decode_step": replay_check(f"{what} decode step", graph_of(step_g),
+                                               step_e)}}
+        step_g.release()
+        return out
+
+    def print_pair(tag, rec, key, unit, tail):
+        e, g = rec["eager"], rec["graphed"]
+        cap = g["capture"]
+        if "median_s" in e:
+            extra = (f"median {e['median_s'] * 1e3:.1f} -> {g['median_s'] * 1e3:.1f} ms "
+                     "after the first call; graphed logits = eager logits, bit for bit")
+        else:
+            extra = (f"{e['seconds']:.2f} -> {g['seconds']:.2f} s, graphed after its "
+                     f"capture {g['steady_' + key]:.1f} {unit}; graphed tokens = eager tokens")
+        print(f"{tag}: eager {e[key]:.1f}, graphed {g[key]:.1f} {unit} ({extra}); "
+              f"capture {cap['capture_s'] * 1e3:.0f} ms after {cap['warmup_calls']} eager "
+              f"calls ({cap['warmup_s'] * 1e3:.0f} ms), graph pool "
+              f"{cap['pool_bytes'] / 2**20:.0f} MiB; launches per call and per replay: "
+              + ", ".join(f"{k} {v}" for k, v in cap["launches_per_replay"].items() if v)
+              + f" {tail}", flush=True)
 
     def parity(cfg32, p_cpu, p_gpu, rng, steps=8):
         """Float32 logits card vs CPU: prefill (2 x 32) and teacher-forced
@@ -1029,44 +1231,23 @@ def main() -> int:
              f"backward call other than two: {many}")
     print(f"[2 kernels] {len(rows)} rows agree {took('2 kernels')}", flush=True)
 
-    # 3. smollm-360M: full-width prefill, bf16
+    # 3. smollm-360M: full-width prefill, bf16, eager and from its graph
     cfg = get("smollm_360m")
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     params = transformer.init(gen, cfg, device="cuda")
     toks = torch.randint(0, cfg.vocab, (8, 512), generator=gen, device="cuda")
-    prefill = make_prefill_step(cfg, device="cuda")
-    n_runs = 4
-    per = per_pass(cfg)                     # 65 RMSNorm, 32 attention
-    c1 = zero(rmsnorm=per["rmsnorm"] * n_runs,
-              flash_attention=per["attn"] * n_runs)
-    logits, times = drive(kern, totals, c1, lambda: timed_prefill(
-        prefill, params, toks, n_runs), "smollm prefill")
-    if tuple(logits.shape) != (8, cfg.vocab) or not bool(torch.isfinite(logits).all()):
-        fail(f"prefill logits shape {tuple(logits.shape)} or not finite")
-    pre_s = statistics.median(times[1:])
-    report["prefill"] = {"batch": 8, "seq": 512, "median_s": pre_s, "runs_s": times,
-                         "tokens_per_s": 8 * 512 / pre_s, "launches": c1}
-    print(f"[3 prefill] smollm-360M bf16 8x512: {pre_s * 1e3:.1f} ms median of "
-          f"{n_runs - 1} (after 1 warm-up), {8 * 512 / pre_s:.0f} tokens/s; "
-          f"launches per forward: rmsnorm {per['rmsnorm']}, flash_attention "
-          f"{per['attn']} {took('3 prefill')}", flush=True)
+    report["prefill"], eager_prefill, prefill = prefill_pair(
+        "smollm prefill", cfg, params, toks, 4)
+    print_pair("[3 prefill] smollm-360M bf16 8x512", report["prefill"], "tokens_per_s",
+               "tokens/s", took("3 prefill"))
 
-    # 4. smollm-360M: serving, bf16
+    # 4. smollm-360M: serving, bf16, eager and from the decode step's graph
     rng = torch.Generator().manual_seed(SEED + 1)
     steps = 64 + 64
-    d = zero(rmsnorm=per["rmsnorm"] * steps,
-             decode_attention=per["attn"] * steps)
-    reqs, dt = drive(kern, totals, d, lambda: serve_batch(
-        cfg, params, requests(cfg, rng), max_len=64 + 64 + 1, device="cuda"),
-        "smollm serving")
-    check_served(reqs, cfg)
-    report["serve"] = {"requests": 8, "prompt": 64, "max_new": 64, "seconds": dt,
-                       "new_tokens_per_s": 8 * 64 / dt,
-                       "steps_per_s": steps / dt, "launches": d}
-    print(f"[4 serve] smollm-360M bf16, 8 requests x (64 prompt + 64 new): "
-          f"{dt:.2f} s, {8 * 64 / dt:.1f} new tokens/s, {steps / dt:.1f} "
-          f"decode steps/s; launches per step: rmsnorm {per['rmsnorm']}, "
-          f"decode_attention {per['attn']} {took('4 serve')}", flush=True)
+    report["serve"] = serve_pair("smollm serving", cfg, params,
+                                 [r.prompt for r in requests(cfg, rng)], 64)
+    print_pair("[4 serve] smollm-360M bf16, 8 requests x (64 prompt + 64 new)",
+               report["serve"], "new_tokens_per_s", "new tokens/s", took("4 serve"))
 
     # 5. smollm-360M: float32 parity, card against CPU, full width
     cfg32 = dataclasses.replace(cfg, dtype="float32")
@@ -1081,15 +1262,14 @@ def main() -> int:
           flush=True)
     del p_gpu, p_cpu
 
-    # 6. smollm-360M: where the time goes, one prefill, one decode step (bf16)
-    step = make_decode_step(cfg, device="cuda")
-    cache = model_api(cfg).init_cache(cfg, 8, 129, device="cuda")
-    tok = toks[:, 0]
-    report["profile"] = prof = {
-        "prefill": profile_call(lambda: prefill(params, {"inputs": toks})),
-        "decode_step": profile_call(lambda: step(params, cache, tok, 64))}
+    # 6. smollm-360M: where the time goes, one prefill, one decode step (bf16),
+    # eager and graphed; the kernels of one replay against one eager call
+    report["profile"] = prof = profile_pair("smollm", cfg, params, toks,
+                                            eager_prefill, prefill)
     print_profile(f"[6 profile] {took('6 profile')}", prof)
-    del params, cache
+    prefill.release()
+    del params, prefill, eager_prefill
+    torch.cuda.empty_cache()
 
     # 7. Jamba (dense FFN, one period): full-width prefill, bf16
     jcfg = dataclasses.replace(get("jamba_1_5_large_398b"), **JAMBA_DENSE)
@@ -1097,53 +1277,30 @@ def main() -> int:
     jparams = transformer.init(gen, jcfg, device="cuda")
     n_params, p_bytes = param_count(jparams), param_bytes(jparams)
     jtoks = torch.randint(0, jcfg.vocab, (8, 512), generator=gen, device="cuda")
-    jprefill = make_prefill_step(jcfg, device="cuda")
-    n_runs = 3
-    per = per_pass(jcfg)                    # 17 RMSNorm, 1 attention, 7 scans
-    c7 = zero(rmsnorm=per["rmsnorm"] * n_runs, flash_attention=per["attn"] * n_runs,
-              mamba_scan=per["mamba"] * n_runs)
-    logits, times = drive(kern, totals, c7, lambda: timed_prefill(
-        jprefill, jparams, jtoks, n_runs), "jamba prefill")
-    if tuple(logits.shape) != (8, jcfg.vocab) or not bool(torch.isfinite(logits).all()):
-        fail(f"jamba prefill logits shape {tuple(logits.shape)} or not finite")
-    pre_s = statistics.median(times[1:])
     report["jamba"] = {"cut": "8 layers (attn + 7 mamba), dense SwiGLU FFN of "
                               "d_ff 24576 for MoE; widths as published",
                        "params": n_params, "param_bytes": p_bytes}
-    report["jamba"]["prefill"] = {
-        "batch": 8, "seq": 512, "median_s": pre_s, "runs_s": times,
-        "tokens_per_s": 8 * 512 / pre_s, "launches": c7}
-    print(f"[7 jamba prefill] jamba-1.5-large widths, 8 layers, dense FFN "
-          f"({n_params / 1e9:.2f} B params, {p_bytes / 1e9:.1f} GB bf16) 8x512: "
-          f"{pre_s * 1e3:.1f} ms median of {n_runs - 1} (after 1 warm-up), "
-          f"{8 * 512 / pre_s:.0f} tokens/s; launches per forward: rmsnorm "
-          f"{per['rmsnorm']}, flash_attention {per['attn']}, mamba_scan "
-          f"{per['mamba']} {took('7 jamba prefill')}", flush=True)
+    report["jamba"]["prefill"], jeager, jprefill = prefill_pair(
+        "jamba prefill", jcfg, jparams, jtoks, 3)
+    print_pair(f"[7 jamba prefill] jamba-1.5-large widths, 8 layers, dense FFN "
+               f"({n_params / 1e9:.2f} B params, {p_bytes / 1e9:.1f} GB bf16) 8x512",
+               report["jamba"]["prefill"], "tokens_per_s", "tokens/s",
+               took("7 jamba prefill"))
 
     # 8. Jamba: serving, bf16 (prompts prefill through decode steps, so the
     # Mamba layers take mamba_step and no scan)
-    d = zero(rmsnorm=per["rmsnorm"] * steps, decode_attention=per["attn"] * steps)
-    reqs, dt = drive(kern, totals, d, lambda: serve_batch(
-        jcfg, jparams, requests(jcfg, rng), max_len=64 + 64 + 1, device="cuda"),
-        "jamba serving")
-    check_served(reqs, jcfg)
-    report["jamba"]["serve"] = {
-        "requests": 8, "prompt": 64, "max_new": 64, "seconds": dt,
-        "new_tokens_per_s": 8 * 64 / dt, "steps_per_s": steps / dt,
-        "launches": d}
-    print(f"[8 jamba serve] 8 requests x (64 prompt + 64 new): {dt:.2f} s, "
-          f"{8 * 64 / dt:.1f} new tokens/s, {steps / dt:.1f} decode steps/s; "
-          f"launches per step: rmsnorm {per['rmsnorm']}, decode_attention "
-          f"{per['attn']}, mamba_scan 0 {took('8 jamba serve')}", flush=True)
+    report["jamba"]["serve"] = serve_pair(
+        "jamba serving", jcfg, jparams, [r.prompt for r in requests(jcfg, rng)], 64)
+    print_pair("[8 jamba serve] 8 requests x (64 prompt + 64 new)",
+               report["jamba"]["serve"], "new_tokens_per_s", "new tokens/s",
+               took("8 jamba serve"))
 
     # 9. Jamba: where the time goes, one prefill, one decode step (bf16)
-    jcache = model_api(jcfg).init_cache(jcfg, 8, 129, device="cuda")
-    jstep = make_decode_step(jcfg, device="cuda")
-    report["jamba"]["profile"] = prof = {
-        "prefill": profile_call(lambda: jprefill(jparams, {"inputs": jtoks})),
-        "decode_step": profile_call(lambda: jstep(jparams, jcache, jtoks[:, 0], 64))}
+    report["jamba"]["profile"] = prof = profile_pair("jamba", jcfg, jparams, jtoks,
+                                                     jeager, jprefill)
     print_profile(f"[9 jamba profile] {took('9 jamba profile')}", prof)
-    del jparams, jcache
+    jprefill.release()
+    del jparams, jprefill, jeager
     torch.cuda.empty_cache()
 
     # 10. Jamba: float32 parity card vs CPU at full width, cut to 2 layers;
@@ -1164,114 +1321,139 @@ def main() -> int:
     del p_gpu, p_cpu
     torch.cuda.empty_cache()
 
-    # 11. xlstm-125m: full width and depth, prefill and serving (bf16)
+    # 11. xlstm-125m: full width and depth, prefill and serving (bf16), eager
+    # and graphed (the sLSTM loop over time runs inside the graph)
     xcfg = get("xlstm_125m")
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     xparams = transformer.init(gen, xcfg, device="cuda")
     xtoks = torch.randint(0, xcfg.vocab, (8, 512), generator=gen, device="cuda")
-    xprefill = make_prefill_step(xcfg, device="cuda")
-    n_runs = 2
-    per = per_pass(xcfg)                    # 19 RMSNorm
-    logits, times = drive(kern, totals, zero(rmsnorm=per["rmsnorm"] * n_runs), lambda:
-                          timed_prefill(xprefill, xparams, xtoks, n_runs),
-                          "xlstm prefill")
-    if tuple(logits.shape) != (8, xcfg.vocab) or not bool(torch.isfinite(logits).all()):
-        fail(f"xlstm prefill logits shape {tuple(logits.shape)} or not finite")
-    reqs, dt = drive(kern, totals, zero(rmsnorm=per["rmsnorm"] * steps), lambda: serve_batch(
-        xcfg, xparams, requests(xcfg, rng), max_len=64 + 64 + 1, device="cuda"),
-        "xlstm serving")
-    check_served(reqs, xcfg)
-    report["xlstm"] = {
-        "params": param_count(xparams),
-        "prefill": {"batch": 8, "seq": 512, "runs_s": times,
-                    "tokens_per_s": 8 * 512 / times[-1]},
-        "serve": {"seconds": dt, "new_tokens_per_s": 8 * 64 / dt,
-                  "steps_per_s": steps / dt}}
-    print(f"[11 xlstm] xlstm-125m bf16: prefill 8x512 {times[-1] * 1e3:.1f} ms "
-          f"(after 1 warm-up), {8 * 512 / times[-1]:.0f} tokens/s; serving 8 x "
-          f"(64 + 64): {dt:.2f} s, {8 * 64 / dt:.1f} new tokens/s; rmsnorm "
-          f"{per['rmsnorm']} launches per forward and per step "
-          f"{took('11 xlstm')}", flush=True)
-
-    del xparams
+    pre, _, xprefill = prefill_pair("xlstm prefill", xcfg, xparams, xtoks, 2)
+    xprefill.release()
+    report["xlstm"] = {"params": param_count(xparams), "prefill": pre}
+    report["xlstm"]["serve"] = serve_pair(
+        "xlstm serving", xcfg, xparams, [r.prompt for r in requests(xcfg, rng)], 64)
+    print_pair("[11 xlstm] xlstm-125m bf16: prefill 8x512", pre, "tokens_per_s",
+               "tokens/s", "")
+    print_pair("[11 xlstm] serving 8 x (64 + 64)", report["xlstm"]["serve"],
+               "new_tokens_per_s", "new tokens/s", took("11 xlstm"))
+    del xparams, xprefill
     torch.cuda.empty_cache()
 
     # 12. the SMOKE configs (head dims 16 and 20) on the card: the server's
-    # defaults (smollm SMOKE: 8 requests x (16 prompt + 32 new)), then
-    # float32 logits card vs CPU for smollm, h2o-danube and Jamba (dense FFN)
+    # defaults (smollm SMOKE: 8 requests x (16 prompt + 32 new)), graphed and
+    # eager; h2o-danube SMOKE serving past its window of 16, graphed and
+    # eager; then float32 logits card vs CPU for smollm, h2o-danube and Jamba
+    # (dense FFN)
     scfg = get("smollm_360m", smoke=True)
     per = per_pass(scfg)
     n12 = 16 + 32
-    drive(kern, totals, zero(rmsnorm=per["rmsnorm"] * n12,
-                             decode_attention=per["attn"] * n12),
-          lambda: serve_mod.main([]), "serve.main([]) (smollm SMOKE)")
-    report["smoke"] = smoke = {"serve_main": "ok"}
+    one = zero(rmsnorm=per["rmsnorm"], decode_attention=per["attn"])
+    served = {}
+    for mode, argv, n in (("graphed", [], n12 + WARMUP), ("eager", ["--eager"], n12)):
+        served[mode] = drive(kern, totals, {k: v * n for k, v in one.items()},
+                             lambda: serve_mod.main(argv), f"serve.main({argv})")
+    if not all(np.array_equal(a.out, b.out) for a, b in zip(served["graphed"],
+                                                            served["eager"])):
+        fail("serve.main([]): graphed tokens differ from eager ones")
+    report["smoke"] = smoke = {"serve_main": "graphed tokens = eager tokens"}
+    dcfg = get("h2o_danube_1_8b", smoke=True)
+    dparams = transformer.init(torch.Generator(device="cuda").manual_seed(SEED),
+                               dcfg, device="cuda")
+    smoke["danube_serve"] = serve_pair(
+        "danube SMOKE serving", dcfg, dparams,
+        [torch.randint(0, dcfg.vocab, (16,), generator=rng, dtype=torch.int32).numpy()
+         for _ in range(8)], 32)
+    del dparams
     for name, over in (("smollm_360m", {}), ("h2o_danube_1_8b", {}),
                        ("jamba_1_5_large_398b", JAMBA_DENSE)):
         c = dataclasses.replace(get(name, smoke=True), **over)
         p_cpu = transformer.init(torch.Generator().manual_seed(SEED), c, device="cpu")
         smoke[name] = parity(c, p_cpu, tree_map(lambda a: a.to("cuda"), p_cpu), rng)
         smoke[name]["head_dim"] = c.hd
-    print(f"[12 smoke] serve.main([]) ran (smollm SMOKE, head dim 20, on cuda); "
+    print(f"[12 smoke] serve.main([]) (smollm SMOKE, head dim 20, on cuda): graphed "
+          f"tokens = eager tokens; h2o-danube SMOKE serving 8 x (16 + 32), past its "
+          f"window of 16: graphed tokens = eager tokens, "
+          f"{smoke['danube_serve']['graphed']['new_tokens_per_s']:.1f} against "
+          f"{smoke['danube_serve']['eager']['new_tokens_per_s']:.1f} new tokens/s; "
           "float32 SMOKE logits card vs CPU: " + "; ".join(
               f"{n} (hd {v['head_dim']}) prefill {v['prefill_max_abs_err']:.3e}, decode "
               f"{max(v['decode_max_abs_err']):.3e}" for n, v in smoke.items()
-              if n != "serve_main") + f" (tol {PARITY_TOL:g}) {took('12 smoke')}",
-          flush=True)
+              if n in ("smollm_360m", "h2o_danube_1_8b", "jamba_1_5_large_398b"))
+          + f" (tol {PARITY_TOL:g}) {took('12 smoke')}", flush=True)
 
     # 13. smollm-360M training at full width and depth, bf16, 8 x 512 tokens
-    # a step, through the trainer's entry point
+    # a step, through the trainer's entry point: eager, then from its graph
     cfg = get("smollm_360m")
     per_t = per_train_step(cfg)       # 129 / 65 RMSNorm, 64 / 32 attention
-    torch.cuda.reset_peak_memory_stats()
-    fla.flash_attention_bwd_cuda.lse_forwards = 0
-    out = drive(kern, totals, zero(**{k: v * TRAIN_STEPS for k, v in per_t.items()}),
-                lambda: train("smollm_360m", smoke=False, steps=TRAIN_STEPS, batch=8,
-                              seq=512, log_every=TRAIN_STEPS // 2, device="cuda"),
-                "smollm training")
-    peak = torch.cuda.max_memory_allocated()
-    if fla.flash_attention_bwd_cuda.lse_forwards != 0:
-        fail(f"training ran {fla.flash_attention_bwd_cuda.lse_forwards} extra forwards "
-             "for the backward's log-sum-exp (the forward's L was not passed)")
-    losses = out["losses"]
-    if len(losses) != TRAIN_STEPS or not all(math.isfinite(x) for x in losses):
-        fail(f"training losses not finite: {losses}")
-    if not losses[-1] < losses[0]:
-        fail(f"training loss did not fall: {losses}")
-    step_s = statistics.median(out["step_s"][1:])
+    report["train"] = tr = {"steps": TRAIN_STEPS, "batch": 8, "seq": 512,
+                            "launches_per_step": per_t}
+    for mode, graphs_on, n in (("eager", False, TRAIN_STEPS),
+                               ("graphed", True, TRAIN_STEPS + WARMUP)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        fla.flash_attention_bwd_cuda.lse_forwards = 0
+        out = drive(kern, totals, zero(**{k: v * n for k, v in per_t.items()}),
+                    lambda: train("smollm_360m", smoke=False, steps=TRAIN_STEPS,
+                                  batch=8, seq=512, log_every=TRAIN_STEPS // 2,
+                                  device="cuda", graphs=graphs_on),
+                    f"smollm training ({mode})")
+        run = tr[mode] = {
+            "losses": out["losses"], "grad_norms": out["grad_norms"],
+            "step_s": out["step_s"], "median_step_s": statistics.median(out["step_s"][1:]),
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "lse_forwards": fla.flash_attention_bwd_cuda.lse_forwards}
+        run["tokens_per_s"] = 8 * 512 / run["median_step_s"]
+        if run["lse_forwards"] != 0:
+            fail(f"training ({mode}) ran {run['lse_forwards']} extra forwards for the "
+                 "backward's log-sum-exp (the forward's L was not passed)")
+        losses = run["losses"]
+        if len(losses) != TRAIN_STEPS or not all(math.isfinite(x) for x in losses):
+            fail(f"training ({mode}) losses not finite: {losses}")
+        if not losses[-1] < losses[0]:
+            fail(f"training ({mode}) loss did not fall: {losses}")
+        if mode == "eager":
+            del out
+    tr["graphed"]["capture"] = capture_report(out["capture"], zero(**per_t),
+                                              "smollm training")
+    for key in ("losses", "grad_norms"):
+        if tr["graphed"][key] != tr["eager"][key]:
+            fail(f"training: graphed {key} {tr['graphed'][key]} differ from eager "
+                 f"{tr['eager'][key]}")
+    # one step, eager and replayed, profiled on the trained params
     opt = adamw(warmup_cosine(3e-4, warmup=max(TRAIN_STEPS // 10, 1), total=TRAIN_STEPS))
-    step_fn = make_train_step(out["cfg"], opt, device="cuda")
     src = torch.Generator().manual_seed(SEED + 2)
     toks = torch.randint(0, cfg.vocab, (8, 513), generator=src).to("cuda")
     tb = {"inputs": toks[:, :-1], "labels": toks[:, 1:]}
-    tparams, tstate = out["params"], out["opt_state"]
-    report["train"] = tr = {
-        "steps": TRAIN_STEPS, "batch": 8, "seq": 512, "losses": losses,
-        "grad_norms": out["grad_norms"], "step_s": out["step_s"],
-        "median_step_s": step_s, "tokens_per_s": 8 * 512 / step_s,
-        "max_memory_allocated": peak, "launches_per_step": per_t,
-        "lse_forwards": fla.flash_attention_bwd_cuda.lse_forwards,
-        "profile": profile_call(lambda: step_fn(tparams, tstate, tb),
-                                groups=("flash_bwd", "flash_attention_wgmma"))}
-    del out, tparams, tstate
+    step_e = make_train_step(out["cfg"], opt, device="cuda", graphs=False)
+    step_g = make_train_step(out["cfg"], opt, device="cuda")
+    step_g(out["params"], out["opt_state"], tb)
+    g = graph_of(step_g)
+    groups = ("flash_bwd", "flash_attention_wgmma")
+    tr["profile"] = {
+        "eager": profile_call(lambda: step_e(*g.args), groups=groups),
+        "graphed": profile_call(lambda: step_g(out["params"], out["opt_state"], tb),
+                                groups=groups),
+        "replay_check": {"train_step": replay_check("train step", g, step_e, iters=3)}}
+    step_g.release()
+    del out, step_g, g
     torch.cuda.empty_cache()
-    prof = tr["profile"]
-    fb = prof["groups"]["flash_bwd"]
+    e, gr = tr["eager"], tr["graphed"]
+    cap = gr["capture"]
     print(f"[13 train] smollm-360M bf16, {TRAIN_STEPS} steps of 8x512 through "
-          f"launch.train.train: median step {step_s * 1e3:.1f} ms (after step 0), "
-          f"{8 * 512 / step_s:.0f} tokens/s; loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
-          f"grad_norm {tr['grad_norms'][0]:.3f} at step 0, {tr['grad_norms'][-1]:.3f} "
-          f"at the last; peak device memory {peak / 2**30:.2f} GiB; "
-          f"launches per step: " + ", ".join(f"{k} {v}" for k, v in per_t.items())
-          + f"; losses {[round(x, 4) for x in losses]}; extra forwards for L "
-          f"{tr['lse_forwards']}; one step profiled: wall {prof['wall_ms']:.1f} ms, device busy "
-          f"{prof['device_busy_ms']:.1f} ms over {prof['device_ops']} kernels and "
-          f"copies, idle {prof['idle_share']:.1%}, flash backward {fb['ms']:.2f} ms "
-          f"({fb['ms'] / prof['device_busy_ms']:.1%}) over {fb['launches']} kernels, "
-          f"flash forward {prof['groups']['flash_attention_wgmma']['ms']:.2f} ms, top: "
-          + ", ".join(
-              f"{t['kernel'][:40]} {t['ms']:.2f} ms" for t in prof["top"])
-          + f" {took('13 train')}", flush=True)
+          f"launch.train.train: median step eager {e['median_step_s'] * 1e3:.1f} ms, "
+          f"graphed {gr['median_step_s'] * 1e3:.1f} ms (after step 0; "
+          f"{e['tokens_per_s']:.0f} -> {gr['tokens_per_s']:.0f} tokens/s); graphed "
+          f"losses and grad norms = eager ones, bit for bit: loss {e['losses'][0]:.4f} -> "
+          f"{e['losses'][-1]:.4f}, grad_norm {e['grad_norms'][0]:.3f} -> "
+          f"{e['grad_norms'][-1]:.3f}; peak device memory eager "
+          f"{e['max_memory_allocated'] / 2**30:.2f} GiB, graphed "
+          f"{gr['max_memory_allocated'] / 2**30:.2f} GiB; capture {cap['capture_s']:.2f} s "
+          f"after {cap['warmup_calls']} eager steps ({cap['warmup_s']:.2f} s), pool "
+          f"{cap['pool_bytes'] / 2**30:.2f} GiB; launches per step and per replay: "
+          + ", ".join(f"{k} {v}" for k, v in per_t.items())
+          + f"; losses {[round(x, 4) for x in e['losses']]}; extra forwards for L 0 "
+          f"{took('13 train')}", flush=True)
+    print_profile("[13 train profile]", tr["profile"])
 
     # 14. float32 train-step parity, card vs CPU, full width cut to 2 layers
     pcfg = dataclasses.replace(cfg, n_layers=2, dtype="float32")

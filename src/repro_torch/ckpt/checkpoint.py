@@ -10,9 +10,9 @@ orders them (``module.tree_leaves``: dict keys sorted, tuples and lists in
 order), so a checkpoint
 of the reference restores into the port's tree of the same structure, and
 the port's into the reference's. bf16 leaves are stored as their uint16 bits
-under the logical dtype ``"bfloat16"`` and read back with torch. A Python
-int leaf (the optimizers' ``step``) is stored as an int32 scalar, as the
-reference stores its step.
+under the logical dtype ``"bfloat16"`` and read back with torch. The
+optimizers' ``step``, a 0-d int32 tensor, is stored as an int32 scalar, as
+the reference stores its step; so is a Python int leaf.
 """
 from __future__ import annotations
 
@@ -104,7 +104,9 @@ class AsyncCheckpointer:
     def save(self, directory: str, step: int, tree: Any,
              extra: Optional[Dict] = None, keep: int = 3):
         self.join()
-        # copies: the writer must not see later changes to a CPU tensor
+        # copies, taken now: the writer must not see later changes to a CPU
+        # tensor, nor the next train step, which writes params and optimizer
+        # state in place (``.cpu()`` waits for the step that made them)
         stored = [(np.array(arr, copy=True), logical) for arr, logical
                   in map(_to_numpy, tree_leaves(tree))]
         self._thread = threading.Thread(

@@ -4,8 +4,13 @@ Counterpart of :mod:`repro.launch.serve`. A batch of requests is grouped
 into fixed slots, prompts are prefilled token by token into per-slot caches
 (KV caches, and the Mamba/xLSTM states, which therefore take the one-step
 ``mamba_step`` and never the prefill scan), then decode steps run the whole
-batch in lockstep. Steps run eagerly on the device; copying each step's
-next tokens to the host is the one sync per step.
+batch in lockstep. On the card each step replays one CUDA graph of the
+decode step (captured at the first step; the reference jits it): the step's
+tokens and position are copied into the graph's buffers and the graph
+writes the cache in place. Copying each step's next tokens to the host is
+the one sync per step, as the reference's ``np.asarray(nxt)`` is.
+``--eager`` (``serve_batch(..., step_fn=make_decode_step(cfg,
+graphs=False))``) runs the same step eagerly, for comparison.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m --full
   PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm_125m --full
@@ -22,6 +27,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs import get
+from repro_torch.launch.graphs import GraphedStep
 from repro_torch.launch.steps import make_decode_step
 from repro_torch.models import model_api
 
@@ -36,31 +42,57 @@ class Request:
 
 
 def serve_batch(cfg, params, requests: List[Request], max_len: int = 256,
-                device="cuda"):
+                device="cuda", step_fn=None):
     """Run one batch of requests to completion with greedy decoding;
-    returns (requests, seconds)."""
+    returns (requests, seconds). The seconds include the decode step's
+    capture (the reference's include its jit).
+
+    ``step_fn`` is the decode step to run: by default
+    ``make_decode_step(cfg)`` on ``device`` (graphed on the card), whose
+    graphs are released on return. A step the caller passes (the eager
+    one, or a graphed one whose ``StepGraph.stats`` it reads) stays the
+    caller's to release.
+
+    Positions run up to ``longest prompt + max_new - 1``. Unless the KV
+    cache is a ring of the sliding window (a window of at most ``max_len``)
+    they must fit its ``max_len`` slots, else ValueError, raised before any
+    step: on the card an index past the cache would fail on the device,
+    inside the replayed graph."""
     dev = resolve_device(device)
     api = model_api(cfg)
     b = len(requests)
-    step_fn = make_decode_step(cfg, device=dev)
-    cache = api.init_cache(cfg, b, max_len=max_len, device=dev)
     maxp = max(len(r.prompt) for r in requests)
+    max_new = max(r.max_new for r in requests)
+    ring = bool(cfg.window) and cfg.window <= max_len
+    if (any(m == "attn" for m, _ in cfg.period) and not ring
+            and maxp + max_new > max_len):
+        raise ValueError(
+            f"serve_batch: prompts of up to {maxp} tokens and {max_new} new "
+            f"ones need {maxp + max_new} KV cache slots, max_len is "
+            f"{max_len} (window {cfg.window})")
+    own = step_fn is None
+    if own:
+        step_fn = make_decode_step(cfg, device=dev)
+    cache = api.init_cache(cfg, b, max_len=max_len, device=dev)
     pad = np.zeros((b, maxp), np.int32)
     for i, r in enumerate(requests):
         pad[i, :len(r.prompt)] = r.prompt
     t0 = time.time()
     prompts = torch.as_tensor(pad, device=dev)
     outs = [[] for _ in range(b)]
-    # prefill (token-by-token; each step also warms the caches)
-    for t in range(maxp):
-        nxt, _, cache = step_fn(params, cache, prompts[:, t], t)
-    cur = nxt.cpu().numpy()
-    max_new = max(r.max_new for r in requests)
-    for t in range(maxp, maxp + max_new):
-        for i in range(b):
-            outs[i].append(int(cur[i]))
-        nxt, _, cache = step_fn(params, cache, nxt, t)
+    try:
+        # prefill (token-by-token; each step also warms the caches)
+        for t in range(maxp):
+            nxt, _, cache = step_fn(params, cache, prompts[:, t], t)
         cur = nxt.cpu().numpy()
+        for t in range(maxp, maxp + max_new):
+            for i in range(b):
+                outs[i].append(int(cur[i]))
+            nxt, _, cache = step_fn(params, cache, nxt, t)
+            cur = nxt.cpu().numpy()
+    finally:
+        if own and isinstance(step_fn, GraphedStep):
+            step_fn.release()
     dt = time.time() - t0
     for i, r in enumerate(requests):
         r.out = np.asarray(outs[i][:r.max_new], np.int32)
@@ -77,6 +109,8 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--full", action="store_true",
                     help="full-size config (default: the SMOKE config)")
+    ap.add_argument("--eager", action="store_true",
+                    help="run the decode step eagerly, not from a CUDA graph")
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
     cfg = get(args.arch, smoke=not args.full)
@@ -87,14 +121,18 @@ def main(argv=None):
     reqs = [Request(i, rng.integers(0, cfg.vocab, args.prompt_len,
                                     dtype=np.int32), args.max_new)
             for i in range(args.requests)]
+    step_fn = (make_decode_step(cfg, device=dev, graphs=False)
+               if args.eager else None)
     reqs, dt = serve_batch(cfg, params, reqs,
                            max_len=args.prompt_len + args.max_new + 1,
-                           device=dev)
+                           device=dev, step_fn=step_fn)
     toks = sum(r.max_new for r in reqs)
-    print(f"[serve] {cfg.name} on {dev}: {len(reqs)} requests, {toks} tokens "
-          f"in {dt:.2f}s ({toks / dt:.1f} tok/s batched)")
+    mode = "eager" if args.eager or dev.type != "cuda" else "graphed"
+    print(f"[serve] {cfg.name} on {dev} ({mode}): {len(reqs)} requests, "
+          f"{toks} tokens in {dt:.2f}s ({toks / dt:.1f} tok/s batched)")
     for r in reqs[:2]:
         print(f"  req {r.rid}: {r.out[:10]}...")
+    return reqs
 
 
 if __name__ == "__main__":

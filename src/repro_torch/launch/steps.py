@@ -1,12 +1,18 @@
 """Step functions shared by the trainer and the server.
 
-Counterpart of :mod:`repro.launch.steps`. The port runs eagerly: where the
-reference jits a step, the port returns a plain function. The train step
-differentiates the loss with autograd (through the backward kernels on the
-card); the prefill and decode steps run under ``torch.no_grad``. The
-prefill runs every ported family (dense, the Jamba hybrid through the CUDA
-selective scan, xLSTM); the decode step updates the KV cache and the
-recurrent states in place.
+Counterpart of :mod:`repro.launch.steps`. Where the reference jits a step,
+the port captures it in a CUDA graph on the card (:mod:`.graphs`): each
+``make_*_step`` returns, for a CUDA device, a :class:`~.graphs.GraphedStep`
+that captures at its first call for a given binding and then replays. On
+the CPU, or with ``graphs=False`` (to compare the two on the card), it
+returns the eager function; nothing switches between the two on its own.
+The train step differentiates the loss with autograd (through the backward
+kernels on the card) and updates params and optimizer state in place; the
+prefill and decode steps run under ``torch.no_grad``. The prefill runs
+every ported family (dense, the Jamba hybrid through the CUDA selective
+scan, xLSTM); the decode step updates the KV cache and the recurrent states
+in place and takes its position as a device tensor, so one graph serves
+every step.
 """
 from __future__ import annotations
 
@@ -15,6 +21,7 @@ from typing import Callable
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.launch.graphs import GraphedStep
 from repro_torch.models import model_api, transformer
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.module import tree_map
@@ -28,16 +35,24 @@ def _require_on(params, dev: torch.device) -> None:
 
 
 def make_train_step(cfg: ModelConfig, optimizer: Optimizer,
-                    clip_norm: float = 1.0, device="cuda") -> Callable:
+                    clip_norm: float = 1.0, device="cuda",
+                    graphs: bool = True) -> Callable:
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)``: the loss and its gradient (``backward()``), global-norm
     clipping to ``clip_norm`` and the optimizer's update.
 
     ``params`` is the reference's tree of plain tensors on ``device``; the
-    step marks detached copies as requiring grad and returns new params.
-    ``batch`` holds 'inputs' or 'embeds', 'labels' and optionally 'mask', as
-    tensors or numpy arrays. ``metrics``: 'loss', 'grad_norm' (before
-    clipping), 'ce', 'aux', 'tokens', as 0-d tensors."""
+    step marks detached views as requiring grad and the optimizer writes
+    params and state in place (the reference donates both), returning the
+    same trees. ``batch`` holds 'inputs' or 'embeds', 'labels' and
+    optionally 'mask', as tensors or numpy arrays. ``metrics``: 'loss',
+    'grad_norm' (before clipping), 'ce', 'aux', 'tokens', as 0-d tensors.
+
+    On a CUDA device (unless ``graphs=False``) the step is captured in a
+    CUDA graph at its first call for a given (params, opt_state) and batch
+    shapes: forward, backward (remat included), clip and update replay as
+    one graph; the batch is copied into the graph's buffers and the metrics
+    are the graph's outputs, overwritten by the next step."""
     dev = resolve_device(device)
     api = model_api(cfg)
 
@@ -56,15 +71,21 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer,
         out.update({k: v.detach() for k, v in metrics.items()})
         return params, opt_state, out
 
-    return train_step
+    if dev.type != "cuda" or not graphs:
+        return train_step
+    return GraphedStep(train_step, 2, dev, mutates=(0, 1), name="train")
 
 
-def make_prefill_step(cfg: ModelConfig, device="cuda") -> Callable:
+def make_prefill_step(cfg: ModelConfig, device="cuda",
+                      graphs: bool = True) -> Callable:
     """Inference prefill: full no-grad forward, last-token logits.
 
     The returned ``prefill_step(params, batch)`` takes ``batch["inputs"]``
     (B, S) token ids or ``batch["embeds"]`` (B, S, D), as tensors or numpy
-    arrays, and returns (B, vocab) float32 logits on ``device``."""
+    arrays, and returns (B, vocab) float32 logits on ``device``. On a CUDA
+    device (unless ``graphs=False``) each (B, S) is captured once and
+    replayed; the logits returned are the graph's output, which the next
+    call of the same shape overwrites."""
     dev = resolve_device(device)
     if cfg.is_encdec:
         raise NotImplementedError(
@@ -83,20 +104,33 @@ def make_prefill_step(cfg: ModelConfig, device="cuda") -> Callable:
         h, _ = transformer.forward(params, x, cfg, positions)
         return transformer.logits_fn(params, h[:, -1:], cfg)[:, 0]
 
-    return prefill_step
+    if dev.type != "cuda" or not graphs:
+        return prefill_step
+    return GraphedStep(prefill_step, 1, dev, name="prefill")
 
 
-def make_decode_step(cfg: ModelConfig, device="cuda") -> Callable:
+def make_decode_step(cfg: ModelConfig, device="cuda",
+                     graphs: bool = True) -> Callable:
     """``serve_step(params, cache, tokens, pos) -> (next (B,) int32, logits,
-    cache)``; the cache is updated in place."""
+    cache)``; the cache is updated in place. ``pos`` is the absolute
+    position, a Python int or a 0-d integer tensor on the device.
+
+    On a CUDA device (unless ``graphs=False``) the step is captured once per
+    (params, cache) and batch size: ``tokens`` and ``pos`` are copied into
+    the graph's buffers before each replay (the reference's jitted step
+    takes them as traced arguments), the cache is written in place (the
+    reference donates it), and ``next`` and ``logits`` are the graph's
+    outputs, overwritten by the next step."""
     dev = resolve_device(device)
     api = model_api(cfg)
 
     @torch.no_grad()
-    def serve_step(params, cache, tokens, pos: int):
+    def serve_step(params, cache, tokens, pos):
         _require_on(params, dev)
         logits, cache = api.decode_step(
             params, cache, torch.as_tensor(tokens, device=dev), pos, cfg)
         return torch.argmax(logits, dim=-1).to(torch.int32), logits, cache
 
-    return serve_step
+    if dev.type != "cuda" or not graphs:
+        return serve_step
+    return GraphedStep(serve_step, 2, dev, mutates=(1,), name="decode")

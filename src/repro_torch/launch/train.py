@@ -3,7 +3,12 @@
 Counterpart of :mod:`repro.launch.train`: config -> params on the device ->
 data pipeline -> train step (loss, backward through the CUDA kernels,
 clip, AdamW with warmup + cosine) -> async checkpoints with resume. The port
-has no mesh yet: it trains on one device.
+has no mesh yet: it trains on one device. On the card the train step is one
+CUDA graph (the reference jits it), captured at the first step and replayed
+after: each step copies its batch into the graph's buffers, replays, and
+reads the loss and the grad norm (one sync). Params and optimizer state are
+the graph's own tensors, written in place; a resumed checkpoint is copied
+into them. ``train(..., graphs=False)`` runs the step eagerly.
 
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 6
   PYTHONPATH=src python -m repro_torch.launch.train --full --steps 10 \\
@@ -23,18 +28,24 @@ from repro_torch import resolve_device
 from repro_torch.ckpt import checkpoint as ckpt
 from repro_torch.configs import get
 from repro_torch.data.pipeline import Prefetcher, SyntheticLM
+from repro_torch.launch.graphs import GraphedStep
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models import model_api
+from repro_torch.models.module import tree_map
 from repro_torch.optim.optimizers import adamw, warmup_cosine
 
 
 def train(arch: str, smoke: bool = True, steps: int = 50, batch: int = 8,
           seq: int = 128, lr: float = 3e-4, ckpt_dir: Optional[str] = None,
           ckpt_every: int = 25, mesh_shape=None, log_every: int = 10,
-          width_mult: int = 1, seed: int = 0, device="cuda"):
+          width_mult: int = 1, seed: int = 0, device="cuda",
+          graphs: bool = True):
     """Train ``arch`` for ``steps`` steps on ``device`` and return
     {'losses', 'grad_norms', 'step_s' (wall seconds of each step, ended by
-    reading its loss), 'params', 'opt_state', 'cfg', 'start_step'}. With
+    reading its loss; the first includes the capture on the card),
+    'params', 'opt_state', 'cfg', 'start_step', 'capture' (the train
+    step's ``StepGraph.stats``: warm-up and capture seconds, pool bytes,
+    launches per replay; None when the step ran eagerly)}. With
     ``ckpt_dir`` it resumes from the last committed checkpoint there and
     saves every ``ckpt_every`` steps."""
     dev = resolve_device(device)
@@ -63,22 +74,24 @@ def train(arch: str, smoke: bool = True, steps: int = 50, batch: int = 8,
     if ckpt_dir:
         last = ckpt.latest_step(ckpt_dir)
         if last is not None:
-            (params, opt_state), extra = ckpt.restore(
-                ckpt_dir, last, (params, opt_state))
+            loaded, extra = ckpt.restore(ckpt_dir, last, (params, opt_state))
+            # into the tensors the step is bound to, not in their place
+            tree_map(lambda dst, src: dst.copy_(src), (params, opt_state),
+                     loaded)
             source.restore(extra["data"])
             start_step = last
             print(f"[train] resumed from step {last}")
     data = Prefetcher(source)
     saver = ckpt.AsyncCheckpointer()
-    step_fn = make_train_step(cfg, optimizer, device=dev)
+    step_fn = make_train_step(cfg, optimizer, device=dev, graphs=graphs)
     losses, grad_norms, step_s = [], [], []
+    capture = None
     t0 = time.time()
     try:
         for step in range(start_step, steps):
             raw = data.next_batch()
             ts = time.perf_counter()
-            b = {"inputs": torch.as_tensor(raw["inputs"], device=dev),
-                 "labels": torch.as_tensor(raw["labels"], device=dev)}
+            b = {"inputs": raw["inputs"], "labels": raw["labels"]}
             params, opt_state, metrics = step_fn(params, opt_state, b)
             losses.append(float(metrics["loss"]))
             step_s.append(time.perf_counter() - ts)
@@ -94,9 +107,12 @@ def train(arch: str, smoke: bool = True, steps: int = 50, batch: int = 8,
     finally:
         data.close()
         saver.join()
+        if isinstance(step_fn, GraphedStep):
+            capture = next((g.stats for g in step_fn.graphs.values()), None)
+            step_fn.release()
     return {"losses": losses, "grad_norms": grad_norms, "step_s": step_s,
             "params": params, "opt_state": opt_state, "cfg": cfg,
-            "start_step": start_step}
+            "start_step": start_step, "capture": capture}
 
 
 def main(argv=None):

@@ -97,13 +97,17 @@ def attn_make_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
-def attn_decode(p, x, cache, pos: int, cfg: ModelConfig, use_rope=True):
+def attn_decode(p, x, cache, pos: torch.Tensor, cfg: ModelConfig,
+                use_rope=True):
     """One-token decode. x: (B, D); cache k/v: (B, Hkv, C, hd); ``pos``:
-    absolute position (a Python int). Sliding windows use a ring buffer of
-    width ``cfg.window``. Returns (out (B, D), cache).
+    absolute position, a 0-d integer tensor on x's device (the reference's
+    traced ``jnp.int32``), never read on the host, so one CUDA graph of the
+    step serves every position. Sliding windows use a ring buffer of width
+    ``cfg.window``. Returns (out (B, D), cache).
 
-    The new token's K/V are written into ``cache`` in place (the reference
-    returns an updated copy); the returned cache is the same dict.
+    The new token's K/V are written into ``cache`` in place at slot ``pos``
+    (``pos % C`` with a window) by ``index_copy_`` (the reference returns an
+    updated copy); the returned cache is the same dict.
     """
     b, d = x.shape
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
@@ -111,20 +115,17 @@ def attn_decode(p, x, cache, pos: int, cfg: ModelConfig, use_rope=True):
     k = (x @ p["wk"]).reshape(b, 1, hkv, hd)
     v = (x @ p["wv"]).reshape(b, 1, hkv, hd)
     if use_rope:
-        pq = torch.full((1,), pos, device=x.device)
-        q = apply_rope(q, pq, cfg.rope_theta)
-        k = apply_rope(k, pq, cfg.rope_theta)
+        q = apply_rope(q, pos.view(1), cfg.rope_theta)
+        k = apply_rope(k, pos.view(1), cfg.rope_theta)
     c = cache["k"].shape[2]
-    slot = pos % c if cfg.window else pos
-    cache["k"][:, :, slot] = k[:, 0].to(cache["k"].dtype)
-    cache["v"][:, :, slot] = v[:, 0].to(cache["v"].dtype)
-    # filled on the device: no host sync
-    length = torch.full((b,), min(pos + 1, c), dtype=torch.int32,
-                        device=x.device)
+    slot = (pos % c if cfg.window else pos).long().view(1)
+    cache["k"].index_copy_(2, slot, k.transpose(1, 2).to(cache["k"].dtype))
+    cache["v"].index_copy_(2, slot, v.transpose(1, 2).to(cache["v"].dtype))
+    length = torch.clamp(pos + 1, max=c).to(torch.int32).view(1).expand(b)
     # With a window ring buffer every slot < length is valid (all within the
     # last `window` positions), so no masking beyond `length` is needed.
     out = ops.decode_attention(q.reshape(b, h, hd), cache["k"], cache["v"],
-                               length=length)
+                               length=length.contiguous())
     return out.reshape(b, h * hd) @ p["wo"], cache
 
 

@@ -115,7 +115,7 @@ def block_make_cache(spec, cfg: ModelConfig, batch: int, max_len: int, dtype,
     return _RECURRENT[mixer][2](cfg, batch, dtype, device)
 
 
-def block_decode(bp, x, cache, spec, cfg: ModelConfig, pos: int):
+def block_decode(bp, x, cache, spec, cfg: ModelConfig, pos: torch.Tensor):
     _check_spec(spec)
     mixer, ffn = spec
     h = L.rmsnorm(x, bp["ln1"], cfg.norm_eps)
@@ -173,7 +173,10 @@ def forward(params, x, cfg: ModelConfig, positions) -> Tuple[torch.Tensor,
         layers = [_layer(params["stack"][f"pos{i}"], j)
                   for i in range(len(cfg.period))]
         if cfg.remat and torch.is_grad_enabled():
-            x = checkpoint(period_body, x, layers, use_reentrant=False)
+            # no random numbers to replay: the RNG state is not stashed,
+            # which also keeps the step capturable in a CUDA graph
+            x = checkpoint(period_body, x, layers, use_reentrant=False,
+                           preserve_rng_state=False)
         else:
             x = period_body(x, layers)
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
@@ -251,10 +254,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     return {"stack": stack}
 
 
-def decode_step(params, cache, tokens, pos: int, cfg: ModelConfig):
-    """tokens: (B,) int; pos: absolute position (a Python int).
-    Returns (logits (B, V) f32, cache); the cache is updated in place."""
+def decode_step(params, cache, tokens, pos, cfg: ModelConfig):
+    """tokens: (B,) int; pos: absolute position, a 0-d integer tensor on the
+    params' device (a Python int is turned into one here). Returns (logits
+    (B, V) f32, cache); the cache is updated in place."""
     x = params["embed"][tokens]
+    pos = torch.as_tensor(pos, device=x.device)
     for j in range(cfg.n_periods):
         for i, spec in enumerate(cfg.period):
             key = f"pos{i}"

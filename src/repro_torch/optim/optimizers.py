@@ -9,11 +9,15 @@ with the reference's arithmetic and quirks kept as they are:
 * params are updated in their storage dtype: a bf16 param goes through
   float32 math and back to bf16, with no float32 master copy;
 * moments and factored statistics are float32;
-* ``step`` is an int counter (the reference's int32 scalar).
+* ``step`` is a 0-d int32 tensor on the params' device, as the reference's
+  ``jnp.zeros((), jnp.int32)``.
 
-``update`` returns new tensors and leaves its inputs as they were, as the
-reference's pure functions do. Learning-rate schedules take the int step
-and return a Python float.
+``update`` writes params, moments, statistics and ``step`` in place and
+returns the same trees, where the reference's pure functions return new
+ones (its jitted train step donates them): a CUDA graph of the train step
+replays on fixed addresses. Learning-rate schedules take the step tensor
+and return a float32 tensor on its device, computed as the reference
+computes it, so nothing is read on the host.
 """
 from __future__ import annotations
 
@@ -42,13 +46,31 @@ def clip_by_global_norm(tree, max_norm: float):
 
 
 def warmup_cosine(base_lr: float, warmup: int, total: int,
-                  floor: float = 0.1) -> Callable[[int], float]:
-    def lr(step: int) -> float:
-        if step < warmup:
-            return base_lr * min(1.0, (step + 1) / max(warmup, 1))
-        frac = min(max((step - warmup) / max(total - warmup, 1), 0.0), 1.0)
-        return base_lr * (floor + (1 - floor) * 0.5 * (1 + math.cos(math.pi * frac)))
+                  floor: float = 0.1) -> Callable[[Any], torch.Tensor]:
+    def lr(step) -> torch.Tensor:
+        """``step``: an int or an integer tensor -> float32 tensor (on the
+        step tensor's device)."""
+        step = torch.as_tensor(step).float()
+        warm = base_lr * torch.clamp((step + 1) / max(warmup, 1), max=1.0)
+        frac = torch.clamp((step - warmup) / max(total - warmup, 1), 0.0, 1.0)
+        cos = floor + (1 - floor) * 0.5 * (1 + torch.cos(math.pi * frac))
+        return torch.where(step < warmup, warm, base_lr * cos)
     return lr
+
+
+def _step_zero(params) -> torch.Tensor:
+    leaves = tree_leaves(params)
+    return torch.zeros((), dtype=torch.int32,
+                       device=leaves[0].device if leaves else "cpu")
+
+
+def _advance(state) -> torch.Tensor:
+    """``state["step"] += 1`` in place; the new step."""
+    step = state["step"]
+    if not isinstance(step, torch.Tensor):
+        raise TypeError(f"optimizer step must be a 0-d int32 tensor (as "
+                        f"init makes it), got {type(step).__name__}")
+    return step.add_(1)
 
 
 def adamw(lr: Callable | float, b1: float = 0.9, b2: float = 0.95,
@@ -59,27 +81,26 @@ def adamw(lr: Callable | float, b1: float = 0.9, b2: float = 0.95,
         zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                       device=p.device)
         return {"mu": tree_map(zeros, params), "nu": tree_map(zeros, params),
-                "step": 0}
+                "step": _step_zero(params)}
 
     @torch.no_grad()
     def update(grads, state, params):
-        step = state["step"] + 1
+        step = _advance(state)
         lr_t = lr_fn(step)
-        c1 = 1 - b1 ** step
-        c2 = 1 - b2 ** step
-        mu = tree_map(lambda m, g: b1 * m + (1 - b1) * g.float(), state["mu"],
-                      grads)
-        nu = tree_map(lambda v, g: b2 * v + (1 - b2) * g.float() * g.float(),
-                      state["nu"], grads)
+        c1 = 1 - b1 ** step.float()
+        c2 = 1 - b2 ** step.float()
 
-        def new_param(p, m, v):
+        def one(p, g, m, v):
+            g = g.float()
+            m.copy_(b1 * m + (1 - b1) * g)
+            v.copy_(b2 * v + (1 - b2) * g * g)
             u = (m / c1) / (torch.sqrt(v / c2) + eps)
             if p.dim() >= 2:                      # no decay on norms/bias
                 u = u + weight_decay * p.float()
-            return (p.float() - lr_t * u).to(p.dtype)
+            p.copy_((p.float() - lr_t * u).to(p.dtype))
 
-        return (tree_map(new_param, params, mu, nu),
-                {"mu": mu, "nu": nu, "step": step})
+        tree_map(one, params, grads, state["mu"], state["nu"])
+        return params, state
 
     return Optimizer(init, update)
 
@@ -96,41 +117,38 @@ def adafactor(lr: Callable | float, decay: float = 0.8, eps: float = 1e-30,
                 return {"vr": torch.zeros(p.shape[:-1], **f32),
                         "vc": torch.zeros(p.shape[:-2] + p.shape[-1:], **f32)}
             return {"v": torch.zeros(p.shape, **f32)}
-        return {"stats": tree_map(stats, params), "step": 0}
+        return {"stats": tree_map(stats, params), "step": _step_zero(params)}
 
     @torch.no_grad()
     def update(grads, state, params):
-        step = state["step"] + 1
+        step = _advance(state)
         lr_t = lr_fn(step)
-        beta = 1.0 - (step + 1.0) ** -decay
+        beta = 1.0 - (step.float() + 1.0) ** -decay
 
-        def new_stats(p, g, st):        # st: the dict of p's statistics
-            g2 = g.float() * g.float() + eps
-            if p.dim() >= 2:
-                return {"vr": beta * st["vr"] + (1 - beta) * g2.mean(dim=-1),
-                        "vc": beta * st["vc"] + (1 - beta) * g2.mean(dim=-2)}
-            return {"v": beta * st["v"] + (1 - beta) * g2}
-
-        def new_param(p, g, st):
+        def one(p, g, st):              # st: the dict of p's statistics
             g = g.float()
+            g2 = g * g + eps
             if p.dim() >= 2:
                 vr, vc = st["vr"], st["vc"]
+                vr.copy_(beta * vr + (1 - beta) * g2.mean(dim=-1))
+                vc.copy_(beta * vc + (1 - beta) * g2.mean(dim=-2))
                 # Shazeer-Stern factored estimate: V ~= vr vc^T / mean(vr)
                 mean_vr = torch.clamp(vr.mean(dim=-1)[..., None, None], min=eps)
                 vhat = vr[..., :, None] * vc[..., None, :] / mean_vr
                 u = g / torch.sqrt(torch.clamp(vhat, min=eps))
             else:
-                u = g / torch.sqrt(torch.clamp(st["v"], min=eps))
+                v = st["v"]
+                v.copy_(beta * v + (1 - beta) * g2)
+                u = g / torch.sqrt(torch.clamp(v, min=eps))
             rms = torch.sqrt(torch.mean(u * u) + 1e-12)
             u = u / torch.clamp(rms / clip_threshold, min=1.0)
             p32 = p.float()
             if weight_decay and p.dim() >= 2:
                 u = u + weight_decay * p32
-            return (p32 - lr_t * u).to(p.dtype)
+            p.copy_((p32 - lr_t * u).to(p.dtype))
 
-        stats = tree_map(new_stats, params, grads, state["stats"])
-        return (tree_map(new_param, params, grads, stats),
-                {"stats": stats, "step": step})
+        tree_map(one, params, grads, state["stats"])
+        return params, state
 
     return Optimizer(init, update)
 

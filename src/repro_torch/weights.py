@@ -53,7 +53,7 @@ def from_jax_opt_state(tree, params_template, device="cuda"):
     """The reference's AdamW state ({'mu', 'nu', 'step'}) or Adafactor state
     ({'stats', 'step'}), as numpy (``np.asarray`` of each leaf), -> the
     port's, on ``device``: float32 moments and statistics in the params'
-    tree, ``step`` an int. ``params_template`` is the port's parameter tree
+    tree, ``step`` a 0-d int32 tensor. ``params_template`` is the port's parameter tree
     (its leaves' shapes are checked; any mismatch raises ValueError)."""
     dev = resolve_device(device)
 
@@ -87,7 +87,8 @@ def from_jax_opt_state(tree, params_template, device="cuda"):
                              f"{sorted(want)}")
         return {k: f32(src[k], want[k], f"{path}/{k}") for k in want}
 
-    step = int(np.asarray(tree["step"]))
+    step = torch.tensor(int(np.asarray(tree["step"])), dtype=torch.int32,
+                        device=dev)
     if set(tree) == {"mu", "nu", "step"}:
         return {"mu": walk(tree["mu"], params_template, "mu", moments),
                 "nu": walk(tree["nu"], params_template, "nu", moments),

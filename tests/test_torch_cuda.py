@@ -5,7 +5,9 @@ with one: ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py`
 This file imports no JAX, so it runs where only PyTorch is installed.
 """
 import dataclasses
+import shutil
 
+import numpy as np
 import pytest
 import torch
 import torch.utils.checkpoint
@@ -26,8 +28,13 @@ from repro_torch.kernels.mamba_scan import (BLOCKS_PER_SM, CHANNELS_PER_BLOCK,
 from repro_torch.kernels.rmsnorm import (rmsnorm_bwd_cuda, rmsnorm_bwd_plain,
                                          rmsnorm_cuda, rmsnorm_plain)
 from repro_torch.launch import serve
+from repro_torch.launch.graphs import GraphedStep, StepGraph
+from repro_torch.launch.steps import (make_decode_step, make_prefill_step,
+                                      make_train_step)
+from repro_torch.launch.train import train
 from repro_torch.models import model_api, transformer
-from repro_torch.models.module import tree_map
+from repro_torch.models.module import tree_leaves, tree_map
+from repro_torch.optim.optimizers import adamw, warmup_cosine
 
 pytestmark = pytest.mark.cuda
 
@@ -648,3 +655,212 @@ def test_serve_main_runs_with_its_defaults(gen, capsys):
     (head dim 20) on the card."""
     serve.main([])
     assert "[serve] smollm-smoke on cuda" in capsys.readouterr().out
+
+
+# ---------------------------------------------------------------------------
+# CUDA graphs of the steps against the eager steps: the same kernels on the
+# same inputs in the same order, so the same bits (cuBLAS picks its
+# algorithm from the problem and the workspace size, which capture keeps)
+# ---------------------------------------------------------------------------
+
+GRAPH_ARCHS = ["smollm_360m", "h2o_danube_1_8b", "jamba_1_5_large_398b",
+               "xlstm_125m"]
+
+
+def _smoke(name):
+    cfg = get(name, smoke=True)
+    if name == "jamba_1_5_large_398b":     # dense FFN in place of MoE
+        cfg = dataclasses.replace(cfg, n_experts=0, top_k=0, d_expert=0,
+                                  period=tuple((m, "mlp") for m, _ in cfg.period))
+    return cfg
+
+
+def _only_graph(step):
+    assert isinstance(step, GraphedStep)
+    (g,) = step.graphs.values()
+    return g
+
+
+def _per_step(cfg):
+    """RMSNorm and attention launches of one forward or decode step."""
+    blocks = cfg.blocks()
+    return {"rmsnorm_cuda.launches": 1 + sum(
+                1 + (ffn is not None) + (m == "mlstm") for m, ffn in blocks),
+            "attn": sum(m == "attn" for m, _ in blocks)}
+
+
+@pytest.mark.parametrize("name", GRAPH_ARCHS)
+def test_graphed_decode_matches_eager_bit_for_bit(gen, name):
+    """24 teacher-forced decode steps of each SMOKE family, eager and from
+    one CUDA graph (past h2o-danube's window of 16, where slot and length
+    wrap): the same logits and tokens at every step and the same cache
+    after, bit for bit; one capture, and the launches a replay adds are
+    one step's."""
+    cfg = _smoke(name)
+    params = transformer.init(torch.Generator(device="cuda").manual_seed(0),
+                              cfg, device="cuda")
+    api = model_api(cfg)
+    eager, graphed = make_decode_step(cfg, graphs=False), make_decode_step(cfg)
+    assert not isinstance(eager, GraphedStep)
+    c_e = api.init_cache(cfg, 2, 32, device="cuda")
+    c_g = api.init_cache(cfg, 2, 32, device="cuda")
+    toks = torch.randint(0, cfg.vocab, (2, 24), device="cuda", generator=gen)
+    for t in range(24):
+        n_e, l_e, _ = eager(params, c_e, toks[:, t], t)
+        n_g, l_g, out = graphed(params, c_g, toks[:, t], t)
+        assert out is c_g
+        assert torch.equal(l_g, l_e) and torch.equal(n_g, n_e), f"step {t}"
+    for a, b in zip(tree_leaves(c_e), tree_leaves(c_g)):
+        assert torch.equal(a, b)
+    g = _only_graph(graphed)
+    per = _per_step(cfg)
+    assert g.per_replay["rmsnorm_cuda.launches"] == per["rmsnorm_cuda.launches"]
+    assert g.per_replay["decode_attention_cuda.launches"] == per["attn"]
+    assert g.per_replay["flash_attention_cuda.launches"] == 0
+    graphed.release()
+    assert not graphed.graphs
+
+
+@pytest.mark.parametrize("name", GRAPH_ARCHS)
+def test_graphed_prefill_matches_eager_bit_for_bit(gen, name):
+    """Two shapes (two captures), each called twice with other tokens (the
+    second a replay on refilled buffers): the same logits as eager."""
+    cfg = _smoke(name)
+    params = transformer.init(torch.Generator(device="cuda").manual_seed(0),
+                              cfg, device="cuda")
+    eager, graphed = make_prefill_step(cfg, graphs=False), make_prefill_step(cfg)
+    for shape in ((2, 32), (1, 16), (2, 32), (1, 16)):
+        toks = torch.randint(0, cfg.vocab, shape, device="cuda", generator=gen)
+        want = eager(params, {"inputs": toks})
+        got = graphed(params, {"inputs": toks.cpu().numpy()})
+        assert torch.equal(got, want), shape
+    assert len(graphed.graphs) == 2
+    for g in graphed.graphs.values():
+        assert g.per_replay["flash_attention_cuda.launches"] == _per_step(cfg)["attn"]
+    graphed.release()
+
+
+@pytest.mark.parametrize("name", ["smollm_360m", "h2o_danube_1_8b"])
+def test_graphed_train_steps_match_eager_bit_for_bit(gen, name):
+    """Three train steps (forward, backward under remat, clip, AdamW with
+    warmup + cosine on the device-side step) eager and from one CUDA graph,
+    from the same params and batches: the same losses, grad norms, params
+    and optimizer state, bit for bit; params and state are written in
+    place, and a replay adds one step's forward and backward launches."""
+    cfg = _smoke(name)
+    p_e = transformer.init(torch.Generator(device="cuda").manual_seed(0), cfg,
+                           device="cuda")
+    p_g = tree_map(lambda a: a.clone(), p_e)
+    opt = adamw(warmup_cosine(1e-3, warmup=1, total=3))
+    s_e, s_g = opt.init(p_e), opt.init(p_g)
+    leaves = tree_leaves((p_g, s_g))
+    eager = make_train_step(cfg, opt, graphs=False)
+    graphed = make_train_step(cfg, opt)
+    rng = torch.Generator().manual_seed(1)
+    for _ in range(3):
+        toks = torch.randint(0, cfg.vocab, (2, 33), generator=rng).numpy()
+        batch = {"inputs": toks[:, :-1], "labels": toks[:, 1:]}
+        _, _, m_e = eager(p_e, s_e, batch)
+        p, s, m_g = graphed(p_g, s_g, batch)
+        assert all(a is b for a, b in zip(tree_leaves((p, s)), leaves))
+        assert torch.equal(m_g["loss"], m_e["loss"])
+        assert torch.equal(m_g["grad_norm"], m_e["grad_norm"])
+    assert int(s_g["step"]) == 3
+    for a, b in zip(tree_leaves((p_e, s_e)), tree_leaves((p_g, s_g))):
+        assert torch.equal(a, b)
+    g = _only_graph(graphed)
+    n_attn = _per_step(cfg)["attn"]
+    assert g.per_replay["flash_attention_bwd_cuda.launches"] == n_attn
+    assert g.per_replay["flash_attention_cuda.launches"] == 2 * n_attn   # remat
+    assert g.per_replay["rmsnorm_bwd_cuda.launches"] == 1 + 2 * len(cfg.blocks())
+    graphed.release()
+
+
+def test_graphed_train_resumes_into_its_tensors(gen, tmp_path):
+    """``train()`` on the card from its graph: 6 steps with a checkpoint
+    every 2 equal 6 eager steps bit for bit. With the last checkpoint
+    removed, a resume at step 4 copies the checkpoint into the tensors its
+    new graph binds, and its two steps equal those of an eager resume from
+    the same checkpoint (the saved data state depends on how far the
+    prefetcher had read, so both resumes start from the one checkpoint)."""
+    kw = dict(steps=6, batch=2, seq=16, device="cuda")
+    full = train("smollm_360m", ckpt_dir=str(tmp_path / "a"), ckpt_every=2, **kw)
+    eager = train("smollm_360m", graphs=False, **kw)
+    assert full["losses"] == eager["losses"]
+    shutil.rmtree(tmp_path / "a" / "step_00000006")
+    shutil.copytree(tmp_path / "a", tmp_path / "b")
+    again = train("smollm_360m", ckpt_dir=str(tmp_path / "a"), ckpt_every=2, **kw)
+    again_eager = train("smollm_360m", ckpt_dir=str(tmp_path / "b"), ckpt_every=2,
+                        graphs=False, **kw)
+    assert again["start_step"] == 4 and int(again["opt_state"]["step"]) == 6
+    assert eager["capture"] is None
+    assert again["capture"]["per_replay"]["flash_attention_bwd_cuda.launches"] > 0
+    assert len(again["losses"]) == 2 and again["losses"] == again_eager["losses"]
+    for a, b in zip(tree_leaves((again["params"], again["opt_state"])),
+                    tree_leaves((again_eager["params"], again_eager["opt_state"]))):
+        assert torch.equal(a, b)
+
+
+def test_capture_keeps_the_saved_state_on_the_host(gen):
+    """The state a step writes in place is saved for the restore after the
+    warm-up on the host, not on the card: capturing a step that writes 256
+    MiB in place raises the device's peak by far less than that, and the
+    warm-up's and the capture's writes are undone."""
+    state = torch.zeros(64 << 20, device="cuda")
+    x = torch.ones(1, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    g = StepGraph(lambda s, x: s.add_(x), state, x, mutated=[state])
+    assert torch.cuda.max_memory_allocated() - base < state.nbytes // 4
+    assert int(torch.count_nonzero(state)) == 0
+    g.replay()
+    assert bool((state == 1).all())
+    g.release()
+
+
+def test_serve_batch_refuses_positions_past_the_cache(gen):
+    """Positions past a KV cache without a window raise ValueError on the
+    host before any step, and the card serves on: graphed tokens equal
+    eager ones at a length that fits."""
+    cfg = _smoke("smollm_360m")
+    params = transformer.init(torch.Generator(device="cuda").manual_seed(0),
+                              cfg, device="cuda")
+    prompts = torch.randint(0, cfg.vocab, (2, 8), generator=gen,
+                            device="cuda").int().cpu().numpy()
+
+    def reqs():
+        return [serve.Request(i, p, 12) for i, p in enumerate(prompts)]
+
+    with pytest.raises(ValueError, match="20 KV cache slots"):
+        serve.serve_batch(cfg, params, reqs(), max_len=16)
+    graphed, _ = serve.serve_batch(cfg, params, reqs(), max_len=20)
+    eager, _ = serve.serve_batch(cfg, params, reqs(), max_len=20,
+                                 step_fn=make_decode_step(cfg, graphs=False))
+    for a, b in zip(graphed, eager):
+        assert np.array_equal(a.out, b.out)
+
+
+def test_graph_launch_counts_match_the_profiler(gen):
+    """The launches a replay adds to the wrappers' counters are the kernels
+    the profiler sees in one replay."""
+    from torch.profiler import ProfilerActivity, profile
+    cfg = _smoke("smollm_360m")
+    params = transformer.init(torch.Generator(device="cuda").manual_seed(0),
+                              cfg, device="cuda")
+    step = make_decode_step(cfg)
+    cache = model_api(cfg).init_cache(cfg, 2, 16, device="cuda")
+    tok = torch.zeros(2, dtype=torch.int32, device="cuda")
+    step(params, cache, tok, 0)
+    g = _only_graph(step)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            g.replay()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert round(sum("rmsnorm" in n for n in names) / 3) == \
+        g.per_replay["rmsnorm_cuda.launches"]
+    assert round(sum("decode_attention" in n for n in names) / 3) == \
+        g.per_replay["decode_attention_cuda.launches"]
+    step.release()

@@ -104,7 +104,9 @@ def test_prefill_logits_match_jax(name, impl):
 @pytest.mark.parametrize("name", ARCHS)
 def test_decode_steps_match_jax(name):
     """24 teacher-forced decode steps; danube's window of 16 wraps its ring
-    buffer. The port updates its cache in place: after each step every cache
+    buffer. The position is a 0-d int32 tensor on both sides (the
+    reference's traced ``jnp.int32(t)``), as the port's CUDA graph takes
+    it. The port updates its cache in place: after each step every cache
     leaf (K/V, Mamba conv/h, mLSTM conv/C/n/m, sLSTM h/c/n/m) is compared
     with the reference's returned cache, and the old cache is snapshotted
     to check that only slot ``pos`` of each K/V cache changed."""
@@ -124,9 +126,9 @@ def test_decode_steps_match_jax(name):
                                            jnp.int32(t), jcfg)
         before = tree_map(lambda a: a.clone(), tcache)
         with torch.no_grad():
-            tlogits, out = tapi.decode_step(tparams, tcache,
-                                            torch.from_numpy(toks[:, t]), t,
-                                            tcfg)
+            tlogits, out = tapi.decode_step(
+                tparams, tcache, torch.from_numpy(toks[:, t]),
+                torch.tensor(t, dtype=torch.int32), tcfg)
         assert out is tcache
         np.testing.assert_allclose(_np(tlogits), _np(jlogits), atol=TOL,
                                    rtol=TOL)

@@ -158,8 +158,13 @@ def test_schedule_and_clip_match_jax():
     sched_j = jopt.warmup_cosine(3e-4, warmup=3, total=20)
     sched_t = topt.warmup_cosine(3e-4, warmup=3, total=20)
     for step in range(25):
-        np.testing.assert_allclose(sched_t(step), float(sched_j(jnp.int32(step))),
-                                   rtol=1e-6, atol=1e-12)
+        want = float(sched_j(jnp.int32(step)))
+        # an int step, and the optimizers' 0-d int32 step tensor: a float32
+        # tensor on its device, as the reference's
+        for arg in (step, torch.tensor(step, dtype=torch.int32)):
+            got = sched_t(arg)
+            assert got.dtype == torch.float32 and got.shape == ()
+            np.testing.assert_allclose(float(got), want, rtol=1e-6, atol=1e-12)
     rng = np.random.default_rng(4)
     tree = _opt_tree(rng)
     for max_norm in (0.5, 1e3):
@@ -174,7 +179,9 @@ def test_schedule_and_clip_match_jax():
 def test_optimizers_match_jax(kind):
     """Four updates from the same params and gradients: params, moments or
     factored statistics, and step; weight decay on the stacked 2-D norm
-    leaf included (adafactor with weight decay on)."""
+    leaf included (adafactor with weight decay on). The port's step is a
+    0-d int32 tensor, and each update writes params and state in place
+    (the same tensors come back)."""
     rng = np.random.default_rng(5)
     params = _opt_tree(rng)
     sched = dict(base_lr=1e-2, warmup=2, total=10)
@@ -186,10 +193,13 @@ def test_optimizers_match_jax(kind):
         to = topt.adafactor(topt.warmup_cosine(**sched), weight_decay=0.1)
     jp, tp = jax.tree.map(jnp.asarray, params), _torch_tree(params)
     js, ts = jo.init(jp), to.init(tp)
+    leaves = tree_leaves((tp, ts))
+    assert ts["step"].dtype == torch.int32 and ts["step"].shape == ()
     for _ in range(4):
         grads = _opt_tree(rng)
         jp, js = jo.update(jax.tree.map(jnp.asarray, grads), js, jp)
         tp, ts = to.update(_torch_tree(grads), ts, tp)
+        assert all(a is b for a, b in zip(tree_leaves((tp, ts)), leaves))
     _assert_trees(tp, jp)
     assert ts["step"] == int(js["step"]) == 4
     _assert_trees({k: v for k, v in ts.items() if k != "step"},

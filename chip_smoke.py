@@ -10,11 +10,13 @@ Run from the root of a checkout: it builds the CUDA kernels from
 time,
   1. prints the card's name and power limit (nvidia-smi), the build time,
      ptxas's registers and spills for the instances of the bf16
-     flash-attention forward and backward, decode-attention, RMSNorm and
-     scan kernels, the HGMMA (tensor-core) instructions in the flash
-     kernels' SASS (cuobjdump), failing if the forward has none, if a bf16
-     backward instance has none or if the head-dim-64 backward instances
-     spill, and for each scan instance its SASS
+     flash-attention forward and backward, decode-attention, RMSNorm
+     (forward and backward), scan, clip and AdamW kernels, the HGMMA
+     (tensor-core) instructions in the flash kernels' SASS (cuobjdump),
+     failing if the forward has none, if a bf16 backward instance has none,
+     if the head-dim-64 backward instances spill or if the train step's
+     RMSNorm-backward, sumsq or AdamW instance spills, and for each scan
+     instance its SASS
      instructions, MUFU.EX2 and LDL/STL counts and resident blocks per SM,
      failing if one spills or holds fewer blocks than its launch plan;
   2. holds each kernel against its plain PyTorch version on the card, at the
@@ -34,7 +36,12 @@ time,
      RMSNorm at d 960, 768, 1536), and the bf16 forward that also writes
      the log-sum-exp; the backward's library yardstick is the backward of
      ``scaled_dot_product_attention`` (``enable_gqa``) or ``F.rms_norm``:
-     autograd forward + backward less the forward;
+     autograd forward + backward less the forward; and the train step's
+     clip and AdamW kernels over smollm-360M's 11 leaves, bf16 and float32
+     (``sumsq``, ``clip_finalize``, ``adamw_update``: each leaf timed alone
+     and summed; params within one bf16 ulp, m and v to 1e-6 relative;
+     yardsticks ``torch._foreach_norm`` and ``torch.optim.AdamW(fused=True)``
+     on float32 copies);
   3. runs full-width smollm-360M prefill (bf16, 8 x 512 tokens) through
      ``make_prefill_step``, eagerly (``graphs=False``) and from its CUDA
      graph (the default on the card), on the same weights and tokens: each
@@ -68,11 +75,19 @@ time,
      ``launch.train.train``, eagerly and from the train step's graph: step
      time, tokens/s, the 16 losses and grad norms (the graphed ones equal to
      the eager ones bit for bit; finite, falling), peak device memory of
-     each, the launches per step of every forward and backward kernel
-     against the counts worked out from the config (remat runs each
-     period's forward twice), no extra forward for the backward's
-     log-sum-exp, the graph's capture, and a profile of one step eager and
-     replayed with the flash backward's device time and share;
+     each, the launches per step of every forward and backward kernel and
+     of the clip and AdamW kernels against the counts worked out from the
+     config and the param tree (remat runs each period's forward twice; a
+     ``sumsq`` and an ``adamw_update`` per leaf, one ``clip_finalize``), no
+     extra forward for the backward's log-sum-exp, the graph's capture, a
+     profile of one step eager and replayed with the flash backward's
+     device time and share, and one eager step's device time by
+     ``record_function`` range (``loss_fwd``, ``backward``, ``clip``,
+     ``optimizer``), failing if the clip or the optimizer runs a full-size
+     elementwise kernel (an aten op on a tensor of more than one element);
+  14. float32 training parity, card against CPU, at full width cut to 2
+     layers: the loss, the grad norm, every gradient leaf, and the params
+     after one AdamW step (the fused kernels on the card);
 Every path runs with the launch counts set to 0 just before it and read just
 after; a graphed path's counts include its warm-up calls (``WARMUP`` eager
 calls before capture), and a replay adds what the capture recorded. Then it prints the kernel table as one JSON line and, last,
@@ -84,6 +99,7 @@ instances' SASS to ``build/scan_sass.txt``.
 """
 from __future__ import annotations
 
+import bisect
 import collections
 import dataclasses
 import json
@@ -127,7 +143,14 @@ TOL = {("rmsnorm", "float32"): 1e-5, ("rmsnorm", "bfloat16"): 2e-2,
        # on both sides (ex2/lg2 approximations, summation order); its O as
        # ("attn", "bfloat16")
        ("attn_lse", "float32"): 1e-4, ("attn_lse", "bfloat16"): 3e-2,
-       ("rmsnorm_bwd", "float32"): 1e-4, ("rmsnorm_bwd", "bfloat16"): 2e-2}
+       ("rmsnorm_bwd", "float32"): 1e-4, ("rmsnorm_bwd", "bfloat16"): 2e-2,
+       # AdamW's params: float32 summation-free arithmetic rounded as the
+       # plain version's; a bf16 param within one bf16 ulp (2^-7 relative)
+       ("adamw", "float32"): 2e-5, ("adamw", "bfloat16"): 2 ** -7,
+       # the sums of squares and the norm: float32 in another order
+       ("sumsq", "float32"): 1e-5, ("sumsq", "bfloat16"): 1e-5}
+# AdamW's moments m and v, float32 on both sides: relative
+ADAMW_MV_TOL = 1e-6
 # RMSNorm's dscale sums dy * x * r over every row, float32 on both sides:
 # the norm of the difference over the norm of the plain version's
 DSCALE_TOL = 1e-4
@@ -159,6 +182,13 @@ KERNELS = {  # name: (source, TPU kernel it replaces, main-path case)
     "flash_attention_bwd": ("src/repro_torch/csrc/flash_attention_bwd_sm90.cu",
                             "src/repro/kernels/flash_attention.py:84",
                             "causal 8x15/5x512x512x64"),
+    # the clip and AdamW: no Pallas kernel; the reference leaves them to XLA
+    "sumsq": ("src/repro_torch/csrc/adamw.cu", "src/repro/optim/optimizers.py:23",
+              "smollm-360M 11 leaves"),
+    "clip_finalize": ("src/repro_torch/csrc/adamw.cu",
+                      "src/repro/optim/optimizers.py:28", "smollm-360M 11 leaves"),
+    "adamw_update": ("src/repro_torch/csrc/adamw.cu",
+                     "src/repro/optim/optimizers.py:62", "smollm-360M 11 leaves"),
 }
 # smollm-360M training in phase 13: steps of 8 x 512 tokens
 TRAIN_STEPS = 16
@@ -456,7 +486,134 @@ def phase_kernels(rms, fla, dec, scan):
             dec.decode_attention_plain(q, k, v, length, window=window), "attn"))
     rows += smoke_head_dim_rows(fla, dec, randn, gen)
     rows += backward_rows(rms, fla, randn)
+    rows += optimizer_rows(gen)
     return rows
+
+
+def leaf_ms(calls, iters: int = 21) -> float:
+    """Device ms of ``calls`` run one after another: each timed alone
+    (``device_ms``) and summed, so that leaves of other sizes in one kernel's
+    name do not share a median."""
+    return sum(device_ms(c, iters) for c in calls)
+
+
+def optimizer_rows(gen):
+    """The clip's and AdamW's kernels against their plain versions over
+    smollm-360M's 11 leaves (params and gradients drawn on the card, bf16,
+    then float32 copies; m and v float32, v positive; the scalars of step 3
+    of lr 1e-3 and a clip scale that bites): ``sumsq`` (each leaf's partial
+    sums against its float32 sum of squares), ``clip_finalize`` (norm and
+    scale from all the partials) and ``adamw_update`` (params to TOL, m and
+    v to ADAMW_MV_TOL relative). Each leaf's kernel and plain version are
+    timed alone and summed. Library yardsticks, never on the path:
+    ``torch._foreach_norm`` over the gradients, and
+    ``torch.optim.AdamW(fused=True).step()`` over float32 copies (its
+    moments take the params' dtype, so bf16 params would have bf16
+    moments: not the same function)."""
+    from repro_torch.configs import get
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import adamw as ka
+    from repro_torch.models import transformer
+    from repro_torch.models.module import tree_leaves
+
+    rows = []
+    case = KERNELS["adamw_update"][2]
+    base = tree_leaves(transformer.init(gen, get("smollm_360m"), device="cuda"))
+    f32 = lambda x: torch.tensor(x, dtype=torch.float32, device="cuda")
+    lr, c1, c2 = f32(1e-3), f32(1 - 0.9 ** 3), f32(1 - 0.95 ** 3)
+    n_sm = _build.sm_count(torch.cuda.current_device())
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).split(".")[1]
+        params = [t.to(dtype) for t in base]
+        grads = [(torch.randn(t.shape, generator=gen, device="cuda") * 1e-3).to(dtype)
+                 for t in params]
+        # sumsq over each leaf into one workspace, then clip_finalize
+        blocks = [ka.sumsq_blocks(g.numel(), g.dtype, n_sm) for g in grads]
+        partial = torch.empty(sum(blocks), dtype=torch.float32, device="cuda")
+        pieces = torch.split(partial, blocks)
+        sums = [(g, piece) for g, piece in zip(grads, pieces)]
+        for g, piece in sums:
+            ka.sumsq_cuda(g, piece)
+        got = tuple(piece.sum() for piece in pieces)
+        want = tuple(ka.sumsq_plain(g) for g in grads)
+        row = compare("sumsq", case, dn, got, want, "sumsq")
+        row.update(_opt_timing(
+            [lambda a=a: ka.sumsq_cuda(*a) for a in sums],
+            [lambda g=g: ka.sumsq_plain(g) for g in grads],
+            lambda: torch._foreach_norm(grads), nbytes(*grads) + nbytes(partial),
+            2 * sum(g.numel() for g in grads)))
+        rows.append(row)
+        norm, scale = ka.clip_finalize_cuda(partial, 1.0)
+        row = compare("clip_finalize", case, dn, (norm, scale),
+                      ka.clip_finalize_plain(partial, 1.0), "sumsq")
+        row.update(_opt_timing([lambda: ka.clip_finalize_cuda(partial, 1.0)],
+                               [lambda: ka.clip_finalize_plain(partial, 1.0)], None,
+                               nbytes(partial) + 8, partial.numel()))
+        row["scale"] = float(scale)
+        rows.append(row)
+        # the update: the kernel and the plain version from the same state
+        m = [torch.randn(t.shape, generator=gen, device="cuda") * 1e-4 for t in params]
+        v = [torch.rand(t.shape, generator=gen, device="cuda") * 1e-6 for t in params]
+        states = {k: ([t.clone() for t in params], [t.clone() for t in m],
+                      [t.clone() for t in v]) for k in ("kernel", "plain")}
+        for k, fn in (("kernel", ka.adamw_update_cuda), ("plain", ka.adamw_update_plain)):
+            for leaf in zip(*states[k][:1], grads, *states[k][1:]):
+                fn(*leaf, lr, c1, c2, scale)
+        (pk, mk, vk), (pp, mp, vp) = states["kernel"], states["plain"]
+        row = compare("adamw_update", case, dn, tuple(pk), tuple(pp), "adamw")
+        mv_err = max(float(((a - b).abs() / b.abs().clamp_min(1e-30)).max())
+                     for a, b in zip(mk + vk, mp + vp))
+        ok = mv_err <= ADAMW_MV_TOL
+        if dtype == torch.bfloat16:     # params within one bf16 ulp
+            row["p_max_ulps"] = max(float(((a.float() - b.float()).abs() / bf16_ulp(b)).max())
+                                    for a, b in zip(pk, pp))
+            ok = ok and row["p_max_ulps"] <= 1
+        else:
+            ok = ok and row["ok"]
+        row.update(mv_rel_err=mv_err, ok=ok,
+                   bit_equal_share=sum(int((a == b).sum()) for a, b in zip(pk, pp))
+                   / sum(t.numel() for t in pk))
+        leaves = list(zip(pk, grads, mk, vk))
+        lib_p = [t.detach().float().clone().requires_grad_(True) for t in params]
+        for t, g in zip(lib_p, grads):
+            t.grad = g.float()
+        lib = torch.optim.AdamW(lib_p, lr=1e-3, betas=(0.9, 0.95), eps=1e-8,
+                                weight_decay=0.1, fused=True)
+        row.update(_opt_timing(
+            [lambda a=a: ka.adamw_update_cuda(*a, lr, c1, c2, scale) for a in leaves],
+            [lambda a=a: ka.adamw_update_plain(*a, lr, c1, c2, scale)
+             for a in zip(pp, grads, mp, vp)],
+            lib.step,
+            # p read and written, g read, m and v read and written
+            sum(2 * t.numel() * t.element_size() + g.numel() * g.element_size() + 16 * t.numel()
+                for t, g in zip(params, grads)),
+            20 * sum(t.numel() for t in params)))
+        row["library"] = "torch.optim.AdamW(fused=True) on float32 copies"
+        rows.append(row)
+        del params, grads, m, v, states, leaves, lib_p, lib, partial, pieces, sums
+        torch.cuda.empty_cache()
+    return rows
+
+
+def bf16_ulp(t: torch.Tensor) -> torch.Tensor:
+    """The spacing of bf16 values at each element of ``t`` (7 stored
+    mantissa bits), as float32."""
+    e = torch.floor(torch.log2(t.float().abs().clamp_min(2.0 ** -126)))
+    return torch.exp2(e - 7)
+
+
+def _opt_timing(runs, plains, library, n_bytes, ops) -> dict:
+    """The timing keys of a phase-2 row for the optimizer's kernels: each
+    leaf's kernel call and plain version timed alone and summed
+    (``leaf_ms``), the kernels one pass over the leaves runs, its
+    back-to-back time, the bound (float32 operations) and the library
+    call's device ms."""
+    every = lambda fns: (lambda: [f() for f in fns])
+    out = {"kernels_per_call": device_profile(every(runs))[1], "ms": leaf_ms(runs),
+           "launch_ms": launch_ms(every(runs)), "plain_ms": leaf_ms(plains, 5),
+           "library_ms": None if library is None else device_ms(library)}
+    out["bound_ms"], out["bound_by"], out["bound_terms"] = bound(n_bytes, ops, "float32")
+    return out
 
 
 # the SMOKE configs' attention shapes (head dims 16 and 20): smollm (3 q / 1
@@ -633,13 +790,19 @@ def per_train_step(cfg) -> dict:
     only; the scan has no backward kernel): with ``cfg.remat`` every
     period's forward runs twice (once in the forward pass, once again in
     the backward pass), the final norm once; each norm and attention layer
-    runs its backward once."""
+    runs its backward once; the clip one ``sumsq`` per leaf of the param
+    tree and one ``clip_finalize``, AdamW one ``adamw_update`` per leaf."""
+    from repro_torch.models import transformer
+    from repro_torch.models.module import tree_leaves
+
     per = per_pass(cfg)
     twice = 2 if cfg.remat else 1
+    leaves = len(tree_leaves(transformer.init(torch.Generator(), cfg, device="meta")))
     return {"rmsnorm": twice * (per["rmsnorm"] - 1) + 1,
             "rmsnorm_bwd": per["rmsnorm"],
             "flash_attention": twice * per["attn"],
-            "flash_attention_bwd": per["attn"]}
+            "flash_attention_bwd": per["attn"],
+            "sumsq": leaves, "clip_finalize": 1, "adamw_update": leaves}
 
 
 # each wrapper's kernels in a profiler trace: (name pattern, kernels a call)
@@ -648,7 +811,10 @@ KERNEL_EVENTS = {"rmsnorm": (r"rmsnorm_(warp|block|scalar)_kernel", 1),
                  "decode_attention": (r"decode_attention_kernel", 1),
                  "mamba_scan": (r"mamba_scan_kernel", 1),
                  "rmsnorm_bwd": (r"rmsnorm_bwd_", 2),
-                 "flash_attention_bwd": (r"flash_bwd_", 2)}
+                 "flash_attention_bwd": (r"flash_bwd_", 2),
+                 "sumsq": (r"sumsq_kernel", 1),
+                 "clip_finalize": (r"clip_finalize_kernel", 1),
+                 "adamw_update": (r"adamw_update_kernel", 1)}
 
 
 def kernel_counts(fn, iters: int = 5, sessions: int = 3) -> dict:
@@ -743,6 +909,104 @@ def profile_call(fn, top: int = 6, groups=()):
                        for g in groups}}
 
 
+# the train step's record_function ranges (launch/steps.py), in order
+TRAIN_RANGES = ("loss_fwd", "backward", "clip", "optimizer")
+
+
+def _numel(shape) -> int:
+    """Elements of a recorded input shape (a list of ints; a list of such
+    lists for a tensor list; [] for a 0-d tensor or a non-tensor)."""
+    if shape and isinstance(shape[0], list):
+        return max((_numel(s) for s in shape), default=1)
+    return math.prod(shape)
+
+
+def range_profile(fn, ranges=TRAIN_RANGES, attempts: int = 3) -> dict:
+    """Device ms of the kernels and copies launched inside each
+    ``record_function`` range of one call of ``fn`` (profiler, CPU and CUDA
+    activities, shapes recorded, after one unrecorded call). A device event
+    counts toward the range whose host interval holds its launch, the
+    runtime call with the same correlation id (on any thread: autograd runs
+    the backward on its own thread while ``backward()`` waits). Per range:
+    ms, kernels and copies, the three names that take the most time,
+    ``full_size`` (the kernels whose launch lies in an aten op with a tensor
+    input of more than one element, innermost op on the launching thread:
+    op and kernel names, ms) and ``direct`` (kernels launched outside any
+    aten op, as the port's ctypes wrappers launch theirs). ``other`` is what
+    launched outside every range, ``unmatched`` what has no runtime call."""
+    fn()
+    torch.cuda.synchronize()
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     record_shapes=True) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = prof.events()
+        windows = {e.name: (e.time_range.start, e.time_range.end) for e in events
+                   if e.device_type == cpu and e.name in ranges}
+        devices = [e for e in events if e.device_type == cuda and e.name not in ranges]
+        if len(windows) == len(ranges) and devices:
+            break
+    else:
+        fail(f"the profiler recorded no device event or not every range: {sorted(windows)}")
+    runtime, ops = {}, collections.defaultdict(list)
+    for e in events:
+        if e.device_type != cpu:
+            continue
+        if e.name.startswith("cu") and "::" not in e.name:
+            runtime[e.id] = e
+        elif e.name.startswith("aten::"):
+            ops[e.thread].append(e)
+    for lst in ops.values():
+        lst.sort(key=lambda e: e.time_range.start)
+    starts = {th: [e.time_range.start for e in lst] for th, lst in ops.items()}
+
+    def aten_op(launch):
+        """The innermost aten op whose interval holds ``launch``, on its thread."""
+        t, lst = launch.time_range.start, ops.get(launch.thread, [])
+        for i in range(bisect.bisect_right(starts.get(launch.thread, []), t) - 1, -1, -1):
+            if lst[i].time_range.end >= t:
+                return lst[i]
+        return None
+
+    out = {r: {"ms": 0.0, "kernels": 0, "by_name": collections.Counter(),
+               "full_size": collections.Counter(), "direct": collections.Counter()}
+           for r in (*ranges, "other", "unmatched")}
+    for d in devices:
+        launch = runtime.get(d.id)
+        r = "unmatched" if launch is None else next(
+            (r for r, (a, b) in windows.items() if a <= launch.time_range.start <= b), "other")
+        ms = (d.time_range.end - d.time_range.start) / 1e3
+        name = re.sub(r"^void |\(.*$|<.*$", "", d.name.replace("(anonymous namespace)::", ""))
+        rec = out[r]
+        rec["ms"] += ms
+        rec["kernels"] += 1
+        rec["by_name"][name[:60]] += ms
+        op = None if launch is None else aten_op(launch)
+        if op is None:
+            rec["direct"][name[:60]] += 1
+        elif any(_numel(s) > 1 for s in op.input_shapes or []):
+            rec["full_size"][f"{op.name} {name[:40]}"] += ms
+    for rec in out.values():
+        rec["top"] = rec.pop("by_name").most_common(3)
+        rec["full_size_ms"] = sum(rec["full_size"].values())
+        rec["full_size"] = dict(rec["full_size"].most_common(8))
+        rec["direct"] = dict(rec["direct"])
+    out["total_ms"] = sum(rec["ms"] for rec in out.values())
+    return out
+
+
+def print_ranges(tag, rp):
+    print(f"{tag} device ms by range (one eager step): " + "; ".join(
+        f"{r} {v['ms']:.2f} ms over {v['kernels']} kernels and copies (full-size aten "
+        f"{v['full_size_ms']:.2f} ms; launched outside aten ops: "
+        + (", ".join(f"{n} x{c}" for n, c in v["direct"].items()) or "none") + "), top "
+        + ", ".join(f"{n} {ms:.2f}" for n, ms in v["top"])
+        for r, v in rp.items() if r != "total_ms" and (v["kernels"] or r in TRAIN_RANGES))
+        + f"; total {rp['total_ms']:.2f} ms", flush=True)
+
+
 def print_profile(tag, prof):
     """Each profiled call (wall, device busy, idle, the top kernel), then the
     kernels and copies of each replay against one eager call."""
@@ -778,13 +1042,25 @@ INSTANCE_NAMES = {
     "flash_bwd": (r"flash_bwd_(dq|dkdv)_kernelI(f|13__nv_bfloat16)Li(\d+)EE",
                   "{} {} D{}"),
     "flash_bwd_wgmma": (r"flash_bwd_(dq|dkdv)_wgmmaILi(\d+)E", "{} DP{}"),
-    "rmsnorm_bwd": (r"rmsnorm_bwd_rows_kernelI(f|13__nv_bfloat16)Li(\d+)EE",
-                    "{} ITEMS{}"),
+    "rmsnorm_bwd": (r"rmsnorm_bwd_(warp|block|scalar)_kernelI(f|13__nv_bfloat16)Li(\d+)E",
+                    "{} {} NV{}"),
+    "adamw": (r"(sumsq|adamw_update|clip_finalize)_kernel(?:I(f|13__nv_bfloat16)E)?",
+              "{} {}"),
 }
 # the scan instance of the main path (Jamba: bf16 u, N 16)
 SCAN_MAIN = "bf16 N16"
 # the bf16 backward instances of the main path (smollm: head dim 64)
 FLASH_BWD_MAIN = ("dq DP64", "dkdv DP64")
+# the instances of smollm's train step that must not spill: the RMSNorm
+# backward at d 960 (bf16, 4 vectors a lane), the clip and AdamW in bf16
+TRAIN_MAIN = {"rmsnorm_bwd": ("warp bf16 NV4",),
+              "adamw": ("sumsq bf16", "adamw_update bf16")}
+
+
+def spill_bytes(ptxas_line: str) -> int:
+    """Spill stores and loads, in bytes, of a ptxas report line."""
+    return sum(int(b) for b in re.findall(r"(\d+) bytes spill (?:stores|loads)",
+                                          ptxas_line))
 
 
 def instance_label(family: str, name: str):
@@ -793,7 +1069,7 @@ def instance_label(family: str, name: str):
     if not m:
         return None
     return fmt.format(*("f32" if g == "f" else "bf16" if g == "13__nv_bfloat16"
-                        else g for g in m.groups()))
+                        else g or "" for g in m.groups())).strip()
 
 
 def kernel_build_report(build, lib_path: str) -> dict:
@@ -855,7 +1131,7 @@ def kernel_build_report(build, lib_path: str) -> dict:
             "ptxas_flash_bwd": ptxas["flash_bwd"],
             "ptxas_flash_bwd_wgmma": ptxas["flash_bwd_wgmma"],
             "flash_bwd_wgmma_spill_bytes": bwd_spills, "flash_bwd_wgmma_hgmma": bwd_hgmma,
-            "ptxas_rmsnorm_bwd": ptxas["rmsnorm_bwd"],
+            "ptxas_rmsnorm_bwd": ptxas["rmsnorm_bwd"], "ptxas_adamw": ptxas["adamw"],
             "scan_sass": scan_sass, "warnings": warnings,
             "hgmma": hgmma, "hgmma_total": sum(hgmma.values())}
 
@@ -925,6 +1201,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs import get
     from repro_torch.kernels import _build
+    from repro_torch.kernels import adamw as ka
     from repro_torch.kernels import decode_attention as dec
     from repro_torch.kernels import flash_attention as fla
     from repro_torch.kernels import mamba_scan as scan
@@ -946,7 +1223,9 @@ def main() -> int:
     kern = {"rmsnorm": rms.rmsnorm_cuda, "flash_attention": fla.flash_attention_cuda,
             "decode_attention": dec.decode_attention_cuda,
             "mamba_scan": scan.mamba_scan_cuda, "rmsnorm_bwd": rms.rmsnorm_bwd_cuda,
-            "flash_attention_bwd": fla.flash_attention_bwd_cuda}
+            "flash_attention_bwd": fla.flash_attention_bwd_cuda,
+            "sumsq": ka.sumsq_cuda, "clip_finalize": ka.clip_finalize_cuda,
+            "adamw_update": ka.adamw_update_cuda}
     totals = {name: 0 for name in kern}     # launches over every main path
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
@@ -1154,9 +1433,13 @@ def main() -> int:
     if any(bwd_spills.get(lab) != 0 for lab in FLASH_BWD_MAIN):
         fail(f"the DP 64 flash-backward instances spill: {bwd_spills}")
     if not all(sass[k] for k in ("ptxas_decode", "ptxas_rmsnorm", "ptxas_scan",
-                                 "ptxas_flash_bwd", "ptxas_rmsnorm_bwd")):
-        fail(f"no ptxas report of the decode, RMSNorm, scan or backward "
+                                 "ptxas_flash_bwd", "ptxas_rmsnorm_bwd", "ptxas_adamw")):
+        fail(f"no ptxas report of the decode, RMSNorm, scan, backward or AdamW "
              f"instances: {sass}")
+    train_spills = {lab: sass[f"ptxas_{fam}"].get(lab) for fam, labs in TRAIN_MAIN.items()
+                    for lab in labs}
+    if any(v is None or spill_bytes(v) for v in train_spills.values()):
+        fail(f"a train-step instance is missing or spills: {train_spills}")
     scan_sass = sass["scan_sass"]
     if SCAN_MAIN not in scan_sass or any(
             v["spill_bytes"] is None for v in scan_sass.values()):
@@ -1179,7 +1462,8 @@ def main() -> int:
           f"scan ptxas: {sass['ptxas_scan']}; bf16 flash backward (wgmma) ptxas: "
           f"{sass['ptxas_flash_bwd_wgmma']}, HGMMA {bwd_hgmma}, spill bytes {bwd_spills}; "
           f"backward ptxas: flash (simt) "
-          f"{sass['ptxas_flash_bwd']}, RMSNorm {sass['ptxas_rmsnorm_bwd']}; "
+          f"{sass['ptxas_flash_bwd']}, RMSNorm {sass['ptxas_rmsnorm_bwd']}; clip and "
+          f"AdamW ptxas: {sass['ptxas_adamw']}; "
           f"scan SASS (instructions, "
           f"MUFU.EX2, LDL/STL): " + ", ".join(
               f"{k} {v['instructions']}/{v['mufu_ex2']}/{v['ldl_stl']}"
@@ -1215,6 +1499,13 @@ def main() -> int:
         inst = f" ({r['instance']})" if "instance" in r else ""
         dscale = (f", dscale rel err {r['dscale_rel_err']:.2e} (tol {DSCALE_TOL:g})"
                   if "dscale_rel_err" in r else "")
+        if "mv_rel_err" in r:
+            dscale += (f", m/v rel err {r['mv_rel_err']:.2e} (tol {ADAMW_MV_TOL:g}), "
+                       f"params bit-equal {r['bit_equal_share']:.4%}"
+                       + (f", max {r['p_max_ulps']:.2f} bf16 ulp" if "p_max_ulps" in r else "")
+                       + f"; library: {r['library']}")
+        if "scale" in r:
+            dscale += f", scale {r['scale']:.6f}"
         print(f"[2 kernel] {r['kernel']}{inst} {r['case']} {r['dtype']}: max_abs_err "
               f"{r['max_abs_err']:.3e} (tol {r['tol']:g}){dscale}{timing}", flush=True)
     bad = [f"{r['kernel']} {r['case']} {r['dtype']}" for r in rows if not r["ok"]]
@@ -1226,9 +1517,15 @@ def main() -> int:
     many += [f"{r['kernel']} {r['case']} {r['dtype']}: {r['kernels_per_call']}"
              for r in rows if "ms" in r and r["kernel"].endswith("_bwd")
              and r["kernels_per_call"] != 2]
+    n_leaves = per_train_step(get("smollm_360m"))["adamw_update"]
+    many += [f"{r['kernel']} {r['case']} {r['dtype']}: {r['kernels_per_call']}"
+             for r in rows if "ms" in r
+             and r["kernel"] in ("sumsq", "clip_finalize", "adamw_update")
+             and r["kernels_per_call"] != (1 if r["kernel"] == "clip_finalize" else n_leaves)]
     if many:
-        fail(f"a decode-attention or RMSNorm call ran other than one kernel, or a "
-             f"backward call other than two: {many}")
+        fail(f"a decode-attention or RMSNorm call ran other than one kernel, a "
+             f"backward call other than two, or a pass of the clip or AdamW other than "
+             f"one kernel a leaf (one finalize): {many}")
     print(f"[2 kernels] {len(rows)} rows agree {took('2 kernels')}", flush=True)
 
     # 3. smollm-360M: full-width prefill, bf16, eager and from its graph
@@ -1433,7 +1730,8 @@ def main() -> int:
         "eager": profile_call(lambda: step_e(*g.args), groups=groups),
         "graphed": profile_call(lambda: step_g(out["params"], out["opt_state"], tb),
                                 groups=groups),
-        "replay_check": {"train_step": replay_check("train step", g, step_e, iters=3)}}
+        "replay_check": {"train_step": replay_check("train step", g, step_e, iters=3)},
+        "ranges": range_profile(lambda: step_e(*g.args))}
     step_g.release()
     del out, step_g, g
     torch.cuda.empty_cache()
@@ -1454,6 +1752,11 @@ def main() -> int:
           + f"; losses {[round(x, 4) for x in e['losses']]}; extra forwards for L 0 "
           f"{took('13 train')}", flush=True)
     print_profile("[13 train profile]", tr["profile"])
+    print_ranges("[13 train ranges]", tr["profile"]["ranges"])
+    full = {r: tr["profile"]["ranges"][r]["full_size"] for r in ("clip", "optimizer")}
+    if any(full.values()):
+        fail(f"the clip or the optimizer ran full-size elementwise kernels beside "
+             f"csrc/adamw.cu's: {full}")
 
     # 14. float32 train-step parity, card vs CPU, full width cut to 2 layers
     pcfg = dataclasses.replace(cfg, n_layers=2, dtype="float32")

@@ -33,8 +33,8 @@ _L = ctypes.c_longlong
 SIGNATURES = {
     # x, scale, y, rows, d, eps, dtype, stream
     "rmsnorm_fwd": [_P, _P, _P, _I, _I, _F, _I, _P],
-    # x, scale, dy, dx, partial (blocks, d), dscale, rows, d, rows per
-    # block, blocks, eps, dtype, stream
+    # x, scale, dy, dx, partial (max_blocks, d), dscale, rows, d,
+    # max_blocks, SMs, eps, dtype, stream
     "rmsnorm_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
     # q, k, v, o, lse (or null), their strides (3 int64 each of q, k, v,
     # o: batch, head, sequence), B, Hq, Hkv, Sq, Skv, D, causal, window,
@@ -56,6 +56,13 @@ SIGNATURES = {
                        _L, _L, _L, _L, _I, _P],
     # n, u dtype -> resident blocks per SM of that scan instance
     "mamba_scan_blocks_per_sm": [_I, _I],
+    # g, numel, partial (blocks), blocks, dtype, stream
+    "adamw_sumsq": [_P, _L, _P, _I, _I, _P],
+    # partial, its length, max_norm, out (norm, scale), stream
+    "adamw_clip_finalize": [_P, _I, _F, _P, _P],
+    # p, g, m, v, numel, lr, c1, c2, scale (or null), b1, 1 - b1, b2,
+    # 1 - b2, eps, weight decay, decay, blocks, dtype, stream
+    "adamw_update": [_P] * 4 + [_L] + [_P] * 4 + [_F] * 6 + [_I] * 3 + [_P],
 }
 
 _lock = threading.Lock()

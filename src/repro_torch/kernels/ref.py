@@ -178,3 +178,48 @@ def mamba_scan_ref(u: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         y = torch.einsum("bdn,bn->bd", h, Cf[:, i]) + D * uf[:, i]
         ys.append(y)
     return torch.stack(ys, 1).to(u.dtype), h
+
+
+def sumsq_ref(g: torch.Tensor) -> torch.Tensor:
+    """The float32 sum of squares of one leaf, 0-d."""
+    return torch.sum(torch.square(g.float()))
+
+
+def clip_finalize_ref(partial: torch.Tensor, max_norm: float):
+    """(norm, scale) from sums of squares: norm = sqrt(sum), scale =
+    min(1, max_norm / max(norm, 1e-9)), float32 0-d tensors."""
+    norm = torch.sqrt(partial.float().sum())
+    return norm, _clip_scale(norm, max_norm)
+
+
+def global_norm_scale_ref(grads, max_norm: float):
+    """(norm, scale) of the reference's ``clip_by_global_norm`` over a list
+    of leaves, with its arithmetic: the sum of each leaf's float32 sum of
+    squares, then its square root."""
+    norm = torch.sqrt(sum(sumsq_ref(g) for g in grads))
+    return norm, _clip_scale(norm, max_norm)
+
+
+def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
+    return torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+
+
+def adamw_update_ref(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
+                     v: torch.Tensor, lr: torch.Tensor, c1: torch.Tensor,
+                     c2: torch.Tensor, scale: Optional[torch.Tensor] = None,
+                     b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
+                     weight_decay: float = 0.1) -> None:
+    """One AdamW leaf update in place, as the reference's ``upd``: p in its
+    storage dtype, m and v float32; lr, c1, c2 (the bias corrections) and
+    ``scale`` float32 0-d tensors. With ``scale`` the gradient first takes
+    the clip's storage round trip, ``to_dtype(float(g) * scale)``. Weight
+    decay applies where p has ndim >= 2 (no decay on norms and biases)."""
+    if scale is not None:
+        g = (g.float() * scale).to(g.dtype)
+    g = g.float()
+    m.copy_(b1 * m + (1 - b1) * g)
+    v.copy_(b2 * v + (1 - b2) * g * g)
+    u = (m / c1) / (torch.sqrt(v / c2) + eps)
+    if p.dim() >= 2:
+        u = u + weight_decay * p.float()
+    p.copy_((p.float() - lr * u).to(p.dtype))

@@ -18,8 +18,8 @@ from .ref import rmsnorm_bwd_ref as rmsnorm_bwd_plain
 from .ref import rmsnorm_ref as rmsnorm_plain
 
 MAX_D = 8192
-# the backward's first launch: about this many blocks per SM, each a
-# contiguous chunk of rows (csrc/rmsnorm_bwd.cu)
+# the backward's first launch (csrc/rmsnorm_bwd.cu) runs at most this many
+# blocks per SM, each writing one row of dscale partial sums
 BWD_BLOCKS_PER_SM = 2
 
 
@@ -58,13 +58,11 @@ def rmsnorm_cuda(x: torch.Tensor, scale: torch.Tensor,
 rmsnorm_cuda.launches = 0
 
 
-def bwd_plan(rows: int, n_sm: int):
-    """(rows per block, blocks) of the backward's first launch: about
-    BWD_BLOCKS_PER_SM blocks per SM, each a contiguous chunk of rows, none
-    empty. Fixed by the shape and the card, so the dscale sums always run in
-    the same order."""
-    per = -(-rows // max(1, min(rows, BWD_BLOCKS_PER_SM * n_sm)))
-    return per, -(-rows // per)
+def bwd_partial_rows(rows: int, n_sm: int) -> int:
+    """Rows of the backward's dscale workspace: the most blocks its first
+    launch may run (the kernel takes at most this many, and fewer where an
+    instance keeps fewer resident or a pass needs fewer)."""
+    return max(1, min(rows, BWD_BLOCKS_PER_SM * n_sm))
 
 
 def rmsnorm_bwd_cuda(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
@@ -83,14 +81,15 @@ def rmsnorm_bwd_cuda(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
     dx = torch.empty_like(x)
     if rows == 0:
         return dx, torch.zeros_like(scale)
-    per, blocks = bwd_plan(rows, _build.sm_count(x.device.index))
-    partial = torch.empty((blocks, d), dtype=torch.float32, device=x.device)
+    n_sm = _build.sm_count(x.device.index)
+    max_blocks = bwd_partial_rows(rows, n_sm)
+    partial = torch.empty((max_blocks, d), dtype=torch.float32, device=x.device)
     dscale = torch.empty_like(scale)
     lib = _build.load()
     _build.check(lib.rmsnorm_bwd(
         x.data_ptr(), scale.data_ptr(), dy.data_ptr(), dx.data_ptr(),
-        partial.data_ptr(), dscale.data_ptr(), rows, d, per, blocks, float(eps),
-        DTYPE_CODES[x.dtype], _build.stream_handle(x)), "rmsnorm_bwd")
+        partial.data_ptr(), dscale.data_ptr(), rows, d, max_blocks, n_sm,
+        float(eps), DTYPE_CODES[x.dtype], _build.stream_handle(x)), "rmsnorm_bwd")
     rmsnorm_bwd_cuda.launches += 1
     return dx, dscale
 

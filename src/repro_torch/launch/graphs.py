@@ -43,8 +43,8 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.kernels import decode_attention, flash_attention, mamba_scan
-from repro_torch.kernels import rmsnorm
+from repro_torch.kernels import adamw, decode_attention, flash_attention
+from repro_torch.kernels import mamba_scan, rmsnorm
 from repro_torch.models.module import tree_leaves, tree_map
 
 # eager calls on a side stream before capture
@@ -60,6 +60,9 @@ COUNTERS = (
     (flash_attention.flash_attention_bwd_cuda, "lse_forwards"),
     (decode_attention.decode_attention_cuda, "launches"),
     (mamba_scan.mamba_scan_cuda, "launches"),
+    (adamw.sumsq_cuda, "launches"),
+    (adamw.clip_finalize_cuda, "launches"),
+    (adamw.adamw_update_cuda, "launches"),
 )
 
 

@@ -19,13 +19,15 @@ from __future__ import annotations
 from typing import Callable
 
 import torch
+from torch.profiler import record_function
 
 from repro_torch import resolve_device
+from repro_torch.kernels.adamw import global_norm_scale
 from repro_torch.launch.graphs import GraphedStep
 from repro_torch.models import model_api, transformer
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.module import tree_map
-from repro_torch.optim.optimizers import Optimizer, clip_by_global_norm
+from repro_torch.models.module import tree_leaves, tree_map
+from repro_torch.optim.optimizers import Optimizer
 
 
 def _require_on(params, dev: torch.device) -> None:
@@ -39,7 +41,13 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer,
                     graphs: bool = True) -> Callable:
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)``: the loss and its gradient (``backward()``), global-norm
-    clipping to ``clip_norm`` and the optimizer's update.
+    clipping to ``clip_norm`` and the optimizer's update, each phase in a
+    ``record_function`` range (``loss_fwd``, ``backward``, ``clip``,
+    ``optimizer``) for the profiler. The clip computes the norm and its
+    scale once (``kernels.adamw.global_norm_scale``: the ``sumsq`` and
+    ``clip_finalize`` kernels on the card) and the optimizer applies the
+    scale leaf by leaf (``grad_scale``; AdamW in the fused kernel), as the
+    reference's clip followed by its update.
 
     ``params`` is the reference's tree of plain tensors on ``device``; the
     step marks detached views as requiring grad and the optimizer writes
@@ -58,15 +66,21 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer,
 
     def train_step(params, opt_state, batch):
         _require_on(params, dev)
-        b = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
-        p = tree_map(lambda a: a.detach().requires_grad_(True), params)
-        loss, metrics = api.loss(p, b, cfg)
-        loss.backward()
-        # a leaf the loss does not reach has a zero gradient, as under jax.grad
-        grads = tree_map(lambda a: a.grad if a.grad is not None
-                         else torch.zeros_like(a), p)
-        grads, gnorm = clip_by_global_norm(grads, clip_norm)
-        params, opt_state = optimizer.update(grads, opt_state, params)
+        with record_function("loss_fwd"):
+            b = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+            p = tree_map(lambda a: a.detach().requires_grad_(True), params)
+            loss, metrics = api.loss(p, b, cfg)
+        with record_function("backward"):
+            loss.backward()
+            # a leaf the loss does not reach has a zero gradient, as under
+            # jax.grad
+            grads = tree_map(lambda a: a.grad if a.grad is not None
+                             else torch.zeros_like(a), p)
+        with record_function("clip"):
+            gnorm, scale = global_norm_scale(tree_leaves(grads), clip_norm)
+        with record_function("optimizer"):
+            params, opt_state = optimizer.update(grads, opt_state, params,
+                                                 grad_scale=scale)
         out = {"loss": loss.detach(), "grad_norm": gnorm}
         out.update({k: v.detach() for k, v in metrics.items()})
         return params, opt_state, out

@@ -18,6 +18,14 @@ ones (its jitted train step donates them): a CUDA graph of the train step
 replays on fixed addresses. Learning-rate schedules take the step tensor
 and return a float32 tensor on its device, computed as the reference
 computes it, so nothing is read on the host.
+
+AdamW updates each leaf through :func:`repro_torch.kernels.adamw.adamw_update`:
+the fused kernel ``csrc/adamw.cu`` on the card, its plain version (this
+arithmetic) on the CPU. Both optimizers' ``update`` take ``grad_scale``,
+the global-norm clip's scale as a 0-d tensor, and apply it to each gradient
+with the clip's storage round trip: ``update(g, s, p, grad_scale=scale)``
+equals ``update(clip_by_global_norm(g, max_norm)[0], s, p)`` without the
+clipped copy of the gradients.
 """
 from __future__ import annotations
 
@@ -26,12 +34,14 @@ from typing import Any, Callable, NamedTuple, Tuple
 
 import torch
 
+from repro_torch.kernels.adamw import adamw_update
 from repro_torch.models.module import tree_leaves, tree_map
 
 
 class Optimizer(NamedTuple):
     init: Callable[[Any], Any]
-    update: Callable[..., Tuple[Any, Any]]   # (grads, state, params) -> (p, s)
+    # (grads, state, params, grad_scale=None) -> (params, state)
+    update: Callable[..., Tuple[Any, Any]]
 
 
 def global_norm(tree) -> torch.Tensor:
@@ -73,6 +83,15 @@ def _advance(state) -> torch.Tensor:
     return step.add_(1)
 
 
+def _device_scalar(x, like: torch.Tensor) -> torch.Tensor:
+    """``x`` (a Python number or a tensor) as a 0-d float32 tensor on
+    ``like``'s device; a number is written by a fill kernel, which a CUDA
+    graph captures."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=like.device, dtype=torch.float32)
+    return torch.full((), x, dtype=torch.float32, device=like.device)
+
+
 def adamw(lr: Callable | float, b1: float = 0.9, b2: float = 0.95,
           eps: float = 1e-8, weight_decay: float = 0.1) -> Optimizer:
     lr_fn = lr if callable(lr) else (lambda _: lr)
@@ -84,22 +103,19 @@ def adamw(lr: Callable | float, b1: float = 0.9, b2: float = 0.95,
                 "step": _step_zero(params)}
 
     @torch.no_grad()
-    def update(grads, state, params):
+    def update(grads, state, params, grad_scale=None):
+        """``grad_scale``: the clip's scale (a 0-d float32 tensor), applied
+        to each gradient with the clip's storage round trip, as
+        :func:`clip_by_global_norm` then this update would; None for
+        gradients taken as they are."""
         step = _advance(state)
-        lr_t = lr_fn(step)
+        lr_t = _device_scalar(lr_fn(step), step)
         c1 = 1 - b1 ** step.float()
         c2 = 1 - b2 ** step.float()
-
-        def one(p, g, m, v):
-            g = g.float()
-            m.copy_(b1 * m + (1 - b1) * g)
-            v.copy_(b2 * v + (1 - b2) * g * g)
-            u = (m / c1) / (torch.sqrt(v / c2) + eps)
-            if p.dim() >= 2:                      # no decay on norms/bias
-                u = u + weight_decay * p.float()
-            p.copy_((p.float() - lr_t * u).to(p.dtype))
-
-        tree_map(one, params, grads, state["mu"], state["nu"])
+        # weight decay on leaves of ndim >= 2 only, as the reference's upd
+        tree_map(lambda p, g, m, v: adamw_update(
+            p, g, m, v, lr_t, c1, c2, grad_scale, b1=b1, b2=b2, eps=eps,
+            weight_decay=weight_decay), params, grads, state["mu"], state["nu"])
         return params, state
 
     return Optimizer(init, update)
@@ -120,12 +136,15 @@ def adafactor(lr: Callable | float, decay: float = 0.8, eps: float = 1e-30,
         return {"stats": tree_map(stats, params), "step": _step_zero(params)}
 
     @torch.no_grad()
-    def update(grads, state, params):
+    def update(grads, state, params, grad_scale=None):
+        """``grad_scale`` as :func:`adamw`'s (plain PyTorch here)."""
         step = _advance(state)
         lr_t = lr_fn(step)
         beta = 1.0 - (step.float() + 1.0) ** -decay
 
         def one(p, g, st):              # st: the dict of p's statistics
+            if grad_scale is not None:
+                g = (g.float() * grad_scale).to(g.dtype)
             g = g.float()
             g2 = g * g + eps
             if p.dim() >= 2:

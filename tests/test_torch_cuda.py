@@ -25,6 +25,11 @@ from repro_torch.kernels.flash_attention import (INSTANCES,
 from repro_torch.kernels.mamba_scan import (BLOCKS_PER_SM, CHANNELS_PER_BLOCK,
                                             blocks_per_sm, mamba_scan_cuda,
                                             mamba_scan_plain)
+from repro_torch.kernels.adamw import (adamw_update_cuda, adamw_update_plain,
+                                       clip_finalize_cuda, clip_finalize_plain,
+                                       global_norm_scale, global_norm_scale_cuda,
+                                       global_norm_scale_plain, sumsq_blocks,
+                                       sumsq_cuda, sumsq_plain)
 from repro_torch.kernels.rmsnorm import (rmsnorm_bwd_cuda, rmsnorm_bwd_plain,
                                          rmsnorm_cuda, rmsnorm_plain)
 from repro_torch.launch import serve
@@ -528,14 +533,41 @@ def test_flash_attention_bwd_takes_strided_and_broadcast_grads(gen, dtype):
         _close_tol(g, w, BWD_TOL[dtype])
 
 
+# every path and instance: a warp per row (16 ... 2048 in bf16), a block per
+# row (8192), the scalar path (20, 60, 1001: no multiple of the vector
+# width); rows fewer than a block's 8 warps (1, 3, 5), and row counts that
+# are no multiple of the 8 rows of a pass or of the grid (777, 1000, 4097)
 @pytest.mark.parametrize("rows,d", [(4096, 960), (8, 960), (4096, 768),
                                     (4096, 1536), (5, 8192), (1, 20),
-                                    (1000, 60), (777, 1001)])
+                                    (1000, 60), (777, 1001), (3, 960),
+                                    (4097, 960), (4097, 768), (9, 2048),
+                                    (5, 16), (3, 1000), (4097, 8192)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_rmsnorm_bwd(gen, rows, d, dtype):
     x = _randn(gen, (rows, d), dtype)
     s = _randn(gen, (d,), torch.float32)
     dy = _randn(gen, (rows, d), dtype)
+    _check_rmsnorm_bwd(x, s, dy, dtype)
+
+
+@pytest.mark.parametrize("d", [16, 20, 960, 1000, 8192])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_bwd_unaligned_view_takes_the_scalar_path(gen, d, dtype):
+    """x, dy and scale as views one element into their buffers: no 16-byte
+    alignment, so the scalar path runs, with the same results."""
+    rows = 7
+
+    def view(shape, dt):
+        n = int(np.prod(shape))
+        return _randn(gen, (n + 1,), dt)[1:].view(shape)
+
+    x, dy, s = view((rows, d), dtype), view((rows, d), dtype), view((d,), torch.float32)
+    assert x.data_ptr() % 16 and dy.data_ptr() % 16 and s.data_ptr() % 16
+    _check_rmsnorm_bwd(x, s, dy, dtype)
+
+
+def _check_rmsnorm_bwd(x, s, dy, dtype):
+    d = x.shape[-1]
     dx, ds = rmsnorm_bwd_cuda(x, s, dy, 1e-5)
     want_dx, want_ds = rmsnorm_bwd_plain(x, s, dy, 1e-5)
     _close_tol(dx, want_dx, BWD_TOL[dtype])
@@ -547,6 +579,147 @@ def test_rmsnorm_bwd(gen, rows, d, dtype):
     assert err <= 1e-4, err
     again = rmsnorm_bwd_cuda(x, s, dy, 1e-5)
     assert torch.equal(again[0], dx) and torch.equal(again[1], ds)
+
+
+# AdamW: float32 to 2e-5; a bf16 param within one bf16 ulp; m and v 1e-6
+# relative (the kernel rounds each step as the plain version does, so on the
+# same scalars they agree to the bit or near it)
+ADAMW_TOL = {torch.float32: 2e-5, torch.bfloat16: 2 ** -7}
+
+
+def _adamw_leaf(gen, shape, dtype):
+    p = _randn(gen, shape, dtype)
+    g = _randn(gen, shape, dtype) * 0.1
+    m = _randn(gen, shape, torch.float32) * 0.01
+    v = _randn(gen, shape, torch.float32).abs() * 1e-3
+    return p, g, m, v
+
+
+def _adamw_scalars(step=3, lr=1e-3, scale=0.37):
+    f = lambda x: torch.tensor(x, dtype=torch.float32, device="cuda")
+    return f(lr), f(1 - 0.9 ** step), f(1 - 0.95 ** step), f(scale)
+
+
+def _close_adamw(got, want, dtype):
+    torch.cuda.synchronize()
+    (p, m, v), (pw, mw, vw) = got, want
+    assert p.dtype == pw.dtype and m.dtype == mw.dtype == torch.float32
+    tol = ADAMW_TOL[dtype]
+    torch.testing.assert_close(p.float(), pw.float(), atol=tol * (1 + float(pw.abs().max())),
+                               rtol=tol)
+    for a, b in ((m, mw), (v, vw)):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-12)
+
+
+@pytest.mark.parametrize("shape", [(960,), (32, 960), (1,), (7,), (13, 37),
+                                   (3, 1000, 9), (49152, 960)])
+@pytest.mark.parametrize("clip", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_adamw_update(gen, shape, clip, dtype):
+    """The fused update against its plain version on one leaf: 1-d leaves
+    (weight decay off) and n-d leaves (on), numels that are no multiple of
+    the vector width (1, 7, 13 x 37, 3 x 1000 x 9), smollm's embedding;
+    with the clip's round trip (scale 0.37) and without (None). Two calls
+    from the same state give the same bits."""
+    p, g, m, v = _adamw_leaf(gen, shape, dtype)
+    lr, c1, c2, scale = _adamw_scalars()
+    scale = scale if clip else None
+    want = [t.clone() for t in (p, m, v)]
+    adamw_update_plain(want[0], g, want[1], want[2], lr, c1, c2, scale)
+    got = [t.clone() for t in (p, m, v)]
+    n = adamw_update_cuda.launches
+    adamw_update_cuda(got[0], g, got[1], got[2], lr, c1, c2, scale)
+    assert adamw_update_cuda.launches == n + 1
+    _close_adamw(got, want, dtype)
+    again = [t.clone() for t in (p, m, v)]
+    adamw_update_cuda(again[0], g, again[1], again[2], lr, c1, c2, scale)
+    assert all(torch.equal(a, b) for a, b in zip(again, got))
+
+
+def test_adamw_kernels_refuse_what_they_do_not_take(gen):
+    """A non-contiguous gradient, mismatched dtypes or shapes, host or
+    wrongly typed scalars raise; nothing is launched."""
+    p, g, m, v = _adamw_leaf(gen, (64, 48), torch.bfloat16)
+    lr, c1, c2, scale = _adamw_scalars()
+    n = adamw_update_cuda.launches, sumsq_cuda.launches
+    for bad in (dict(g=g.t().contiguous().t()), dict(g=g.float()),
+                dict(m=m.to(torch.bfloat16)), dict(v=v[:32]), dict(lr=lr.cpu()),
+                dict(c1=c1.double())):
+        args = dict(p=p, g=g, m=m, v=v, lr=lr, c1=c1, c2=c2, scale=scale)
+        args.update(bad)
+        with pytest.raises((ValueError, TypeError)):
+            adamw_update_cuda(**args)
+    with pytest.raises(ValueError, match="contiguous"):
+        global_norm_scale_cuda([g.t()], 1.0)
+    assert (adamw_update_cuda.launches, sumsq_cuda.launches) == n
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sumsq_and_clip_finalize(gen, dtype):
+    """sumsq's partial sums over each leaf equal the leaf's sum of squares
+    (float32, summation order only); clip_finalize's norm and scale equal
+    the plain version's from the same partials; global_norm_scale over
+    smollm-like leaves (a single element, a ragged tail, the embedding)
+    equals the plain version's, twice the same bits; a clip that bites
+    (max_norm below the norm) and one that does not (scale 1)."""
+    shapes = [(1,), (960,), (13, 37), (32, 960, 320), (49152, 960)]
+    leaves = [_randn(gen, s, dtype) for s in shapes]
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    for g in leaves:
+        partial = torch.empty(sumsq_blocks(g.numel(), g.dtype, n_sm), device="cuda")
+        sumsq_cuda(g, partial)
+        torch.testing.assert_close(partial.sum(), sumsq_plain(g), rtol=1e-5, atol=0)
+        for max_norm in (0.5, 1e9):
+            got = clip_finalize_cuda(partial, max_norm)
+            for a, b in zip(got, clip_finalize_plain(partial, max_norm)):
+                torch.testing.assert_close(a, b, rtol=1e-6, atol=0)
+    for max_norm in (1.0, 1e9):
+        n_s, n_f = sumsq_cuda.launches, clip_finalize_cuda.launches
+        norm, scale = global_norm_scale_cuda(leaves, max_norm)
+        assert (sumsq_cuda.launches, clip_finalize_cuda.launches) == (n_s + 5, n_f + 1)
+        want = global_norm_scale_plain(leaves, max_norm)
+        torch.testing.assert_close(norm, want[0], rtol=1e-5, atol=0)
+        torch.testing.assert_close(scale, want[1], rtol=1e-5, atol=0)
+        assert (float(scale) < 1) == (max_norm == 1.0)
+        again = global_norm_scale_cuda(leaves, max_norm)
+        assert torch.equal(again[0], norm) and torch.equal(again[1], scale)
+
+
+def test_adamw_update_replays_in_a_graph(gen):
+    """The clip and the update of a bf16 and a float32 leaf captured in one
+    CUDA graph and replayed 3 times equal 3 eager steps bit for bit: lr,
+    the bias corrections and the scale change every step and are read on
+    the device, not frozen at capture."""
+    params = {"w": _randn(gen, (96, 33), torch.bfloat16),
+              "n": _randn(gen, (33,), torch.float32)}
+    opt = adamw(warmup_cosine(1e-2, warmup=2, total=6))
+    grads = [{k: _randn(gen, t.shape, t.dtype) for k, t in params.items()}
+             for _ in range(3)]
+    g_buf = {k: torch.empty_like(t) for k, t in params.items()}
+
+    def step(p, state, g):
+        norm, scale = global_norm_scale(tree_leaves(g), 0.5)
+        opt.update(g, state, p, grad_scale=scale)
+        return norm
+
+    p_e = tree_map(lambda a: a.clone(), params)
+    s_e = opt.init(p_e)
+    norms_e = []
+    for g in grads:
+        norms_e.append(step(p_e, s_e, g).clone())
+    p_g = tree_map(lambda a: a.clone(), params)
+    s_g = opt.init(p_g)
+    tree_map(lambda b, g: b.copy_(g), g_buf, grads[0])
+    graph = StepGraph(step, p_g, s_g, g_buf, mutated=[p_g, s_g])
+    for i, g in enumerate(grads):
+        tree_map(lambda b, x: b.copy_(x), g_buf, g)
+        assert torch.equal(graph.replay(), norms_e[i])
+    assert graph.per_replay["adamw_update_cuda.launches"] == 2
+    assert graph.per_replay["sumsq_cuda.launches"] == 2
+    assert graph.per_replay["clip_finalize_cuda.launches"] == 1
+    for a, b in zip(tree_leaves((p_e, s_e)), tree_leaves((p_g, s_g))):
+        assert torch.equal(a, b)
+    graph.release()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

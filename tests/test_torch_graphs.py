@@ -20,6 +20,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.configs import get
 from repro_torch.kernels import decode_attention, rmsnorm
+from repro_torch.kernels.adamw import global_norm_scale
 from repro_torch.launch import graphs, serve
 from repro_torch.launch.graphs import GraphedStep, StepGraph
 from repro_torch.launch.steps import (make_decode_step, make_prefill_step,
@@ -145,6 +146,36 @@ def test_train_step_makes_no_host_read_and_updates_in_place(kind):
         assert all(a is b for a, b in zip(tree_leaves((p, s)), leaves))
         assert bool(torch.isfinite(metrics["loss"]))
     assert state["step"].dtype == torch.int32 and int(state["step"]) == 3
+    assert not torch.equal(params["embed"], before["embed"])
+
+
+@pytest.mark.parametrize("kind", ["adamw", "adafactor"])
+def test_clip_and_update_make_no_host_read(kind):
+    """The train step's clip and update as the fused kernels run them: the
+    norm and the clip's scale once (``global_norm_scale``), then
+    ``update(..., grad_scale=scale)``, on a SMOKE tree with a bf16 leaf,
+    with a clip that bites and one that does not, under
+    :class:`NoHostReads`: lr, the bias corrections, the norm and the scale
+    stay 0-d tensors, and params and state are written in place."""
+    cfg = _cfg("smollm_360m")
+    params = _params(cfg)
+    params["embed"] = params["embed"].to(torch.bfloat16)
+    sched = topt.warmup_cosine(1e-2, warmup=2, total=10)
+    opt = topt.adamw(sched) if kind == "adamw" else topt.adafactor(sched)
+    state = opt.init(params)
+    leaves = tree_leaves((params, state))
+    before = tree_map(lambda a: a.clone(), params)
+    rng = np.random.default_rng(4)
+    for max_norm in (1e-3, 1e6):
+        grads = tree_map(lambda a: torch.from_numpy(
+            rng.standard_normal(a.shape).astype(np.float32)).to(a.dtype), params)
+        with NoHostReads():
+            norm, scale = global_norm_scale(tree_leaves(grads), max_norm)
+            p, s = opt.update(grads, state, params, grad_scale=scale)
+        assert norm.shape == scale.shape == ()
+        assert all(a is b for a, b in zip(tree_leaves((p, s)), leaves))
+        assert (float(scale) < 1) == (max_norm < 1)
+    assert int(state["step"]) == 2
     assert not torch.equal(params["embed"], before["embed"])
 
 

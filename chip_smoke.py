@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's paths on one CUDA card: serving smollm-360M
-(dense), Jamba (hybrid Mamba + attention) and xlstm-125m, the SMOKE configs
-the server and trainer default to, and training smollm-360M.
+(dense), Jamba (hybrid Mamba + attention), xlstm-125m and DeepSeek-V3 (MLA +
+MoE), the SMOKE configs the server and trainer default to (and the MoE
+ones), and training smollm-360M.
 
   python3 chip_smoke.py
 
@@ -13,7 +14,9 @@ time,
      flash-attention forward and backward, decode-attention, RMSNorm
      (forward and backward), scan, clip and AdamW kernels, the HGMMA
      (tensor-core) instructions in the flash kernels' SASS (cuobjdump),
-     failing if the forward has none, if a bf16 backward instance has none,
+     failing if the forward has none (or its D-192 instance, MLA's, has
+     none; ptxas's registers and spills of the float32 instances too, D 24
+     and 192 among them), if a bf16 backward instance has none,
      if the head-dim-64 backward instances spill or if the train step's
      RMSNorm-backward, sumsq or AdamW instance spills, and for each scan
      instance its SASS
@@ -29,7 +32,10 @@ time,
      simt for float32; bf16 decode rows add a sweep of the split count;
      the scan runs with Mamba's initial A and with a random A, and its
      timed rows add the SM clock while it runs back to back); the SMOKE
-     configs' head dims (16, 20) in the attention kernels; and the two
+     configs' head dims (16, 20) in the attention kernels; MLA's head dims
+     in flash attention (bf16 q = k = v (8, 128, 512, 192) causal, without
+     and with L; float32 at 192 and 24; SDPA with the scale as yardstick);
+     and the two
      backward kernels (flash attention at smollm's and, in bf16, Jamba's
      training shapes, with the forward's log-sum-exp as training passes
      it, and at SMOKE shapes with a window, an offset and ragged lengths;
@@ -70,7 +76,10 @@ time,
      defaults, graphed, and ``serve.main(["--eager"])``, with equal tokens;
      h2o-danube SMOKE served past its window of 16, eager and graphed, with
      equal tokens; and the float32 logits of smollm, h2o-danube and Jamba
-     (dense FFN) SMOKE, card against CPU, as phase 5;
+     (dense FFN) SMOKE, card against CPU, as phase 5; then the same for the
+     MoE SMOKE configs (DeepSeek with MLA at head dim 24, Qwen3-MoE, Jamba
+     with its real MoE layers): ``serve.main(["--arch", ...])`` graphed and
+     eager with equal tokens, and float32 logits card vs CPU;
   13. trains full-width smollm-360M (bf16, 8 x 512 tokens a step) through
      ``launch.train.train``, eagerly and from the train step's graph: step
      time, tokens/s, the 16 losses and grad norms (the graphed ones equal to
@@ -88,9 +97,19 @@ time,
   14. float32 training parity, card against CPU, at full width cut to 2
      layers: the loss, the grad norm, every gradient leaf, and the params
      after one AdamW step (the fused kernels on the card);
+  15-19. DeepSeek-V3 at its published widths cut to 5 layers (the 3
+     dense-FFN layers of its prefix + 2 MLA + MoE layers, 26.6 B params)
+     without the MTP module, after every earlier model is freed: prefill 8 x
+     512 and serving 8 x (64 + 64), each eager and graphed with equal
+     logits / tokens, a profile of one prefill and one decode step, the
+     peak device memory, and float32 parity of one full-width MLA block
+     (``block_apply`` then 8 absorbed ``block_decode`` steps) card vs CPU;
 Every path runs with the launch counts set to 0 just before it and read just
 after; a graphed path's counts include its warm-up calls (``WARMUP`` eager
-calls before capture), and a replay adds what the capture recorded. Then it prints the kernel table as one JSON line and, last,
+calls before capture), and a replay adds what the capture recorded. Then it prints the kernel table as one JSON line (the rows of
+MLA's flash instances count the launches of the path that runs each:
+DeepSeek-V3 prefill for bf16 D 192, the parity phases for float32 D 192
+and 24) and, last,
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
 with no CUDA device, or outside a checkout, it exits non-zero at once. The
 full report goes to ``build/chip_smoke.json``, the compiler's output (ptxas
@@ -190,6 +209,23 @@ KERNELS = {  # name: (source, TPU kernel it replaces, main-path case)
     "adamw_update": ("src/repro_torch/csrc/adamw.cu",
                      "src/repro/optim/optimizers.py:62", "smollm-360M 11 leaves"),
 }
+# rows of the kernel table beside KERNELS: the flash instances of MLA's head
+# dims, each counted on the path that runs it (name: (source, TPU kernel it
+# replaces, phase-2 case, dtype, path))
+MLA_CASE = "MLA causal 8x128/128x512x512x192"
+MLA_ROWS = {
+    "flash_attention_d192": ("src/repro_torch/csrc/flash_attention_sm90.cu",
+                             "src/repro/kernels/flash_attention.py:84", MLA_CASE,
+                             "bfloat16", "DeepSeek-V3 prefill (phases 15-17)"),
+    "flash_attention_f32_d192": ("src/repro_torch/csrc/flash_attention.cu",
+                                 "src/repro/kernels/flash_attention.py:84",
+                                 "MLA causal 2x16/16x512x512x192", "float32",
+                                 "MLA block parity (phase 19)"),
+    "flash_attention_f32_d24": ("src/repro_torch/csrc/flash_attention.cu",
+                                "src/repro/kernels/flash_attention.py:84",
+                                "DeepSeek SMOKE causal 8x4/4x512x512x24", "float32",
+                                "DeepSeek SMOKE parity (phase 12)"),
+}
 # smollm-360M training in phase 13: steps of 8 x 512 tokens
 TRAIN_STEPS = 16
 
@@ -201,26 +237,70 @@ JAMBA_DENSE = dict(n_layers=8, n_experts=0, top_k=0, d_expert=0,
 # the float32 parity cut: one attention and one Mamba layer at full width
 JAMBA_PARITY = dict(n_layers=2, dtype="float32",
                     period=(("attn", "mlp"), ("mamba", "mlp")))
+# DeepSeek-V3 at its published widths, cut to what one 80 GB card holds: the
+# 3 dense-FFN layers of its prefix and 2 MLA + MoE layers (26.6 B params,
+# 53.2 GB bf16; a third MoE layer would not fit), without the MTP module,
+# which only the training loss reads
+DEEPSEEK_CUT = dict(n_layers=5, mtp=False)
 
 
 def fail(msg: str):
     raise RuntimeError(f"chip_smoke: {msg}")
 
 
-def profiled(fn, iters: int = 1, attempts: int = 3):
-    """The profiler (CUPTI) around ``iters`` calls of ``fn``. A session that
-    records no device activity (seen now and then on the first session of a
-    process) is run again, up to ``attempts`` times, before the phase
+# The tracer (CUPTI) now and then records no device activity, or drops a
+# few events, for a spell of about a tenth of a second, into which several
+# short sessions in a row can fall. A session that shows it is run again
+# after a pause that doubles each time, up to PROFILER_ATTEMPTS sessions;
+# PROFILER_RETRIES counts the sessions run again, by what they showed.
+PROFILER_ATTEMPTS = 6
+PROFILER_PAUSE_S = 0.1
+PROFILER_RETRIES = collections.Counter()
+
+
+def cuda_event_counts(prof) -> collections.Counter:
+    return collections.Counter(e.name for e in prof.events()
+                               if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def whole_session(seen: collections.Counter, iters: int) -> bool:
+    """A session of ``iters`` calls that recorded every event: each kernel
+    or copy seen a multiple of ``iters`` times."""
+    if not seen:
+        PROFILER_RETRIES["empty"] += 1
+        return False
+    if any(n % iters for n in seen.values()):
+        PROFILER_RETRIES["partial"] += 1
+        return False
+    return True
+
+
+def pause(attempt: int):
+    if attempt + 1 < PROFILER_ATTEMPTS:
+        time.sleep(PROFILER_PAUSE_S * 2 ** attempt)
+
+
+def profiled(fn, iters: int = 1, whole: bool = False):
+    """The profiler (CUPTI) around ``iters`` calls of ``fn``. A session
+    with no device activity, or with ``whole`` one that dropped events
+    (``whole_session``), is run again after a pause; if none was whole, the
+    one with the most events is kept, and if none recorded any the phase
     fails."""
-    for _ in range(attempts):
+    best, most = None, 0
+    for attempt in range(PROFILER_ATTEMPTS):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        if any(e.device_type == torch.autograd.DeviceType.CUDA
-               for e in prof.events()):
+        seen = cuda_event_counts(prof)
+        if whole_session(seen, iters if whole else 1):
             return prof
-    fail("the profiler recorded no device time")
+        if sum(seen.values()) > most:
+            best, most = prof, sum(seen.values())
+        pause(attempt)
+    if best is None:
+        fail("the profiler recorded no device time")
+    return best
 
 
 def device_profile(fn, iters: int = 21):
@@ -233,7 +313,7 @@ def device_profile(fn, iters: int = 21):
     profiler now and then does (up to a dozen of 42 seen in one session)."""
     fn()
     torch.cuda.synchronize()
-    prof = profiled(fn, iters)
+    prof = profiled(fn, iters, whole=True)
     by_name = {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
@@ -485,6 +565,7 @@ def phase_kernels(rms, fla, dec, scan):
             dec.decode_attention_cuda(q, k, v, length, window=window),
             dec.decode_attention_plain(q, k, v, length, window=window), "attn"))
     rows += smoke_head_dim_rows(fla, dec, randn, gen)
+    rows += mla_rows(fla, randn)
     rows += backward_rows(rms, fla, randn)
     rows += optimizer_rows(gen)
     return rows
@@ -668,6 +749,36 @@ def smoke_head_dim_rows(fla, dec, randn, gen):
     return rows
 
 
+def mla_rows(fla, randn):
+    """The flash instances of MLA's head dims (qk 128 + 64 = 192 at
+    DeepSeek-V3's widths, 16 + 8 = 24 at SMOKE size; G = 1, causal, scale
+    D^-0.5): bf16 at the DeepSeek prefill's shape, without and with L, and
+    float32 at 192 and 24; SDPA (``scale`` given) as the yardstick."""
+    rows = []
+    for (name, (_, _, case, dn, _)), (b, h, s, d) in zip(
+            MLA_ROWS.items(), ((8, 128, 512, 192), (2, 16, 512, 192), (8, 4, 512, 24))):
+        dtype = getattr(torch, dn)
+        q, k, v = (randn((b, h, s, d), dtype) for _ in range(3))
+        scale = d ** -0.5
+        pairs = s * (s + 1) // 2
+        library = (lambda q=q, k=k, v=v, sc=scale:
+                   F.scaled_dot_product_attention(q, k, v, is_causal=True, scale=sc))
+        for lse in ((False, True) if dn == "bfloat16" else (False,)):
+            args = (q, k, v, True, None, 0, scale)
+            rows.append(compare(
+                "flash_attention", case + (" with L" if lse else ""), dn,
+                fla.flash_attention_cuda(*args, return_lse=lse),
+                fla.flash_attention_plain(*args, return_lse=lse),
+                "attn_lse" if lse else "attn",
+                run=lambda a=args, l=lse: fla.flash_attention_cuda(*a, return_lse=l),
+                plain=lambda a=args, l=lse: fla.flash_attention_plain(*a, return_lse=l),
+                library=library,
+                n_bytes=4 * nbytes(q) + (4 * b * h * s if lse else 0),
+                ops=4 * b * h * d * pairs, plain_iters=5))
+            rows[-1]["instance"] = fla.INSTANCES[dtype]
+    return rows
+
+
 def backward_rows(rms, fla, randn):
     """The backward kernels against their plain versions: flash attention at
     smollm-360M's training shape (bf16 and float32), at Jamba's attention
@@ -775,13 +886,16 @@ def fla_mask(sq, skv, window, offset):
 
 def per_pass(cfg) -> dict:
     """Kernel launches per forward or decode step of ``cfg``: RMSNorm once
-    per block (twice with an FFN, once more inside mLSTM) plus the final
-    norm; one attention kernel per attention layer; one scan per Mamba
-    layer (prefill only)."""
+    per block (twice with an FFN, once more inside mLSTM, twice more in MLA:
+    its q and kv norms) plus the final norm; one flash-attention kernel per
+    attention or MLA layer in a forward (``flash``), one decode-attention
+    kernel per attention layer in a decode step (``attn``; MLA decodes by
+    einsums); one scan per Mamba layer (prefill only)."""
     blocks = cfg.blocks()
     return {"rmsnorm": 1 + sum(1 + (ffn is not None) + (mixer == "mlstm")
-                               for mixer, ffn in blocks),
+                               + 2 * (mixer == "mla") for mixer, ffn in blocks),
             "attn": sum(mixer == "attn" for mixer, _ in blocks),
+            "flash": sum(mixer in ("attn", "mla") for mixer, _ in blocks),
             "mamba": sum(mixer == "mamba" for mixer, _ in blocks)}
 
 
@@ -800,8 +914,8 @@ def per_train_step(cfg) -> dict:
     leaves = len(tree_leaves(transformer.init(torch.Generator(), cfg, device="meta")))
     return {"rmsnorm": twice * (per["rmsnorm"] - 1) + 1,
             "rmsnorm_bwd": per["rmsnorm"],
-            "flash_attention": twice * per["attn"],
-            "flash_attention_bwd": per["attn"],
+            "flash_attention": twice * per["flash"],
+            "flash_attention_bwd": per["flash"],
             "sumsq": leaves, "clip_finalize": 1, "adamw_update": leaves}
 
 
@@ -819,15 +933,17 @@ KERNEL_EVENTS = {"rmsnorm": (r"rmsnorm_(warp|block|scalar)_kernel", 1),
 
 def kernel_counts(fn, iters: int = 5, sessions: int = 3) -> dict:
     """Kernels and copies per call of ``fn`` by name (profiler, after a
-    warm-up): each name's events over ``iters`` calls, rounded. Each session
-    runs one call first that it does not record (a session can miss the
-    device events of its first launches), and a session can drop events
-    later too, never add any: so the count of each name is the largest of
-    ``sessions`` sessions."""
+    warm-up): each name's events over ``iters`` calls. Each session runs
+    one call first that it does not record (a session can miss the device
+    events of its first launches); a session that dropped events
+    (``whole_session``) is run again after a pause, and the count of each
+    name is the largest of ``sessions`` sessions (rounded, if none was
+    whole)."""
     fn()
     torch.cuda.synchronize()
     best = collections.Counter()
-    for _ in range(sessions):
+    done = 0
+    for attempt in range(PROFILER_ATTEMPTS + sessions - 1):
         with profile(activities=[ProfilerActivity.CUDA],
                      schedule=torch.profiler.schedule(wait=0, warmup=1, active=iters),
                      acc_events=True) as prof:
@@ -835,10 +951,17 @@ def kernel_counts(fn, iters: int = 5, sessions: int = 3) -> dict:
                 fn()
                 torch.cuda.synchronize()
                 prof.step()
-        seen = collections.Counter(e.name for e in prof.events()
-                                   if e.device_type == torch.autograd.DeviceType.CUDA)
+        seen = cuda_event_counts(prof)
         for name, n in seen.items():
             best[name] = max(best[name], round(n / iters))
+        if whole_session(seen, iters):
+            done += 1
+            if done == sessions:
+                break
+        else:
+            pause(attempt - done)
+    if not best:
+        fail("the profiler recorded no device time")
     return {name: n for name, n in best.items() if n}
 
 
@@ -921,7 +1044,7 @@ def _numel(shape) -> int:
     return math.prod(shape)
 
 
-def range_profile(fn, ranges=TRAIN_RANGES, attempts: int = 3) -> dict:
+def range_profile(fn, ranges=TRAIN_RANGES) -> dict:
     """Device ms of the kernels and copies launched inside each
     ``record_function`` range of one call of ``fn`` (profiler, CPU and CUDA
     activities, shapes recorded, after one unrecorded call). A device event
@@ -933,11 +1056,13 @@ def range_profile(fn, ranges=TRAIN_RANGES, attempts: int = 3) -> dict:
     input of more than one element, innermost op on the launching thread:
     op and kernel names, ms) and ``direct`` (kernels launched outside any
     aten op, as the port's ctypes wrappers launch theirs). ``other`` is what
-    launched outside every range, ``unmatched`` what has no runtime call."""
+    launched outside every range, ``unmatched`` what has no runtime call.
+    A session without device events or a range is run again after a pause
+    (``profiled``)."""
     fn()
     torch.cuda.synchronize()
     cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
-    for _ in range(attempts):
+    for attempt in range(PROFILER_ATTEMPTS):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                      record_shapes=True) as prof:
             fn()
@@ -948,6 +1073,8 @@ def range_profile(fn, ranges=TRAIN_RANGES, attempts: int = 3) -> dict:
         devices = [e for e in events if e.device_type == cuda and e.name not in ranges]
         if len(windows) == len(ranges) and devices:
             break
+        PROFILER_RETRIES["empty" if not devices else "range"] += 1
+        pause(attempt)
     else:
         fail(f"the profiler recorded no device event or not every range: {sorted(windows)}")
     runtime, ops = {}, collections.defaultdict(list)
@@ -1028,6 +1155,7 @@ def print_profile(tag, prof):
 
 # mangled names of the kernel instances whose registers and spills phase 1
 # prints: flash_attention_wgmma<DP, NC> (flash_attention_sm90.cu),
+# flash_attention_kernel<D> (flash_attention.cu, float32),
 # flash_bwd_{dq,dkdv}_wgmma<DP> (flash_attention_bwd_sm90.cu),
 # decode_attention_kernel<T, D> (decode_attention.cu),
 # rmsnorm_{warp,block}_kernel<T, NV> (rmsnorm.cu) and mamba_scan_kernel<T,
@@ -1035,6 +1163,7 @@ def print_profile(tag, prof):
 WGMMA_NAME = r"flash_attention_wgmmaILi(\d+)ELi(\d+)E"
 INSTANCE_NAMES = {
     "flash": (WGMMA_NAME, "DP{} NC{}"),
+    "flash_f32": (r"flash_attention_kernelILi(\d+)EE", "D{}"),
     "decode": (r"decode_attention_kernelI(f|13__nv_bfloat16)Li(\d+)EE", "{} D{}"),
     "rmsnorm": (r"rmsnorm_(warp|block)_kernelI(f|13__nv_bfloat16)Li(\d+)E",
                 "{} {} NV{}"),
@@ -1126,7 +1255,8 @@ def kernel_build_report(build, lib_path: str) -> dict:
                 "spill_bytes": spills.get(lab)}
             scan_text.append(f"Function : {chunk}")
     (ROOT / "build" / "scan_sass.txt").write_text("".join(scan_text))
-    return {"ptxas": ptxas["flash"], "ptxas_decode": ptxas["decode"],
+    return {"ptxas": ptxas["flash"], "ptxas_flash_f32": ptxas["flash_f32"],
+            "ptxas_decode": ptxas["decode"],
             "ptxas_rmsnorm": ptxas["rmsnorm"], "ptxas_scan": ptxas["scan"],
             "ptxas_flash_bwd": ptxas["flash_bwd"],
             "ptxas_flash_bwd_wgmma": ptxas["flash_bwd_wgmma"],
@@ -1227,6 +1357,8 @@ def main() -> int:
             "sumsq": ka.sumsq_cuda, "clip_finalize": ka.clip_finalize_cuda,
             "adamw_update": ka.adamw_update_cuda}
     totals = {name: 0 for name in kern}     # launches over every main path
+    side = {name: 0 for name in kern}       # launches of the parity phases
+    mla_totals = {name: 0 for name in MLA_ROWS}   # launches of MLA's instances
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
     report = {"phase_s": {}}
@@ -1300,7 +1432,7 @@ def main() -> int:
         logits must equal the eager ones bit for bit. Returns (record, eager
         step, graphed step)."""
         per = per_pass(cfg)
-        one = zero(rmsnorm=per["rmsnorm"], flash_attention=per["attn"],
+        one = zero(rmsnorm=per["rmsnorm"], flash_attention=per["flash"],
                    mamba_scan=per["mamba"])
         eager = make_prefill_step(cfg, device="cuda", graphs=False)
         graphed = make_prefill_step(cfg, device="cuda")
@@ -1427,6 +1559,14 @@ def main() -> int:
     report["kernel_build"] = sass = kernel_build_report(_build, _build.last_build["path"])
     if sass["hgmma_total"] == 0:
         fail(f"no HGMMA instruction in the bf16 flash-attention kernel: {sass}")
+    # MLA's instances: bf16 DP 192 on the tensor cores, float32 24 and 192
+    mla_inst = {"DP192 NC1": sass["ptxas"].get("DP192 NC1"),
+                "f32 D24": sass["ptxas_flash_f32"].get("D24"),
+                "f32 D192": sass["ptxas_flash_f32"].get("D192")}
+    if not sass["hgmma"].get("DP192 NC1"):
+        fail(f"no HGMMA instruction in the bf16 D-192 flash instance: {sass['hgmma']}")
+    if not all(mla_inst.values()):
+        fail(f"no ptxas report of MLA's flash instances: {mla_inst}")
     bwd_hgmma, bwd_spills = sass["flash_bwd_wgmma_hgmma"], sass["flash_bwd_wgmma_spill_bytes"]
     if len(bwd_hgmma) != 4 or not all(bwd_hgmma.values()):
         fail(f"a bf16 flash-backward instance has no HGMMA instruction: {bwd_hgmma}")
@@ -1457,7 +1597,10 @@ def main() -> int:
     print(f"[1 card] {card} | torch {torch.__version__} cuda {torch.version.cuda}"
           f" | kernels built in {build_s:.1f} s (cached={_build.last_build['cached']})"
           f" | bf16 flash kernel, HGMMA instructions: {sass['hgmma_total']} "
-          f"{sass['hgmma']}; ptxas: {sass['ptxas']}; decode attention ptxas: "
+          f"{sass['hgmma']}; ptxas: {sass['ptxas']}; MLA's instances (HGMMA "
+          f"{sass['hgmma']['DP192 NC1']} in DP192 NC1): "
+          + ", ".join(f"{k} {v}" for k, v in mla_inst.items())
+          + f"; float32 flash ptxas: {sass['ptxas_flash_f32']}; decode attention ptxas: "
           f"{sass['ptxas_decode']}; RMSNorm ptxas: {sass['ptxas_rmsnorm']}; "
           f"scan ptxas: {sass['ptxas_scan']}; bf16 flash backward (wgmma) ptxas: "
           f"{sass['ptxas_flash_bwd_wgmma']}, HGMMA {bwd_hgmma}, spill bytes {bwd_spills}; "
@@ -1667,15 +1810,44 @@ def main() -> int:
         p_cpu = transformer.init(torch.Generator().manual_seed(SEED), c, device="cpu")
         smoke[name] = parity(c, p_cpu, tree_map(lambda a: a.to("cuda"), p_cpu), rng)
         smoke[name]["head_dim"] = c.hd
+    # the MoE SMOKE configs (Jamba with its real MoE layers): serve.main
+    # graphed and eager with equal tokens, then float32 logits card vs CPU;
+    # DeepSeek's prefill runs the float32 flash instance of head dim 24
+    for arch in ("deepseek_v3_671b", "qwen3_moe_235b_a22b", "jamba_1_5_large_398b"):
+        c = get(arch, smoke=True)
+        per = per_pass(c)
+        one = zero(rmsnorm=per["rmsnorm"], decode_attention=per["attn"])
+        out = {}
+        for mode, argv, n in (("graphed", ["--arch", arch], n12 + WARMUP),
+                              ("eager", ["--arch", arch, "--eager"], n12)):
+            out[mode] = drive(kern, totals, {k: v * n for k, v in one.items()},
+                              lambda: serve_mod.main(argv), f"serve.main({argv})")
+        if not all(np.array_equal(a.out, b.out) for a, b in zip(out["graphed"],
+                                                                out["eager"])):
+            fail(f"serve.main(['--arch', {arch!r}]): graphed tokens differ from eager ones")
+        key = f"{arch} (MoE)" if arch.startswith("jamba") else arch
+        p_cpu = transformer.init(torch.Generator().manual_seed(SEED), c, device="cpu")
+        # one graphed prefill (1 call + WARMUP) and 8 eager decode steps
+        want = zero(rmsnorm=per["rmsnorm"] * (1 + WARMUP + 8),
+                    flash_attention=per["flash"] * (1 + WARMUP),
+                    decode_attention=per["attn"] * 8, mamba_scan=per["mamba"] * (1 + WARMUP))
+        smoke[key] = drive(kern, side, want, lambda: parity(
+            c, p_cpu, tree_map(lambda a: a.to("cuda"), p_cpu), rng), f"{key} SMOKE parity")
+        smoke[key].update(head_dim=c.qk_nope_head_dim + c.qk_rope_head_dim
+                          if c.mla else c.hd, serve_main="graphed tokens = eager tokens")
+        if arch == "deepseek_v3_671b":
+            mla_totals["flash_attention_f32_d24"] += want["flash_attention"]
     print(f"[12 smoke] serve.main([]) (smollm SMOKE, head dim 20, on cuda): graphed "
           f"tokens = eager tokens; h2o-danube SMOKE serving 8 x (16 + 32), past its "
           f"window of 16: graphed tokens = eager tokens, "
           f"{smoke['danube_serve']['graphed']['new_tokens_per_s']:.1f} against "
           f"{smoke['danube_serve']['eager']['new_tokens_per_s']:.1f} new tokens/s; "
+          "serve.main graphed tokens = eager tokens for the DeepSeek, Qwen3-MoE and "
+          "Jamba (real MoE) SMOKE configs; "
           "float32 SMOKE logits card vs CPU: " + "; ".join(
               f"{n} (hd {v['head_dim']}) prefill {v['prefill_max_abs_err']:.3e}, decode "
               f"{max(v['decode_max_abs_err']):.3e}" for n, v in smoke.items()
-              if n in ("smollm_360m", "h2o_danube_1_8b", "jamba_1_5_large_398b"))
+              if "prefill_max_abs_err" in v)
           + f" (tol {PARITY_TOL:g}) {took('12 smoke')}", flush=True)
 
     # 13. smollm-360M training at full width and depth, bf16, 8 x 512 tokens
@@ -1798,6 +1970,109 @@ def main() -> int:
     del p_cpu, p_gpu
     torch.cuda.empty_cache()
 
+    # 15. DeepSeek-V3 at its published widths, cut to 5 layers (3 dense-FFN
+    # MLA layers + 2 MLA + MoE layers) without the MTP module: prefill 8 x
+    # 512, bf16, eager and graphed. Every earlier model, graph and cached
+    # block is released first: the weights take 53 GB of the card.
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    dcfg = dataclasses.replace(get("deepseek_v3_671b"), **DEEPSEEK_CUT)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    t_init = time.perf_counter()
+    dparams = transformer.init(gen, dcfg, device="cuda")
+    torch.cuda.synchronize()
+    report["deepseek"] = ds = {
+        "cut": "5 layers (first_k_dense 3 + 2 MLA + MoE), mtp off; widths as published",
+        "params": param_count(dparams), "param_bytes": param_bytes(dparams),
+        "init_s": time.perf_counter() - t_init,
+        "init_peak_bytes": torch.cuda.max_memory_allocated()}
+    dtoks = torch.randint(0, dcfg.vocab, (8, 512), generator=gen, device="cuda")
+    n_flash = totals["flash_attention"]
+    ds["prefill"], deager, dprefill = prefill_pair("deepseek prefill", dcfg, dparams,
+                                                   dtoks, 3)
+    print_pair(f"[15 deepseek prefill] deepseek-v3 widths, 5 layers, no MTP "
+               f"({ds['params'] / 1e9:.2f} B params, {ds['param_bytes'] / 1e9:.1f} GB "
+               f"bf16, drawn in {ds['init_s']:.1f} s, peak "
+               f"{ds['init_peak_bytes'] / 2**30:.2f} GiB while drawn) 8x512",
+               ds["prefill"], "tokens_per_s", "tokens/s", took("15 deepseek prefill"))
+
+    # 16. DeepSeek-V3: serving 8 requests x (64 + 64), eager and graphed (a
+    # decode step routes 8 tokens to capacity 1 per expert and multiplies
+    # every expert, as the reference's dispatch does)
+    ds["serve"] = serve_pair("deepseek serving", dcfg, dparams,
+                             [r.prompt for r in requests(dcfg, rng)], 64)
+    print_pair("[16 deepseek serve] 8 requests x (64 prompt + 64 new)", ds["serve"],
+               "new_tokens_per_s", "new tokens/s", took("16 deepseek serve"))
+
+    # 17. DeepSeek-V3: where the time goes, one prefill, one decode step
+    ds["profile"] = prof = profile_pair("deepseek", dcfg, dparams, dtoks, deager, dprefill)
+    print_profile(f"[17 deepseek profile] {took('17 deepseek profile')}", prof)
+    dprefill.release()
+    mla_totals["flash_attention_d192"] += totals["flash_attention"] - n_flash
+
+    # 18. DeepSeek-V3: peak device memory of phases 15-17
+    ds["peak_bytes"] = torch.cuda.max_memory_allocated()
+    ds["card_bytes"] = torch.cuda.get_device_properties(0).total_memory
+    print(f"[18 deepseek memory] peak allocated {ds['peak_bytes'] / 2**30:.2f} GiB of "
+          f"{ds['card_bytes'] / 2**30:.2f} GiB (while the weights were drawn "
+          f"{ds['init_peak_bytes'] / 2**30:.2f} GiB; weights "
+          f"{ds['param_bytes'] / 2**30:.2f} GiB) {took('18 deepseek memory')}", flush=True)
+    del dparams, dprefill, deager
+    torch.cuda.empty_cache()
+
+    # 19. float32 parity of one full-width MLA block (the dense prefix's:
+    # MLA + SwiGLU of d_ff 18432), card vs CPU: block_apply over 2 x 16
+    # tokens, then 8 teacher-forced block_decode steps (absorbed), each
+    # step also against block_apply's output at its position
+    bcfg = dataclasses.replace(dcfg, dtype="float32")
+    spec = ("mla", "mlp")
+    bp_gpu = transformer.block_init(torch.Generator(device="cuda").manual_seed(SEED),
+                                    spec, bcfg, torch.float32, "cuda")
+    bp_cpu = tree_map(lambda a: a.cpu(), bp_gpu)
+    xb = torch.randn((2, 16, bcfg.d_model), generator=torch.Generator().manual_seed(SEED + 3))
+    pos = torch.arange(16)
+    mla = {"params": param_count(bp_cpu), "tol": PARITY_TOL}
+    with torch.no_grad():
+        y_cpu, _ = transformer.block_apply(bp_cpu, xb, spec, bcfg, pos)
+        per_blk = {"rmsnorm": 4, "flash_attention": 1}       # ln1, q/kv norms, ln2
+        want = zero(rmsnorm=per_blk["rmsnorm"] * 9, flash_attention=1)
+        c_cpu = transformer.block_make_cache(spec, bcfg, 2, 16, torch.float32, "cpu")
+        c_gpu = transformer.block_make_cache(spec, bcfg, 2, 16, torch.float32, "cuda")
+
+        def card():
+            y, _ = transformer.block_apply(bp_gpu, xb.cuda(), spec, bcfg, pos.cuda())
+            steps = [transformer.block_decode(bp_gpu, xb[:, t].cuda(), c_gpu, spec, bcfg,
+                                              torch.tensor(t, device="cuda"))[0]
+                     for t in range(8)]
+            return y.cpu(), [a.cpu() for a in steps]
+
+        y_gpu, dec_gpu = drive(kern, side, want, card, "MLA block parity")
+        mla_totals["flash_attention_f32_d192"] += want["flash_attention"]
+        dec_cpu = [transformer.block_decode(bp_cpu, xb[:, t], c_cpu, spec, bcfg,
+                                            torch.tensor(t))[0] for t in range(8)]
+    mla["apply_max_abs_err"] = float((y_gpu - y_cpu).abs().max())
+    mla["decode_max_abs_err"] = [float((a - b).abs().max()) for a, b in zip(dec_gpu, dec_cpu)]
+    mla["decode_vs_apply"] = max(float((dec_gpu[t] - y_gpu[:, t]).abs().max())
+                                 for t in range(8))
+    mla["cache_max_abs_err"] = max(float((c_gpu[k].cpu() - c_cpu[k]).abs().max())
+                                   for k in c_cpu)
+    mla["out_abs_max"] = float(y_cpu.abs().max())
+    ds["mla_parity"] = mla
+    if not (mla["apply_max_abs_err"] <= PARITY_TOL
+            and max(mla["decode_max_abs_err"]) <= PARITY_TOL
+            and mla["cache_max_abs_err"] <= PARITY_TOL
+            and mla["decode_vs_apply"] <= PARITY_TOL):
+        fail(f"the full-width MLA block differs card vs CPU: {mla}")
+    print(f"[19 mla parity] float32, one full-width MLA block (+ SwiGLU d_ff "
+          f"{bcfg.d_ff}, {mla['params'] / 1e6:.1f} M params), card vs CPU: block_apply "
+          f"2x16 max_abs_err {mla['apply_max_abs_err']:.3e}, 8 absorbed decode steps "
+          f"{max(mla['decode_max_abs_err']):.3e}, compressed cache "
+          f"{mla['cache_max_abs_err']:.3e}; decode against block_apply on the card "
+          f"{mla['decode_vs_apply']:.3e} (tol {PARITY_TOL:g}; |out| up to "
+          f"{mla['out_abs_max']:.3f}) {took('19 mla parity')}", flush=True)
+    del bp_gpu, bp_cpu, c_gpu
+    torch.cuda.empty_cache()
+
     # the kernel table: main-path shapes, bf16; launches over every main path
     table = []
     for name, (source, replaces, case) in KERNELS.items():
@@ -1811,7 +2086,21 @@ def main() -> int:
                       "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                       "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                       "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    # MLA's flash instances, each with the launches of the path that runs it
+    for name, (source, replaces, case, dn, path) in MLA_ROWS.items():
+        r = next(r for r in rows if r["kernel"] == "flash_attention" and r["case"] == case
+                 and r["dtype"] == dn)
+        if mla_totals[name] == 0:
+            fail(f"{name} was never launched on its path ({path})")
+        table.append({"name": name, "route": "cuda", "source": source,
+                      "replaces": replaces, "case": f"{case} {dn}", "path": path,
+                      "launches": mla_totals[name],
+                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                      "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     report["table"] = table
+    report["profiler_retries"] = dict(PROFILER_RETRIES)
+    print(f"[profiler] sessions run again: {dict(PROFILER_RETRIES) or 'none'}", flush=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {

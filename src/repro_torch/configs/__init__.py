@@ -8,8 +8,9 @@ from __future__ import annotations
 
 import importlib
 
-ARCHS = ["granite_3_2b", "h2o_danube_1_8b", "jamba_1_5_large_398b",
-         "smollm_360m", "stablelm_3b", "xlstm_125m"]
+ARCHS = ["deepseek_v3_671b", "granite_3_2b", "h2o_danube_1_8b",
+         "jamba_1_5_large_398b", "qwen3_moe_235b_a22b", "smollm_360m",
+         "stablelm_3b", "xlstm_125m"]
 
 
 def canon(name: str) -> str:

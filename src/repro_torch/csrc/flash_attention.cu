@@ -37,7 +37,10 @@
 // whose every key is masked returns 0: its running max stays -inf and its
 // denominator 0. The template takes any D that is a multiple of 4 (one float4
 // of a row); it is instantiated for 16 and 20 (the SMOKE configs' head dims,
-// rows of 64 and 80 bytes) besides 32, 64, 80 and 128.
+// rows of 64 and 80 bytes), 24 and 192 (MLA's qk width at SMOKE size and at
+// DeepSeek-V3's) besides 32, 64, 80 and 128. At 192 a q tile of 64 rows
+// takes 213 KB of shared memory, and step 4 runs on 240 of the 256 threads
+// (48 across D).
 #include "common.cuh"
 
 #include <climits>
@@ -307,10 +310,12 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
   switch (D) {
     case 16: return launch<16>(q, k, v, o, st, B, Hq, Hkv, Sq, Skv, causal, window, offset, scale, s);
     case 20: return launch<20>(q, k, v, o, st, B, Hq, Hkv, Sq, Skv, causal, window, offset, scale, s);
+    case 24: return launch<24>(q, k, v, o, st, B, Hq, Hkv, Sq, Skv, causal, window, offset, scale, s);
     case 32: return launch<32>(q, k, v, o, st, B, Hq, Hkv, Sq, Skv, causal, window, offset, scale, s);
     case 64: return launch<64>(q, k, v, o, st, B, Hq, Hkv, Sq, Skv, causal, window, offset, scale, s);
     case 80: return launch<80>(q, k, v, o, st, B, Hq, Hkv, Sq, Skv, causal, window, offset, scale, s);
     case 128: return launch<128>(q, k, v, o, st, B, Hq, Hkv, Sq, Skv, causal, window, offset, scale, s);
+    case 192: return launch<192>(q, k, v, o, st, B, Hq, Hkv, Sq, Skv, causal, window, offset, scale, s);
     default: return cudaErrorInvalidValue;
   }
 }

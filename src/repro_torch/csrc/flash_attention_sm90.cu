@@ -45,8 +45,8 @@
 //   4. O += P V with wgmma m64nDPk16, P from registers, V (keys x D, D
 //      contiguous) the MN-major B operand (transposed descriptor).
 // Tile i's S product is issued together with tile i - 1's P V, and tile i's
-// softmax runs while the tensor cores do that P V. Head dims 64 and 128 are
-// native; 16 and 32 run as 64, 80 as 128 (DP), the columns beyond D
+// softmax runs while the tensor cores do that P V. Head dims 64, 128 and 192
+// are native; 16 and 32 run as 64, 80 as 128 (DP), the columns beyond D
 // zero-filled by TMA and never written back. The softmax and both accumulations are float32 and
 // the output is rounded once to bf16. A row whose every key is masked
 // returns 0: its running max stays -inf and its sum 0.
@@ -68,10 +68,11 @@ constexpr int kRows = 64;           // q rows per warpgroup (one wgmma M)
 constexpr int kBN = 64;             // keys per kv tile (one wgmma N of S)
 constexpr int kProducerRegs = 40;
 
-// DP: head dim padded to 64 or 128; NC: consumer warpgroups (q heads) per
-// block.
+// DP: head dim padded to 64 or 128, or 192 (MLA); NC: consumer warpgroups
+// (q heads) per block.
 template <int DP, int NC>
 struct Plan {
+  // DP 192: 24 KB of Q and 48 KB a K/V stage, 168 KB in all
   static constexpr int kStages = DP == 64 ? 4 : 3;
   static constexpr int kQPanel = kRows * 128;          // 64 rows x 64 bf16
   static constexpr int kKVPanel = kBN * 128;           // kBN rows x 64 bf16
@@ -376,15 +377,18 @@ cudaError_t flash_attention_wgmma_bf16(const void* q, const void* k, const void*
                                        int Hq, int Hkv, int Sq, int Skv, int D, int causal,
                                        int window, int offset, float scale,
                                        cudaStream_t stream) {
-  if (D != 16 && D != 32 && D != 64 && D != 80 && D != 128) return cudaErrorInvalidValue;
+  if (D != 16 && D != 32 && D != 64 && D != 80 && D != 128 && D != 192)
+    return cudaErrorInvalidValue;
   if (B > 65535 || (Sq + kRows - 1) / kRows > 65535) return cudaErrorInvalidConfiguration;
   // D <= 64: the three q heads of a kv head per block where G is a multiple
   // of 3 (smollm), else one per block, small enough that two blocks share an
-  // SM; D > 64: two q heads per block where G is even.
+  // SM; D 80 and 128: two q heads per block where G is even; D 192 (MLA,
+  // G = 1): one, its O tile 96 float32 registers a thread beside S.
   const int G = Hq / Hkv;
 #define REPRO_GO(DP, NC)                                                                   \
   return launch<DP, NC>(q, k, v, o, lse, sq, sk, sv, so, B, Hq, Hkv, Sq, Skv, D, causal, window, \
                         offset, scale, stream)
+  if (D == 192) REPRO_GO(192, 1);
   if (D <= 64 && G % 3 == 0) REPRO_GO(64, 3);
   if (D <= 64) REPRO_GO(64, 1);
   if (G % 2 == 0) REPRO_GO(128, 2);

@@ -4,7 +4,7 @@
 // the 128-byte swizzle, the wgmma products the kernels issue, and register
 // fences around them.
 //
-// Layouts. A tile of R rows x DP bf16 columns (DP 64 or 128) is stored as
+// Layouts. A tile of R rows x DP bf16 columns (DP 64, 128 or 192) is stored as
 // DP / 64 panels of R rows x 128 bytes, each written by one TMA box with the
 // 128-byte swizzle. Read K-major (as A or B of S = Q K^T), a k16 step moves
 // the descriptor's start 32 bytes along the row within a panel, with 8-row
@@ -14,7 +14,7 @@
 // groups of 8 rows. A descriptor whose swizzle does not match the map gives
 // plausible wrong numbers, not a fault.
 //
-// An accumulator element r (of 32 for N 64, 64 for N 128) of lane l of warp
+// An accumulator element r (of 32 for N 64, 64 for N 128, 96 for N 192) of lane l of warp
 // w in its warpgroup sits at row 16 w + l / 4 + 8 ((r >> 1) & 1) and column
 // 8 (r >> 2) + 2 (l % 4) + (r & 1); packed to bf16 pairs (r, r + 1) it is
 // the A fragment of the next product, in the same order.
@@ -185,14 +185,57 @@ __device__ __forceinline__ void wgmma_rs_m64n128k16(float (&d)[64], uint32_t a0,
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
 }
 
+// D (64 x 192, float32) += A (64 x 16, bf16 pairs in registers) * B (16 x 192),
+// B MN-major (transposed) in shared memory, its three 64-column panels LBO apart.
+__device__ __forceinline__ void wgmma_rs_m64n192k16(float (&d)[96], uint32_t a0, uint32_t a1,
+                                                 uint32_t a2, uint32_t a3, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95}, "
+      "{%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
 // acc (64 x DP) += A (64 x 16, registers) * B (16 x DP, MN-major in shared memory)
 template <int DP>
 __device__ __forceinline__ void wgmma_rs(float (&acc)[DP / 2], uint32_t a0, uint32_t a1,
                                          uint32_t a2, uint32_t a3, uint64_t db) {
   if constexpr (DP == 64) {
     wgmma_rs_m64n64k16(acc, a0, a1, a2, a3, db);
-  } else {
+  } else if constexpr (DP == 128) {
     wgmma_rs_m64n128k16(acc, a0, a1, a2, a3, db);
+  } else {
+    static_assert(DP == 192, "wgmma_rs: DP is 64, 128 or 192");
+    wgmma_rs_m64n192k16(acc, a0, a1, a2, a3, db);
   }
 }
 

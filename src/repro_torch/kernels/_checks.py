@@ -6,11 +6,27 @@ import torch
 # dtype codes of the C entry points (csrc/common.cuh)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-# head dims the attention kernels are instantiated for, by dtype: 16 and 20
-# are the SMOKE configs'; a bf16 row of 20 (40 bytes) is no whole number of
-# the 16-byte loads and TMA rows the bf16 kernels read
-HEAD_DIMS = {torch.float32: (16, 20, 32, 64, 80, 128),
-             torch.bfloat16: (16, 32, 64, 80, 128)}
+# head dims each attention kernel is instantiated for, by dtype: 16 and 20
+# are the SMOKE configs', 24 and 192 MLA's qk width (DeepSeek SMOKE and
+# full); a bf16 row of 20 (40 bytes) is no whole number of the 16-byte loads
+# and TMA rows the bf16 kernels read. Each kernel has its own set, so that
+# widening one claims nothing for the others.
+_DENSE = {torch.float32: (16, 20, 32, 64, 80, 128),
+          torch.bfloat16: (16, 32, 64, 80, 128)}
+HEAD_DIMS = {
+    "flash_attention": {torch.float32: (16, 20, 24, 32, 64, 80, 128, 192),
+                        torch.bfloat16: (16, 32, 64, 80, 128, 192)},
+    "flash_attention_bwd": _DENSE,
+    "decode_attention": _DENSE,
+}
+# where the missing head dims of each kernel stand in ROADMAP.md
+_LATER = {
+    "flash_attention": "queue 2, K1",
+    "flash_attention_bwd": "queue 2: the backward at MLA's head dims 24 and "
+                           "192 comes with the MoE training slice, queue 1 "
+                           "item 3",
+    "decode_attention": "queue 2, K2",
+}
 
 
 def require_cuda(name: str, *tensors: torch.Tensor) -> None:
@@ -23,12 +39,13 @@ def require_cuda(name: str, *tensors: torch.Tensor) -> None:
 
 
 def require_head_dim(name: str, d: int, dtype: torch.dtype) -> None:
-    have = HEAD_DIMS[dtype]
+    """Raise NotImplementedError unless kernel ``name`` (a key of
+    ``HEAD_DIMS``) has an instance for head dim ``d`` in ``dtype``."""
+    have = HEAD_DIMS[name][dtype]
     if d not in have:
         raise NotImplementedError(
             f"{name}: head dim {d} has no {dtype} kernel instance (have "
-            f"{have}); other head dims come with the MoE/MLA slice (ROADMAP.md,"
-            " queue 1, item 3)")
+            f"{have}); see ROADMAP.md, {_LATER[name]}")
 
 
 def require_no_grad(name: str, *tensors: torch.Tensor) -> None:

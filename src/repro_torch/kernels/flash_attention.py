@@ -65,9 +65,10 @@ def _strides(name: str, t: torch.Tensor):
             for n, s, s_dense in zip(t.shape[:3], t.stride()[:3], dense)]
 
 
-def _check_args(q, k, v, window, offset, scale) -> float:
-    """Shapes, dtypes, head dim and mask arguments of a forward or backward
-    call; returns the softmax scale."""
+def _check_args(q, k, v, window, offset, scale,
+                kernel: str = "flash_attention") -> float:
+    """Shapes, dtypes, head dim (of ``kernel``'s instances) and mask
+    arguments of a forward or backward call; returns the softmax scale."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"flash_attention: want q (B,Hq,Sq,D), k = v "
                          f"(B,Hkv,Skv,D); got {tuple(q.shape)}, "
@@ -80,7 +81,7 @@ def _check_args(q, k, v, window, offset, scale) -> float:
     if q.dtype not in DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention: dtypes {q.dtype}/{k.dtype}/{v.dtype};"
                         f" want one of {list(DTYPE_CODES)} for all three")
-    require_head_dim("flash_attention", d, q.dtype)
+    require_head_dim(kernel, d, q.dtype)
     if offset < 0:
         raise ValueError(f"flash_attention: offset {offset} < 0")
     if window is not None and window < 1:
@@ -167,8 +168,10 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     ``.contiguous()`` copy (counted in ``.copies``) where TMA cannot (a
     stride 0, as after a ``sum()``, or one off 16 bytes). float32
     (``simt``) computes L itself and ignores ``lse``; it copies dO only
-    when its last dim is not contiguous."""
-    scale = _check_args(q, k, v, window, offset, scale)
+    when its last dim is not contiguous. A head dim with no backward
+    instance (MLA's 24 and 192) raises NotImplementedError before any
+    launch."""
+    scale = _check_args(q, k, v, window, offset, scale, "flash_attention_bwd")
     if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype \
             or do.dtype != q.dtype:
         raise ValueError(f"flash_attention_bwd: o {o.dtype} {tuple(o.shape)} and"

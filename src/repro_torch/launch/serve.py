@@ -2,8 +2,9 @@
 
 Counterpart of :mod:`repro.launch.serve`. A batch of requests is grouped
 into fixed slots, prompts are prefilled token by token into per-slot caches
-(KV caches, and the Mamba/xLSTM states, which therefore take the one-step
-``mamba_step`` and never the prefill scan), then decode steps run the whole
+(KV caches, MLA's compressed caches, and the Mamba/xLSTM states, which
+therefore take the one-step ``mamba_step`` and never the prefill scan),
+then decode steps run the whole
 batch in lockstep. On the card each step replays one CUDA graph of the
 decode step (captured at the first step; the reference jits it): the step's
 tokens and position are copied into the graph's buffers and the graph
@@ -14,6 +15,12 @@ graphs=False))``) runs the same step eagerly, for comparison.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m --full
   PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm_125m --full
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek_v3_671b \
+      --full --layers 5
+
+``--layers`` cuts the depth (DeepSeek-V3's 3 dense layers + 2 MoE layers
+fit one 80 GB card; its 61 do not). The server builds no MTP module: only
+the training loss reads it.
 """
 from __future__ import annotations
 
@@ -64,7 +71,7 @@ def serve_batch(cfg, params, requests: List[Request], max_len: int = 256,
     maxp = max(len(r.prompt) for r in requests)
     max_new = max(r.max_new for r in requests)
     ring = bool(cfg.window) and cfg.window <= max_len
-    if (any(m == "attn" for m, _ in cfg.period) and not ring
+    if (any(m in ("attn", "mla") for m, _ in cfg.period) and not ring
             and maxp + max_new > max_len):
         raise ValueError(
             f"serve_batch: prompts of up to {maxp} tokens and {max_new} new "
@@ -111,9 +118,14 @@ def main(argv=None):
                     help="full-size config (default: the SMOKE config)")
     ap.add_argument("--eager", action="store_true",
                     help="run the decode step eagerly, not from a CUDA graph")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the config to this many layers")
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
-    cfg = get(args.arch, smoke=not args.full)
+    # serving never reads the MTP module: build none
+    cfg = dataclasses.replace(get(args.arch, smoke=not args.full), mtp=False)
+    if args.layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     api = model_api(cfg)
     gen = torch.Generator(device=dev).manual_seed(0)
     params = api.init(gen, cfg, device=dev)

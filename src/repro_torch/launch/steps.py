@@ -10,9 +10,10 @@ The train step differentiates the loss with autograd (through the backward
 kernels on the card) and updates params and optimizer state in place; the
 prefill and decode steps run under ``torch.no_grad``. The prefill runs
 every ported family (dense, the Jamba hybrid through the CUDA selective
-scan, xLSTM); the decode step updates the KV cache and the recurrent states
-in place and takes its position as a device tensor, so one graph serves
-every step.
+scan, xLSTM, MoE with MLA or GQA attention); the decode step updates the
+KV caches, MLA's compressed caches and the recurrent states in place
+(DeepSeek's dense prefix as a list beside the stack) and takes its
+position as a device tensor, so one graph serves every step.
 """
 from __future__ import annotations
 

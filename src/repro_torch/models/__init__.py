@@ -1,10 +1,11 @@
-"""Model code of the port: decoder-only LMs of dense attention, Mamba
-(the Jamba hybrid), mLSTM and sLSTM (xLSTM) blocks.
+"""Model code of the port: decoder-only LMs of attention (GQA or
+DeepSeek's MLA), Mamba (the Jamba hybrid), mLSTM and sLSTM (xLSTM) mixers,
+each with a dense SwiGLU or a top-k mixture-of-experts FFN (``moe.py``).
 
 Counterpart of :mod:`repro.models`: ``model_api(cfg)`` returns the
-family-appropriate (init, loss, init_cache, decode_step) tuple. MoE/MLA
-blocks and encoder-decoder models come with their own slices (ROADMAP.md);
-until then those raise.
+family-appropriate (init, loss, init_cache, decode_step) tuple. The MTP
+branch of the loss and encoder-decoder models come with their own slices
+(ROADMAP.md); until then those raise.
 """
 from __future__ import annotations
 

@@ -8,6 +8,7 @@ cast, with the reference's scales.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Callable, Dict
 
 import torch
@@ -41,10 +42,28 @@ def _normal(gen: torch.Generator, shape, device) -> torch.Tensor:
     return torch.randn(shape, generator=gen, dtype=torch.float32, device=dev)
 
 
+# a draw of more elements than this is made in slices of the leading axis,
+# so that its float32 copy stays under 1 GiB (DeepSeek-V3's expert stacks
+# hold 3.8 G elements a leaf)
+_DRAW_SLICE = 2 ** 28
+_DRAW_LIMIT = 2 ** 31
+
+
 def normal_init(gen: torch.Generator, shape, scale: float,
                 dtype=torch.bfloat16, device="cpu") -> torch.Tensor:
-    """Standard normal draws of ``shape`` times ``scale``, cast to dtype."""
-    return (_normal(gen, shape, device) * scale).to(dtype)
+    """Standard normal draws of ``shape`` times ``scale``, cast to dtype.
+    Above ``_DRAW_LIMIT`` elements the leading axis is drawn a slice at a
+    time into the result."""
+    shape = tuple(shape)
+    n = math.prod(shape)
+    if n <= _DRAW_LIMIT or torch.device(device).type == "meta":
+        return (_normal(gen, shape, device) * scale).to(dtype)
+    out = torch.empty(shape, dtype=dtype, device=gen.device)
+    rows = max(1, _DRAW_SLICE // (n // shape[0]))
+    for i in range(0, shape[0], rows):
+        part = out[i:i + rows]
+        part.copy_(_normal(gen, part.shape, device) * scale)
+    return out
 
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int,
@@ -61,16 +80,16 @@ def embed_init(gen: torch.Generator, vocab: int, d: int, dtype=torch.bfloat16,
 
 def stack_init(init_fn: Callable[[torch.Generator], Params],
                gen: torch.Generator, n: int) -> Params:
-    """Stack n independent inits along a new leading axis."""
-    trees = [init_fn(gen) for _ in range(n)]
-
-    def stack(path_trees):
-        first = path_trees[0]
-        if isinstance(first, dict):
-            return {k: stack([t[k] for t in path_trees]) for k in first}
-        return torch.stack(path_trees)
-
-    return stack(trees)
+    """Stack n independent inits along a new leading axis. Each init is
+    copied into its slot of the stacked tree and dropped before the next,
+    so the peak is the stack plus one layer."""
+    first = init_fn(gen)
+    stacked = tree_map(lambda a: a.new_empty((n,) + tuple(a.shape)), first)
+    tree_map(lambda s, a: s[0].copy_(a), stacked, first)
+    del first
+    for i in range(1, n):
+        tree_map(lambda s, a, i=i: s[i].copy_(a), stacked, init_fn(gen))
+    return stacked
 
 
 def param_bytes(params: Params) -> int:

@@ -12,9 +12,13 @@ Entry points:
   init_cache(cfg, batch, max_len, device) -> decode cache
   decode_step(params, cache, tok, pos, cfg) -> (logits, cache)
 
-Ported blocks: an attention, Mamba, mLSTM or sLSTM mixer with a dense MLP
-or no FFN. MoE and MLA blocks, and the MTP branch of the loss, come with
-later slices (ROADMAP.md) and raise until then.
+Ported blocks: an attention, MLA, Mamba, mLSTM or sLSTM mixer with a dense
+MLP, an MoE FFN or none; DeepSeek's ``first_k_dense`` prefix runs as a list
+of unstacked layers (``params["prefix"]``, ``cache["prefix"]``) before the
+stack. ``init`` builds the MTP module's params when ``cfg.mtp`` is set, so
+the reference's tree transplants, but the MTP branch of ``lm_loss`` comes
+with the MoE training slice (ROADMAP.md, queue 1, item 3) and raises until
+then; so do encoder-decoder models (item 4).
 """
 from __future__ import annotations
 
@@ -25,6 +29,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from . import layers as L
+from . import moe as M
 from . import ssm as S
 from .config import ModelConfig
 from .module import dense_init, embed_init, stack_init, tree_map
@@ -36,8 +41,8 @@ def _dtype(cfg: ModelConfig):
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
 
-# recurrent mixer -> (init, apply, make_cache, decode); attention takes
-# positions and a cache length besides, and is called by name
+# recurrent mixer -> (init, apply, make_cache, decode); attention and MLA
+# take positions and a cache length besides, and are called by name
 _RECURRENT = {
     "mamba": (S.mamba_init, S.mamba_apply, S.mamba_make_cache,
               S.mamba_decode),
@@ -46,27 +51,26 @@ _RECURRENT = {
     "slstm": (S.slstm_init, S.slstm_apply, S.slstm_make_cache,
               S.slstm_decode),
 }
+_MIXERS = ("attn", "mla") + tuple(_RECURRENT)
 
 
 def _check_spec(spec) -> None:
     mixer, ffn = spec
-    ported = mixer == "attn" or mixer in _RECURRENT
-    if not ported or ffn not in ("mlp", None):
-        raise NotImplementedError(
-            f"block {spec} is not ported yet (ROADMAP.md, queue 1, item 3: "
-            "MoE, MLA and MTP)")
+    if mixer not in _MIXERS or ffn not in ("mlp", "moe", None):
+        raise ValueError(f"unknown block {spec}")
 
 
 def _check_supported(cfg: ModelConfig) -> None:
     if cfg.is_encdec:
         raise NotImplementedError(
             "encoder-decoder models come with ROADMAP.md queue 1, item 4")
-    if cfg.first_k_dense or cfg.mtp or cfg.mla:
-        raise NotImplementedError(
-            f"{cfg.name}: dense prefix / MTP / MLA come with ROADMAP.md "
-            "queue 1, item 3")
     for spec in cfg.period:
         _check_spec(spec)
+
+
+def _prefix_spec(cfg: ModelConfig):
+    """The dense prefix's blocks: the period's mixer with a dense MLP."""
+    return (cfg.period[0][0], "mlp")
 
 
 def _layer(stacked: Params, j: int) -> Params:
@@ -81,29 +85,38 @@ def _layer(stacked: Params, j: int) -> Params:
 def block_init(gen, spec, cfg: ModelConfig, dtype, device="cpu") -> Params:
     _check_spec(spec)
     mixer, ffn = spec
-    init_fn = L.attn_init if mixer == "attn" else _RECURRENT[mixer][0]
+    init_fn = {"attn": L.attn_init, "mla": L.mla_init}.get(mixer) \
+        or _RECURRENT[mixer][0]
     bp: Params = {"ln1": L.rmsnorm_init(cfg.d_model, device),
                   "mixer": init_fn(gen, cfg, dtype, device)}
     if ffn is not None:
         bp["ln2"] = L.rmsnorm_init(cfg.d_model, device)
-        bp["ffn"] = L.mlp_init(gen, cfg, dtype, device=device)
+        bp["ffn"] = (M.moe_init(gen, cfg, dtype, device) if ffn == "moe"
+                     else L.mlp_init(gen, cfg, dtype, device=device))
     return bp
 
 
 def block_apply(bp, x, spec, cfg: ModelConfig, positions):
-    """Returns (x, aux); blocks without MoE carry no auxiliary loss
-    (aux = 0.0)."""
+    """Returns (x, aux): the MoE FFN's load-balance loss, a 0-d float32
+    tensor; blocks without MoE carry none (aux = 0.0, no kernel)."""
     _check_spec(spec)
     mixer, ffn = spec
+    aux = 0.0
     h = L.rmsnorm(x, bp["ln1"], cfg.norm_eps)
     if mixer == "attn":
         x = x + L.attn_apply(bp["mixer"], h, cfg, positions)
+    elif mixer == "mla":
+        x = x + L.mla_apply(bp["mixer"], h, cfg, positions)
     else:
         x = x + _RECURRENT[mixer][1](bp["mixer"], h, cfg)
     if ffn is not None:
         h2 = L.rmsnorm(x, bp["ln2"], cfg.norm_eps)
-        x = x + L.mlp_apply(bp["ffn"], h2)
-    return x, 0.0
+        if ffn == "moe":
+            y, aux = M.moe_apply(bp["ffn"], h2, cfg)
+        else:
+            y = L.mlp_apply(bp["ffn"], h2)
+        x = x + y
+    return x, aux
 
 
 def block_make_cache(spec, cfg: ModelConfig, batch: int, max_len: int, dtype,
@@ -112,6 +125,8 @@ def block_make_cache(spec, cfg: ModelConfig, batch: int, max_len: int, dtype,
     mixer, _ = spec
     if mixer == "attn":
         return L.attn_make_cache(cfg, batch, max_len, dtype, device)
+    if mixer == "mla":
+        return L.mla_make_cache(cfg, batch, max_len, dtype, device)
     return _RECURRENT[mixer][2](cfg, batch, dtype, device)
 
 
@@ -121,12 +136,20 @@ def block_decode(bp, x, cache, spec, cfg: ModelConfig, pos: torch.Tensor):
     h = L.rmsnorm(x, bp["ln1"], cfg.norm_eps)
     if mixer == "attn":
         mx, cache = L.attn_decode(bp["mixer"], h, cache, pos, cfg)
+    elif mixer == "mla":
+        mx, cache = L.mla_decode(bp["mixer"], h, cache, pos, cfg)
     else:
         mx, cache = _RECURRENT[mixer][3](bp["mixer"], h, cache, cfg)
     x = x + mx
     if ffn is not None:
         h2 = L.rmsnorm(x, bp["ln2"], cfg.norm_eps)
-        x = x + L.mlp_apply(bp["ffn"], h2)
+        if ffn == "moe":
+            # one token a sequence routes as a (B, 1) batch; aux is dropped
+            y, _ = M.moe_apply(bp["ffn"], h2[:, None, :], cfg)
+            y = y[:, 0]
+        else:
+            y = L.mlp_apply(bp["ffn"], h2)
+        x = x + y
     return x, cache
 
 
@@ -147,11 +170,23 @@ def init(gen: torch.Generator, cfg: ModelConfig, device="cuda") -> Params:
     if not cfg.tie_embeddings:
         params["head"] = dense_init(gen, cfg.d_model, cfg.vocab, dtype=dtype,
                                     device=dev)
+    if cfg.first_k_dense:
+        params["prefix"] = [block_init(gen, _prefix_spec(cfg), cfg, dtype, dev)
+                            for _ in range(cfg.first_k_dense)]
     params["stack"] = {
         f"pos{i}": stack_init(
             lambda g, spec=spec: block_init(g, spec, cfg, dtype, dev),
             gen, cfg.n_periods)
         for i, spec in enumerate(cfg.period)}
+    if cfg.mtp:
+        params["mtp"] = {
+            "proj": dense_init(gen, 2 * cfg.d_model, cfg.d_model, dtype=dtype,
+                               device=dev),
+            "norm_h": L.rmsnorm_init(cfg.d_model),
+            "norm_e": L.rmsnorm_init(cfg.d_model),
+            "block": block_init(gen, cfg.period[0], cfg, dtype, dev),
+            "final_norm": L.rmsnorm_init(cfg.d_model),
+        }
     return tree_map(lambda a: a.to(dev), params)
 
 
@@ -159,15 +194,22 @@ def forward(params, x, cfg: ModelConfig, positions) -> Tuple[torch.Tensor,
                                                              torch.Tensor]:
     """x: (B, S, D) embedded inputs -> (hidden (B,S,D), aux_loss).
 
-    Blocks without MoE carry no auxiliary loss, so aux_loss is 0. With
-    ``cfg.remat`` and grad enabled each period runs under
-    ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` with
-    nothing saveable): only its input is kept, and its forward runs again in
-    the backward pass."""
-    def period_body(x, layers):
+    aux_loss sums the MoE blocks' load-balance losses (0 without MoE; the
+    dense prefix has none). With ``cfg.remat`` and grad enabled each
+    period runs under ``torch.utils.checkpoint`` (the reference's
+    ``jax.checkpoint`` with nothing saveable): only its input is kept, and
+    its forward runs again in the backward pass; the prefix layers run
+    unscanned and uncheckpointed, as in the reference."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for bp in params.get("prefix", []):
+        x, _ = block_apply(bp, x, _prefix_spec(cfg), cfg, positions)
+
+    def period_body(x, aux, layers):
         for i, spec in enumerate(cfg.period):
-            x, _ = block_apply(layers[i], x, spec, cfg, positions)
-        return x
+            x, a = block_apply(layers[i], x, spec, cfg, positions)
+            if spec[1] == "moe":
+                aux = aux + a
+        return x, aux
 
     for j in range(cfg.n_periods):
         layers = [_layer(params["stack"][f"pos{i}"], j)
@@ -175,12 +217,12 @@ def forward(params, x, cfg: ModelConfig, positions) -> Tuple[torch.Tensor,
         if cfg.remat and torch.is_grad_enabled():
             # no random numbers to replay: the RNG state is not stashed,
             # which also keeps the step capturable in a CUDA graph
-            x = checkpoint(period_body, x, layers, use_reentrant=False,
-                           preserve_rng_state=False)
+            x, aux = checkpoint(period_body, x, aux, layers,
+                                use_reentrant=False, preserve_rng_state=False)
         else:
-            x = period_body(x, layers)
+            x, aux = period_body(x, aux, layers)
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
 
 
 def logits_fn(params, h, cfg: ModelConfig) -> torch.Tensor:
@@ -217,6 +259,10 @@ def lm_loss(params, batch, cfg: ModelConfig) -> Tuple[torch.Tensor, Dict]:
     optional 'mask': (B,S)}, tensors on the params' device. Returns (loss,
     {'ce', 'aux', 'tokens'}) as 0-d float32 tensors; loss = ce + aux."""
     _check_supported(cfg)
+    if cfg.mtp and "inputs" in batch:
+        raise NotImplementedError(
+            f"{cfg.name}: the MTP branch of lm_loss comes with the MoE training "
+            "slice (ROADMAP.md, queue 1, item 3)")
     if "embeds" in batch:
         x = batch["embeds"].to(_dtype(cfg))
     else:
@@ -243,6 +289,11 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     dev = resolve_device(device)
     _check_supported(cfg)
     dtype = _dtype(cfg)
+    cache: Params = {}
+    if cfg.first_k_dense:
+        cache["prefix"] = [block_make_cache(_prefix_spec(cfg), cfg, batch,
+                                            max_len, dtype, device=dev)
+                           for _ in range(cfg.first_k_dense)]
     stack = {}
     for i, spec in enumerate(cfg.period):
         # one layer's cache (zeros, or -1e30 for the mLSTM stabiliser),
@@ -251,7 +302,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
         stack[f"pos{i}"] = tree_map(
             lambda a: a.unsqueeze(0).repeat((cfg.n_periods,) + (1,) * a.dim()),
             one)
-    return {"stack": stack}
+    cache["stack"] = stack
+    return cache
 
 
 def decode_step(params, cache, tokens, pos, cfg: ModelConfig):
@@ -260,6 +312,8 @@ def decode_step(params, cache, tokens, pos, cfg: ModelConfig):
     (B, V) f32, cache); the cache is updated in place."""
     x = params["embed"][tokens]
     pos = torch.as_tensor(pos, device=x.device)
+    for bp, bc in zip(params.get("prefix", []), cache.get("prefix", [])):
+        x, _ = block_decode(bp, x, bc, _prefix_spec(cfg), cfg, pos)
     for j in range(cfg.n_periods):
         for i, spec in enumerate(cfg.period):
             key = f"pos{i}"

@@ -15,11 +15,12 @@ from repro_torch.models.config import ModelConfig
 
 
 def from_jax_params(tree, cfg: ModelConfig, device="cuda"):
-    """Nested dicts of numpy arrays (``np.asarray`` of each leaf of the
-    reference's ``init``) -> the port's parameter tree on ``device``.
+    """Nested dicts and lists of numpy arrays (``np.asarray`` of each leaf
+    of the reference's ``init``: DeepSeek's dense prefix is a list of
+    layers) -> the port's parameter tree on ``device``.
 
-    Key sets and shapes are checked against the port's ``init(cfg)``; any
-    mismatch raises ValueError. Each leaf takes the dtype the port's ``init``
+    Key sets, list lengths and shapes are checked against the port's
+    ``init(cfg)``; any mismatch raises ValueError. Each leaf takes the dtype the port's ``init``
     gives it: the config's dtype for weights; float32 for norm scales,
     Mamba's ``A_log``, ``D`` and ``dt_bias`` and xLSTM's gate weights and
     biases, as in the reference, so a bf16 model does not round them.
@@ -38,6 +39,14 @@ def from_jax_params(tree, cfg: ModelConfig, device="cuda"):
                                  f"{sorted(missing)}, unexpected keys "
                                  f"{sorted(extra)}")
             return {k: convert(src[k], tmpl[k], f"{path}/{k}") for k in tmpl}
+        if isinstance(tmpl, list):
+            if not isinstance(src, (list, tuple)) or len(src) != len(tmpl):
+                raise ValueError(
+                    f"{path}: expected a list of {len(tmpl)} layers, got "
+                    + (f"{len(src)}" if isinstance(src, (list, tuple))
+                       else type(src).__name__))
+            return [convert(a, t, f"{path}/{i}")
+                    for i, (a, t) in enumerate(zip(src, tmpl))]
         arr = np.asarray(src)
         if tuple(arr.shape) != tuple(tmpl.shape):
             raise ValueError(f"{path}: shape {tuple(arr.shape)}, expected "

@@ -468,6 +468,7 @@ def test_flash_attention_bwd_bf16_takes_the_forwards_lse(gen, b, hq, hkv, sq, sk
     (1, 16, 2, 130, 130, 128, True, 40, 0),      # G 8, D 128, window
     (1, 2, 2, 70, 130, 80, False, None, 60),     # D 80, offset, not causal
     (2, 6, 2, 80, 100, 16, True, 8, 60),         # rows with no key: L = +inf
+    (1, 4, 4, 200, 200, 192, True, None, 0),     # MLA: D 192, G 1
 ])
 def test_flash_attention_forward_writes_lse(gen, b, hq, hkv, sq, skv, d, causal,
                                             window, offset):
@@ -823,6 +824,99 @@ def test_jamba_loss_refuses_a_gradient_through_the_scan(gen):
                                       "labels": toks[:, 1:]}, "cuda")
 
 
+# ---------------------------------------------------------------------------
+# MLA's head dims (qk 16 + 8 = 24 at SMOKE size, 128 + 64 = 192 at
+# DeepSeek-V3's): V padded to the qk width, G = 1, scale 192^-0.5
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("b,h,sq,skv,causal,window", [
+    (2, 8, 512, 512, True, None),        # DeepSeek-V3 prefill, fewer heads
+    (1, 4, 77, 77, True, None),          # ragged tail
+    (1, 3, 96, 200, True, 64),           # window, offset 104
+    (2, 2, 64, 130, False, None),        # full, ragged keys
+])
+@pytest.mark.parametrize("d,dtype", [(192, torch.bfloat16), (192, torch.float32),
+                                     (24, torch.float32)])
+def test_flash_attention_mla_head_dims(gen, b, h, sq, skv, causal, window, d,
+                                       dtype):
+    q = _randn(gen, (b, h, sq, d), dtype)
+    k, v = _randn(gen, (b, h, skv, d), dtype), _randn(gen, (b, h, skv, d), dtype)
+    args = (q, k, v, causal, window, skv - sq, 192 ** -0.5)
+    _close(flash_attention_cuda(*args), flash_attention_plain(*args), dtype)
+
+
+def test_flash_attention_mla_takes_the_models_views(gen):
+    """mla_apply's layout: q, k from (B, S, H, 192) tensors and V padded
+    from 128, all as (B, H, S, D) views; the padding columns of O are 0."""
+    b, s, h = 2, 96, 4
+    q = _randn(gen, (b, s, h, 192), torch.bfloat16)
+    k = _randn(gen, (b, s, h, 192), torch.bfloat16)
+    v = torch.nn.functional.pad(_randn(gen, (b, s, h, 128), torch.bfloat16),
+                                (0, 64))
+    views = [t.transpose(1, 2) for t in (q, k, v)]
+    got = flash_attention_cuda(*views, True, None, 0, 192 ** -0.5)
+    _close(got, flash_attention_plain(*views, True, None, 0, 192 ** -0.5),
+           torch.bfloat16)
+    assert not got[..., 128:].any()
+
+
+@pytest.mark.parametrize("d,dtype", [(192, torch.bfloat16), (192, torch.float32),
+                                     (24, torch.float32)])
+def test_flash_backward_at_mla_head_dims_raises_before_any_launch(gen, d, dtype):
+    """No backward instance at 24 or 192 yet: the wrapper and autograd
+    through ``ops.flash_attention`` raise NotImplementedError naming the
+    ROADMAP item, and launch nothing."""
+    q = _randn(gen, (1, 2, 64, d), dtype)
+    n, f = flash_attention_bwd_cuda.launches, flash_attention_bwd_cuda.lse_forwards
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 3"):
+        flash_attention_bwd_cuda(q, q, q, q, q)
+    leaves = [q.clone().requires_grad_(True) for _ in range(3)]
+    o = ops.flash_attention(*leaves, causal=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 3"):
+        o.sum().backward()
+    assert flash_attention_bwd_cuda.launches == n
+    assert flash_attention_bwd_cuda.lse_forwards == f
+
+
+@pytest.mark.parametrize("name", ["deepseek_v3_671b", "qwen3_moe_235b_a22b"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_decode_step_is_the_same_every_call(gen, name, dtype):
+    """The MoE decode step (top-k, sorted dispatch, expert products, the
+    gather combine) from the same cache and tokens: the same logits, tokens
+    and cache, bit for bit, on every call (a float scatter-add would add in
+    the order its atomics land)."""
+    cfg = dataclasses.replace(get(name, smoke=True), dtype=dtype)
+    params = transformer.init(torch.Generator(device="cuda").manual_seed(0),
+                              cfg, device="cuda")
+    api = model_api(cfg)
+    step = make_decode_step(cfg, graphs=False)
+    cache = api.init_cache(cfg, 8, 16, device="cuda")
+    toks = torch.randint(0, cfg.vocab, (8, 12), device="cuda", generator=gen)
+    for t in range(12):
+        snap = tree_map(lambda a: a.clone(), cache)
+        outs = []
+        for _ in range(3):
+            tree_map(lambda a, b: a.copy_(b), cache, snap)
+            nxt, logits, _ = step(params, cache, toks[:, t], t)
+            outs.append((nxt.clone(), logits.clone(),
+                         [a.clone() for a in tree_leaves(cache)]))
+        for nxt, logits, leaves in outs[1:]:
+            assert torch.equal(nxt, outs[0][0]) and torch.equal(logits, outs[0][1])
+            assert all(torch.equal(a, b) for a, b in zip(leaves, outs[0][2]))
+
+
+@pytest.mark.parametrize("arch", ["deepseek_v3_671b", "qwen3_moe_235b_a22b",
+                                  "jamba_1_5_large_398b"])
+def test_serve_main_serves_the_moe_smoke_configs(gen, arch, capsys):
+    """``serve.main`` for the MoE SMOKE configs (Jamba with its real MoE
+    layers), graphed and eager: the same tokens."""
+    graphed = serve.main(["--arch", arch])
+    eager = serve.main(["--arch", arch, "--eager"])
+    assert "on cuda (graphed)" in capsys.readouterr().out
+    for a, b in zip(graphed, eager):
+        np.testing.assert_array_equal(a.out, b.out)
+
+
 def test_serve_main_runs_with_its_defaults(gen, capsys):
     """``python -m repro_torch.launch.serve`` with no arguments: smollm SMOKE
     (head dim 20) on the card."""
@@ -837,7 +931,7 @@ def test_serve_main_runs_with_its_defaults(gen, capsys):
 # ---------------------------------------------------------------------------
 
 GRAPH_ARCHS = ["smollm_360m", "h2o_danube_1_8b", "jamba_1_5_large_398b",
-               "xlstm_125m"]
+               "xlstm_125m", "deepseek_v3_671b", "qwen3_moe_235b_a22b"]
 
 
 def _smoke(name):
@@ -855,11 +949,15 @@ def _only_graph(step):
 
 
 def _per_step(cfg):
-    """RMSNorm and attention launches of one forward or decode step."""
+    """RMSNorm and attention launches of one forward or decode step: MLA
+    adds its q and kv norms, and one flash launch in a forward but no
+    decode-attention launch in a decode step."""
     blocks = cfg.blocks()
     return {"rmsnorm_cuda.launches": 1 + sum(
-                1 + (ffn is not None) + (m == "mlstm") for m, ffn in blocks),
-            "attn": sum(m == "attn" for m, _ in blocks)}
+                1 + (ffn is not None) + (m == "mlstm") + 2 * (m == "mla")
+                for m, ffn in blocks),
+            "attn": sum(m == "attn" for m, _ in blocks),
+            "flash": sum(m in ("attn", "mla") for m, _ in blocks)}
 
 
 @pytest.mark.parametrize("name", GRAPH_ARCHS)
@@ -909,7 +1007,7 @@ def test_graphed_prefill_matches_eager_bit_for_bit(gen, name):
         assert torch.equal(got, want), shape
     assert len(graphed.graphs) == 2
     for g in graphed.graphs.values():
-        assert g.per_replay["flash_attention_cuda.launches"] == _per_step(cfg)["attn"]
+        assert g.per_replay["flash_attention_cuda.launches"] == _per_step(cfg)["flash"]
     graphed.release()
 
 

@@ -30,7 +30,7 @@ from repro_torch.models.module import tree_leaves, tree_map
 from repro_torch.optim import optimizers as topt
 
 ARCHS = ["smollm_360m", "h2o_danube_1_8b", "jamba_1_5_large_398b",
-         "xlstm_125m"]
+         "xlstm_125m", "deepseek_v3_671b", "qwen3_moe_235b_a22b"]
 
 
 class NoHostReads(TorchDispatchMode):
@@ -49,7 +49,8 @@ class NoHostReads(TorchDispatchMode):
 
 
 def _cfg(name):
-    """SMOKE config; Jamba with a dense FFN in place of MoE (not ported)."""
+    """SMOKE config; Jamba with a dense FFN in place of MoE (its MoE layers
+    run in the DeepSeek and Qwen3-MoE cases)."""
     cfg = get(name, smoke=True)
     if name == "jamba_1_5_large_398b":
         cfg = dataclasses.replace(cfg, n_experts=0, top_k=0, d_expert=0,
@@ -111,7 +112,8 @@ def test_decode_step_on_refilled_buffers_matches_fresh_calls(name):
 
 
 @pytest.mark.parametrize("name", ["smollm_360m", "jamba_1_5_large_398b",
-                                  "xlstm_125m"])
+                                  "xlstm_125m", "deepseek_v3_671b",
+                                  "qwen3_moe_235b_a22b"])
 def test_prefill_step_makes_no_host_read(name):
     cfg = _cfg(name)
     params = _params(cfg)
@@ -200,6 +202,7 @@ def test_steps_on_the_cpu_stay_eager():
     ("h2o_danube_1_8b", 16, False),       # the ring of the window
     ("jamba_1_5_large_398b", 12, True),   # its attention layer
     ("xlstm_125m", 12, False),            # no KV cache
+    ("deepseek_v3_671b", 12, True),       # MLA's compressed cache
 ])
 def test_serve_batch_checks_positions_against_the_cache(name, max_len,
                                                         refused):

@@ -4,8 +4,9 @@ JAX SMOKE parameters (``jax.random.PRNGKey``) are transplanted into the port
 with ``from_jax_params``; prefill logits, decode-step logits and caches (past
 the sliding window on h2o-danube, which wraps its ring buffer; the Mamba and
 xLSTM recurrent states of jamba and xlstm) and greedy serving tokens must
-match. Jamba runs with a dense SwiGLU in place of each MoE FFN (MoE is not
-ported yet), the same replacement on both sides.
+match. Jamba runs with a dense SwiGLU in place of each MoE FFN, the same
+replacement on both sides; its real MoE layers, DeepSeek's MLA and prefix
+and Qwen3-MoE are held in ``tests/test_torch_moe.py``.
 """
 import dataclasses
 
@@ -193,24 +194,37 @@ def test_from_jax_params_rejects_mismatch():
 
 
 def test_unported_blocks_raise():
-    cfg = ModelConfig(name="moe", family="moe", n_layers=2, d_model=32,
-                      n_heads=2, n_kv_heads=2, d_ff=64, vocab=64,
-                      period=(("attn", "mlp"), ("attn", "moe")),
-                      n_experts=4, top_k=2, d_expert=32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        transformer.init(torch.Generator(), cfg, device="cpu")
-    # the full Jamba config has MoE on every other layer
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 3"):
-        transformer.init(torch.Generator(), tget("jamba_1_5_large_398b"),
-                         device="cpu")
+    """What still raises: encoder-decoder models and the MTP branch of the
+    loss. MoE and MLA blocks and the dense prefix build at full size, on the
+    meta device (full Jamba and DeepSeek-V3 are hundreds of GB), with the
+    leaves of the reference's init (its shapes, by ``jax.eval_shape``)."""
+    for name in ("jamba_1_5_large_398b", "deepseek_v3_671b",
+                 "qwen3_moe_235b_a22b"):
+        cfg = tget(name)
+        params = transformer.init(torch.Generator(), cfg, device="meta")
+        assert all(t.is_meta for t in tree_leaves(params))
+        jcfg = jget(name)
+        shapes = jax.eval_shape(lambda k: jmodel_api(jcfg).init(k, jcfg),
+                                jax.random.PRNGKey(0))
+        want = jax.tree_util.tree_flatten_with_path(shapes)[0]
+        assert len(want) == len(tree_leaves(params))
+        for path, leaf in want:
+            t = params
+            for p in path:
+                t = t[p.idx if hasattr(p, "idx") else p.key]
+            assert tuple(t.shape) == leaf.shape, path
+        cache = transformer.init_cache(cfg, 2, 16, device="meta")
+        assert len(cache.get("prefix", [])) == cfg.first_k_dense
     enc = dataclasses.replace(tget("smollm_360m", smoke=True),
                               encoder_layers=1)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         model_api(enc)
-    # the loss is ported, its MTP branch is not
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        transformer.init(torch.Generator(), enc, device="meta")
+    # the loss is ported, its MTP branch is not: it raises before any work
     mtp = dataclasses.replace(tget("smollm_360m", smoke=True), mtp=True)
-    with pytest.raises(NotImplementedError, match="MTP"):
-        model_api(mtp).loss(None, None, mtp)
+    with pytest.raises(NotImplementedError, match="MTP.*ROADMAP"):
+        model_api(mtp).loss(None, {"inputs": None, "labels": None}, mtp)
 
 
 def test_mamba_float32_leaves_survive_a_bf16_transplant():

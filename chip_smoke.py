@@ -15,7 +15,8 @@ time,
      (forward and backward), scan, clip and AdamW kernels, the HGMMA
      (tensor-core) instructions in the flash kernels' SASS (cuobjdump),
      failing if the forward has none (or its D-192 instance, MLA's, has
-     none; ptxas's registers and spills of the float32 instances too, D 24
+     none, spills, or its consumer warpgroups' setmaxnreg differs from its
+     plan's; ptxas's registers and spills of the float32 instances too, D 24
      and 192 among them), if a bf16 backward instance has none,
      if the head-dim-64 backward instances spill or if the train step's
      RMSNorm-backward, sumsq or AdamW instance spills, and for each scan
@@ -34,7 +35,8 @@ time,
      timed rows add the SM clock while it runs back to back); the SMOKE
      configs' head dims (16, 20) in the attention kernels; MLA's head dims
      in flash attention (bf16 q = k = v (8, 128, 512, 192) causal, without
-     and with L; float32 at 192 and 24; SDPA with the scale as yardstick);
+     and with L, contiguous and in the model's layout; float32 at 192 and
+     24; SDPA with the scale as yardstick);
      and the two
      backward kernels (flash attention at smollm's and, in bf16, Jamba's
      training shapes, with the forward's log-sum-exp as training passes
@@ -213,6 +215,12 @@ KERNELS = {  # name: (source, TPU kernel it replaces, main-path case)
 # dims, each counted on the path that runs it (name: (source, TPU kernel it
 # replaces, phase-2 case, dtype, path))
 MLA_CASE = "MLA causal 8x128/128x512x512x192"
+# the same in mla_apply's layout: (B, H, S, D) views of (B, S, H, 192) q, k
+# and of V padded from 128
+MLA_MODEL_CASE = "MLA causal 8x128/128x512x512x192 model layout (B,S,H,D) views, V padded"
+# the D-192 bf16 instance's device ms at MLA_CASE in PR 20 (<DP 192, NC 1>,
+# NVIDIA H100 80GB HBM3, 700.00 W): printed beside this run's as a label only
+MLA_PARENT_MS = 0.7329
 MLA_ROWS = {
     "flash_attention_d192": ("src/repro_torch/csrc/flash_attention_sm90.cu",
                              "src/repro/kernels/flash_attention.py:84", MLA_CASE,
@@ -752,30 +760,41 @@ def smoke_head_dim_rows(fla, dec, randn, gen):
 def mla_rows(fla, randn):
     """The flash instances of MLA's head dims (qk 128 + 64 = 192 at
     DeepSeek-V3's widths, 16 + 8 = 24 at SMOKE size; G = 1, causal, scale
-    D^-0.5): bf16 at the DeepSeek prefill's shape, without and with L, and
-    float32 at 192 and 24; SDPA (``scale`` given) as the yardstick."""
+    D^-0.5): bf16 at the DeepSeek prefill's shape, without and with L, on
+    contiguous (B, H, S, D) tensors and in the model's layout (``mla_apply``
+    passes (B, H, S, D) views of (B, S, H, 192) q and k and of V padded from
+    128), and float32 at 192 and 24; SDPA (``scale`` given) as the
+    yardstick. The bf16 D-192 rows carry PR 20's time as a label."""
     rows = []
     for (name, (_, _, case, dn, _)), (b, h, s, d) in zip(
             MLA_ROWS.items(), ((8, 128, 512, 192), (2, 16, 512, 192), (8, 4, 512, 24))):
         dtype = getattr(torch, dn)
-        q, k, v = (randn((b, h, s, d), dtype) for _ in range(3))
+        layouts = [(case, [randn((b, h, s, d), dtype) for _ in range(3)])]
+        if dn == "bfloat16":
+            v = F.pad(randn((b, s, h, 128), dtype), (0, d - 128))
+            layouts.append((MLA_MODEL_CASE, [randn((b, s, h, d), dtype).transpose(1, 2),
+                                             randn((b, s, h, d), dtype).transpose(1, 2),
+                                             v.transpose(1, 2)]))
         scale = d ** -0.5
         pairs = s * (s + 1) // 2
-        library = (lambda q=q, k=k, v=v, sc=scale:
-                   F.scaled_dot_product_attention(q, k, v, is_causal=True, scale=sc))
-        for lse in ((False, True) if dn == "bfloat16" else (False,)):
-            args = (q, k, v, True, None, 0, scale)
-            rows.append(compare(
-                "flash_attention", case + (" with L" if lse else ""), dn,
-                fla.flash_attention_cuda(*args, return_lse=lse),
-                fla.flash_attention_plain(*args, return_lse=lse),
-                "attn_lse" if lse else "attn",
-                run=lambda a=args, l=lse: fla.flash_attention_cuda(*a, return_lse=l),
-                plain=lambda a=args, l=lse: fla.flash_attention_plain(*a, return_lse=l),
-                library=library,
-                n_bytes=4 * nbytes(q) + (4 * b * h * s if lse else 0),
-                ops=4 * b * h * d * pairs, plain_iters=5))
-            rows[-1]["instance"] = fla.INSTANCES[dtype]
+        for lcase, (q, k, v) in layouts:
+            library = (lambda q=q, k=k, v=v, sc=scale:
+                       F.scaled_dot_product_attention(q, k, v, is_causal=True, scale=sc))
+            for lse in ((False, True) if dn == "bfloat16" else (False,)):
+                args = (q, k, v, True, None, 0, scale)
+                rows.append(compare(
+                    "flash_attention", lcase + (" with L" if lse else ""), dn,
+                    fla.flash_attention_cuda(*args, return_lse=lse),
+                    fla.flash_attention_plain(*args, return_lse=lse),
+                    "attn_lse" if lse else "attn",
+                    run=lambda a=args, l=lse: fla.flash_attention_cuda(*a, return_lse=l),
+                    plain=lambda a=args, l=lse: fla.flash_attention_plain(*a, return_lse=l),
+                    library=library,
+                    n_bytes=4 * nbytes(q) + (4 * b * h * s if lse else 0),
+                    ops=4 * b * h * d * pairs, plain_iters=5))
+                rows[-1]["instance"] = fla.INSTANCES[dtype]
+                if dn == "bfloat16":
+                    rows[-1]["label"] = f"PR 20 (contiguous): {MLA_PARENT_MS} ms"
     return rows
 
 
@@ -1154,15 +1173,15 @@ def print_profile(tag, prof):
 
 
 # mangled names of the kernel instances whose registers and spills phase 1
-# prints: flash_attention_wgmma<DP, NC> (flash_attention_sm90.cu),
+# prints: flash_attention_wgmma<DP, NH, NQ> (flash_attention_sm90.cu),
 # flash_attention_kernel<D> (flash_attention.cu, float32),
 # flash_bwd_{dq,dkdv}_wgmma<DP> (flash_attention_bwd_sm90.cu),
 # decode_attention_kernel<T, D> (decode_attention.cu),
 # rmsnorm_{warp,block}_kernel<T, NV> (rmsnorm.cu) and mamba_scan_kernel<T,
 # NM> (mamba_scan.cu); T is f (float32) or 13__nv_bfloat16
-WGMMA_NAME = r"flash_attention_wgmmaILi(\d+)ELi(\d+)E"
+WGMMA_NAME = r"flash_attention_wgmmaILi(\d+)ELi(\d+)ELi(\d+)E"
 INSTANCE_NAMES = {
-    "flash": (WGMMA_NAME, "DP{} NC{}"),
+    "flash": (WGMMA_NAME, "DP{} NH{} NQ{}"),
     "flash_f32": (r"flash_attention_kernelILi(\d+)EE", "D{}"),
     "decode": (r"decode_attention_kernelI(f|13__nv_bfloat16)Li(\d+)EE", "{} D{}"),
     "rmsnorm": (r"rmsnorm_(warp|block)_kernelI(f|13__nv_bfloat16)Li(\d+)E",
@@ -1178,6 +1197,12 @@ INSTANCE_NAMES = {
 }
 # the scan instance of the main path (Jamba: bf16 u, N 16)
 SCAN_MAIN = "bf16 N16"
+# MLA's bf16 flash instance (DeepSeek-V3 prefill: head dim 192, one head and
+# two 64-row q tiles a block) and the registers its consumer warpgroups take
+# with setmaxnreg: (entry budget x 3 warpgroups - the producer's 40) / 2, the
+# entry budget 168 = 65536 / 384 threads in steps of 8 (Plan<192, 1, 2>)
+MLA_INSTANCE = "DP192 NH1 NQ2"
+MLA_CONSUMER_REGS = (65536 // 384 // 8 * 8 * 3 - 40) // 2 // 8 * 8
 # the bf16 backward instances of the main path (smollm: head dim 64)
 FLASH_BWD_MAIN = ("dq DP64", "dkdv DP64")
 # the instances of smollm's train step that must not spill: the RMSNorm
@@ -1203,14 +1228,15 @@ def instance_label(family: str, name: str):
 
 def kernel_build_report(build, lib_path: str) -> dict:
     """ptxas's registers and spills, from the build log, for each instance
-    of the bf16 flash-attention kernel (head dim padded to DP, NC consumer
-    warpgroups), of decode attention (dtype, head dim D), of the vector
+    of the bf16 flash-attention kernel (head dim padded to DP, NH q heads and
+    NQ 64-row q tiles a block), of decode attention (dtype, head dim D), of the vector
     RMSNorm paths (warp or block per row, NV vectors per thread) and of the
     scan (dtype of u, state width rounded up to NM), and of the bf16 flash
     backward's two kernels (head dim padded to DP), with their spill bytes;
     every compiler warning or ptxas performance-loss note; from the SASS
     (cuobjdump, beside nvcc), the HGMMA (tensor-core) instructions of the
-    flash forward and backward kernels and, for each
+    flash forward and backward kernels, each forward instance's setmaxnreg
+    register counts and local-memory loads and stores, and, for each
     scan instance, its instructions, MUFU.EX2 and local-memory loads and
     stores (LDL/STL: spills). The scan instances' SASS goes to
     ``build/scan_sass.txt``."""
@@ -1235,19 +1261,29 @@ def kernel_build_report(build, lib_path: str) -> dict:
     cuobjdump = Path(build._find_nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(cuobjdump), "--dump-sass", lib_path], check=True,
                           capture_output=True, text=True).stdout
-    hgmma, bwd_hgmma, scan_sass, scan_text = {}, {}, {}, []
+    hgmma, bwd_hgmma, scan_sass, scan_text, flash_sass = {}, {}, {}, [], {}
+    sass_ops = r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)"
     for chunk in sass.split("Function : ")[1:]:
         name = chunk.split(None, 1)[0]
         lab = instance_label("flash", name)
         if lab:
             hgmma[lab] = chunk.count("HGMMA")
+            # setmaxnreg's register counts (the operands up to the ';', not
+            # the encoding comment after it) and local-memory traffic
+            setmax = [line.split("SETMAXREG", 1)[1].split(";")[0]
+                      for line in chunk.splitlines() if "SETMAXREG" in line]
+            flash_sass[lab] = {
+                "setmaxnreg": [int(v, 0) for ops in setmax
+                               for v in re.findall(r"\b(0x[0-9a-f]+|\d+)\b", ops)],
+                "setmaxnreg_sass": [" ".join(o.split()) for o in setmax],
+                "ldl_stl": sum(op.split(".")[0] in ("LDL", "STL")
+                               for op in re.findall(sass_ops, chunk))}
         lab = instance_label("flash_bwd_wgmma", name)
         if lab:
             bwd_hgmma[lab] = chunk.count("HGMMA")
         lab = instance_label("scan", name)
         if lab:
-            ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)",
-                             chunk)
+            ops = re.findall(sass_ops, chunk)
             scan_sass[lab] = {
                 "instructions": len(ops),
                 "mufu_ex2": sum(op.startswith("MUFU.EX2") for op in ops),
@@ -1263,7 +1299,7 @@ def kernel_build_report(build, lib_path: str) -> dict:
             "flash_bwd_wgmma_spill_bytes": bwd_spills, "flash_bwd_wgmma_hgmma": bwd_hgmma,
             "ptxas_rmsnorm_bwd": ptxas["rmsnorm_bwd"], "ptxas_adamw": ptxas["adamw"],
             "scan_sass": scan_sass, "warnings": warnings,
-            "hgmma": hgmma, "hgmma_total": sum(hgmma.values())}
+            "hgmma": hgmma, "hgmma_total": sum(hgmma.values()), "flash_sass": flash_sass}
 
 
 def train_parity(cfg, p_cpu, p_gpu, batch, loss_fn, make_train_step, adamw,
@@ -1559,14 +1595,22 @@ def main() -> int:
     report["kernel_build"] = sass = kernel_build_report(_build, _build.last_build["path"])
     if sass["hgmma_total"] == 0:
         fail(f"no HGMMA instruction in the bf16 flash-attention kernel: {sass}")
-    # MLA's instances: bf16 DP 192 on the tensor cores, float32 24 and 192
-    mla_inst = {"DP192 NC1": sass["ptxas"].get("DP192 NC1"),
+    # MLA's instances: bf16 DP 192 on the tensor cores (two consumer
+    # warpgroups, registers moved to them by setmaxnreg), float32 24 and 192
+    mla_inst = {MLA_INSTANCE: sass["ptxas"].get(MLA_INSTANCE),
                 "f32 D24": sass["ptxas_flash_f32"].get("D24"),
                 "f32 D192": sass["ptxas_flash_f32"].get("D192")}
-    if not sass["hgmma"].get("DP192 NC1"):
+    mla_sass = sass["flash_sass"].get(MLA_INSTANCE, {})
+    if not sass["hgmma"].get(MLA_INSTANCE):
         fail(f"no HGMMA instruction in the bf16 D-192 flash instance: {sass['hgmma']}")
     if not all(mla_inst.values()):
         fail(f"no ptxas report of MLA's flash instances: {mla_inst}")
+    if spill_bytes(mla_inst[MLA_INSTANCE]) or mla_sass.get("ldl_stl"):
+        fail(f"the bf16 D-192 flash instance spills: ptxas {mla_inst[MLA_INSTANCE]}, "
+             f"SASS {mla_sass}")
+    if max(mla_sass.get("setmaxnreg") or [0]) != MLA_CONSUMER_REGS:
+        fail(f"the bf16 D-192 flash instance's consumers do not take the plan's "
+             f"{MLA_CONSUMER_REGS} registers with setmaxnreg: {mla_sass}")
     bwd_hgmma, bwd_spills = sass["flash_bwd_wgmma_hgmma"], sass["flash_bwd_wgmma_spill_bytes"]
     if len(bwd_hgmma) != 4 or not all(bwd_hgmma.values()):
         fail(f"a bf16 flash-backward instance has no HGMMA instruction: {bwd_hgmma}")
@@ -1598,7 +1642,9 @@ def main() -> int:
           f" | kernels built in {build_s:.1f} s (cached={_build.last_build['cached']})"
           f" | bf16 flash kernel, HGMMA instructions: {sass['hgmma_total']} "
           f"{sass['hgmma']}; ptxas: {sass['ptxas']}; MLA's instances (HGMMA "
-          f"{sass['hgmma']['DP192 NC1']} in DP192 NC1): "
+          f"{sass['hgmma'][MLA_INSTANCE]} in {MLA_INSTANCE}, setmaxnreg "
+          f"{mla_sass['setmaxnreg_sass']} (consumers: plan {MLA_CONSUMER_REGS}), LDL/STL "
+          f"{mla_sass['ldl_stl']}): "
           + ", ".join(f"{k} {v}" for k, v in mla_inst.items())
           + f"; float32 flash ptxas: {sass['ptxas_flash_f32']}; decode attention ptxas: "
           f"{sass['ptxas_decode']}; RMSNorm ptxas: {sass['ptxas_rmsnorm']}; "
@@ -1649,6 +1695,8 @@ def main() -> int:
                        + f"; library: {r['library']}")
         if "scale" in r:
             dscale += f", scale {r['scale']:.6f}"
+        if "label" in r:
+            dscale += f" [{r['label']}]"
         print(f"[2 kernel] {r['kernel']}{inst} {r['case']} {r['dtype']}: max_abs_err "
               f"{r['max_abs_err']:.3e} (tol {r['tol']:g}){dscale}{timing}", flush=True)
     bad = [f"{r['kernel']} {r['case']} {r['dtype']}" for r in rows if not r["ok"]]

@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core attention
 // kernels (flash_attention_sm90.cu, flash_attention_bwd_sm90.cu): mbarriers,
-// TMA tile loads and their tensor maps, wgmma shared-memory descriptors for
-// the 128-byte swizzle, the wgmma products the kernels issue, and register
-// fences around them.
+// named barriers, TMA tile loads and stores and their tensor maps, wgmma
+// shared-memory descriptors for the 128-byte swizzle, the wgmma products the
+// kernels issue, and register fences around them.
 //
 // Layouts. A tile of R rows x DP bf16 columns (DP 64, 128 or 192) is stored as
 // DP / 64 panels of R rows x 128 bytes, each written by one TMA box with the
@@ -68,6 +68,14 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   }
 }
 
+// Named barrier ID (1-15; 0 is __syncthreads): wait until `n` threads, a
+// multiple of 32, have come. The id is a constant, so ptxas reserves only
+// the barriers used.
+template <int ID>
+__device__ __forceinline__ void named_bar_sync(int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"n"(ID), "r"(n) : "memory");
+}
+
 // One 64-column box of a (D, S, H, B) tensor map into shared memory.
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
                                          int d0, int s0, int h, int b) {
@@ -76,6 +84,29 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
       " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(d0), "r"(s0), "r"(h), "r"(b)
       : "memory");
+}
+
+// One 64-column box from shared memory to a (D, S, H, B) tensor map; rows
+// and columns outside the tensor are not written. tma_store_wait_read
+// commits the stores issued so far and returns once TMA has read their
+// shared memory, which may then be overwritten.
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, int d0, int s0,
+                                          int h, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(d0), "r"(s0), "r"(h), "r"(b)
+      : "memory");
+}
+__device__ __forceinline__ void tma_store_wait_read() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// Make this thread's shared-memory stores visible to the asynchronous proxy
+// (TMA, wgmma) before a barrier hands them over.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // wgmma shared-memory descriptor, 128-byte swizzle (see the layouts above).

@@ -463,17 +463,37 @@ def test_flash_attention_bwd_bf16_takes_the_forwards_lse(gen, b, hq, hkv, sq, sk
         assert torch.equal(g, a) and torch.equal(g, w)
 
 
+def _no_key_rows(sq, skv, causal, window, offset):
+    """The q rows that see no key: the kernels return 0 there (the plain
+    version the mean of V)."""
+    qp = torch.arange(sq, device="cuda") + offset
+    hi = qp.clamp(max=skv - 1) if causal else torch.full_like(qp, skv - 1)
+    lo = (qp - window + 1).clamp(min=0) if window is not None else torch.zeros_like(qp)
+    return lo > hi
+
+
 @pytest.mark.parametrize("b,hq,hkv,sq,skv,d,causal,window,offset", [
     (2, 15, 5, 512, 512, 64, True, None, 0),     # smollm's prefill
     (1, 16, 2, 130, 130, 128, True, 40, 0),      # G 8, D 128, window
     (1, 2, 2, 70, 130, 80, False, None, 60),     # D 80, offset, not causal
     (2, 6, 2, 80, 100, 16, True, 8, 60),         # rows with no key: L = +inf
     (1, 4, 4, 200, 200, 192, True, None, 0),     # MLA: D 192, G 1
+    # MLA's plan takes two 64-row q tiles a block: the second of the last
+    # block has no rows at Sq 64 and 192; Sq 1; a window whose lower edge
+    # falls between the two tiles' kv ranges; an offset off the 64-key tiles;
+    # rows with no key (O = 0, L = +inf)
+    (2, 3, 3, 64, 64, 192, True, None, 0),
+    (1, 2, 2, 192, 192, 192, True, None, 0),
+    (2, 2, 2, 1, 1, 192, True, None, 0),
+    (1, 2, 2, 300, 300, 192, True, 100, 0),
+    (1, 2, 2, 100, 237, 192, True, None, 137),
+    (2, 2, 2, 150, 140, 192, True, 30, 120),
 ])
 def test_flash_attention_forward_writes_lse(gen, b, hq, hkv, sq, skv, d, causal,
                                             window, offset):
     """The bf16 forward with the L output gives the same bits of O as
-    without it, and an L that matches the plain version's (float32 on both
+    without it, an O that matches the plain version's (0 where a row sees
+    no key), and an L that matches the plain version's (float32 on both
     sides from the same bf16 inputs: ex2/lg2 approximations and summation
     order, 1e-4), +inf where a row sees no key."""
     dtype = torch.bfloat16
@@ -483,7 +503,9 @@ def test_flash_attention_forward_writes_lse(gen, b, hq, hkv, sq, skv, d, causal,
     o2, lse = flash_attention_cuda(q, k, v, causal, window, offset, return_lse=True)
     torch.cuda.synchronize()
     assert torch.equal(o, o2)
-    _, want = flash_attention_plain(q, k, v, causal, window, offset, return_lse=True)
+    want_o, want = flash_attention_plain(q, k, v, causal, window, offset, return_lse=True)
+    want_o[:, :, _no_key_rows(sq, skv, causal, window, offset)] = 0
+    _close(o, want_o, dtype)
     assert lse.shape == (b, hq, sq) and lse.dtype == torch.float32
     assert torch.equal(torch.isinf(lse), torch.isinf(want))
     torch.testing.assert_close(lse, want, atol=1e-4, rtol=1e-4)
@@ -834,15 +856,28 @@ def test_jamba_loss_refuses_a_gradient_through_the_scan(gen):
     (1, 4, 77, 77, True, None),          # ragged tail
     (1, 3, 96, 200, True, 64),           # window, offset 104
     (2, 2, 64, 130, False, None),        # full, ragged keys
+    # the bf16 plan's two 64-row q tiles a block: no rows in the last
+    # block's second at Sq 64 and 192
+    (2, 3, 64, 64, True, None),
+    (1, 3, 192, 192, True, None),
+    (2, 4, 1, 1, True, None),            # Sq 1
+    (1, 2, 1, 300, True, None),          # Sq 1 after 299 keys
+    (1, 2, 300, 300, True, 100),         # a window edge between the two tiles
+    (1, 2, 100, 237, True, None),        # offset 137, off the 64-key tiles
+    (1, 2, 130, 203, False, 50),         # full with a window, offset 73
 ])
 @pytest.mark.parametrize("d,dtype", [(192, torch.bfloat16), (192, torch.float32),
                                      (24, torch.float32)])
 def test_flash_attention_mla_head_dims(gen, b, h, sq, skv, causal, window, d,
                                        dtype):
+    """Against the plain version; bf16 gives O's bits with and without L."""
     q = _randn(gen, (b, h, sq, d), dtype)
     k, v = _randn(gen, (b, h, skv, d), dtype), _randn(gen, (b, h, skv, d), dtype)
     args = (q, k, v, causal, window, skv - sq, 192 ** -0.5)
-    _close(flash_attention_cuda(*args), flash_attention_plain(*args), dtype)
+    got = flash_attention_cuda(*args)
+    _close(got, flash_attention_plain(*args), dtype)
+    if dtype == torch.bfloat16:
+        assert torch.equal(got, flash_attention_cuda(*args, return_lse=True)[0])
 
 
 def test_flash_attention_mla_takes_the_models_views(gen):

@@ -2,7 +2,7 @@
 """Drive the PyTorch port's paths on one CUDA card: serving smollm-360M
 (dense), Jamba (hybrid Mamba + attention), xlstm-125m and DeepSeek-V3 (MLA +
 MoE), the SMOKE configs the server and trainer default to (and the MoE
-ones), and training smollm-360M.
+ones), and training smollm-360M, DeepSeek-V3's MLA prefix and Qwen3-MoE.
 
   python3 chip_smoke.py
 
@@ -18,7 +18,8 @@ time,
      none, spills, or its consumer warpgroups' setmaxnreg differs from its
      plan's; ptxas's registers and spills of the float32 instances too, D 24
      and 192 among them), if a bf16 backward instance has none,
-     if the head-dim-64 backward instances spill or if the train step's
+     if the head-dim-64 or head-dim-192 backward instances spill (ptxas's
+     report of the float32 backward at 24 and 192 too) or if the train step's
      RMSNorm-backward, sumsq or AdamW instance spills, and for each scan
      instance its SASS
      instructions, MUFU.EX2 and LDL/STL counts and resident blocks per SM,
@@ -41,6 +42,10 @@ time,
      backward kernels (flash attention at smollm's and, in bf16, Jamba's
      training shapes, with the forward's log-sum-exp as training passes
      it, and at SMOKE shapes with a window, an offset and ragged lengths;
+     at MLA's head dims: bf16 q = k = v (8, 128, 512, 192) causal with the
+     forward's L, contiguous and in the model's layout with V padded, and
+     float32 at (2, 16, 512, 192) and (8, 4, 512, 24), SDPA's backward with
+     the scale as yardstick;
      RMSNorm at d 960, 768, 1536), and the bf16 forward that also writes
      the log-sum-exp; the backward's library yardstick is the backward of
      ``scaled_dot_product_attention`` (``enable_gqa``) or ``F.rms_norm``:
@@ -106,12 +111,26 @@ time,
      logits / tokens, a profile of one prefill and one decode step, the
      peak device memory, and float32 parity of one full-width MLA block
      (``block_apply`` then 8 absorbed ``block_decode`` steps) card vs CPU;
+  20. trains DeepSeek-V3 at its published widths cut to its 3 dense-FFN
+     prefix layers (MLA + SwiGLU, ~3.6 B params, an empty stack) without
+     MTP, 8 steps of 8 x 512 tokens through ``launch.train.train``, eagerly
+     and from the train step's graph: step time, tokens/s, losses and grad
+     norms (graphed = eager, bit for bit; finite, falling), peak memory,
+     launches per step (the bf16 D-192 flash backward among them), the
+     graph's capture, one eager step's device ms by range;
+  21. the same for Qwen3-MoE at its published widths cut to one layer
+     (~3.7 B params: the MoE dispatch's backward, flash at G 16, D 128);
+  22. float32 training parity card vs CPU (phase 14's tolerances) of
+     DeepSeek SMOKE with its MTP module (MLA at head dim 24) and Qwen3-MoE
+     SMOKE, and every gradient of one full-width MLA + SwiGLU prefix block
+     at 2 x 16 tokens (the float32 D-192 backward);
 Every path runs with the launch counts set to 0 just before it and read just
 after; a graphed path's counts include its warm-up calls (``WARMUP`` eager
 calls before capture), and a replay adds what the capture recorded. Then it prints the kernel table as one JSON line (the rows of
 MLA's flash instances count the launches of the path that runs each:
 DeepSeek-V3 prefill for bf16 D 192, the parity phases for float32 D 192
-and 24) and, last,
+and 24; for the backward, DeepSeek-V3 training for bf16 D 192 and phase
+22 for float32 D 192 and 24) and, last,
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
 with no CUDA device, or outside a checkout, it exits non-zero at once. The
 full report goes to ``build/chip_smoke.json``, the compiler's output (ptxas
@@ -234,6 +253,33 @@ MLA_ROWS = {
                                 "DeepSeek SMOKE causal 8x4/4x512x512x24", "float32",
                                 "DeepSeek SMOKE parity (phase 12)"),
 }
+# the flash backward at MLA's head dims, each counted on the training path
+# that runs it (name: (source, TPU kernel it replaces, phase-2 case, dtype,
+# path))
+MLA_BWD_CASE = "MLA bwd causal 8x128/128x512x512x192 with L"
+MLA_BWD_MODEL_CASE = ("MLA bwd causal 8x128/128x512x512x192 with L, model layout "
+                      "(B,S,H,D) views, V padded")
+MLA_BWD_ROWS = {
+    "flash_attention_bwd_d192": ("src/repro_torch/csrc/flash_attention_bwd_sm90.cu",
+                                 "src/repro/kernels/flash_attention.py:84", MLA_BWD_CASE,
+                                 "bfloat16", "DeepSeek-V3 training (phase 20)"),
+    "flash_attention_bwd_f32_d192": ("src/repro_torch/csrc/flash_attention_bwd.cu",
+                                     "src/repro/kernels/flash_attention.py:84",
+                                     "MLA bwd causal 2x16/16x512x512x192", "float32",
+                                     "MLA block gradient parity (phase 22)"),
+    "flash_attention_bwd_f32_d24": ("src/repro_torch/csrc/flash_attention_bwd.cu",
+                                    "src/repro/kernels/flash_attention.py:84",
+                                    "DeepSeek SMOKE bwd causal 8x4/4x512x512x24", "float32",
+                                    "DeepSeek SMOKE training parity (phase 22)"),
+}
+# training at full width, cut to what one card holds with AdamW's 12 bytes a
+# param: DeepSeek-V3's 3 dense-FFN prefix layers (MLA + SwiGLU, ~3.6 B
+# params; a MoE layer is 11.5 B) without the MTP module (an MLA + MoE block),
+# and one Qwen3-MoE layer (~3.7 B params; two would be 6.2 B, 74.6 GB of
+# state); steps of 8 x 512 tokens
+DEEPSEEK_TRAIN_CUT = dict(n_layers=3, mtp=False)
+QWEN_TRAIN_CUT = dict(n_layers=1)
+MOE_TRAIN_STEPS = 8
 # smollm-360M training in phase 13: steps of 8 x 512 tokens
 TRAIN_STEPS = 16
 
@@ -575,6 +621,7 @@ def phase_kernels(rms, fla, dec, scan):
     rows += smoke_head_dim_rows(fla, dec, randn, gen)
     rows += mla_rows(fla, randn)
     rows += backward_rows(rms, fla, randn)
+    rows += mla_backward_rows(fla, randn)
     rows += optimizer_rows(gen)
     return rows
 
@@ -877,6 +924,55 @@ def backward_rows(rms, fla, randn):
     return rows
 
 
+def mla_backward_rows(fla, randn):
+    """The flash backward at MLA's head dims against its plain version (G =
+    1, causal, scale 192^-0.5): bf16 at DeepSeek-V3's training shape with
+    the forward's L, on contiguous tensors and in the model's layout ((B,
+    H, S, D) views of (B, S, H, 192) q, k, dO and of V padded from 128), and
+    float32 at 192 and 24; SDPA's backward (``scale`` given) as the
+    yardstick: autograd forward + backward less the forward."""
+    rows = []
+    for (name, (_, _, case, dn, _)), (b, h, s, d) in zip(
+            MLA_BWD_ROWS.items(), ((8, 128, 512, 192), (2, 16, 512, 192), (8, 4, 512, 24))):
+        dtype = getattr(torch, dn)
+        layouts = [(case, [randn((b, h, s, d), dtype) for _ in range(4)])]
+        if dn == "bfloat16":
+            v = F.pad(randn((b, s, h, 128), dtype), (0, d - 128))
+            layouts.append((MLA_BWD_MODEL_CASE, [
+                randn((b, s, h, d), dtype).transpose(1, 2),
+                randn((b, s, h, d), dtype).transpose(1, 2), v.transpose(1, 2),
+                randn((b, s, h, d), dtype).transpose(1, 2)]))
+        scale = d ** -0.5
+        pairs = s * (s + 1) // 2
+        for lcase, (q, k, v, do) in layouts:
+            lse = None
+            if dn == "bfloat16":
+                o, lse = fla.flash_attention_cuda(q, k, v, True, None, 0, scale,
+                                                  return_lse=True)
+            else:
+                o = fla.flash_attention_cuda(q, k, v, True, None, 0, scale)
+            args = (q, k, v, o, do, True, None, 0, scale)
+            ql, kl, vl = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+
+            def lib_f(ql=ql, kl=kl, vl=vl, sc=scale):
+                return F.scaled_dot_product_attention(ql, kl, vl, is_causal=True, scale=sc)
+
+            rows.append(compare(
+                "flash_attention_bwd", lcase, dn,
+                fla.flash_attention_bwd_cuda(*args, lse=lse),
+                fla.flash_attention_bwd_plain(*args), "attn_bwd",
+                run=lambda a=args, l=lse: fla.flash_attention_bwd_cuda(*a, lse=l),
+                plain=lambda a=args: fla.flash_attention_bwd_plain(*a),
+                library=lambda f=lib_f, ins=(ql, kl, vl), do=do:
+                    torch.autograd.grad(f(), ins, do),
+                library_fwd=lib_f,
+                # q, k, v, o, dO, dq, dk, dv once each (L is 0.2% beside them);
+                # five products of 2 D operations per (query, key) pair
+                n_bytes=8 * nbytes(q), ops=10 * b * h * d * pairs, plain_iters=5))
+            rows[-1]["instance"] = fla.INSTANCES[dtype]
+    return rows
+
+
 def split_sweep(dec, q, k, v, length, counts=(1, 2, 3, 4, 8)) -> dict:
     """Device ms of one decode-attention call with the cache cut into each
     of ``counts`` splits (``dec.split_plan`` replaced for the sweep), beside
@@ -919,22 +1015,35 @@ def per_pass(cfg) -> dict:
 
 
 def per_train_step(cfg) -> dict:
-    """Kernel launches per train step of ``cfg`` (attention and dense blocks
-    only; the scan has no backward kernel): with ``cfg.remat`` every
+    """Kernel launches per train step of ``cfg`` (attention, MLA, dense and
+    MoE blocks; the scan has no backward kernel): with ``cfg.remat`` every
     period's forward runs twice (once in the forward pass, once again in
-    the backward pass), the final norm once; each norm and attention layer
-    runs its backward once; the clip one ``sumsq`` per leaf of the param
-    tree and one ``clip_finalize``, AdamW one ``adamw_update`` per leaf."""
+    the backward pass), the dense prefix, the final norm and the MTP module
+    (its two input norms, its block and its final norm) once; each norm
+    and attention layer runs its backward once; the clip one ``sumsq`` per
+    leaf of the param tree and one ``clip_finalize``, AdamW one
+    ``adamw_update`` per leaf."""
     from repro_torch.models import transformer
     from repro_torch.models.module import tree_leaves
 
-    per = per_pass(cfg)
+    def norms(spec):
+        mixer, ffn = spec
+        return 1 + (ffn is not None) + (mixer == "mlstm") + 2 * (mixer == "mla")
+
+    def attn(spec):
+        return int(spec[0] in ("attn", "mla"))
+
+    prefix = [transformer._prefix_spec(cfg)] * cfg.first_k_dense
+    stack = list(cfg.period) * cfg.n_periods
+    once = prefix + ([cfg.period[0]] if cfg.mtp else [])
     twice = 2 if cfg.remat else 1
+    fwd_norms = (sum(map(norms, once)) + twice * sum(map(norms, stack)) + 1
+                 + 3 * cfg.mtp)
+    bwd_norms = sum(map(norms, once + stack)) + 1 + 3 * cfg.mtp
     leaves = len(tree_leaves(transformer.init(torch.Generator(), cfg, device="meta")))
-    return {"rmsnorm": twice * (per["rmsnorm"] - 1) + 1,
-            "rmsnorm_bwd": per["rmsnorm"],
-            "flash_attention": twice * per["flash"],
-            "flash_attention_bwd": per["flash"],
+    return {"rmsnorm": fwd_norms, "rmsnorm_bwd": bwd_norms,
+            "flash_attention": sum(map(attn, once)) + twice * sum(map(attn, stack)),
+            "flash_attention_bwd": sum(map(attn, once + stack)),
             "sumsq": leaves, "clip_finalize": 1, "adamw_update": leaves}
 
 
@@ -1189,7 +1298,10 @@ INSTANCE_NAMES = {
     "scan": (r"mamba_scan_kernelI(f|13__nv_bfloat16)Li(\d+)EE", "{} N{}"),
     "flash_bwd": (r"flash_bwd_(dq|dkdv)_kernelI(f|13__nv_bfloat16)Li(\d+)EE",
                   "{} {} D{}"),
-    "flash_bwd_wgmma": (r"flash_bwd_(dq|dkdv)_wgmmaILi(\d+)E", "{} DP{}"),
+    # flash_bwd_dq_pair_wgmma and flash_bwd_dkdv_split_wgmma (DP 192, two
+    # consumer warpgroups) are no templates: their labels are fixed
+    "flash_bwd_wgmma": (r"flash_bwd_(dq|dkdv)_(?:wgmmaILi(\d+)E|pair_wgmma|split_wgmma)",
+                        "{} DP{}"),
     "rmsnorm_bwd": (r"rmsnorm_bwd_(warp|block|scalar)_kernelI(f|13__nv_bfloat16)Li(\d+)E",
                     "{} {} NV{}"),
     "adamw": (r"(sumsq|adamw_update|clip_finalize)_kernel(?:I(f|13__nv_bfloat16)E)?",
@@ -1203,8 +1315,12 @@ SCAN_MAIN = "bf16 N16"
 # entry budget 168 = 65536 / 384 threads in steps of 8 (Plan<192, 1, 2>)
 MLA_INSTANCE = "DP192 NH1 NQ2"
 MLA_CONSUMER_REGS = (65536 // 384 // 8 * 8 * 3 - 40) // 2 // 8 * 8
-# the bf16 backward instances of the main path (smollm: head dim 64)
+# the bf16 backward instances of the main path (smollm: head dim 64) and of
+# MLA's (DeepSeek-V3 training: head dim 192), which must not spill
 FLASH_BWD_MAIN = ("dq DP64", "dkdv DP64")
+FLASH_BWD_MLA = ("dq DP192", "dkdv DP192")
+# the float32 backward instances of MLA's head dims (the parity phases)
+FLASH_BWD_F32_MLA = ("dq f32 D24", "dkdv f32 D24", "dq f32 D192", "dkdv f32 D192")
 # the instances of smollm's train step that must not spill: the RMSNorm
 # backward at d 960 (bf16, 4 vectors a lane), the clip and AdamW in bf16
 TRAIN_MAIN = {"rmsnorm_bwd": ("warp bf16 NV4",),
@@ -1222,6 +1338,8 @@ def instance_label(family: str, name: str):
     m = re.search(pattern, name)
     if not m:
         return None
+    if family == "flash_bwd_wgmma" and m.group(2) is None:
+        return f"{m.group(1)} DP192"
     return fmt.format(*("f32" if g == "f" else "bf16" if g == "13__nv_bfloat16"
                         else g or "" for g in m.groups())).strip()
 
@@ -1348,10 +1466,14 @@ def train_parity(cfg, p_cpu, p_gpu, batch, loss_fn, make_train_step, adamw,
 
 
 def _paired_leaves(a, b, path=""):
-    """(path, leaf of a, leaf of b) over two trees of nested dicts."""
+    """(path, leaf of a, leaf of b) over two trees of nested dicts and lists
+    (DeepSeek's dense prefix is a list)."""
     if isinstance(a, dict):
         for k in sorted(a):
             yield from _paired_leaves(a[k], b[k], f"{path}/{k}")
+    elif isinstance(a, (list, tuple)):
+        for i, (x, y) in enumerate(zip(a, b)):
+            yield from _paired_leaves(x, y, f"{path}/{i}")
     else:
         yield path, a, b
 
@@ -1395,6 +1517,7 @@ def main() -> int:
     totals = {name: 0 for name in kern}     # launches over every main path
     side = {name: 0 for name in kern}       # launches of the parity phases
     mla_totals = {name: 0 for name in MLA_ROWS}   # launches of MLA's instances
+    mla_totals.update({name: 0 for name in MLA_BWD_ROWS})
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
     report = {"phase_s": {}}
@@ -1542,6 +1665,80 @@ def main() -> int:
         step_g.release()
         return out
 
+    def train_pair(arch, over, what):
+        """``launch.train.train`` of ``arch`` at its published widths cut by
+        ``over``: MOE_TRAIN_STEPS steps of 8 x 512 ``SyntheticLM`` tokens,
+        AdamW as phase 13, eagerly and from the train step's graph, each
+        with the launch counts of ``per_train_step``; the graphed losses and
+        grad norms must equal the eager ones bit for bit, and fall. Then one
+        eager step on the trained params, by ``record_function`` range."""
+        cfg = dataclasses.replace(get(arch), **over)
+        per_t = per_train_step(cfg)
+        rec = {"cut": over, "steps": MOE_TRAIN_STEPS, "batch": 8, "seq": 512,
+               "launches_per_step": per_t}
+        for mode, graphs_on, n in (("eager", False, MOE_TRAIN_STEPS),
+                                   ("graphed", True, MOE_TRAIN_STEPS + WARMUP)):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            fla.flash_attention_bwd_cuda.lse_forwards = 0
+            out = drive(kern, totals, zero(**{k: v * n for k, v in per_t.items()}),
+                        lambda: train(arch, smoke=False, steps=MOE_TRAIN_STEPS, batch=8,
+                                      seq=512, log_every=MOE_TRAIN_STEPS, device="cuda",
+                                      graphs=graphs_on, overrides=over),
+                        f"{what} ({mode})")
+            run = rec[mode] = {
+                "losses": out["losses"], "grad_norms": out["grad_norms"],
+                "step_s": out["step_s"],
+                "median_step_s": statistics.median(out["step_s"][1:]),
+                "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                "lse_forwards": fla.flash_attention_bwd_cuda.lse_forwards}
+            run["tokens_per_s"] = 8 * 512 / run["median_step_s"]
+            losses = run["losses"]
+            if run["lse_forwards"] != 0:
+                fail(f"{what} ({mode}) ran {run['lse_forwards']} extra forwards for the "
+                     "backward's log-sum-exp")
+            if len(losses) != MOE_TRAIN_STEPS or not all(math.isfinite(x) for x in losses):
+                fail(f"{what} ({mode}) losses not finite: {losses}")
+            if not losses[-1] < losses[0]:
+                fail(f"{what} ({mode}) loss did not fall: {losses}")
+            if mode == "eager":
+                del out
+        rec["params"] = param_count(out["params"])
+        rec["graphed"]["capture"] = capture_report(out["capture"], zero(**per_t), what)
+        for key in ("losses", "grad_norms"):
+            if rec["graphed"][key] != rec["eager"][key]:
+                fail(f"{what}: graphed {key} {rec['graphed'][key]} differ from eager "
+                     f"{rec['eager'][key]}")
+        opt = adamw(warmup_cosine(3e-4, warmup=1, total=MOE_TRAIN_STEPS))
+        toks = torch.randint(0, cfg.vocab, (8, 513),
+                             generator=torch.Generator().manual_seed(SEED + 4)).to("cuda")
+        tb = {"inputs": toks[:, :-1], "labels": toks[:, 1:]}
+        step_e = make_train_step(out["cfg"], opt, device="cuda", graphs=False)
+        rec["ranges"] = range_profile(lambda: step_e(out["params"], out["opt_state"], tb))
+        full = {r: rec["ranges"][r]["full_size"] for r in ("clip", "optimizer")}
+        if any(full.values()):
+            fail(f"{what}: the clip or the optimizer ran full-size elementwise kernels "
+                 f"beside csrc/adamw.cu's: {full}")
+        del out, step_e
+        torch.cuda.empty_cache()
+        return rec
+
+    def print_train(tag, rec, tail):
+        e, g = rec["eager"], rec["graphed"]
+        cap = g["capture"]
+        print(f"{tag} ({rec['params'] / 1e9:.2f} B params), {rec['steps']} steps of 8x512 "
+              f"through launch.train.train: median step eager {e['median_step_s'] * 1e3:.1f} "
+              f"ms, graphed {g['median_step_s'] * 1e3:.1f} ms ({e['tokens_per_s']:.0f} -> "
+              f"{g['tokens_per_s']:.0f} tokens/s); graphed losses and grad norms = eager "
+              f"ones, bit for bit: loss {e['losses'][0]:.4f} -> {e['losses'][-1]:.4f}, "
+              f"grad_norm {e['grad_norms'][0]:.3f} -> {e['grad_norms'][-1]:.3f}; peak device "
+              f"memory eager {e['max_memory_allocated'] / 2**30:.2f} GiB, graphed "
+              f"{g['max_memory_allocated'] / 2**30:.2f} GiB; capture {cap['capture_s']:.2f} s "
+              f"after {cap['warmup_calls']} eager steps ({cap['warmup_s']:.2f} s), pool "
+              f"{cap['pool_bytes'] / 2**30:.2f} GiB; launches per step and per replay: "
+              + ", ".join(f"{k} {v}" for k, v in rec["launches_per_step"].items())
+              + f"; losses {[round(x, 4) for x in e['losses']]} {tail}", flush=True)
+
     def print_pair(tag, rec, key, unit, tail):
         e, g = rec["eager"], rec["graphed"]
         cap = g["capture"]
@@ -1612,10 +1809,13 @@ def main() -> int:
         fail(f"the bf16 D-192 flash instance's consumers do not take the plan's "
              f"{MLA_CONSUMER_REGS} registers with setmaxnreg: {mla_sass}")
     bwd_hgmma, bwd_spills = sass["flash_bwd_wgmma_hgmma"], sass["flash_bwd_wgmma_spill_bytes"]
-    if len(bwd_hgmma) != 4 or not all(bwd_hgmma.values()):
+    if len(bwd_hgmma) != 6 or not all(bwd_hgmma.values()):
         fail(f"a bf16 flash-backward instance has no HGMMA instruction: {bwd_hgmma}")
-    if any(bwd_spills.get(lab) != 0 for lab in FLASH_BWD_MAIN):
-        fail(f"the DP 64 flash-backward instances spill: {bwd_spills}")
+    if any(bwd_spills.get(lab) != 0 for lab in FLASH_BWD_MAIN + FLASH_BWD_MLA):
+        fail(f"the DP 64 or DP 192 flash-backward instances spill: {bwd_spills}")
+    bwd_f32_mla = {lab: sass["ptxas_flash_bwd"].get(lab) for lab in FLASH_BWD_F32_MLA}
+    if not all(bwd_f32_mla.values()):
+        fail(f"no ptxas report of the float32 backward at MLA's head dims: {bwd_f32_mla}")
     if not all(sass[k] for k in ("ptxas_decode", "ptxas_rmsnorm", "ptxas_scan",
                                  "ptxas_flash_bwd", "ptxas_rmsnorm_bwd", "ptxas_adamw")):
         fail(f"no ptxas report of the decode, RMSNorm, scan, backward or AdamW "
@@ -1649,7 +1849,11 @@ def main() -> int:
           + f"; float32 flash ptxas: {sass['ptxas_flash_f32']}; decode attention ptxas: "
           f"{sass['ptxas_decode']}; RMSNorm ptxas: {sass['ptxas_rmsnorm']}; "
           f"scan ptxas: {sass['ptxas_scan']}; bf16 flash backward (wgmma) ptxas: "
-          f"{sass['ptxas_flash_bwd_wgmma']}, HGMMA {bwd_hgmma}, spill bytes {bwd_spills}; "
+          f"{sass['ptxas_flash_bwd_wgmma']}, HGMMA {bwd_hgmma}, spill bytes {bwd_spills} "
+          f"(MLA's DP 192: " + ", ".join(f"{lab} {sass['ptxas_flash_bwd_wgmma'].get(lab)}, "
+                                        f"HGMMA {bwd_hgmma.get(lab)}" for lab in FLASH_BWD_MLA)
+          + "; float32 at MLA's head dims: " + ", ".join(
+              f"{k} {v}" for k, v in bwd_f32_mla.items()) + "); "
           f"backward ptxas: flash (simt) "
           f"{sass['ptxas_flash_bwd']}, RMSNorm {sass['ptxas_rmsnorm_bwd']}; clip and "
           f"AdamW ptxas: {sass['ptxas_adamw']}; "
@@ -2121,6 +2325,97 @@ def main() -> int:
     del bp_gpu, bp_cpu, c_gpu
     torch.cuda.empty_cache()
 
+    # 20. DeepSeek-V3 training at its published widths, cut to its 3 dense
+    # prefix layers (MLA + SwiGLU; n_periods 0, an empty stack) without the
+    # MTP module: the bf16 D-192 flash backward on the train step's path
+    report["moe_train"] = mt = {}
+    n_bwd = totals["flash_attention_bwd"]
+    mt["deepseek"] = train_pair("deepseek_v3_671b", DEEPSEEK_TRAIN_CUT,
+                                "DeepSeek-V3 training")
+    mla_totals["flash_attention_bwd_d192"] += totals["flash_attention_bwd"] - n_bwd
+    print_train("[20 deepseek train] deepseek-v3 widths, 3 dense-prefix MLA layers, no MTP",
+                mt["deepseek"], f"; D-192 flash backward launches "
+                f"{mla_totals['flash_attention_bwd_d192']} {took('20 deepseek train')}")
+    print_ranges("[20 deepseek train ranges]", mt["deepseek"]["ranges"])
+
+    # 21. Qwen3-MoE training at its published widths, cut to one layer (GQA
+    # attention at G 16, head dim 128; 128 experts top-8): the MoE dispatch's
+    # backward and the bf16 D-128 flash backward
+    mt["qwen3_moe"] = train_pair("qwen3_moe_235b_a22b", QWEN_TRAIN_CUT, "Qwen3-MoE training")
+    print_train("[21 qwen3-moe train] qwen3-moe widths, 1 layer", mt["qwen3_moe"],
+                took("21 qwen3-moe train"))
+    print_ranges("[21 qwen3-moe train ranges]", mt["qwen3_moe"]["ranges"])
+
+    # 22. float32 training parity, card vs CPU: DeepSeek SMOKE with its MTP
+    # module (MLA at head dim 24, MoE, the MTP loss) and Qwen3-MoE SMOKE at
+    # 2 x 128 tokens (loss, grad norm, every gradient leaf, params after one
+    # AdamW step); then every gradient of one full-width MLA + SwiGLU prefix
+    # block at 2 x 16 tokens (the float32 D-192 backward)
+    tpm = report["moe_train_parity"] = {}
+    for arch in ("deepseek_v3_671b", "qwen3_moe_235b_a22b"):
+        c = get(arch, smoke=True)
+        pt = per_train_step(c)
+        p_cpu = transformer.init(torch.Generator().manual_seed(SEED), c, device="cpu")
+        toks = torch.randint(0, c.vocab, (2, 129),
+                             generator=torch.Generator().manual_seed(SEED + 5))
+        batch = {"inputs": toks[:, :-1], "labels": toks[:, 1:]}
+        # one backward, then one graphed train step (WARMUP eager calls,
+        # the capture and a replay)
+        step_keys = ("sumsq", "clip_finalize", "adamw_update")
+        want = zero(**{k: v * (1 + WARMUP) if k in step_keys else v * (2 + WARMUP)
+                       for k, v in pt.items()})
+        tpm[arch] = drive(kern, side, want, lambda: train_parity(
+            c, p_cpu, tree_map(lambda a: a.to("cuda"), p_cpu), batch, model_api(c).loss,
+            make_train_step, adamw), f"{arch} SMOKE training parity")
+        if not tpm[arch]["ok"]:
+            fail(f"{arch} SMOKE float32 training card vs CPU differs: {tpm[arch]}")
+        if arch == "deepseek_v3_671b":
+            mla_totals["flash_attention_bwd_f32_d24"] += want["flash_attention_bwd"]
+    bcfg = dataclasses.replace(get("deepseek_v3_671b"), dtype="float32", mtp=False)
+    spec = ("mla", "mlp")
+    bp_gpu = transformer.block_init(torch.Generator(device="cuda").manual_seed(SEED),
+                                    spec, bcfg, torch.float32, "cuda")
+    bp_cpu = tree_map(lambda a: a.cpu(), bp_gpu)
+    bgen = torch.Generator().manual_seed(SEED + 6)
+    xb = torch.randn((2, 16, bcfg.d_model), generator=bgen)
+    dy = torch.randn((2, 16, bcfg.d_model), generator=bgen)
+
+    def block_grads(bp, dev):
+        p = tree_map(lambda a: a.detach().requires_grad_(True), bp)
+        x = xb.to(dev).requires_grad_(True)
+        y, _ = transformer.block_apply(p, x, spec, bcfg, torch.arange(16, device=dev))
+        (y * dy.to(dev)).sum().backward()
+        return {"x": x.grad, "params": tree_map(lambda a: a.grad, p)}
+
+    g_gpu = drive(kern, side, zero(rmsnorm=4, rmsnorm_bwd=4, flash_attention=1,
+                                   flash_attention_bwd=1),
+                  lambda: block_grads(bp_gpu, "cuda"), "MLA block gradient parity")
+    mla_totals["flash_attention_bwd_f32_d192"] += 1
+    g_cpu = block_grads(bp_cpu, "cpu")
+    blk = tpm["mla_block"] = {"params": param_count(bp_cpu), "leaves": 0,
+                              "worst_grad": None, "worst_grad_ratio": 0.0}
+    for path, gc, gg in _paired_leaves(g_cpu, g_gpu):
+        blk["leaves"] += 1
+        tol = GRAD_TOL * float(gc.abs().max()) + 1e-6
+        ratio = float((gg.cpu() - gc).abs().max()) / tol
+        if ratio >= blk["worst_grad_ratio"]:
+            blk["worst_grad"], blk["worst_grad_ratio"] = path, ratio
+    if blk["worst_grad_ratio"] > 1.0:
+        fail(f"the full-width MLA block's gradients differ card vs CPU: {blk}")
+    del bp_gpu, bp_cpu, g_gpu, g_cpu
+    torch.cuda.empty_cache()
+    print(f"[22 moe train parity] float32, card vs CPU: " + "; ".join(
+        f"{a} SMOKE{' (MTP, MLA head dim 24)' if a.startswith('deepseek') else ''} 2x128: "
+        f"loss {v['loss_cpu']:.6f} (err {v['loss_err']:.2e}, tol {LOSS_TOL:g}), grad_norm "
+        f"err {v['grad_norm_rel_err']:.2e}, {v['leaves']} gradient leaves, worst "
+        f"{v['worst_grad']} at {v['worst_grad_ratio']:.3f} of its tolerance, params after "
+        f"one AdamW step max err {v['param_max_err']:.2e} (tol {v['param_tol']:.2e})"
+        for a, v in tpm.items() if a != "mla_block")
+        + f"; one full-width MLA + SwiGLU block ({blk['params'] / 1e6:.1f} M params) at "
+        f"2x16: {blk['leaves']} gradients (x and every param), worst {blk['worst_grad']} at "
+        f"{blk['worst_grad_ratio']:.3f} of its tolerance ({GRAD_TOL:g} max|g| + 1e-6) "
+        f"{took('22 moe train parity')}", flush=True)
+
     # the kernel table: main-path shapes, bf16; launches over every main path
     table = []
     for name, (source, replaces, case) in KERNELS.items():
@@ -2134,9 +2429,11 @@ def main() -> int:
                       "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                       "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                       "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
-    # MLA's flash instances, each with the launches of the path that runs it
-    for name, (source, replaces, case, dn, path) in MLA_ROWS.items():
-        r = next(r for r in rows if r["kernel"] == "flash_attention" and r["case"] == case
+    # MLA's flash instances, forward and backward, each with the launches of
+    # the path that runs it
+    for name, (source, replaces, case, dn, path) in {**MLA_ROWS, **MLA_BWD_ROWS}.items():
+        kernel = "flash_attention_bwd" if name in MLA_BWD_ROWS else "flash_attention"
+        r = next(r for r in rows if r["kernel"] == kernel and r["case"] == case
                  and r["dtype"] == dn)
         if mla_totals[name] == 0:
             fail(f"{name} was never launched on its path ({path})")

@@ -44,7 +44,11 @@
 // element and coalesced along each row: any strides work, including the
 // stride-0 dims of a gradient that autograd broadcast. Rows past Sq and
 // keys past Skv read as zeros and are masked; nothing is written past them
-// or past D. Head dims 16, 20, 32, 64, 80, 128.
+// or past D. Head dims 16, 20, 24, 32, 64, 80, 128, 192 (24 and 192 are
+// MLA's, DeepSeek-V3's at SMOKE size and at its published widths). At 192
+// the dK/dV block's four tiles and separate P and dS tiles would pass the
+// 227 KB a block can have, so P and then dS go through one tile: dv first,
+// then dk, each sum in the same order as with two tiles.
 #include "common.cuh"
 
 #include <math.h>
@@ -142,9 +146,16 @@ constexpr size_t dq_smem_bytes() {
   return (4 * (size_t)kB * (D + 1) + (size_t)kB * kPS + kB) * sizeof(float);
 }
 
+// P and dS each in its own tile, unless that passes a block's shared memory
+template <int D>
+__host__ __device__ constexpr bool dkdv_two_tiles() {
+  return (4 * (size_t)kB * (D + 1) + 2 * (size_t)kB * kPS + 2 * kB) * sizeof(float) <= kMaxSmem;
+}
+
 template <int D>
 constexpr size_t dkdv_smem_bytes() {
-  return (4 * (size_t)kB * (D + 1) + 2 * (size_t)kB * kPS + 2 * kB) * sizeof(float);
+  return (4 * (size_t)kB * (D + 1) + (dkdv_two_tiles<D>() ? 2 : 1) * (size_t)kB * kPS + 2 * kB) *
+         sizeof(float);
 }
 
 template <typename T, int D>
@@ -290,6 +301,29 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   }
 }
 
+// acc[j][c] += sum over the tile's q rows qq of w[qq][key] x[qq][col], for
+// this thread's keys tq + 16 j and columns tk + 16 c (w: P or dS; x: dO or Q)
+template <int D>
+__device__ __forceinline__ void accumulate_rows(float (&acc)[4][(D + 15) / 16], const float* w,
+                                                const float* x, int tq, int tk) {
+  constexpr int DS = D + 1, CD = (D + 15) / 16;
+#pragma unroll 2
+  for (int qq = 0; qq < kB; ++qq) {
+    float xv[CD];
+#pragma unroll
+    for (int c = 0; c < CD; ++c) {
+      const int col = tk + 16 * c;
+      xv[c] = col < D ? x[qq * DS + col] : 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float wv = w[qq * kPS + tq + 16 * j];
+#pragma unroll
+      for (int c = 0; c < CD; ++c) acc[j][c] = fmaf(wv, xv[c], acc[j][c]);
+    }
+  }
+}
+
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -303,8 +337,9 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* vs = ks + kB * DS;
   float* qs = vs + kB * DS;
   float* dos = qs + kB * DS;
-  float* ps = dos + kB * DS;   // (kB, kPS)
-  float* dss = ps + kB * kPS;  // (kB, kPS)
+  constexpr bool kTwo = dkdv_two_tiles<D>();
+  float* ps = dos + kB * DS;                  // (kB, kPS)
+  float* dss = kTwo ? ps + kB * kPS : ps;     // (kB, kPS), or P's tile
   float* ls = dss + kB * kPS;  // L of each q row of the tile
   float* dl = ls + kB;         // delta of each q row
   const int tid = threadIdx.x;
@@ -352,29 +387,44 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
           const bool ok = q0 + r < Sq && visible(qpos, k0 + tk + 16 * j, Skv, causal, window);
           const float p = ok ? expf(s[i][j] * scale - lr) : 0.f;
           ps[r * kPS + tk + 16 * j] = p;
-          dss[r * kPS + tk + 16 * j] = p * (dp[i][j] - dr);
+          // with one tile, dS waits in s until dv has read P
+          if constexpr (kTwo)
+            dss[r * kPS + tk + 16 * j] = p * (dp[i][j] - dr);
+          else
+            s[i][j] = p * (dp[i][j] - dr);
         }
       }
       __syncthreads();
+      if constexpr (kTwo) {
 #pragma unroll 2
-      for (int qq = 0; qq < kB; ++qq) {
-        float gv[CD], qv[CD];
-#pragma unroll
-        for (int c = 0; c < CD; ++c) {
-          const int col = tk + 16 * c;
-          gv[c] = col < D ? dos[qq * DS + col] : 0.f;
-          qv[c] = col < D ? qs[qq * DS + col] : 0.f;
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float p = ps[qq * kPS + tq + 16 * j];
-          const float ds = dss[qq * kPS + tq + 16 * j];
+        for (int qq = 0; qq < kB; ++qq) {
+          float gv[CD], qv[CD];
 #pragma unroll
           for (int c = 0; c < CD; ++c) {
-            dva[j][c] = fmaf(p, gv[c], dva[j][c]);
-            dka[j][c] = fmaf(ds, qv[c], dka[j][c]);
+            const int col = tk + 16 * c;
+            gv[c] = col < D ? dos[qq * DS + col] : 0.f;
+            qv[c] = col < D ? qs[qq * DS + col] : 0.f;
+          }
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float p = ps[qq * kPS + tq + 16 * j];
+            const float ds = dss[qq * kPS + tq + 16 * j];
+#pragma unroll
+            for (int c = 0; c < CD; ++c) {
+              dva[j][c] = fmaf(p, gv[c], dva[j][c]);
+              dka[j][c] = fmaf(ds, qv[c], dka[j][c]);
+            }
           }
         }
+      } else {
+        accumulate_rows<D>(dva, ps, dos, tq, tk);
+        __syncthreads();
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) dss[(tq + 16 * i) * kPS + tk + 16 * j] = s[i][j];
+        __syncthreads();
+        accumulate_rows<D>(dka, dss, qs, tq, tk);
       }
     }
   }
@@ -442,10 +492,12 @@ cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v, const
   switch (D) {
     case 16: REPRO_BWD(16);
     case 20: REPRO_BWD(20);
+    case 24: REPRO_BWD(24);
     case 32: REPRO_BWD(32);
     case 64: REPRO_BWD(64);
     case 80: REPRO_BWD(80);
     case 128: REPRO_BWD(128);
+    case 192: REPRO_BWD(192);
     default: return cudaErrorInvalidValue;
   }
 #undef REPRO_BWD

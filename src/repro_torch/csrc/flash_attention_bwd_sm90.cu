@@ -56,6 +56,24 @@
 // dims 16, 32 and 64 run as 64 (DP), 80 and 128 as 128, the columns past D
 // zero-filled by TMA and never written. Every accumulation is float32; P and
 // dS are rounded to bf16 once, as operands of the tensor-core products.
+//
+// Head dim 192 (MLA: qk 128 + 64; V padded from 128 by the model) differs
+// in two ways. Registers: one warpgroup holding dK and dV (96 + 96 floats a
+// thread) beside S^T and dP^T (32 + 32) would need 256, past the 255 a
+// thread can have; so flash_bwd_dkdv_split_wgmma gives dV and dK to two
+// consumer warpgroups that share the block's K/V tile and its ring of Q/dO
+// tiles, each computing its own S^T (warpgroup 0: S^T, dV += P^T dO;
+// warpgroup 1: S^T, dP^T, dK += dS^T Q), eight products per tile pair in
+// the two launches against seven, with nothing exchanged between them;
+// warpgroup 0 also fills the ring, as a producer warp would cost
+// warpgroup 1 the registers it needs (below).
+// Launch order: with G = 1 a head's K/V (dQ launch) or Q/dO (dK/dV launch)
+// is 393 KB at 512 rows, and at DeepSeek-V3's 128 heads x 8 batches the
+// head-fastest grid put 1,024 (head, batch) pairs, 402 MB, between two tiles
+// of one head, so every tile read its operands from HBM; at DP 192 the
+// tiles of one (batch, head) are the fastest grid index, neighbours in
+// launch order, and read a head's operands through the 50 MB L2. The dQ
+// kernel at DP 192 is the DP 64/128 one with three stages.
 #include "sm90.cuh"
 
 #include <math.h>
@@ -74,7 +92,9 @@ struct Str {
 
 template <int DP>
 struct DqPlan {
-  static constexpr int kStages = DP == 64 ? 4 : 2;
+  static constexpr int kStages = DP == 64 ? 4 : DP == 128 ? 2 : 3;
+  // the tiles of one (batch, head) neighbours in launch order (see above)
+  static constexpr bool kTilesFirst = DP == 192;
   static constexpr int kTile = kBM * DP * 2;
   static constexpr int kQ = 0, kDO = kTile;                 // loaded once
   static constexpr int kK = 2 * kTile;                      // kStages K tiles
@@ -173,8 +193,11 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tmq, const __grid_constan
   float* dl = reinterpret_cast<float*>(smem_raw + (base - smem_addr(smem_raw)) + P::kDelta);
   const uint32_t bar_q = base + P::kBar, bar_f = bar_q + 8, bar_e = bar_f + 8 * ST;
 
-  const int h = blockIdx.x, b = blockIdx.y, kvh = h / G;
-  const int q0 = (gridDim.z - 1 - blockIdx.z) * kBM;  // the longest causal rows first
+  const int h = P::kTilesFirst ? blockIdx.y : blockIdx.x;
+  const int b = P::kTilesFirst ? blockIdx.z : blockIdx.y, kvh = h / G;
+  // the longest causal rows first
+  const int q0 = P::kTilesFirst ? (gridDim.x - 1 - blockIdx.x) * kBM
+                                : (gridDim.z - 1 - blockIdx.z) * kBM;
   const int n_q = min(kBM, Sq - q0);
   // kv range this q tile can see: [window start, causal frontier]
   const int q_lo = offset + q0, q_hi = offset + q0 + n_q - 1;
@@ -493,19 +516,249 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tmq,
   store_rows<DP>(dv + b * sdv.b + kvh * sdv.h + k0 * sdv.s, sdv.s, dva, 1.f, r0, col0, n_k, D);
 }
 
+// dK/dV at DP 192 on two consumer warpgroups (see above) and no producer
+// warp: a ninth warp would cap a thread at 224 registers (65536 / 288 in
+// steps of 8), where warpgroup 1 (dK 96 + S^T 32 + dP^T 32 accumulators and
+// the products' descriptors) spilled and ptxas serialised its wgmma
+// (C7512); at 256 threads a thread has 255. Warpgroup 0, the lighter,
+// also fills the ring: thread 0 issues the TMA copies and its 128 threads
+// stage L and delta, each arriving on the stage's full barrier; it refills
+// stage s with tile j + kStages once both warpgroups have released tile j.
+struct DkvSplitPlan {
+  static constexpr int kDP = 192;
+  static constexpr int kStages = 3;
+  static constexpr int kThreads = 256;
+  static constexpr int kTile = kBM * kDP * 2;
+  static constexpr int kK = 0, kV = kTile;                  // loaded once
+  static constexpr int kQ = 2 * kTile;                      // kStages Q tiles
+  static constexpr int kDO = kQ + kStages * kTile;          // kStages dO tiles
+  static constexpr int kL = kDO + kStages * kTile;          // kStages x 64 -L log2e
+  static constexpr int kDl = kL + kStages * kBM * 4;        // kStages x 64 delta
+  static constexpr int kBar = kDl + kStages * kBM * 4;      // kv, full[], empty[]
+  static constexpr int kBytes = kBar + 8 * (1 + 2 * kStages) + 1024;
+};
+
+// One thread's copy (where `p`) issued without a branch: a lane-dependent
+// branch between wgmma groups can make ptxas serialise them.
+__device__ __forceinline__ void tma_load_if(bool p, uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int d0, int s0, int h, int b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %7, 0;\n"
+      "@p cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n}\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(d0), "r"(s0), "r"(h), "r"(b),
+      "r"(static_cast<int>(p))
+      : "memory");
+}
+
+// Arrive on `bar`, announcing `bytes` of TMA where `p`.
+__device__ __forceinline__ void mbar_arrive_expect_if(bool p, uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %2, 0;\n"
+      "@p mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+      "@!p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n" ::"r"(bar),
+      "r"(bytes), "r"(static_cast<int>(p))
+      : "memory");
+}
+
+__global__ void __launch_bounds__(DkvSplitPlan::kThreads, 1)
+flash_bwd_dkdv_split_wgmma(const __grid_constant__ CUtensorMap tmq,
+                           const __grid_constant__ CUtensorMap tmk,
+                           const __grid_constant__ CUtensorMap tmv,
+                           const __grid_constant__ CUtensorMap tmdo,
+                           __nv_bfloat16* __restrict__ dk, Str sdk,
+                           __nv_bfloat16* __restrict__ dv, Str sdv,
+                           const float* __restrict__ lse, const float* __restrict__ delta,
+                           int Hq, int Sq, int Skv, int D, int G, int causal, int window,
+                           int offset, float scale, float scale_log2) {
+  using P = DkvSplitPlan;
+  constexpr int DP = P::kDP, ST = P::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
+  uint8_t* gbase = smem_raw + (base - smem_addr(smem_raw));
+  float* ls = reinterpret_cast<float*>(gbase + P::kL);    // -L log2e per stage and q row
+  float* dls = reinterpret_cast<float*>(gbase + P::kDl);  // delta per stage and q row
+  const uint32_t bar_kv = base + P::kBar, bar_f = bar_kv + 8, bar_e = bar_f + 8 * ST;
+
+  // the kv tiles of one (batch, kv head) are neighbours in launch order
+  const int kvh = blockIdx.y, b = blockIdx.z;
+  const int k0 = blockIdx.x * kBM;
+  const int n_k = min(kBM, Skv - k0);
+  const int q_begin = causal ? max(0, k0 - offset) : 0;
+  const int q_end = window >= 0 ? min(Sq, k0 + n_k - 1 - offset + window) : Sq;
+  const int t0 = q_begin / kBM;
+  const int n_qt = q_begin < q_end ? (q_end + kBM - 1) / kBM - t0 : 0;
+  const int n_iter = G * n_qt;  // (q head, q tile) pairs, head-major
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_kv, 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(bar_f + 8 * s, 128);  // every thread of warpgroup 0, after its L/delta store
+      mbar_init(bar_e + 8 * s, 8);    // one arrival per consumer warp of both warpgroups
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int lane = threadIdx.x % 32, t = threadIdx.x % 128;
+  // the same value in every lane, so ptxas sees the branches below as uniform
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  const bool issuer = threadIdx.x == 0;
+  // warpgroup 0 fills stage j % ST with tile j: Q and dO by TMA (thread
+  // 0), -L log2e (threads 0-63) and delta (64-127) of its 64 q rows
+  const auto fill = [&](int j) {
+    const int s = j % ST;
+    const int h = kvh * G + j / n_qt, q0 = (t0 + j % n_qt) * kBM;
+    const int rr = t % kBM;
+    const bool is_l = t < kBM, in = q0 + rr < Sq;
+    const long long row = ((long long)b * Hq + h) * Sq + q0 + rr;
+    const float v = in ? (is_l ? lse : delta)[row] : 0.f;
+    (is_l ? ls : dls)[s * kBM + rr] = is_l ? (in ? -v * kLog2e : -INFINITY) : v;
+    mbar_arrive_expect_if(issuer, bar_f + 8 * s, 2 * P::kTile);
+#pragma unroll
+    for (int a = 0; a < DP / 64; ++a) {
+      tma_load_if(issuer, base + P::kQ + s * P::kTile + a * kPanel, &tmq, bar_f + 8 * s, a * 64,
+                  q0, h, b);
+      tma_load_if(issuer, base + P::kDO + s * P::kTile + a * kPanel, &tmdo, bar_f + 8 * s,
+                  a * 64, q0, h, b);
+    }
+  };
+  if (wg == 0 && n_iter > 0) {
+    if (issuer) mbar_expect_tx(bar_kv, 2 * P::kTile);
+#pragma unroll
+    for (int a = 0; a < DP / 64; ++a) {
+      tma_load_if(issuer, base + P::kK + a * kPanel, &tmk, bar_kv, a * 64, k0, kvh, b);
+      tma_load_if(issuer, base + P::kV + a * kPanel, &tmv, bar_kv, a * 64, k0, kvh, b);
+    }
+    for (int j = 0; j < min(ST, n_iter); ++j) fill(j);
+  }
+
+  const int r0 = (t / 32) * 16 + lane / 4;  // keys r0 and r0 + 8 of the tile
+  const int kp0 = k0 + r0, kp1 = kp0 + 8;
+  const int col0 = 2 * (lane % 4);          // first of this thread's q rows per 8
+  float acc[DP / 2];                        // dV (warpgroup 0) or dK (warpgroup 1)
+#pragma unroll
+  for (int r = 0; r < DP / 2; ++r) acc[r] = 0.f;
+  float st[32];      // S^T then P^T
+  uint32_t pa[16];   // P^T or dS^T as bf16 A fragments
+
+  // P^T of the q tile of iteration j, in st: column c is q row q0 + c, at
+  // position offset + q0 + c; a key kp sees it if kp <= its position
+  // (causal) and kp > its position - window
+  const auto probs = [&](int j) {
+    const int s = j % ST;
+    const int q0 = (t0 + j % n_qt) * kBM, qpos0 = offset + q0;
+    if ((causal && qpos0 < k0 + kBM - 1) || (window >= 0 && qpos0 + kBM - 1 > k0 + window - 1)) {
+      const int lo0 = causal ? kp0 - qpos0 : -(1 << 30);
+      const int lo1 = causal ? kp1 - qpos0 : -(1 << 30);
+      const int hi0 = window >= 0 ? kp0 + window - 1 - qpos0 : 1 << 30;
+      const int hi1 = window >= 0 ? kp1 + window - 1 - qpos0 : 1 << 30;
+#pragma unroll
+      for (int r = 0; r < 32; ++r) {
+        const int c = 8 * (r >> 2) + col0 + (r & 1);
+        const bool out = (r & 2) ? (c < lo1 || c > hi1) : (c < lo0 || c > hi0);
+        if (out) st[r] = -INFINITY;
+      }
+    }
+    const float* lrow = ls + s * kBM + col0;
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      const float2 nl = *reinterpret_cast<const float2*>(lrow + 8 * jj);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = 4 * jj + e;
+        st[r] = exp2_ftz(fmaf(st[r], scale_log2, (e & 1) ? nl.y : nl.x));
+      }
+    }
+  };
+  const auto release = [&](int j) {
+    if (lane == 0) mbar_arrive(bar_e + 8 * (j % ST));
+  };
+
+  if (n_iter > 0) mbar_wait(bar_kv, 0);
+  if (wg == 0) {
+    // dV += P^T dO
+    for (int j = 0; j < n_iter; ++j) {
+      const int s = j % ST;
+      mbar_wait(bar_f + 8 * s, (j / ST) & 1);
+      wgmma_fence();
+      product_nt<DP>(st, base + P::kK, base + P::kQ + s * P::kTile);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(st);
+      probs(j);
+      pack(pa, st);
+      wgmma_fence();
+      product_rs<DP>(acc, pa, base + P::kDO + s * P::kTile);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      release(j);
+      if (j + ST < n_iter) {
+        // both warpgroups are done with tile j: refill its stage
+        mbar_wait(bar_e + 8 * s, (j / ST) & 1);
+        fill(j + ST);
+      }
+    }
+    store_rows<DP>(dv + b * sdv.b + kvh * sdv.h + k0 * sdv.s, sdv.s, acc, 1.f, r0, col0, n_k, D);
+  } else {
+    // dK += dS^T Q, dS^T = P^T (dP^T - delta)
+    float dpt[32];
+    for (int j = 0; j < n_iter; ++j) {
+      const int s = j % ST;
+      mbar_wait(bar_f + 8 * s, (j / ST) & 1);
+      wgmma_fence();
+      product_nt<DP>(st, base + P::kK, base + P::kQ + s * P::kTile);
+      product_nt<DP>(dpt, base + P::kV, base + P::kDO + s * P::kTile);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(st);
+      fence_regs(dpt);
+      probs(j);
+      const float* drow = dls + s * kBM + col0;
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const float2 dd = *reinterpret_cast<const float2*>(drow + 8 * jj);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = 4 * jj + e;
+          dpt[r] = st[r] * (dpt[r] - ((e & 1) ? dd.y : dd.x));
+        }
+      }
+      pack(pa, dpt);
+      wgmma_fence();
+      product_rs<DP>(acc, pa, base + P::kQ + s * P::kTile);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      release(j);
+    }
+    store_rows<DP>(dk + b * sdk.b + kvh * sdk.h + k0 * sdk.s, sdk.s, acc, scale, r0, col0, n_k,
+                   D);
+  }
+}
+
 template <int DP>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* o, const void* dout,
                    void* dq, void* dk, void* dv, const float* lse, float* delta,
                    const long long* st, int B, int Hq, int Hkv, int Sq, int Skv, int D,
                    int causal, int window, int offset, float scale, cudaStream_t stream) {
+  constexpr bool kSplit = DP == 192;  // dK/dV on two consumer warpgroups
   static const cudaError_t setup = [] {
     cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_wgmma<DP>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            DqPlan<DP>::kBytes);
     if (err != cudaSuccess) return err;
-    return cudaFuncSetAttribute(flash_bwd_dkdv_wgmma<DP>,
-                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                DkvPlan<DP>::kBytes);
+    if constexpr (DP == 192)
+      return cudaFuncSetAttribute(flash_bwd_dkdv_split_wgmma,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  DkvSplitPlan::kBytes);
+    else
+      return cudaFuncSetAttribute(flash_bwd_dkdv_wgmma<DP>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  DkvPlan<DP>::kBytes);
   }();
   if (setup != cudaSuccess) return setup;
   // st: (batch, head, sequence) of q, k, v, o, dout, dq, dk, dv
@@ -518,17 +771,26 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o, c
     return cudaErrorInvalidValue;
   const int G = Hq / Hkv;
   const float scale_log2 = scale * kLog2e;
-  flash_bwd_dq_wgmma<DP><<<dim3(Hq, B, (Sq + kBM - 1) / kBM), kThreads, DqPlan<DP>::kBytes,
-                           stream>>>(
+  const int q_tiles = (Sq + kBM - 1) / kBM, kv_tiles = (Skv + kBM - 1) / kBM;
+  const dim3 dq_grid = DqPlan<DP>::kTilesFirst ? dim3(q_tiles, Hq, B) : dim3(Hq, B, q_tiles);
+  flash_bwd_dq_wgmma<DP><<<dq_grid, kThreads, DqPlan<DP>::kBytes, stream>>>(
       tq, tk, tv, tdo, static_cast<const __nv_bfloat16*>(o), str(3),
       static_cast<const __nv_bfloat16*>(dout), str(4), static_cast<__nv_bfloat16*>(dq), str(5),
       lse, delta, Hq, Sq, Skv, D, G, causal, window, offset, scale, scale_log2);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  flash_bwd_dkdv_wgmma<DP><<<dim3(Hkv, B, (Skv + kBM - 1) / kBM), kThreads,
-                             DkvPlan<DP>::kBytes, stream>>>(
-      tq, tk, tv, tdo, static_cast<__nv_bfloat16*>(dk), str(6), static_cast<__nv_bfloat16*>(dv),
-      str(7), lse, delta, Hq, Sq, Skv, D, G, causal, window, offset, scale, scale_log2);
+  if constexpr (kSplit)
+    flash_bwd_dkdv_split_wgmma<<<dim3(kv_tiles, Hkv, B), DkvSplitPlan::kThreads,
+                                 DkvSplitPlan::kBytes, stream>>>(
+        tq, tk, tv, tdo, static_cast<__nv_bfloat16*>(dk), str(6),
+        static_cast<__nv_bfloat16*>(dv), str(7), lse, delta, Hq, Sq, Skv, D, G, causal, window,
+        offset, scale, scale_log2);
+  else
+    flash_bwd_dkdv_wgmma<DP><<<dim3(Hkv, B, kv_tiles), kThreads, DkvPlan<DP>::kBytes,
+                               stream>>>(
+        tq, tk, tv, tdo, static_cast<__nv_bfloat16*>(dk), str(6),
+        static_cast<__nv_bfloat16*>(dv), str(7), lse, delta, Hq, Sq, Skv, D, G, causal, window,
+        offset, scale, scale_log2);
   return cudaGetLastError();
 }
 
@@ -539,15 +801,15 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o, c
 // Sq) float32, each q row's log-sum-exp as the forward wrote it. q, k, v, o
 // and dout: 16-byte aligned, strides multiples of 8 elements (TMA and
 // 16-byte loads); dq, dk, dv: strides even. Head dims 16, 32, 64 (as 64),
-// 80, 128 (as 128). Returns a cudaError_t code.
+// 80, 128 (as 128), 192. Returns a cudaError_t code.
 extern "C" int flash_attention_bwd_wgmma(const void* q, const void* k, const void* v,
                                          const void* o, const void* dout, void* dq, void* dk,
                                          void* dv, const void* lse, void* delta,
                                          const long long* strides, int B, int Hq, int Hkv,
                                          int Sq, int Skv, int D, int causal, int window,
                                          int offset, float scale, void* stream) {
-  if (B <= 0 || B > 65535 || Hkv <= 0 || Hq % Hkv != 0 || Sq <= 0 || Skv <= 0 || offset < 0 ||
-      (Sq + kBM - 1) / kBM > 65535 || (Skv + kBM - 1) / kBM > 65535)
+  if (B <= 0 || B > 65535 || Hkv <= 0 || Hq % Hkv != 0 || Hq > 65535 || Sq <= 0 || Skv <= 0 ||
+      offset < 0 || (Sq + kBM - 1) / kBM > 65535 || (Skv + kBM - 1) / kBM > 65535)
     return cudaErrorInvalidValue;
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o) |
@@ -565,6 +827,9 @@ extern "C" int flash_attention_bwd_wgmma(const void* q, const void* k, const voi
                       causal, window, offset, scale, s);
   if (D == 80 || D == 128)
     return launch<128>(q, k, v, o, dout, dq, dk, dv, l, dl, strides, B, Hq, Hkv, Sq, Skv, D,
+                       causal, window, offset, scale, s);
+  if (D == 192)
+    return launch<192>(q, k, v, o, dout, dq, dk, dv, l, dl, strides, B, Hq, Hkv, Sq, Skv, D,
                        causal, window, offset, scale, s);
   return cudaErrorInvalidValue;
 }

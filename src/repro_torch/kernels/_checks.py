@@ -16,15 +16,14 @@ _DENSE = {torch.float32: (16, 20, 32, 64, 80, 128),
 HEAD_DIMS = {
     "flash_attention": {torch.float32: (16, 20, 24, 32, 64, 80, 128, 192),
                         torch.bfloat16: (16, 32, 64, 80, 128, 192)},
-    "flash_attention_bwd": _DENSE,
+    "flash_attention_bwd": {torch.float32: (16, 20, 24, 32, 64, 80, 128, 192),
+                            torch.bfloat16: (16, 32, 64, 80, 128, 192)},
     "decode_attention": _DENSE,
 }
 # where the missing head dims of each kernel stand in ROADMAP.md
 _LATER = {
     "flash_attention": "queue 2, K1",
-    "flash_attention_bwd": "queue 2: the backward at MLA's head dims 24 and "
-                           "192 comes with the MoE training slice, queue 1 "
-                           "item 3",
+    "flash_attention_bwd": "queue 2, K1 (the flash kernels' other head dims)",
     "decode_attention": "queue 2, K2",
 }
 

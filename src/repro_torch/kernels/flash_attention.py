@@ -169,7 +169,7 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     stride 0, as after a ``sum()``, or one off 16 bytes). float32
     (``simt``) computes L itself and ignores ``lse``; it copies dO only
     when its last dim is not contiguous. A head dim with no backward
-    instance (MLA's 24 and 192) raises NotImplementedError before any
+    instance (``_checks.HEAD_DIMS``) raises NotImplementedError before any
     launch."""
     scale = _check_args(q, k, v, window, offset, scale, "flash_attention_bwd")
     if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype \

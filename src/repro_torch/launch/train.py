@@ -13,6 +13,11 @@ into them. ``train(..., graphs=False)`` runs the step eagerly.
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 6
   PYTHONPATH=src python -m repro_torch.launch.train --full --steps 10 \\
       --batch 8 --seq 512
+
+``train(..., overrides={"n_layers": 3, "mtp": False})`` cuts a config:
+DeepSeek-V3's 3 dense-FFN prefix layers without its MTP module, or one
+layer of Qwen3-MoE, are what one 80 GB card trains with AdamW at the
+published widths.
 """
 from __future__ import annotations
 
@@ -39,7 +44,7 @@ def train(arch: str, smoke: bool = True, steps: int = 50, batch: int = 8,
           seq: int = 128, lr: float = 3e-4, ckpt_dir: Optional[str] = None,
           ckpt_every: int = 25, mesh_shape=None, log_every: int = 10,
           width_mult: int = 1, seed: int = 0, device="cuda",
-          graphs: bool = True):
+          graphs: bool = True, overrides: Optional[dict] = None):
     """Train ``arch`` for ``steps`` steps on ``device`` and return
     {'losses', 'grad_norms', 'step_s' (wall seconds of each step, ended by
     reading its loss; the first includes the capture on the card),
@@ -47,13 +52,14 @@ def train(arch: str, smoke: bool = True, steps: int = 50, batch: int = 8,
     step's ``StepGraph.stats``: warm-up and capture seconds, pool bytes,
     launches per replay; None when the step ran eagerly)}. With
     ``ckpt_dir`` it resumes from the last committed checkpoint there and
-    saves every ``ckpt_every`` steps."""
+    saves every ``ckpt_every`` steps. ``overrides`` replaces config fields
+    (``dataclasses.replace``), e.g. ``{"n_layers": 3, "mtp": False}``."""
     dev = resolve_device(device)
     if mesh_shape is not None and tuple(mesh_shape) != (1, 1):
         raise NotImplementedError(
             f"mesh_shape {mesh_shape}: the port trains on one device; meshes "
             "come with ROADMAP.md queue 1, item 6")
-    cfg = get(arch, smoke=smoke)
+    cfg = dataclasses.replace(get(arch, smoke=smoke), **(overrides or {}))
     if cfg.family in ("vlm", "audio"):
         raise NotImplementedError(
             f"{cfg.name}: the vlm and audio frontends come with ROADMAP.md "

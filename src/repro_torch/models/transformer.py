@@ -15,10 +15,10 @@ Entry points:
 Ported blocks: an attention, MLA, Mamba, mLSTM or sLSTM mixer with a dense
 MLP, an MoE FFN or none; DeepSeek's ``first_k_dense`` prefix runs as a list
 of unstacked layers (``params["prefix"]``, ``cache["prefix"]``) before the
-stack. ``init`` builds the MTP module's params when ``cfg.mtp`` is set, so
-the reference's tree transplants, but the MTP branch of ``lm_loss`` comes
-with the MoE training slice (ROADMAP.md, queue 1, item 3) and raises until
-then; so do encoder-decoder models (item 4).
+stack (a config with no period past the prefix, such as DeepSeek-V3 cut to
+its 3 dense layers, has an empty stack). With ``cfg.mtp`` ``init`` builds
+the MTP module and ``lm_loss`` adds its next-but-one-token loss, as the
+reference's. Encoder-decoder models raise (ROADMAP.md, queue 1, item 4).
 """
 from __future__ import annotations
 
@@ -76,6 +76,15 @@ def _prefix_spec(cfg: ModelConfig):
 def _layer(stacked: Params, j: int) -> Params:
     """Layer j of a stacked tree (views, no copies)."""
     return tree_map(lambda a: a[j], stacked)
+
+
+def _unstack(stacked: Params, n: int) -> list:
+    """The n layers of a stacked tree as views, one ``unbind`` per leaf:
+    the backward of ``unbind`` stacks the layers' gradients in one write,
+    where a ``_layer`` index per layer would write a zero stack of the leaf
+    for each layer and add it in."""
+    parts = tree_map(lambda a: a.unbind(0), stacked)
+    return [tree_map(lambda _, p, j=j: p[j], stacked, parts) for j in range(n)]
 
 
 # --------------------------------------------------------------------------
@@ -173,11 +182,12 @@ def init(gen: torch.Generator, cfg: ModelConfig, device="cuda") -> Params:
     if cfg.first_k_dense:
         params["prefix"] = [block_init(gen, _prefix_spec(cfg), cfg, dtype, dev)
                             for _ in range(cfg.first_k_dense)]
+    # no period past the prefix: an empty stack, and no layer drawn for it
     params["stack"] = {
         f"pos{i}": stack_init(
             lambda g, spec=spec: block_init(g, spec, cfg, dtype, dev),
             gen, cfg.n_periods)
-        for i, spec in enumerate(cfg.period)}
+        for i, spec in enumerate(cfg.period)} if cfg.n_periods else {}
     if cfg.mtp:
         params["mtp"] = {
             "proj": dense_init(gen, 2 * cfg.d_model, cfg.d_model, dtype=dtype,
@@ -199,7 +209,9 @@ def forward(params, x, cfg: ModelConfig, positions) -> Tuple[torch.Tensor,
     period runs under ``torch.utils.checkpoint`` (the reference's
     ``jax.checkpoint`` with nothing saveable): only its input is kept, and
     its forward runs again in the backward pass; the prefix layers run
-    unscanned and uncheckpointed, as in the reference."""
+    unscanned and uncheckpointed, as in the reference. Each stacked leaf is
+    taken apart once (``_unstack``), outside the checkpointed periods, so
+    its gradient is written once."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for bp in params.get("prefix", []):
         x, _ = block_apply(bp, x, _prefix_spec(cfg), cfg, positions)
@@ -211,9 +223,10 @@ def forward(params, x, cfg: ModelConfig, positions) -> Tuple[torch.Tensor,
                 aux = aux + a
         return x, aux
 
+    stacks = [_unstack(params["stack"][f"pos{i}"], cfg.n_periods)
+              for i in range(len(cfg.period))] if cfg.n_periods else []
     for j in range(cfg.n_periods):
-        layers = [_layer(params["stack"][f"pos{i}"], j)
-                  for i in range(len(cfg.period))]
+        layers = [stack[j] for stack in stacks]
         if cfg.remat and torch.is_grad_enabled():
             # no random numbers to replay: the RNG state is not stashed,
             # which also keeps the step capturable in a CUDA graph
@@ -257,12 +270,12 @@ def _chunked_ce(params, h, labels, mask, cfg: ModelConfig,
 def lm_loss(params, batch, cfg: ModelConfig) -> Tuple[torch.Tensor, Dict]:
     """batch: {'inputs': (B,S) int | 'embeds': (B,S,D), 'labels': (B,S),
     optional 'mask': (B,S)}, tensors on the params' device. Returns (loss,
-    {'ce', 'aux', 'tokens'}) as 0-d float32 tensors; loss = ce + aux."""
+    {'ce', 'aux', 'tokens'}) as 0-d float32 tensors; loss = ce + aux. With
+    ``cfg.mtp`` and token inputs the MTP module predicts token t + 2 from
+    h_t and the embedding of token t + 1 through one ``cfg.period[0]``
+    block, and loss = ce + mtp_weight * mtp + aux, with 'mtp' in the
+    metrics (the reference's order of sums)."""
     _check_supported(cfg)
-    if cfg.mtp and "inputs" in batch:
-        raise NotImplementedError(
-            f"{cfg.name}: the MTP branch of lm_loss comes with the MoE training "
-            "slice (ROADMAP.md, queue 1, item 3)")
     if "embeds" in batch:
         x = batch["embeds"].to(_dtype(cfg))
     else:
@@ -277,6 +290,21 @@ def lm_loss(params, batch, cfg: ModelConfig) -> Tuple[torch.Tensor, Dict]:
     tot, cnt = _chunked_ce(params, h, labels, mask, cfg)
     loss = tot / torch.clamp(cnt, min=1.0)
     metrics = {"ce": loss, "aux": aux, "tokens": cnt}
+    if cfg.mtp and "inputs" in batch:
+        mp = params["mtp"]
+        # the kernels take contiguous rows: h without its last position
+        h_in = L.rmsnorm(h[:, :-1].contiguous(), mp["norm_h"], cfg.norm_eps)
+        e_in = L.rmsnorm(embed_tokens(params, labels[:, :-1], cfg),
+                         mp["norm_e"], cfg.norm_eps)
+        x2 = torch.cat([h_in, e_in], dim=-1) @ mp["proj"]
+        x2, _ = block_apply(mp["block"], x2, cfg.period[0], cfg,
+                            positions[:-1])
+        x2 = L.rmsnorm(x2, mp["final_norm"], cfg.norm_eps)
+        # S - 1 positions: the last chunk may be ragged
+        tot2, cnt2 = _chunked_ce(params, x2, labels[:, 1:], mask[:, 1:], cfg)
+        mtp = tot2 / torch.clamp(cnt2, min=1.0)
+        loss = loss + cfg.mtp_weight * mtp
+        metrics["mtp"] = mtp
     return loss + aux, metrics
 
 
@@ -295,7 +323,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                                             max_len, dtype, device=dev)
                            for _ in range(cfg.first_k_dense)]
     stack = {}
-    for i, spec in enumerate(cfg.period):
+    for i, spec in enumerate(cfg.period if cfg.n_periods else ()):
         # one layer's cache (zeros, or -1e30 for the mLSTM stabiliser),
         # repeated over the stacked axis
         one = block_make_cache(spec, cfg, batch, max_len, dtype, device=dev)

@@ -895,22 +895,71 @@ def test_flash_attention_mla_takes_the_models_views(gen):
     assert not got[..., 128:].any()
 
 
+MLA_BWD_CASES = [
+    # b, h, sq, skv, causal, window, offset
+    (2, 8, 512, 512, True, None, 0),     # DeepSeek-V3 training, fewer heads
+    (1, 4, 77, 77, True, None, 0),       # ragged tail
+    (1, 3, 96, 200, True, 64, 104),      # window, offset
+    (2, 2, 64, 130, False, None, 66),    # full, ragged keys
+    (2, 4, 1, 1, True, None, 0),         # Sq 1
+    (1, 2, 130, 203, False, 50, 73),     # full with a window
+    (1, 2, 64, 40, True, 30, 100),       # rows that see no key
+    (1, 3, 200, 200, True, 70, 0),       # a window inside the kv tiles
+]
+
+
+@pytest.mark.parametrize("b,h,sq,skv,causal,window,offset", MLA_BWD_CASES)
 @pytest.mark.parametrize("d,dtype", [(192, torch.bfloat16), (192, torch.float32),
                                      (24, torch.float32)])
-def test_flash_backward_at_mla_head_dims_raises_before_any_launch(gen, d, dtype):
-    """No backward instance at 24 or 192 yet: the wrapper and autograd
-    through ``ops.flash_attention`` raise NotImplementedError naming the
-    ROADMAP item, and launch nothing."""
-    q = _randn(gen, (1, 2, 64, d), dtype)
-    n, f = flash_attention_bwd_cuda.launches, flash_attention_bwd_cuda.lse_forwards
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 3"):
-        flash_attention_bwd_cuda(q, q, q, q, q)
-    leaves = [q.clone().requires_grad_(True) for _ in range(3)]
-    o = ops.flash_attention(*leaves, causal=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 3"):
-        o.sum().backward()
-    assert flash_attention_bwd_cuda.launches == n
-    assert flash_attention_bwd_cuda.lse_forwards == f
+def test_flash_attention_bwd_mla_head_dims(gen, b, h, sq, skv, causal, window, offset,
+                                           d, dtype):
+    """The backward at MLA's head dims against the plain version (G = 1,
+    scale 192^-0.5): bf16 on the tensor cores with the forward's L, the
+    same bits call after call; float32 on the CUDA cores."""
+    q, k, v, do = _bwd_case(gen, b, h, h, sq, skv, d, dtype)
+    args = (q, k, v, causal, window, offset, 192 ** -0.5)
+    lse = None
+    if dtype == torch.bfloat16:
+        o, lse = flash_attention_cuda(*args, return_lse=True)
+    else:
+        o = flash_attention_cuda(*args)
+    n = flash_attention_bwd_cuda.launches
+    got = flash_attention_bwd_cuda(q, k, v, o, do, *args[3:], lse=lse)
+    assert flash_attention_bwd_cuda.launches == n + 1
+    want = flash_attention_bwd_plain(q, k, v, o, do, *args[3:])
+    for g, w in zip(got, want):
+        _close_tol(g, w, BWD_TOL[dtype])
+    if dtype == torch.bfloat16:
+        again = flash_attention_bwd_cuda(q, k, v, o, do, *args[3:], lse=lse)
+        torch.cuda.synchronize()
+        assert all(torch.equal(g, a) for g, a in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_takes_the_mla_layout(gen, dtype):
+    """``mla_apply``'s layout under autograd: q and k (B, H, S, D) views of
+    (B, S, H, 192) tensors, V padded from 128, through ``ops.flash_attention``
+    (the backward kernel, one launch); the gradients of q, k and V's 128
+    columns equal the plain version's through the same views and pad."""
+    b, s, h = 2, 130, 4
+    qs, ks = (_randn(gen, (b, s, h, 192), dtype) for _ in range(2))
+    vs = _randn(gen, (b, s, h, 128), dtype)
+    do = _randn(gen, (b, h, s, 192), dtype)
+
+    def grads(fn):
+        leaves = [t.clone().requires_grad_(True) for t in (qs, ks, vs)]
+        q, k = (t.transpose(1, 2) for t in leaves[:2])
+        v = torch.nn.functional.pad(leaves[2], (0, 64)).transpose(1, 2)
+        fn(q, k, v).backward(do)
+        return [t.grad for t in leaves]
+
+    n = flash_attention_bwd_cuda.launches
+    got = grads(lambda q, k, v: ops.flash_attention(q, k, v, True, None, 0, 192 ** -0.5))
+    assert flash_attention_bwd_cuda.launches == n + 1
+    want = grads(lambda q, k, v: flash_attention_plain(q.float(), k.float(), v.float(),
+                                                       True, None, 0, 192 ** -0.5))
+    for g, w in zip(got, want):
+        _close_tol(g, w.to(dtype), BWD_TOL[dtype])
 
 
 @pytest.mark.parametrize("name", ["deepseek_v3_671b", "qwen3_moe_235b_a22b"])

@@ -125,13 +125,17 @@ def test_prefill_step_makes_no_host_read(name):
     assert logits.shape == (2, cfg.vocab) and bool(torch.isfinite(logits).all())
 
 
+@pytest.mark.parametrize("name", ["smollm_360m", "deepseek_v3_671b",
+                                  "qwen3_moe_235b_a22b"])
 @pytest.mark.parametrize("kind", ["adamw", "adafactor"])
-def test_train_step_makes_no_host_read_and_updates_in_place(kind):
-    """Three train steps of smollm SMOKE (forward and backward under remat,
-    clip, the optimizer with warmup + cosine on its step tensor) with no
-    host read, writing params and optimizer state in place: the same
-    tensors come back, changed, and the step tensor counts 3."""
-    cfg = _cfg("smollm_360m")
+def test_train_step_makes_no_host_read_and_updates_in_place(kind, name):
+    """Three train steps of smollm SMOKE and of the MoE SMOKE configs
+    (DeepSeek with MLA, its dense prefix and the MTP loss; Qwen3-MoE):
+    forward and backward under remat, the MoE dispatch's backward, clip,
+    the optimizer with warmup + cosine on its step tensor, with no host
+    read, writing params and optimizer state in place: the same tensors
+    come back, changed, and the step tensor counts 3."""
+    cfg = _cfg(name)
     params = _params(cfg)
     sched = topt.warmup_cosine(1e-2, warmup=2, total=10)
     opt = topt.adamw(sched) if kind == "adamw" else topt.adafactor(sched)

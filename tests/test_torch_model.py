@@ -194,10 +194,11 @@ def test_from_jax_params_rejects_mismatch():
 
 
 def test_unported_blocks_raise():
-    """What still raises: encoder-decoder models and the MTP branch of the
-    loss. MoE and MLA blocks and the dense prefix build at full size, on the
-    meta device (full Jamba and DeepSeek-V3 are hundreds of GB), with the
-    leaves of the reference's init (its shapes, by ``jax.eval_shape``)."""
+    """What still raises: encoder-decoder models. MoE and MLA blocks and the
+    dense prefix build at full size, on the meta device (full Jamba and
+    DeepSeek-V3 are hundreds of GB), with the leaves of the reference's init
+    (its shapes, by ``jax.eval_shape``); DeepSeek-V3 cut to its dense prefix
+    has an empty stack. The MTP branch of the loss is ported: it runs."""
     for name in ("jamba_1_5_large_398b", "deepseek_v3_671b",
                  "qwen3_moe_235b_a22b"):
         cfg = tget(name)
@@ -221,10 +222,19 @@ def test_unported_blocks_raise():
         model_api(enc)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         transformer.init(torch.Generator(), enc, device="meta")
-    # the loss is ported, its MTP branch is not: it raises before any work
+    prefix = dataclasses.replace(tget("deepseek_v3_671b"), n_layers=3, mtp=False)
+    params = transformer.init(torch.Generator(), prefix, device="meta")
+    assert params["stack"] == {} and len(params["prefix"]) == 3
+    assert transformer.init_cache(prefix, 2, 16, device="meta")["stack"] == {}
+    # the MTP branch of the loss runs (its module is a period[0] block)
     mtp = dataclasses.replace(tget("smollm_360m", smoke=True), mtp=True)
-    with pytest.raises(NotImplementedError, match="MTP.*ROADMAP"):
-        model_api(mtp).loss(None, {"inputs": None, "labels": None}, mtp)
+    p = transformer.init(torch.Generator().manual_seed(0), mtp, device="cpu")
+    toks = torch.randint(0, mtp.vocab, (2, 9), generator=torch.Generator().manual_seed(1))
+    loss, metrics = model_api(mtp).loss(p, {"inputs": toks[:, :-1],
+                                            "labels": toks[:, 1:]}, mtp)
+    assert set(metrics) == {"ce", "aux", "tokens", "mtp"}
+    torch.testing.assert_close(loss, metrics["ce"] + mtp.mtp_weight * metrics["mtp"]
+                               + metrics["aux"])
 
 
 def test_mamba_float32_leaves_survive_a_bf16_transplant():

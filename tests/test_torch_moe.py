@@ -454,27 +454,32 @@ def test_forward_sums_aux_over_every_moe_layer():
 
 
 def test_each_attention_kernel_has_its_own_head_dims():
-    """MLA's head dims widen the flash forward only: the backward raises
-    NotImplementedError at 192 before the device (here on CPU tensors), and
-    decode attention has no 192 either, while the forward gets past the head
-    dim to the device check."""
+    """MLA's head dims widen the flash forward and backward only: both get
+    past the head dim at 24 (float32) and 192 to the device check (here on
+    CPU tensors), a bf16 row of 20 or 24 has no instance in either and
+    raises NotImplementedError before the device, and decode attention has
+    no 192."""
     from repro_torch.kernels._checks import require_head_dim
     from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
                                                      flash_attention_cuda)
     n = flash_attention_bwd_cuda.launches, flash_attention_cuda.launches
     for dtype in (torch.float32, torch.bfloat16):
         q = torch.zeros(1, 2, 8, 192, dtype=dtype)
-        with pytest.raises(NotImplementedError, match="ROADMAP.*item 3"):
+        with pytest.raises(ValueError, match="CUDA"):
             flash_attention_bwd_cuda(q, q, q, q, q)
         with pytest.raises(NotImplementedError, match="head dim 192.*K2"):
             require_head_dim("decode_attention", 192, dtype)
         with pytest.raises(ValueError, match="CUDA"):
             flash_attention_cuda(q, q, q)
     q = torch.zeros(1, 2, 8, 24)
-    with pytest.raises(ValueError, match="CUDA"):
-        flash_attention_cuda(q, q, q)
-    with pytest.raises(NotImplementedError, match="head dim 24"):
-        flash_attention_cuda(q.bfloat16(), q.bfloat16(), q.bfloat16())
+    for fn in (flash_attention_cuda, flash_attention_bwd_cuda):
+        args = (q,) * (5 if fn is flash_attention_bwd_cuda else 3)
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(*args)
+        for d in (20, 24):
+            qb = torch.zeros(1, 2, 8, d, dtype=torch.bfloat16)
+            with pytest.raises(NotImplementedError, match=f"head dim {d}.*K1"):
+                fn(*(qb,) * len(args))
     assert (flash_attention_bwd_cuda.launches, flash_attention_cuda.launches) == n
 
 

@@ -39,7 +39,9 @@ from repro_torch.weights import from_jax_opt_state, from_jax_params
 
 # float32 losses of order 5 after two layers, summed in another order
 LOSS_TOL = 2e-5
-SEQ = {"h2o_danube_1_8b": 32}   # danube's window of 16 inside the sequence
+# danube's window of 16 inside the sequence; xLSTM's mLSTM chunk of 16
+# must divide it
+SEQ = {"h2o_danube_1_8b": 32, "xlstm_125m": 32}
 
 
 def _pair(name, seed=0, **over):
@@ -71,11 +73,15 @@ def _port_grads(tcfg, tparams, batch):
 
 
 @pytest.mark.parametrize("name", ["smollm_360m", "h2o_danube_1_8b",
-                                  "granite_3_2b", "stablelm_3b"])
+                                  "granite_3_2b", "stablelm_3b",
+                                  "deepseek_v3_671b"])
 def test_lm_loss_matches_jax(name):
+    """DeepSeek SMOKE runs with its MTP module: the loss is ce + mtp_weight
+    * mtp + aux, and 'mtp' is compared too."""
     jcfg, jparams, tcfg, tparams = _pair(name)
     batch = _batch(jcfg.vocab, 2, SEQ.get(name, 24))
-    want, wm = jmodel_api(jcfg).loss(
+    # jitted: eager JAX takes ~3x as long on the MoE configs
+    want, wm = jax.jit(jmodel_api(jcfg).loss, static_argnums=2)(
         jparams, {k: jnp.asarray(v) for k, v in batch.items()}, jcfg)
     with torch.no_grad():
         got, gm = model_api(tcfg).loss(
@@ -83,7 +89,9 @@ def test_lm_loss_matches_jax(name):
     assert got.dtype == torch.float32 and got.shape == ()
     np.testing.assert_allclose(float(got), float(want), atol=LOSS_TOL,
                                rtol=LOSS_TOL)
-    for key in ("ce", "aux", "tokens"):
+    assert set(gm) == set(wm) == {"ce", "aux", "tokens"} | (
+        {"mtp"} if tcfg.mtp else set())
+    for key in wm:
         np.testing.assert_allclose(float(gm[key]), float(wm[key]),
                                    atol=LOSS_TOL, rtol=LOSS_TOL)
 
@@ -103,29 +111,61 @@ def test_lm_loss_with_a_mask_matches_jax():
     assert float(gm["tokens"]) == float(wm["tokens"]) == batch["mask"].sum()
 
 
-@pytest.mark.parametrize("name", ["smollm_360m", "h2o_danube_1_8b"])
+def _at(tree, path):
+    """The leaf of a port tree at a JAX key path (dict keys and list
+    indices: DeepSeek's dense prefix is a list)."""
+    for p in path:
+        tree = tree[p.key if hasattr(p, "key") else p.idx]
+    return tree
+
+
+# the MoE, MLA and MTP family (DeepSeek SMOKE with its MTP module), GQA MoE,
+# Jamba with its real MoE layers (the plain scan on the CPU) and xLSTM
+@pytest.mark.parametrize("name", ["smollm_360m", "h2o_danube_1_8b",
+                                  "deepseek_v3_671b", "qwen3_moe_235b_a22b",
+                                  "jamba_1_5_large_398b", "xlstm_125m"])
 def test_every_gradient_leaf_matches_jax(name):
     """Every leaf of the port's autograd gradient against ``jax.grad`` of the
     reference loss (the blockwise jnp attention under ``jax.checkpoint``):
     |diff| <= 1e-4 max|g| + 1e-6 per leaf, the sums being taken in another
-    order. The loss runs through ``torch.utils.checkpoint`` (cfg.remat)."""
+    order. The loss runs through ``torch.utils.checkpoint`` (cfg.remat);
+    the stacked leaves' gradients come through ``unbind``."""
     jcfg, jparams, tcfg, tparams = _pair(name, seed=1)
     assert tcfg.remat
     batch = _batch(jcfg.vocab, 2, SEQ.get(name, 24), seed=1)
-    jgrads = jax.grad(lambda p: jmodel_api(jcfg).loss(
-        p, {k: jnp.asarray(v) for k, v in batch.items()}, jcfg)[0])(jparams)
+    jgrads = jax.jit(jax.grad(lambda p: jmodel_api(jcfg).loss(
+        p, {k: jnp.asarray(v) for k, v in batch.items()}, jcfg)[0]))(jparams)
     _, _, tgrads = _port_grads(tcfg, tparams, batch)
     flat = jax.tree_util.tree_flatten_with_path(jgrads)[0]
     assert len(flat) == len(tree_leaves(tgrads))
     for path, want in flat:
-        got = tgrads
-        for p in path:
-            got = got[p.key]
+        got = _at(tgrads, path)
         want = np.asarray(want)
         assert got is not None and got.shape == want.shape
         tol = 1e-4 * float(np.abs(want).max()) + 1e-6
         np.testing.assert_allclose(_np(got), want, atol=tol, rtol=0,
                                    err_msg=jax.tree_util.keystr(path))
+
+
+@pytest.mark.parametrize("name", ["smollm_360m", "deepseek_v3_671b",
+                                  "jamba_1_5_large_398b"])
+def test_stacked_gradients_equal_per_layer_selects(name, monkeypatch):
+    """``forward`` takes each stacked leaf apart with one ``unbind``; its
+    gradients equal those of taking layer j with a ``select`` per layer and
+    leaf (``_layer``), which the backward sums as zero stacks: each slot of
+    either holds one layer's gradient, so they agree bit for bit."""
+    from repro_torch.models import transformer
+    _, _, tcfg, tparams = _pair(name, seed=2, n_layers=3 * len(
+        tget(name, smoke=True).period) + tget(name, smoke=True).first_k_dense)
+    assert tcfg.n_periods == 3
+    batch = _batch(tcfg.vocab, 2, SEQ.get(name, 24), seed=2)
+    loss, _, want = _port_grads(tcfg, tparams, batch)
+    monkeypatch.setattr(transformer, "_unstack", lambda stacked, n: [
+        transformer._layer(stacked, j) for j in range(n)])
+    loss2, _, got = _port_grads(tcfg, tparams, batch)
+    assert torch.equal(loss, loss2)
+    for g, w in zip(tree_leaves(got), tree_leaves(want)):
+        assert torch.equal(g, w)
 
 
 def _opt_tree(rng):

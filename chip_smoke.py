@@ -2,7 +2,8 @@
 """Drive the PyTorch port's paths on one CUDA card: serving smollm-360M
 (dense), Jamba (hybrid Mamba + attention), xlstm-125m and DeepSeek-V3 (MLA +
 MoE), the SMOKE configs the server and trainer default to (and the MoE
-ones), and training smollm-360M, DeepSeek-V3's MLA prefix and Qwen3-MoE.
+ones), training smollm-360M, DeepSeek-V3's MLA prefix and Qwen3-MoE, and
+the paper's streaming apps with the inference app's predictor on the card.
 
   python3 chip_smoke.py
 
@@ -124,6 +125,20 @@ time,
      DeepSeek SMOKE with its MTP module (MLA at head dim 24) and Qwen3-MoE
      SMOKE, and every gradient of one full-width MLA + SwiGLU prefix block
      at 2 x 16 tokens (the float32 D-192 backward);
+  23. streaming (the paper's own system, host NumPy): RLAS plans on
+     server_a (the paper's settings, r = 5) of word count, fraud detection,
+     spike detection and linear road, with the planner's seconds, each
+     plan's parallelism, sockets and estimate; each plan executed on the
+     threads backend at BENCH_streaming.json's batch (256; LR 1024), a
+     replay whose sink counts must be what the app defines, and a 1 s run
+     (tuples/s, beside the host CPU's model); then ``streaming_inference``
+     with its predictor on the card at batch 16: depths 1, 2 and 3 over 200
+     replayed batches give the same score bit for bit, every batch scored on
+     cuda, within rel 1e-5 of the CPU plain predictor's; 1 s at depths 1 and
+     2 with 8 live model versions (tuples/s, device ms a call from CUDA
+     events, beside the declared 2500 ns a tuple); the processes backend
+     refused in this CUDA parent; and in a fresh interpreter the processes
+     backend equal to the threads backend;
 Every path runs with the launch counts set to 0 just before it and read just
 after; a graphed path's counts include its warm-up calls (``WARMUP`` eager
 calls before capture), and a replay adds what the capture recorded. Then it prints the kernel table as one JSON line (the rows of
@@ -144,6 +159,7 @@ import collections
 import dataclasses
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -1478,6 +1494,228 @@ def _paired_leaves(a, b, path=""):
         yield path, a, b
 
 
+# phase 23: the paper's streaming apps, each planned by RLAS with the
+# paper's settings (r = 5, best-fit, as the reference's bench plans them) and
+# run at the batch BENCH_streaming.json ran it at
+STREAM_APPS = {"word_count": 256, "fraud_detection": 256,
+               "spike_detection": 256, "linear_road": 1024}
+STREAM_RLAS = dict(compress_ratio=5, bestfit=True, max_nodes=5000)
+STREAM_REPLAY = 20          # batches per spout replica of a replay
+# the inference app at its own widths (32 features, 4 layers), batch 16 as
+# the reference's bench runs it; the card's score against the CPU's
+INF_BATCH, INF_REPLAY, INF_TOL = 16, 200, 1e-5
+# the processes backend in a fresh interpreter, which has never initialised
+# CUDA (forked workers of a CUDA parent cannot use the card): processes
+# first, since the threads run initialises CUDA in that process
+STREAM_CHILD = """
+import json, torch
+from repro_torch.streaming.apps import streaming_inference
+from repro_torch.streaming.procexec import run_app_processes
+from repro_torch.streaming.runtime import run_app
+out = []
+for runner in (run_app_processes, run_app):
+    assert runner is run_app or not torch.cuda.is_initialized()
+    r = runner(streaming_inference(model_versions=1, device="cuda"), {},
+               batch=16, max_batches=10, dispatch_depth=2)
+    s = r.states["sink"][0]
+    out.append([r.spout_tuples, r.sink_tuples, int(s["seen"]),
+                float(s["score"]).hex()])
+print(json.dumps(out))
+"""
+
+
+def host_cpu() -> str:
+    """The host CPU's model name and logical core count (host rates are
+    the host's, not the card's)."""
+    info = {}
+    try:
+        for line in Path("/proc/cpuinfo").read_text().splitlines():
+            key, _, value = line.partition(":")
+            info.setdefault(key.strip(), value.strip())
+    except OSError:
+        pass
+    model = info.get("model name", "unknown")
+    if model == "unknown":      # a VM may hide the name: vendor, family, model
+        model = (f"{info.get('vendor_id', '?')} family {info.get('cpu family', '?')} "
+                 f"model {info.get('model', '?')}")
+    return f"{model}, {os.cpu_count()} logical cores"
+
+
+def stream_counts(name, rt, batch) -> dict:
+    """A replay's tuple counts, failing unless the sink saw what the app
+    defines: WC 10 words a sentence, FD and SD one row a transaction or
+    reading, LR every history query (plus tolls and notifications, which
+    depend on each batch's speeds) — per spout replica, ``batch`` rows a
+    retired batch."""
+    batches = collections.Counter()
+    for uid, n in rt.spout_offsets.items():
+        batches[uid.split("#")[0]] += n
+    rows = batches["spout"] * batch
+    seen = sum(st.get("seen", 0) for st in rt.states["sink"])
+    queries = sum(st.get("queries", 0) for st in rt.states.get("toll_history", []))
+    want = {"word_count": 10 * rows, "fraud_detection": rows,
+            "spike_detection": rows}.get(name)
+    ok = seen == rt.sink_tuples > 0 and (
+        seen == want if want is not None else
+        queries == batches["hist_spout"] * batch and seen > queries)
+    out = {"spout_batches": dict(batches), "sink_tuples": rt.sink_tuples, "sink_seen": seen}
+    if name == "linear_road":
+        out["history_queries"] = queries
+    if not ok:
+        fail(f"{name}: the sink's counts {out} are not what the app defines")
+    return out
+
+
+def phase_streaming(kern, zero) -> dict:
+    """Phase 23: RLAS plans and host runs of the paper's apps, and the
+    ``streaming_inference`` predictor on the card (see the module doc)."""
+    from repro_torch.core import server_a
+    from repro_torch.streaming import apps
+    from repro_torch.streaming.api import Job
+    from repro_torch.streaming.procexec import run_app_processes
+    from repro_torch.streaming.runtime import run_app
+
+    out = {"host_cpu": host_cpu(), "apps": {}}
+    for name, batch in STREAM_APPS.items():
+        t = time.perf_counter()
+        plan = Job(getattr(apps, name)()).plan(server_a(), optimizer="rlas", **STREAM_RLAS)
+        plan_s = time.perf_counter() - t
+        est = plan.estimate()
+        if not (est.feasible and est.throughput > 0):
+            fail(f"{name}: RLAS plan infeasible or empty: {est.summary()}")
+        replay = stream_counts(name, plan.execute(batch=batch, batches=STREAM_REPLAY).raw,
+                               batch)
+        rt = plan.execute(batch=batch, duration=1.0).raw
+        sockets = {}                # operator -> the sockets its units are on
+        for unit, socket in zip(plan.graph.replicas, plan.placement):
+            sockets.setdefault(unit.op, set()).add(int(socket))
+        sockets = {op: sorted(v) for op, v in sockets.items()}
+        out["apps"][name] = {
+            "batch": batch, "planner_s": plan_s, "parallelism": plan.parallelism,
+            "placement": plan.placement, "sockets": sockets,
+            "estimate_tuples_per_s": est.throughput,
+            "replay": replay, "duration_s": rt.duration,
+            "sink_tuples_per_s": rt.throughput,
+            "spout_tuples_per_s": rt.spout_tuples / rt.duration}
+        print(f"[23 streaming] {name}: RLAS on server_a in {plan_s:.3f} s, parallelism "
+              f"{plan.parallelism}, sockets {sockets}, estimate "
+              f"{est.throughput:,.0f} tuples/s; replay at batch {batch} x {STREAM_REPLAY}: "
+              f"{replay}, as the app defines them; 1 s run: {rt.throughput:,.0f} sink tuples/s, "
+              f"{rt.spout_tuples / rt.duration:,.0f} spout tuples/s on the host "
+              f"({out['host_cpu']})", flush=True)
+
+    def inference(device, depth, versions=1, graphs=True, **kw):
+        app = apps.streaming_inference(model_versions=versions, device=device,
+                                       graphs=graphs)
+        rt = run_app(app, {}, batch=INF_BATCH, dispatch_depth=depth, **kw)
+        return rt, app.kernels["predictor"].predictor
+
+    # deterministic replay: depths 1, 2, 3 on the card against the CPU's
+    # plain predictor over the same seeded batches; the port's kernels run
+    # nowhere on this path
+    sinks = {}
+    for depth in (1, 2, 3):
+        rt, pred = drive(kern, {k: 0 for k in kern}, zero(),
+                         lambda: inference("cuda", depth, max_batches=INF_REPLAY),
+                         f"streaming inference depth {depth}")
+        if pred.batches != {"cuda": INF_REPLAY} or pred.timed != INF_REPLAY \
+                or pred.captures != 1:
+            fail(f"inference depth {depth}: batches {dict(pred.batches)}, "
+                 f"{pred.timed} timed, {pred.captures} graphs, expected "
+                 f"{INF_REPLAY} on cuda from one graph")
+        sinks[depth] = rt.states["sink"][0]
+    cpu_rt, cpu_pred = inference("cpu", 1, max_batches=INF_REPLAY)
+    cpu = cpu_rt.states["sink"][0]
+    seen = {s["seen"] for s in sinks.values()}
+    scores = {s["score"].hex() for s in sinks.values()}
+    rel = abs(sinks[1]["score"] - cpu["score"]) / abs(cpu["score"])
+    if seen != {cpu["seen"]} or seen != {INF_REPLAY * INF_BATCH}:
+        fail(f"inference: seen {seen} on the card, {cpu['seen']} on the CPU")
+    if len(scores) != 1:
+        fail(f"inference: depths 1, 2, 3 give different scores {scores}")
+    if not rel <= INF_TOL:
+        fail(f"inference: card score {sinks[1]['score']!r} vs CPU {cpu['score']!r}, rel {rel}")
+    out["inference"] = {"replay": {"batches": INF_REPLAY, "seen": seen.pop(),
+                                   "score": sinks[1]["score"], "cpu_score": cpu["score"],
+                                   "rel_err": rel, "tol": INF_TOL}}
+    # one predictor alone, a call and its retirement at a time: host us and
+    # device ms a call, graphed and plain (mlp_ref's kernels one by one)
+    x = np.random.default_rng(SEED).normal(size=(INF_BATCH, apps.INF_FEATURES))
+    x, w = x.astype(np.float32), apps.inf_model_weights(0)
+    alone = {}
+    for mode in ("plain", "graphed", "graphed", "plain"):
+        pred = apps.InferencePredictor("cuda", graphs=mode == "graphed")
+        for i in range(520):
+            if i == 20:         # after the warm-up (and the graph's capture)
+                pred.device_ms, pred.timed, t = 0.0, 0, time.perf_counter()
+            np.asarray(pred(x, 0, w))
+        alone.setdefault(mode, []).append({
+            "host_us_per_call": (time.perf_counter() - t) / 500 * 1e6,
+            "device_ms_per_call": pred.device_ms / pred.timed})
+    out["inference"]["alone"] = alone
+    # live model updates (8 versions), 1 s at depths 1 and 2, graphed and
+    # plain in turns: tuples/s and the device time of a call (CUDA events
+    # around its copies and replay)
+    declared = apps.streaming_inference(device="cpu").graph.operators["predictor"].device_ns
+    for depth in (1, 2):
+        rec = out["inference"][f"depth{depth}"] = {"declared_device_ns_per_tuple": declared}
+        for mode in ("plain", "graphed", "graphed", "plain"):
+            rt, pred = inference("cuda", depth, versions=8, graphs=mode == "graphed",
+                                 duration=1.0)
+            if pred.batches["cpu"] or not pred.timed:
+                fail(f"inference depth {depth} (8 versions): batches {dict(pred.batches)}")
+            call_ms = pred.device_ms / pred.timed
+            rec.setdefault(mode, []).append({
+                "sink_tuples_per_s": rt.throughput, "calls": pred.timed,
+                "graphs": pred.captures, "device_ms_per_call": call_ms,
+                "device_ns_per_tuple": call_ms * 1e6 / INF_BATCH,
+                "predictor_kernel_s": rt.exec_stats["predictor#0"]["kernel_s"],
+                "duration_s": rt.duration})
+    # the fork guard, in this process (CUDA is initialised here)
+    try:
+        run_app_processes(apps.streaming_inference(model_versions=1, device="cuda"), {},
+                          batch=INF_BATCH, max_batches=2)
+    except RuntimeError as e:
+        if "CUDA-clean parent" not in str(e):
+            raise
+        out["inference"]["guard"] = str(e)
+    else:
+        fail("run_app_processes ran a device app in a CUDA-initialised parent")
+    # the processes backend in a fresh interpreter, against its threads
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    child = subprocess.run([sys.executable, "-c", STREAM_CHILD], env=env, cwd=ROOT,
+                           capture_output=True, text=True, timeout=300)
+    if child.returncode != 0:
+        fail(f"inference processes-backend child exited {child.returncode}: "
+             f"{child.stderr[-3000:]}")
+    procs, threads = json.loads(child.stdout.strip().splitlines()[-1])
+    if procs != threads:
+        fail(f"inference: processes {procs} != threads {threads}")
+    out["inference"]["processes_vs_threads"] = {"processes": procs, "threads": threads}
+    inf = out["inference"]
+
+    def listed(rec, key, fmt):
+        return " / ".join(format(r[key], fmt) for r in rec)
+
+    print(f"[23 streaming] inference (32 features, 4 layers, batch {INF_BATCH}) on cuda: "
+          f"depths 1/2/3 x {INF_REPLAY} batches seen {inf['replay']['seen']}, score "
+          f"{inf['replay']['score']!r} equal bit for bit, CPU plain predictor rel err "
+          f"{rel:.2e} (tol {INF_TOL:g}), every batch on cuda from one graph; one predictor "
+          f"alone: graphed {listed(alone['graphed'], 'host_us_per_call', '.1f')} us a call "
+          f"({listed(alone['graphed'], 'device_ms_per_call', '.4f')} ms on the card), plain "
+          f"{listed(alone['plain'], 'host_us_per_call', '.1f')} us "
+          f"({listed(alone['plain'], 'device_ms_per_call', '.4f')} ms); 8 versions, 1 s"
+          + "".join(
+              f"; depth {d}: graphed {listed(inf[f'depth{d}']['graphed'], 'sink_tuples_per_s', ',.0f')}"
+              f" tuples/s, {listed(inf[f'depth{d}']['graphed'], 'device_ms_per_call', '.4f')} "
+              f"ms a call, plain {listed(inf[f'depth{d}']['plain'], 'sink_tuples_per_s', ',.0f')}"
+              f" tuples/s, {listed(inf[f'depth{d}']['plain'], 'device_ms_per_call', '.4f')} ms"
+              for d in (1, 2))
+          + f" (declared {declared:.0f} ns a tuple); the processes backend refused in this "
+          f"CUDA parent; in a fresh process processes = threads {procs}", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2415,6 +2653,9 @@ def main() -> int:
         f"2x16: {blk['leaves']} gradients (x and every param), worst {blk['worst_grad']} at "
         f"{blk['worst_grad_ratio']:.3f} of its tolerance ({GRAD_TOL:g} max|g| + 1e-6) "
         f"{took('22 moe train parity')}", flush=True)
+
+    report["streaming"] = phase_streaming(kern, zero)
+    print(f"[23 streaming] {took('23 streaming')}", flush=True)
 
     # the kernel table: main-path shapes, bf16; launches over every main path
     table = []

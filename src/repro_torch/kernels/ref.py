@@ -223,3 +223,19 @@ def adamw_update_ref(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
     if p.dim() >= 2:
         u = u + weight_decay * p.float()
     p.copy_((p.float() - lr * u).to(p.dtype))
+
+
+def mlp_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Tanh-MLP scoring head: L layers of ``tanh(y @ w[i])`` then a
+    feature-sum score.  x: (B, D); w: (L, D, D). Returns (B,) in x's dtype.
+
+    The ``streaming_inference`` app's predictor
+    (:mod:`repro_torch.streaming.apps`) runs exactly this, on the card or
+    on the CPU.  Each product is a float32 sum over the contraction
+    (broadcast multiply, then ``sum``): CUDA-core float32 on every device,
+    whatever the global TF32 switch of ``torch.matmul`` says.
+    """
+    y = x.float()
+    for i in range(w.shape[0]):
+        y = torch.tanh((y[:, :, None] * w[i].float()[None]).sum(dim=1))
+    return y.sum(dim=1).to(x.dtype)

@@ -1219,3 +1219,30 @@ def test_graph_launch_counts_match_the_profiler(gen):
     assert round(sum("decode_attention" in n for n in names) / 3) == \
         g.per_replay["decode_attention_cuda.launches"]
     step.release()
+
+
+def test_streaming_inference_depths_agree_on_the_card(gen):
+    """The inference app's predictor on the card: depths 1, 2 and 3 give
+    the same score bit for bit (one stream per replica), every batch is
+    scored on CUDA, and the score agrees with the CPU predictor's."""
+    from repro_torch.streaming.apps import streaming_inference
+    from repro_torch.streaming.runtime import run_app
+
+    def run(device, depth):
+        app = streaming_inference(model_versions=1, device=device)
+        rt = run_app(app, {}, batch=16, max_batches=40, dispatch_depth=depth)
+        pred = app.kernels["predictor"].predictor
+        assert pred.batches == {device: 40}
+        return rt.states["sink"][0]
+
+    # the products are float32 whatever the global TF32 switch says
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        sinks = [run("cuda", d) for d in (1, 2, 3)]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    cpu = run("cpu", 1)
+    assert {s["seen"] for s in sinks} == {cpu["seen"]} == {40 * 16}
+    assert len({s["score"].hex() for s in sinks}) == 1
+    assert sinks[0]["score"] == pytest.approx(cpu["score"], rel=1e-5)

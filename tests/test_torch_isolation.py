@@ -23,6 +23,7 @@ from repro_torch.launch.steps import (make_decode_step, make_prefill_step,
                                       make_train_step)
 from repro_torch.launch.train import train
 from repro_torch.optim.optimizers import adamw
+from repro_torch.streaming.apps import streaming_inference
 from repro_torch.models import transformer
 from repro_torch.weights import from_jax_params
 
@@ -51,6 +52,27 @@ def test_import_leaves_jax_and_repro_out():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("clean")
+
+
+def test_streaming_inference_runs_without_jax_or_repro():
+    """The predictor's path imports nothing lazily: after a run of the
+    inference app, neither ``jax`` nor ``repro`` is loaded."""
+    code = ("import sys\n"
+            "from repro_torch.streaming.apps import streaming_inference\n"
+            "from repro_torch.streaming.runtime import run_app\n"
+            "app = streaming_inference(model_versions=1, device='cpu')\n"
+            "r = run_app(app, {}, batch=16, max_batches=4, dispatch_depth=2)\n"
+            "assert r.states['sink'][0]['seen'] == 64, r.states['sink']\n"
+            "assert app.kernels['predictor'].predictor.batches['cpu'] == 4\n"
+            "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+            " or m == 'repro' or m.startswith('repro.')]\n"
+            "assert not bad, bad\n"
+            "print('clean')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "clean"
 
 
 def test_no_source_imports_jax_or_repro():
@@ -96,6 +118,10 @@ def test_entry_points_raise_without_gpu():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         _build.load()
     assert _build._lib is None
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        streaming_inference()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        streaming_inference(device="cuda:0")
 
 
 def test_build_raises_without_nvcc(monkeypatch):

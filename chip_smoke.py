@@ -2,8 +2,10 @@
 """Drive the PyTorch port's paths on one CUDA card: serving smollm-360M
 (dense), Jamba (hybrid Mamba + attention), xlstm-125m and DeepSeek-V3 (MLA +
 MoE), the SMOKE configs the server and trainer default to (and the MoE
-ones), training smollm-360M, DeepSeek-V3's MLA prefix and Qwen3-MoE, and
-the paper's streaming apps with the inference app's predictor on the card.
+ones), training smollm-360M, DeepSeek-V3's MLA prefix and Qwen3-MoE, the
+paper's streaming apps with the inference app's predictor on the card, and
+serving and training whisper-small (encoder-decoder) and
+llava-next-mistral-7b (a vlm backbone on image-patch embeddings).
 
   python3 chip_smoke.py
 
@@ -46,7 +48,12 @@ time,
      at MLA's head dims: bf16 q = k = v (8, 128, 512, 192) causal with the
      forward's L, contiguous and in the model's layout with V padded, and
      float32 at (2, 16, 512, 192) and (8, 4, 512, 24), SDPA's backward with
-     the scale as yardstick;
+     the scale as yardstick; whisper's and llava's shapes: flash attention
+     not causal at G 1, D 64 over 1,500 keys from 1,500, 448 and 64 queries
+     (the encoder, cross attention) and its backward with L, decode attention
+     at G 1 over 1,500 cross slots with no length (with the split sweep), and
+     the bf16 forward at D 128, G 4, causal over 8 x 2,944 positions (llava's
+     prefill), bf16 timed against SDPA and float32 checked;
      RMSNorm at d 960, 768, 1536), and the bf16 forward that also writes
      the log-sum-exp; the backward's library yardstick is the backward of
      ``scaled_dot_product_attention`` (``enable_gqa``) or ``F.rms_norm``:
@@ -86,8 +93,11 @@ time,
      equal tokens; and the float32 logits of smollm, h2o-danube and Jamba
      (dense FFN) SMOKE, card against CPU, as phase 5; then the same for the
      MoE SMOKE configs (DeepSeek with MLA at head dim 24, Qwen3-MoE, Jamba
-     with its real MoE layers): ``serve.main(["--arch", ...])`` graphed and
-     eager with equal tokens, and float32 logits card vs CPU;
+     with its real MoE layers), whisper and llava SMOKE:
+     ``serve.main(["--arch", ...])`` graphed and eager with equal tokens, and
+     float32 logits card vs CPU (whisper's prefill on frames and its decode
+     steps on the cross K/V of the encoded frames; llava's prefill on tokens
+     and on ``embeds``);
   13. trains full-width smollm-360M (bf16, 8 x 512 tokens a step) through
      ``launch.train.train``, eagerly and from the train step's graph: step
      time, tokens/s, the 16 losses and grad norms (the graphed ones equal to
@@ -139,13 +149,38 @@ time,
      events, beside the declared 2500 ns a tuple); the processes backend
      refused in this CUDA parent; and in a fresh interpreter the processes
      backend equal to the threads backend;
+  24. whisper-small at its published widths and depth (12 + 12 layers, d
+     768, 12 heads of 64, 1,500 frames, vocab 51865), weights from seed 0:
+     prefill of 8 x (1,500 frames + 64 tokens), 64 greedy decode steps from
+     ``init_cache(..., enc_states, params)`` (the encoded frames' cross
+     K/V), ``serve_batch`` 8 x (64 + 64) as the reference serves it (cross
+     K/V zeros), each eager and graphed and equal, with launches from
+     ``per_pass`` (36 flash calls and 62 RMSNorms a forward, 24
+     decode-attention calls and 37 RMSNorms a step); a profile of one
+     prefill and one decode step; peak memory; float32 logits card vs CPU
+     on a 2 + 2-layer cut;
+  25. trains whisper-small whole, 8 steps of 8 x (1,500 frames + 448
+     tokens) through ``launch.train.train`` (the audio frontend's frames
+     drawn each step), eagerly and graphed, as phase 20: bit-equal losses
+     and grad norms, finite and falling, launches from ``per_train_step``,
+     peak memory, one eager step by range;
+  26. llava-next-mistral-7b at its published widths and depth (32 layers,
+     ~7.2 B params): prefill of 8 x (2,880 image-patch embeddings + 64 text
+     tokens) fused by ``fuse_vlm_inputs`` (the ``embeds`` branch), serving
+     8 x (64 + 64), each eager and graphed and equal; peak memory;
+  27. trains llava through the vlm branch of ``launch.train.train``, 8
+     steps of 8 x 3,072 positions (2,880 patches + 192 tokens), cut to
+     ``LLAVA_TRAIN_CUT`` layers so that AdamW fits, as phase 20, failing
+     unless the embedding alone took no gradient (its AdamW moment stays
+     zero, as the reference's gradient is);
 Every path runs with the launch counts set to 0 just before it and read just
 after; a graphed path's counts include its warm-up calls (``WARMUP`` eager
 calls before capture), and a replay adds what the capture recorded. Then it prints the kernel table as one JSON line (the rows of
 MLA's flash instances count the launches of the path that runs each:
 DeepSeek-V3 prefill for bf16 D 192, the parity phases for float32 D 192
 and 24; for the backward, DeepSeek-V3 training for bf16 D 192 and phase
-22 for float32 D 192 and 24) and, last,
+22 for float32 D 192 and 24; whisper's and llava's shapes the launches of
+phases 24-25 and 26-27) and, last,
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
 with no CUDA device, or outside a checkout, it exits non-zero at once. The
 full report goes to ``build/chip_smoke.json``, the compiler's output (ptxas
@@ -205,6 +240,15 @@ TOL = {("rmsnorm", "float32"): 1e-5, ("rmsnorm", "bfloat16"): 2e-2,
        ("adamw", "float32"): 2e-5, ("adamw", "bfloat16"): 2 ** -7,
        # the sums of squares and the norm: float32 in another order
        ("sumsq", "float32"): 1e-5, ("sumsq", "bfloat16"): 1e-5}
+# bf16 attention over 1,500 keys (whisper's rows): the outputs are sums over
+# every key with a typical |O| of ~0.04, about TOL itself, so those rows are
+# held per element to one bf16 ulp of the plain value (both sides round
+# their float32 result to bf16; ulp <= 2^-7 |x|) plus a floor scaled to the
+# output, BF16_RMS_SHARE * rms(plain), for the kernels' bf16 P and dS
+# (2^-9 relative a term) before that rounding
+BF16_ULP_SHARE = 2.0 ** -7
+BF16_RMS_SHARE = 2.0 ** -5
+SCALED_LIMIT = "2^-7 |plain| + 2^-5 rms(plain)"
 # AdamW's moments m and v, float32 on both sides: relative
 ADAMW_MV_TOL = 1e-6
 # RMSNorm's dscale sums dy * x * r over every row, float32 on both sides:
@@ -288,6 +332,48 @@ MLA_BWD_ROWS = {
                                     "DeepSeek SMOKE bwd causal 8x4/4x512x512x24", "float32",
                                     "DeepSeek SMOKE training parity (phase 22)"),
 }
+# the encoder-decoder's and the vlm backbone's attention shapes (phase 2),
+# each a row of the kernel table counted on the path that runs it (name:
+# (kernel, source, TPU kernel it replaces, phase-2 case, dtype, path))
+WHISPER_ENC_CASE = "whisper encoder 8x12/12x1500x1500x64 not causal"
+WHISPER_CROSS_CASE = "whisper cross 8x12/12x448x1500x64 not causal"
+WHISPER_CROSS_PREFILL_CASE = "whisper cross 8x12/12x64x1500x64 not causal"
+WHISPER_DECODE_CASE = "whisper cross 8x12/12x1500x64 every slot (no length)"
+LLAVA_CASE = "llava prefill causal 8x32/8x2944x2944x128"
+LLAVA_BWD_CASE = "llava training bwd causal 8x32/8x3072x3072x128 with L"
+FRONTEND_ROWS = {
+    "flash_attention_whisper": (
+        "flash_attention", "src/repro_torch/csrc/flash_attention_sm90.cu",
+        "src/repro/kernels/flash_attention.py:84", WHISPER_ENC_CASE, "bfloat16",
+        "whisper serving and training (phases 24-25): encoder, self and cross attention"),
+    "flash_attention_bwd_whisper": (
+        "flash_attention_bwd", "src/repro_torch/csrc/flash_attention_bwd_sm90.cu",
+        "src/repro/kernels/flash_attention.py:84", WHISPER_ENC_CASE + " with L",
+        "bfloat16", "whisper training (phase 25): encoder, self and cross attention"),
+    "decode_attention_whisper": (
+        "decode_attention", "src/repro_torch/csrc/decode_attention.cu",
+        "src/repro/kernels/decode_attention.py:61", WHISPER_DECODE_CASE, "bfloat16",
+        "whisper serving (phase 24): self caches and cross K/V"),
+    "flash_attention_llava": (
+        "flash_attention", "src/repro_torch/csrc/flash_attention_sm90.cu",
+        "src/repro/kernels/flash_attention.py:84", LLAVA_CASE, "bfloat16",
+        "llava serving and training (phases 26-27)"),
+    "flash_attention_bwd_llava": (
+        "flash_attention_bwd", "src/repro_torch/csrc/flash_attention_bwd_sm90.cu",
+        "src/repro/kernels/flash_attention.py:84", LLAVA_BWD_CASE, "bfloat16",
+        "llava training (phase 27)"),
+}
+# llava training at its published widths, cut to 16 of its 32 layers: 3.75 B
+# params, 45 GB of bf16 params and grads and float32 AdamW moments, beside
+# ~12 GB of activations at 8 x 3,072 positions (remat)
+LLAVA_TRAIN_CUT = dict(n_layers=16)
+# its AdamW base rate. train() warms up for steps // 10 steps (one of 8); at
+# the trainer's 3e-4 default, AdamW's first steps, which move every weight by
+# about the rate, overshoot at d 4096: the loss rises over the first steps
+# and ends the 8 above where it began, which the phase's check refuses. The
+# rate witness of phase 27 runs 3e-4 at these widths (2 layers, float32) on
+# the card and the CPU in lockstep
+LLAVA_TRAIN_LR = 1e-5
 # training at full width, cut to what one card holds with AdamW's 12 bytes a
 # param: DeepSeek-V3's 3 dense-FFN prefix layers (MLA + SwiGLU, ~3.6 B
 # params; a MoE layer is 11.5 B) without the MTP module (an MLA + MoE block),
@@ -296,6 +382,8 @@ MLA_BWD_ROWS = {
 DEEPSEEK_TRAIN_CUT = dict(n_layers=3, mtp=False)
 QWEN_TRAIN_CUT = dict(n_layers=1)
 MOE_TRAIN_STEPS = 8
+# steps of phase 27's float32 card-vs-CPU lockstep (each ~20 s on the CPU)
+RATE_LOCKSTEP_STEPS = 4
 # smollm-360M training in phase 13: steps of 8 x 512 tokens
 TRAIN_STEPS = 16
 
@@ -465,23 +553,35 @@ def nbytes(*tensors) -> int:
 
 def compare(kernel, case, dtype, got, want, tol_key, run=None, plain=None,
             library=None, n_bytes=0, ops=0, exps=0, ops_dtype=None,
-            plain_iters=21, library_fwd=None):
+            plain_iters=21, library_fwd=None, scaled=False):
     """One row of phase 2. ``got``/``want`` are a tensor or a tuple of
-    tensors, each held to the tolerance of its own dtype. With ``run`` it
+    tensors, each held to the tolerance of its own dtype; with ``scaled`` a
+    bf16 tensor is held per element to SCALED_LIMIT instead, and the row
+    keeps rms(plain), max|plain| and the worst err / limit of each. With ``run`` it
     also times the kernel, its plain version and the library call (if any;
     less ``library_fwd``'s time where that is given, for a backward timed
     as autograd forward + backward) and states the bound from ``n_bytes``,
     ``ops`` of ``ops_dtype`` (default ``dtype``) and ``exps``
     exponentials; a backward row also keeps each kernel's device ms."""
     pieces = list(zip(got, want)) if isinstance(got, tuple) else [(got, want)]
-    ok, max_err = True, 0.0
+    ok, max_err, held = True, 0.0, []
     for g, w in pieces:
-        err = (g.float() - w.float()).abs()
-        t = TOL[(tol_key, str(w.dtype).split(".")[1])]
-        ok = ok and bool((err <= t + t * w.float().abs()).all())
+        wf = w.float()
+        err = (g.float() - wf).abs()
+        if scaled and w.dtype == torch.bfloat16:
+            rms = float(wf.square().mean().sqrt())
+            ratio = float((err / (BF16_ULP_SHARE * wf.abs() + BF16_RMS_SHARE * rms)).max())
+            ok = ok and ratio <= 1.0    # NaN fails
+            held.append({"rms_plain": rms, "max_abs_plain": float(wf.abs().max()),
+                         "max_abs_err": float(err.max()), "err_over_limit": ratio})
+        else:
+            t = TOL[(tol_key, str(w.dtype).split(".")[1])]
+            ok = ok and bool((err <= t + t * wf.abs()).all())
         max_err = max(max_err, float(err.max()))
     row = dict(kernel=kernel, case=case, dtype=dtype, max_abs_err=max_err,
                tol=TOL[(tol_key, dtype)], ok=ok)
+    if held:
+        row.update(tol=SCALED_LIMIT, scaled=held)
     if run is not None:
         row["bound_ms"], row["bound_by"], row["bound_terms"] = bound(
             n_bytes, ops, ops_dtype or dtype, exps)
@@ -638,8 +738,138 @@ def phase_kernels(rms, fla, dec, scan):
     rows += mla_rows(fla, randn)
     rows += backward_rows(rms, fla, randn)
     rows += mla_backward_rows(fla, randn)
+    rows += frontend_rows(fla, dec, randn)
     rows += optimizer_rows(gen)
     return rows
+
+
+def frontend_rows(fla, dec, randn):
+    """The attention shapes of whisper-small and llava-next-mistral-7b, bf16
+    timed (SDPA as the yardstick) and float32 checked: flash attention not
+    causal at G 1, D 64 over 1,500 keys (the encoder; cross attention from
+    448 and 64 queries), its backward with the forward's L (encoder, cross
+    attention from 448 queries; SDPA's backward as in ``backward_rows``),
+    decode attention at G 1 over 1,500 cross slots with no length, the bf16
+    forward at D 128, G 4, causal over llava's 2,944-position prefill and
+    its backward with L over the 3,072 positions of llava's training (bf16
+    only; their plain versions a batch element at a time, ``per_batch``).
+    Whisper's bf16 rows are held to SCALED_LIMIT (``compare``)."""
+    rows = []
+    d = 64
+    for case, b, h, sq, skv in ((WHISPER_ENC_CASE, 8, 12, 1500, 1500),
+                                (WHISPER_CROSS_CASE, 8, 12, 448, 1500),
+                                (WHISPER_CROSS_PREFILL_CASE, 8, 12, 64, 1500)):
+        for dtype in (torch.bfloat16, torch.float32):
+            dn = str(dtype).split(".")[1]
+            q, do = randn((b, h, sq, d), dtype), randn((b, h, sq, d), dtype)
+            k, v = randn((b, h, skv, d), dtype), randn((b, h, skv, d), dtype)
+            args = (q, k, v, False, None, 0)
+            timed = {} if dtype == torch.float32 else dict(
+                run=lambda a=args: fla.flash_attention_cuda(*a),
+                plain=lambda a=args: fla.flash_attention_plain(*a),
+                library=lambda q=q, k=k, v=v: F.scaled_dot_product_attention(q, k, v),
+                n_bytes=2 * nbytes(q) + 2 * nbytes(k), ops=4 * b * h * d * sq * skv,
+                plain_iters=5)
+            rows.append(compare("flash_attention", case, dn, fla.flash_attention_cuda(*args),
+                                fla.flash_attention_plain(*args), "attn", scaled=True,
+                                **timed))
+            rows[-1]["instance"] = fla.INSTANCES[dtype]
+            if case == WHISPER_CROSS_PREFILL_CASE:
+                continue
+            lse = None
+            if dtype == torch.bfloat16:
+                o, lse = fla.flash_attention_cuda(*args, return_lse=True)
+            else:
+                o = fla.flash_attention_cuda(*args)
+            bargs = (q, k, v, o, do, False, None, 0)
+            ql, kl, vl = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+
+            def lib_f(ql=ql, kl=kl, vl=vl):
+                return F.scaled_dot_product_attention(ql, kl, vl)
+
+            timed = {} if dtype == torch.float32 else dict(
+                run=lambda a=bargs, l=lse: fla.flash_attention_bwd_cuda(*a, lse=l),
+                plain=lambda a=bargs: fla.flash_attention_bwd_plain(*a),
+                library=lambda f=lib_f, ins=(ql, kl, vl), do=do:
+                    torch.autograd.grad(f(), ins, do),
+                library_fwd=lib_f, n_bytes=4 * nbytes(q) + 4 * nbytes(k),
+                ops=10 * b * h * d * sq * skv, plain_iters=5)
+            rows.append(compare(
+                "flash_attention_bwd", case + (" with L" if lse is not None else ""), dn,
+                fla.flash_attention_bwd_cuda(*bargs, lse=lse),
+                fla.flash_attention_bwd_plain(*bargs), "attn_bwd", scaled=True, **timed))
+            rows[-1]["instance"] = fla.INSTANCES[dtype]
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).split(".")[1]
+        q = randn((8, 12, d), dtype)
+        k, v = randn((8, 12, 1500, d), dtype), randn((8, 12, 1500, d), dtype)
+        timed = {} if dtype == torch.float32 else dict(
+            run=lambda: dec.decode_attention_cuda(q, k, v),
+            plain=lambda: dec.decode_attention_plain(q, k, v),
+            library=lambda: F.scaled_dot_product_attention(q[:, :, None], k, v),
+            n_bytes=nbytes(k, v) + 2 * nbytes(q), ops=4 * 12 * d * 1500 * 8)
+        rows.append(compare("decode_attention", WHISPER_DECODE_CASE, dn,
+                            dec.decode_attention_cuda(q, k, v),
+                            dec.decode_attention_plain(q, k, v), "attn", scaled=True,
+                            **timed))
+        if dtype == torch.bfloat16:
+            rows[-1].update(split_sweep(dec, q, k, v, None))
+    b, hq, hkv, hd = 8, 32, 8, 128
+    plain = per_batch(fla.flash_attention_plain, 3)
+    plain_bwd = per_batch(fla.flash_attention_bwd_plain, 5)
+    for case, s in ((LLAVA_CASE, 2944), (LLAVA_BWD_CASE, 3072)):
+        q, do = randn((b, hq, s, hd), torch.bfloat16), randn((b, hq, s, hd), torch.bfloat16)
+        k, v = randn((b, hkv, s, hd), torch.bfloat16), randn((b, hkv, s, hd), torch.bfloat16)
+        args = (q, k, v, True, None, 0)
+        pairs = s * (s + 1) // 2
+        if case == LLAVA_CASE:
+            ke, ve = (t.repeat_interleave(hq // hkv, dim=1) for t in (k, v))
+            rows.append(compare(
+                "flash_attention", case, "bfloat16", fla.flash_attention_cuda(*args),
+                plain(*args), "attn", run=lambda a=args: fla.flash_attention_cuda(*a),
+                plain=lambda a=args: plain(*a),
+                library=lambda q=q, ke=ke, ve=ve: F.scaled_dot_product_attention(
+                    q, ke, ve, is_causal=True),
+                n_bytes=2 * nbytes(q) + 2 * nbytes(k), ops=4 * b * hq * hd * pairs,
+                plain_iters=3))
+            del ke, ve
+        else:
+            o, lse = fla.flash_attention_cuda(*args, return_lse=True)
+            bargs = (q, k, v, o, do, True, None, 0)
+            ql, kl, vl = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+
+            def lib_f(ql=ql, kl=kl, vl=vl):
+                return F.scaled_dot_product_attention(ql, kl, vl, is_causal=True,
+                                                      enable_gqa=True)
+
+            rows.append(compare(
+                "flash_attention_bwd", case, "bfloat16",
+                fla.flash_attention_bwd_cuda(*bargs, lse=lse), plain_bwd(*bargs),
+                "attn_bwd", run=lambda a=bargs, l=lse: fla.flash_attention_bwd_cuda(*a, lse=l),
+                plain=lambda a=bargs: plain_bwd(*a),
+                library=lambda f=lib_f, ins=(ql, kl, vl), do=do:
+                    torch.autograd.grad(f(), ins, do),
+                library_fwd=lib_f, n_bytes=4 * nbytes(q) + 4 * nbytes(k),
+                ops=10 * b * hq * hd * pairs, plain_iters=3))
+            del ql, kl, vl, o, lse
+        rows[-1]["instance"] = fla.INSTANCES[torch.bfloat16]
+        del q, k, v, do
+        torch.cuda.empty_cache()
+    return rows
+
+
+def per_batch(fn, n_tensors: int):
+    """``fn`` over one batch element at a time (its first ``n_tensors``
+    arguments sliced, the rest passed whole), the results concatenated along
+    the batch dim: a plain version at a shape whose float32 logits would not
+    fit the card at once (llava's 8 x 32 x 2,944^2 would be 8.9 GB a copy)."""
+    def run(*args):
+        outs = [fn(*(a[i:i + 1] for a in args[:n_tensors]), *args[n_tensors:])
+                for i in range(args[0].shape[0])]
+        if isinstance(outs[0], tuple):
+            return tuple(torch.cat(parts) for parts in zip(*outs))
+        return torch.cat(outs)
+    return run
 
 
 def leaf_ms(calls, iters: int = 21) -> float:
@@ -1016,15 +1246,26 @@ def fla_mask(sq, skv, window, offset):
 
 
 def per_pass(cfg) -> dict:
-    """Kernel launches per forward or decode step of ``cfg``: RMSNorm once
-    per block (twice with an FFN, once more inside mLSTM, twice more in MLA:
-    its q and kv norms) plus the final norm; one flash-attention kernel per
-    attention or MLA layer in a forward (``flash``), one decode-attention
-    kernel per attention layer in a decode step (``attn``; MLA decodes by
-    einsums); one scan per Mamba layer (prefill only)."""
+    """Kernel launches per forward (``rmsnorm``, ``flash``, ``mamba``) or
+    decode step (``rmsnorm_step``, ``attn``) of ``cfg``. A decoder-only
+    model: RMSNorm once per block (twice with an FFN, once more inside
+    mLSTM, twice more in MLA: its q and kv norms) plus the final norm, in
+    either; one flash-attention kernel per attention or MLA layer in a
+    forward, one decode-attention kernel per attention layer in a decode
+    step (MLA decodes by einsums); one scan per Mamba layer (prefill only).
+    An encoder-decoder's forward: two norms per encoder layer and
+    ``enc_norm``, three per decoder layer (self, cross, MLP) and the final
+    norm; one flash kernel per encoder layer and two per decoder layer (self
+    and cross attention). Its decode step: the decoder's norms, and two
+    decode-attention kernels per layer (self cache and cross K/V)."""
+    if cfg.is_encdec:
+        return {"rmsnorm": 2 * cfg.encoder_layers + 1 + 3 * cfg.n_layers + 1,
+                "rmsnorm_step": 3 * cfg.n_layers + 1, "attn": 2 * cfg.n_layers,
+                "flash": cfg.encoder_layers + 2 * cfg.n_layers, "mamba": 0}
     blocks = cfg.blocks()
-    return {"rmsnorm": 1 + sum(1 + (ffn is not None) + (mixer == "mlstm")
-                               + 2 * (mixer == "mla") for mixer, ffn in blocks),
+    norms = 1 + sum(1 + (ffn is not None) + (mixer == "mlstm") + 2 * (mixer == "mla")
+                    for mixer, ffn in blocks)
+    return {"rmsnorm": norms, "rmsnorm_step": norms,
             "attn": sum(mixer == "attn" for mixer, _ in blocks),
             "flash": sum(mixer in ("attn", "mla") for mixer, _ in blocks),
             "mamba": sum(mixer == "mamba" for mixer, _ in blocks)}
@@ -1038,9 +1279,21 @@ def per_train_step(cfg) -> dict:
     (its two input norms, its block and its final norm) once; each norm
     and attention layer runs its backward once; the clip one ``sumsq`` per
     leaf of the param tree and one ``clip_finalize``, AdamW one
-    ``adamw_update`` per leaf."""
-    from repro_torch.models import transformer
+    ``adamw_update`` per leaf. An encoder-decoder checkpoints each encoder
+    and decoder layer (2 and 3 norms, 1 and 2 flash calls) and runs
+    ``enc_norm`` and the final norm once."""
+    from repro_torch.models import model_api, transformer
     from repro_torch.models.module import tree_leaves
+
+    leaves = len(tree_leaves(model_api(cfg).init(torch.Generator(), cfg, device="meta")))
+    opt = {"sumsq": leaves, "clip_finalize": 1, "adamw_update": leaves}
+    if cfg.is_encdec:
+        twice = 2 if cfg.remat else 1
+        layer_norms = 2 * cfg.encoder_layers + 3 * cfg.n_layers
+        layer_flash = cfg.encoder_layers + 2 * cfg.n_layers
+        return {"rmsnorm": twice * layer_norms + 2, "rmsnorm_bwd": layer_norms + 2,
+                "flash_attention": twice * layer_flash,
+                "flash_attention_bwd": layer_flash, **opt}
 
     def norms(spec):
         mixer, ffn = spec
@@ -1056,11 +1309,9 @@ def per_train_step(cfg) -> dict:
     fwd_norms = (sum(map(norms, once)) + twice * sum(map(norms, stack)) + 1
                  + 3 * cfg.mtp)
     bwd_norms = sum(map(norms, once + stack)) + 1 + 3 * cfg.mtp
-    leaves = len(tree_leaves(transformer.init(torch.Generator(), cfg, device="meta")))
     return {"rmsnorm": fwd_norms, "rmsnorm_bwd": bwd_norms,
             "flash_attention": sum(map(attn, once)) + twice * sum(map(attn, stack)),
-            "flash_attention_bwd": sum(map(attn, once + stack)),
-            "sumsq": leaves, "clip_finalize": 1, "adamw_update": leaves}
+            "flash_attention_bwd": sum(map(attn, once + stack)), **opt}
 
 
 # each wrapper's kernels in a profiler trace: (name pattern, kernels a call)
@@ -1440,7 +1691,9 @@ def train_parity(cfg, p_cpu, p_gpu, batch, loss_fn, make_train_step, adamw,
                  lr: float = 1e-3) -> dict:
     """Float32 training card vs CPU from the same params and batch: the loss,
     the global grad norm and every gradient leaf after one backward, then
-    the params after one ``make_train_step`` (AdamW, lr ``lr``)."""
+    the params after one ``make_train_step`` (AdamW, lr ``lr``). A leaf the
+    loss does not reach (llava's embedding on an ``embeds`` batch) must
+    have no gradient on either side (``no_grad``); it counts as zero."""
     from repro_torch.models.module import tree_leaves, tree_map
     from repro_torch.optim.optimizers import global_norm
 
@@ -1454,14 +1707,17 @@ def train_parity(cfg, p_cpu, p_gpu, batch, loss_fn, make_train_step, adamw,
     loss_g, g_g = grads(p_gpu, "cuda")
     out = {"params": sum(t.numel() for t in tree_leaves(p_cpu)), "loss_cpu": loss_c,
            "loss_err": abs(loss_c - loss_g), "leaves": 0, "worst_grad": None,
-           "worst_grad_ratio": 0.0, "missing": []}
+           "worst_grad_ratio": 0.0,
+           "missing": [path for path, gc, gg in _paired_leaves(g_c, g_g)
+                       if (gc is None) != (gg is None)],
+           "no_grad": [path for path, gc, gg in _paired_leaves(g_c, g_g)
+                       if gc is None and gg is None]}
+    g_c, g_g = (tree_map(lambda g, a: torch.zeros_like(a) if g is None else g, grad, params)
+                for grad, params in ((g_c, p_cpu), (g_g, p_gpu)))
     n_c, n_g = float(global_norm(g_c)), float(global_norm(g_g))
     out["grad_norm_rel_err"] = abs(n_c - n_g) / n_c
     for path, gc, gg in _paired_leaves(g_c, g_g):
         out["leaves"] += 1
-        if gg is None or gc is None:
-            out["missing"].append(path)
-            continue
         tol = GRAD_TOL * float(gc.abs().max()) + 1e-6
         ratio = float((gg.cpu() - gc).abs().max()) / tol
         if ratio >= out["worst_grad_ratio"]:
@@ -1478,6 +1734,46 @@ def train_parity(cfg, p_cpu, p_gpu, batch, loss_fn, make_train_step, adamw,
                  and out["worst_grad_ratio"] <= 1.0
                  and out["grad_norm_rel_err"] <= GRAD_TOL
                  and out["param_max_err"] <= out["param_tol"])
+    return out
+
+
+def lockstep_train(cfg, p_gpu, batch_of, steps, total, lr, make_train_step, adamw,
+                   warmup_cosine) -> dict:
+    """Float32 training card vs CPU in lockstep: the first ``steps`` eager
+    AdamW steps on the card at base rate ``lr`` with the schedule ``train``
+    gives a run of ``total`` steps (warm-up ``total // 10`` steps, then
+    cosine), each also taken on the CPU from a
+    copy of the card's params and AdamW state before it, on
+    ``batch_of(params on the CPU, step)``. Each step's loss to LOSS_TOL and
+    grad norm to GRAD_TOL relative, so the card's loss curve is the plain
+    arithmetic's along the same path; the params after each step are
+    reported. ``p_gpu`` is trained in place."""
+    from repro_torch.models.module import tree_leaves, tree_map
+    opt = adamw(warmup_cosine(lr, warmup=max(total // 10, 1), total=total))
+    step_g = make_train_step(cfg, opt, device="cuda", graphs=False)
+    step_c = make_train_step(cfg, opt, device="cpu")
+    s_gpu = opt.init(p_gpu)
+    out = {"lr": lr, "steps": steps, "losses": [], "losses_cpu": [], "grad_norms": [],
+           "loss_err": [], "grad_norm_rel_err": [], "param_max_err": []}
+    for t in range(steps):
+        p_cpu = tree_map(lambda a: a.to("cpu", copy=True), p_gpu)
+        s_cpu = tree_map(lambda a: a.to("cpu", copy=True), s_gpu)
+        batch = batch_of(p_cpu, t)
+        p_gpu, s_gpu, m_g = step_g(p_gpu, s_gpu, batch)
+        p_cpu, s_cpu, m_c = step_c(p_cpu, s_cpu, batch)
+        loss_g, loss_c = float(m_g["loss"]), float(m_c["loss"])
+        n_g, n_c = float(m_g["grad_norm"]), float(m_c["grad_norm"])
+        out["losses"].append(loss_g)
+        out["losses_cpu"].append(loss_c)
+        out["grad_norms"].append(n_g)
+        out["loss_err"].append(abs(loss_g - loss_c))
+        out["grad_norm_rel_err"].append(abs(n_g - n_c) / n_c)
+        out["param_max_err"].append(max(float((a.cpu() - b).abs().max()) for a, b in zip(
+            tree_leaves(p_gpu), tree_leaves(p_cpu))))
+        del p_cpu, s_cpu
+    out["ok"] = (all(math.isfinite(x) for x in out["losses"])
+                 and max(out["loss_err"]) <= LOSS_TOL
+                 and max(out["grad_norm_rel_err"]) <= GRAD_TOL)
     return out
 
 
@@ -1738,8 +2034,8 @@ def main() -> int:
     from repro_torch.launch.serve import Request, serve_batch
     from repro_torch.launch.steps import (make_decode_step, make_prefill_step,
                                           make_train_step)
-    from repro_torch.launch.train import train
-    from repro_torch.models import model_api, transformer
+    from repro_torch.launch.train import _frontend_batch, train
+    from repro_torch.models import encdec, frontends, model_api, transformer
     from repro_torch.optim.optimizers import adamw, warmup_cosine
     from repro_torch.models.module import param_bytes, param_count, tree_map
 
@@ -1756,6 +2052,7 @@ def main() -> int:
     side = {name: 0 for name in kern}       # launches of the parity phases
     mla_totals = {name: 0 for name in MLA_ROWS}   # launches of MLA's instances
     mla_totals.update({name: 0 for name in MLA_BWD_ROWS})
+    frontend_totals = {name: 0 for name in FRONTEND_ROWS}   # whisper's and llava's
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
     report = {"phase_s": {}}
@@ -1771,12 +2068,12 @@ def main() -> int:
     def zero(**nonzero):
         return {name: nonzero.get(name, 0) for name in kern}
 
-    def timed_prefill(prefill, params, toks, n_runs):
+    def timed_prefill(prefill, params, batch, n_runs):
         times = []
         for _ in range(n_runs):
             torch.cuda.synchronize()
             t = time.perf_counter()
-            logits = prefill(params, {"inputs": toks})
+            logits = prefill(params, batch)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t)
         return logits, times
@@ -1823,27 +2120,31 @@ def main() -> int:
         return {"kernels_per_replay": sum(rc.values()),
                 "kernels_per_eager_call": sum(ec.values()), "launches_per_replay": counted}
 
-    def prefill_pair(what, cfg, params, toks, n_runs):
+    def prefill_pair(what, cfg, params, batch, n_runs, n_tokens=None):
         """Eager and graphed prefill, ``n_runs`` calls each on the same
-        weights and tokens (times: median after the first); the graphed
-        logits must equal the eager ones bit for bit. Returns (record, eager
-        step, graphed step)."""
+        weights and ``batch`` ({"inputs"}, {"embeds"} or an encoder-decoder's
+        {"frames", "inputs"}; times: median after the first), tokens/s over
+        ``n_tokens`` a call (default: the positions of the inputs or
+        embeds); the graphed logits must equal the eager ones bit for bit.
+        Returns (record, eager step, graphed step)."""
         per = per_pass(cfg)
         one = zero(rmsnorm=per["rmsnorm"], flash_attention=per["flash"],
                    mamba_scan=per["mamba"])
         eager = make_prefill_step(cfg, device="cuda", graphs=False)
         graphed = make_prefill_step(cfg, device="cuda")
-        rec = {"batch": toks.shape[0], "seq": toks.shape[1], "launches_per_forward": one}
+        b, s = (batch["embeds"] if "embeds" in batch else batch["inputs"]).shape[:2]
+        n_tokens = n_tokens or b * s
+        rec = {"batch": b, "seq": s, "tokens_per_call": n_tokens,
+               "launches_per_forward": one}
         logits = {}
         for mode, step, n in (("eager", eager, n_runs), ("graphed", graphed, n_runs + WARMUP)):
             lg, times = drive(kern, totals, {k: v * n for k, v in one.items()},
-                              lambda: timed_prefill(step, params, toks, n_runs),
+                              lambda: timed_prefill(step, params, batch, n_runs),
                               f"{what} ({mode})")
-            if tuple(lg.shape) != (toks.shape[0], cfg.vocab) or not bool(
-                    torch.isfinite(lg).all()):
+            if tuple(lg.shape) != (b, cfg.vocab) or not bool(torch.isfinite(lg).all()):
                 fail(f"{what} ({mode}) logits shape {tuple(lg.shape)} or not finite")
             med = statistics.median(times[1:])
-            rec[mode] = {"runs_s": times, "median_s": med, "tokens_per_s": toks.numel() / med}
+            rec[mode] = {"runs_s": times, "median_s": med, "tokens_per_s": n_tokens / med}
             logits[mode] = lg
         rec["graphed"]["capture"] = capture_report(graph_of(graphed).stats, one, what)
         rec["graphed_vs_eager"] = require_same(f"{what} logits", logits["graphed"],
@@ -1854,7 +2155,7 @@ def main() -> int:
         """``serve_batch`` eager and graphed on the same weights and prompts;
         the graphed tokens must equal the eager ones."""
         per = per_pass(cfg)
-        one = zero(rmsnorm=per["rmsnorm"], decode_attention=per["attn"])
+        one = zero(rmsnorm=per["rmsnorm_step"], decode_attention=per["attn"])
         n_steps = len(prompts[0]) + max_new
         new = len(prompts) * max_new
         rec = {"requests": len(prompts), "prompt": len(prompts[0]), "max_new": max_new,
@@ -1881,18 +2182,18 @@ def main() -> int:
         rec["tokens_equal"] = True
         return rec
 
-    def profile_pair(what, cfg, params, toks, eager_prefill, prefill):
-        """One prefill and one decode step (8 sequences, position 64 of a
-        cache of 129), eager and graphed, profiled; and each graph's replay
-        against an eager call."""
+    def profile_pair(what, cfg, params, batch, tok, eager_prefill, prefill):
+        """One prefill of ``batch`` and one decode step of the 8 tokens
+        ``tok`` (position 64 of a cache of 129; an encoder-decoder's cross
+        K/V zeros, as its server leaves them), eager and graphed, profiled;
+        and each graph's replay against an eager call."""
         api = model_api(cfg)
         step_e = make_decode_step(cfg, device="cuda", graphs=False)
         step_g = make_decode_step(cfg, device="cuda")
         cache_e, cache_g = (api.init_cache(cfg, 8, 129, device="cuda") for _ in range(2))
-        tok = toks[:, 0]
         step_g(params, cache_g, tok, 64)
-        out = {"prefill": profile_call(lambda: eager_prefill(params, {"inputs": toks})),
-               "prefill_graphed": profile_call(lambda: prefill(params, {"inputs": toks})),
+        out = {"prefill": profile_call(lambda: eager_prefill(params, batch)),
+               "prefill_graphed": profile_call(lambda: prefill(params, batch)),
                "decode_step": profile_call(lambda: step_e(params, cache_e, tok, 64)),
                "decode_step_graphed": profile_call(lambda: step_g(params, cache_g, tok, 64)),
                "replay_check": {
@@ -1903,16 +2204,21 @@ def main() -> int:
         step_g.release()
         return out
 
-    def train_pair(arch, over, what):
+    def train_pair(arch, over, what, seq=512, lr=3e-4):
         """``launch.train.train`` of ``arch`` at its published widths cut by
-        ``over``: MOE_TRAIN_STEPS steps of 8 x 512 ``SyntheticLM`` tokens,
-        AdamW as phase 13, eagerly and from the train step's graph, each
-        with the launch counts of ``per_train_step``; the graphed losses and
-        grad norms must equal the eager ones bit for bit, and fall. Then one
-        eager step on the trained params, by ``record_function`` range."""
+        ``over``: MOE_TRAIN_STEPS steps of 8 x ``seq`` ``SyntheticLM``
+        tokens (and the stub frontend's frames or patches, which ``train``
+        draws), AdamW as phase 13 at base rate ``lr``, eagerly and from the
+        train step's graph,
+        each with the launch counts of ``per_train_step``; the graphed losses
+        and grad norms must equal the eager ones bit for bit, and fall. Then
+        one eager step on the trained params, by ``record_function`` range,
+        on the batch ``train`` would build for the next step (its
+        ``_frontend_batch``, frontends included). Records the
+        AdamW moments that stayed zero (leaves that took no gradient)."""
         cfg = dataclasses.replace(get(arch), **over)
         per_t = per_train_step(cfg)
-        rec = {"cut": over, "steps": MOE_TRAIN_STEPS, "batch": 8, "seq": 512,
+        rec = {"cut": over, "steps": MOE_TRAIN_STEPS, "batch": 8, "seq": seq, "lr": lr,
                "launches_per_step": per_t}
         for mode, graphs_on, n in (("eager", False, MOE_TRAIN_STEPS),
                                    ("graphed", True, MOE_TRAIN_STEPS + WARMUP)):
@@ -1921,8 +2227,8 @@ def main() -> int:
             fla.flash_attention_bwd_cuda.lse_forwards = 0
             out = drive(kern, totals, zero(**{k: v * n for k, v in per_t.items()}),
                         lambda: train(arch, smoke=False, steps=MOE_TRAIN_STEPS, batch=8,
-                                      seq=512, log_every=MOE_TRAIN_STEPS, device="cuda",
-                                      graphs=graphs_on, overrides=over),
+                                      seq=seq, lr=lr, log_every=MOE_TRAIN_STEPS,
+                                      device="cuda", graphs=graphs_on, overrides=over),
                         f"{what} ({mode})")
             run = rec[mode] = {
                 "losses": out["losses"], "grad_norms": out["grad_norms"],
@@ -1930,7 +2236,7 @@ def main() -> int:
                 "median_step_s": statistics.median(out["step_s"][1:]),
                 "max_memory_allocated": torch.cuda.max_memory_allocated(),
                 "lse_forwards": fla.flash_attention_bwd_cuda.lse_forwards}
-            run["tokens_per_s"] = 8 * 512 / run["median_step_s"]
+            run["tokens_per_s"] = 8 * seq / run["median_step_s"]
             losses = run["losses"]
             if run["lse_forwards"] != 0:
                 fail(f"{what} ({mode}) ran {run['lse_forwards']} extra forwards for the "
@@ -1942,15 +2248,19 @@ def main() -> int:
             if mode == "eager":
                 del out
         rec["params"] = param_count(out["params"])
+        rec["zero_moment_leaves"] = [path for path, m, _ in _paired_leaves(
+            out["opt_state"]["mu"], out["opt_state"]["mu"]) if not bool(m.any())]
         rec["graphed"]["capture"] = capture_report(out["capture"], zero(**per_t), what)
         for key in ("losses", "grad_norms"):
             if rec["graphed"][key] != rec["eager"][key]:
                 fail(f"{what}: graphed {key} {rec['graphed'][key]} differ from eager "
                      f"{rec['eager'][key]}")
-        opt = adamw(warmup_cosine(3e-4, warmup=1, total=MOE_TRAIN_STEPS))
-        toks = torch.randint(0, cfg.vocab, (8, 513),
+        opt = adamw(warmup_cosine(lr, warmup=1, total=MOE_TRAIN_STEPS))
+        toks = torch.randint(0, cfg.vocab, (8, seq + 1),
                              generator=torch.Generator().manual_seed(SEED + 4)).to("cuda")
-        tb = {"inputs": toks[:, :-1], "labels": toks[:, 1:]}
+        tb = _frontend_batch(out["cfg"], out["params"],
+                             {"inputs": toks[:, :-1], "labels": toks[:, 1:]},
+                             SEED, MOE_TRAIN_STEPS, seq, "cuda")
         step_e = make_train_step(out["cfg"], opt, device="cuda", graphs=False)
         rec["ranges"] = range_profile(lambda: step_e(out["params"], out["opt_state"], tb))
         full = {r: rec["ranges"][r]["full_size"] for r in ("clip", "optimizer")}
@@ -1964,7 +2274,8 @@ def main() -> int:
     def print_train(tag, rec, tail):
         e, g = rec["eager"], rec["graphed"]
         cap = g["capture"]
-        print(f"{tag} ({rec['params'] / 1e9:.2f} B params), {rec['steps']} steps of 8x512 "
+        print(f"{tag} ({rec['params'] / 1e9:.2f} B params), {rec['steps']} steps of "
+              f"8x{rec['seq']} "
               f"through launch.train.train: median step eager {e['median_step_s'] * 1e3:.1f} "
               f"ms, graphed {g['median_step_s'] * 1e3:.1f} ms ({e['tokens_per_s']:.0f} -> "
               f"{g['tokens_per_s']:.0f} tokens/s); graphed losses and grad norms = eager "
@@ -1993,18 +2304,33 @@ def main() -> int:
               + ", ".join(f"{k} {v}" for k, v in cap["launches_per_replay"].items() if v)
               + f" {tail}", flush=True)
 
-    def parity(cfg32, p_cpu, p_gpu, rng, steps=8):
-        """Float32 logits card vs CPU: prefill (2 x 32) and teacher-forced
-        decode steps."""
+    def parity(cfg32, p_cpu, p_gpu, rng, steps=8, frames=None):
+        """Float32 logits card vs CPU: prefill (2 x 32 tokens; with the
+        encoder-decoder's ``frames``; a vlm's also on ``embeds`` of image
+        patches and the tokens) and teacher-forced decode steps (the
+        encoder-decoder's from the cross K/V of its encoded frames)."""
         ptoks = torch.randint(0, cfg32.vocab, (2, 32), generator=rng)
-        lg_cpu = make_prefill_step(cfg32, device="cpu")(p_cpu, {"inputs": ptoks})
-        lg_gpu = make_prefill_step(cfg32, device="cuda")(p_gpu, {"inputs": ptoks}).cpu()
+        batch = {"inputs": ptoks} if frames is None else {"frames": frames, "inputs": ptoks}
+        lg_cpu = make_prefill_step(cfg32, device="cpu")(p_cpu, batch)
+        lg_gpu = make_prefill_step(cfg32, device="cuda")(p_gpu, batch).cpu()
         pre_err = float((lg_cpu - lg_gpu).abs().max())
+        if cfg32.family == "vlm":
+            patches = frontends.image_patches(rng, cfg32, 2, device="cpu")
+            emb = {"embeds": frontends.fuse_vlm_inputs(p_cpu, patches, ptoks, cfg32)}
+            e_cpu = make_prefill_step(cfg32, device="cpu")(p_cpu, emb)
+            e_gpu = make_prefill_step(cfg32, device="cuda")(p_gpu, emb).cpu()
+            pre_err = max(pre_err, float((e_cpu - e_gpu).abs().max()))
         api = model_api(cfg32)
         errs = []
         with torch.no_grad():
-            c_cpu = api.init_cache(cfg32, 2, 16, device="cpu")
-            c_gpu = api.init_cache(cfg32, 2, 16, device="cuda")
+            if frames is None:
+                c_cpu = api.init_cache(cfg32, 2, 16, device="cpu")
+                c_gpu = api.init_cache(cfg32, 2, 16, device="cuda")
+            else:
+                c_cpu = api.init_cache(cfg32, 2, 16, encdec.encode(p_cpu, frames, cfg32),
+                                       p_cpu, device="cpu")
+                c_gpu = api.init_cache(cfg32, 2, 16, encdec.encode(
+                    p_gpu, frames.cuda(), cfg32), p_gpu, device="cuda")
             for t in range(steps):
                 a, c_cpu = api.decode_step(p_cpu, c_cpu, ptoks[:, t], t, cfg32)
                 b, c_gpu = api.decode_step(p_gpu, c_gpu, ptoks[:, t].cuda(), t, cfg32)
@@ -2015,6 +2341,73 @@ def main() -> int:
             fail(f"{cfg32.name} float32 card vs CPU logits differ: prefill "
                  f"{pre_err}, decode {errs}")
         return out
+
+    def parity_launches(cfg, steps=8):
+        """The launches of ``parity``: each prefill graphed (1 call +
+        WARMUP; a vlm's twice: tokens and embeds), ``steps`` eager decode
+        steps, and an encoder-decoder's encoder once more on the card for
+        the cross K/V of its cache."""
+        per = per_pass(cfg)
+        n_pre = (1 + WARMUP) * (2 if cfg.family == "vlm" else 1)
+        want = zero(rmsnorm=per["rmsnorm"] * n_pre + per["rmsnorm_step"] * steps,
+                    flash_attention=per["flash"] * n_pre,
+                    decode_attention=per["attn"] * steps, mamba_scan=per["mamba"] * n_pre)
+        if cfg.is_encdec:
+            want["rmsnorm"] += 2 * cfg.encoder_layers + 1
+            want["flash_attention"] += cfg.encoder_layers
+        return want
+
+    def encdec_decode_pair(what, cfg, params, frames, first, n_steps):
+        """Greedy decoding of ``n_steps`` tokens from ``first`` (B,) int32
+        against the cross K/V of the encoded ``frames``
+        (``init_cache(..., enc_states, params)``), eagerly and from the
+        decode step's graph, each on a fresh cache: the same tokens; the
+        launches of the encoder once and of ``per_pass`` each step. Seconds
+        from the first step to the last token on the host, and from the end
+        of the first step (which captures the graph, and first copies the
+        cache it writes, cross K/V included, to pinned host memory) on."""
+        api = model_api(cfg)
+        per = per_pass(cfg)
+        one = zero(rmsnorm=per["rmsnorm_step"], decode_attention=per["attn"])
+        encoder = zero(rmsnorm=2 * cfg.encoder_layers + 1,
+                       flash_attention=cfg.encoder_layers)
+        rec = {"batch": len(first), "steps": n_steps, "launches_per_step": one}
+        toks, steps = {}, {"eager": make_decode_step(cfg, device="cuda", graphs=False),
+                           "graphed": make_decode_step(cfg, device="cuda")}
+
+        def run(step):
+            with torch.no_grad():
+                enc = encdec.encode(params, frames, cfg)
+            cache = api.init_cache(cfg, len(first), n_steps + 1, enc, params, device="cuda")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cur, out = first, []
+            for t in range(n_steps):
+                cur, _, _ = step(params, cache, cur, t)
+                out.append(cur.cpu())
+                if t == 0:
+                    t1 = time.perf_counter()
+            t_end = time.perf_counter()
+            return torch.stack(out, 1), t_end - t0, t_end - t1
+
+        for mode, n in (("eager", n_steps), ("graphed", n_steps + WARMUP)):
+            want = {k: v * n + encoder[k] for k, v in one.items()}
+            got, dt, dt_rest = drive(kern, totals, want, lambda: run(steps[mode]),
+                                     f"{what} ({mode})")
+            if tuple(got.shape) != (len(first), n_steps) or not bool(
+                    ((0 <= got) & (got < cfg.vocab)).all()):
+                fail(f"{what} ({mode}): bad tokens {got}")
+            rec[mode] = {"seconds": dt, "new_tokens_per_s": got.numel() / dt,
+                         "steps_per_s": n_steps / dt,
+                         "steady_new_tokens_per_s": (n_steps - 1) * len(first) / dt_rest}
+            toks[mode] = got
+        cap = rec["graphed"]["capture"] = capture_report(graph_of(steps["graphed"]).stats,
+                                                         one, what)
+        steps["graphed"].release()
+        if not torch.equal(toks["graphed"], toks["eager"]):
+            fail(f"{what}: graphed tokens differ from eager ones")
+        rec["tokens_equal"] = True
+        return rec
 
     # 1. card and build
     card = subprocess.run(
@@ -2139,8 +2532,14 @@ def main() -> int:
             dscale += f", scale {r['scale']:.6f}"
         if "label" in r:
             dscale += f" [{r['label']}]"
+        if "scaled" in r:
+            dscale += "; per output, rms(plain) / max|plain| / max_abs_err / err over " \
+                "limit: " + ", ".join(
+                    f"{h['rms_plain']:.4f} / {h['max_abs_plain']:.4f} / "
+                    f"{h['max_abs_err']:.3e} / {h['err_over_limit']:.3f}" for h in r["scaled"])
+        tol = r["tol"] if isinstance(r["tol"], str) else f"{r['tol']:g}"
         print(f"[2 kernel] {r['kernel']}{inst} {r['case']} {r['dtype']}: max_abs_err "
-              f"{r['max_abs_err']:.3e} (tol {r['tol']:g}){dscale}{timing}", flush=True)
+              f"{r['max_abs_err']:.3e} (tol {tol}){dscale}{timing}", flush=True)
     bad = [f"{r['kernel']} {r['case']} {r['dtype']}" for r in rows if not r["ok"]]
     if bad:
         fail(f"kernels disagree with their plain versions: {bad}")
@@ -2167,7 +2566,7 @@ def main() -> int:
     params = transformer.init(gen, cfg, device="cuda")
     toks = torch.randint(0, cfg.vocab, (8, 512), generator=gen, device="cuda")
     report["prefill"], eager_prefill, prefill = prefill_pair(
-        "smollm prefill", cfg, params, toks, 4)
+        "smollm prefill", cfg, params, {"inputs": toks}, 4)
     print_pair("[3 prefill] smollm-360M bf16 8x512", report["prefill"], "tokens_per_s",
                "tokens/s", took("3 prefill"))
 
@@ -2194,8 +2593,8 @@ def main() -> int:
 
     # 6. smollm-360M: where the time goes, one prefill, one decode step (bf16),
     # eager and graphed; the kernels of one replay against one eager call
-    report["profile"] = prof = profile_pair("smollm", cfg, params, toks,
-                                            eager_prefill, prefill)
+    report["profile"] = prof = profile_pair("smollm", cfg, params, {"inputs": toks},
+                                            toks[:, 0], eager_prefill, prefill)
     print_profile(f"[6 profile] {took('6 profile')}", prof)
     prefill.release()
     del params, prefill, eager_prefill
@@ -2211,7 +2610,7 @@ def main() -> int:
                               "d_ff 24576 for MoE; widths as published",
                        "params": n_params, "param_bytes": p_bytes}
     report["jamba"]["prefill"], jeager, jprefill = prefill_pair(
-        "jamba prefill", jcfg, jparams, jtoks, 3)
+        "jamba prefill", jcfg, jparams, {"inputs": jtoks}, 3)
     print_pair(f"[7 jamba prefill] jamba-1.5-large widths, 8 layers, dense FFN "
                f"({n_params / 1e9:.2f} B params, {p_bytes / 1e9:.1f} GB bf16) 8x512",
                report["jamba"]["prefill"], "tokens_per_s", "tokens/s",
@@ -2226,7 +2625,8 @@ def main() -> int:
                took("8 jamba serve"))
 
     # 9. Jamba: where the time goes, one prefill, one decode step (bf16)
-    report["jamba"]["profile"] = prof = profile_pair("jamba", jcfg, jparams, jtoks,
+    report["jamba"]["profile"] = prof = profile_pair("jamba", jcfg, jparams,
+                                                     {"inputs": jtoks}, jtoks[:, 0],
                                                      jeager, jprefill)
     print_profile(f"[9 jamba profile] {took('9 jamba profile')}", prof)
     jprefill.release()
@@ -2257,7 +2657,7 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     xparams = transformer.init(gen, xcfg, device="cuda")
     xtoks = torch.randint(0, xcfg.vocab, (8, 512), generator=gen, device="cuda")
-    pre, _, xprefill = prefill_pair("xlstm prefill", xcfg, xparams, xtoks, 2)
+    pre, _, xprefill = prefill_pair("xlstm prefill", xcfg, xparams, {"inputs": xtoks}, 2)
     xprefill.release()
     report["xlstm"] = {"params": param_count(xparams), "prefill": pre}
     report["xlstm"]["serve"] = serve_pair(
@@ -2277,7 +2677,7 @@ def main() -> int:
     scfg = get("smollm_360m", smoke=True)
     per = per_pass(scfg)
     n12 = 16 + 32
-    one = zero(rmsnorm=per["rmsnorm"], decode_attention=per["attn"])
+    one = zero(rmsnorm=per["rmsnorm_step"], decode_attention=per["attn"])
     served = {}
     for mode, argv, n in (("graphed", [], n12 + WARMUP), ("eager", ["--eager"], n12)):
         served[mode] = drive(kern, totals, {k: v * n for k, v in one.items()},
@@ -2300,13 +2700,16 @@ def main() -> int:
         p_cpu = transformer.init(torch.Generator().manual_seed(SEED), c, device="cpu")
         smoke[name] = parity(c, p_cpu, tree_map(lambda a: a.to("cuda"), p_cpu), rng)
         smoke[name]["head_dim"] = c.hd
-    # the MoE SMOKE configs (Jamba with its real MoE layers): serve.main
-    # graphed and eager with equal tokens, then float32 logits card vs CPU;
-    # DeepSeek's prefill runs the float32 flash instance of head dim 24
-    for arch in ("deepseek_v3_671b", "qwen3_moe_235b_a22b", "jamba_1_5_large_398b"):
+    # the MoE SMOKE configs (Jamba with its real MoE layers), whisper and
+    # llava: serve.main graphed and eager with equal tokens, then float32
+    # logits card vs CPU (whisper's with frames and real cross K/V, llava's
+    # also on embeds); DeepSeek's prefill runs the float32 flash instance of
+    # head dim 24
+    for arch in ("deepseek_v3_671b", "qwen3_moe_235b_a22b", "jamba_1_5_large_398b",
+                 "whisper_small", "llava_next_mistral_7b"):
         c = get(arch, smoke=True)
         per = per_pass(c)
-        one = zero(rmsnorm=per["rmsnorm"], decode_attention=per["attn"])
+        one = zero(rmsnorm=per["rmsnorm_step"], decode_attention=per["attn"])
         out = {}
         for mode, argv, n in (("graphed", ["--arch", arch], n12 + WARMUP),
                               ("eager", ["--arch", arch, "--eager"], n12)):
@@ -2316,13 +2719,13 @@ def main() -> int:
                                                                 out["eager"])):
             fail(f"serve.main(['--arch', {arch!r}]): graphed tokens differ from eager ones")
         key = f"{arch} (MoE)" if arch.startswith("jamba") else arch
-        p_cpu = transformer.init(torch.Generator().manual_seed(SEED), c, device="cpu")
-        # one graphed prefill (1 call + WARMUP) and 8 eager decode steps
-        want = zero(rmsnorm=per["rmsnorm"] * (1 + WARMUP + 8),
-                    flash_attention=per["flash"] * (1 + WARMUP),
-                    decode_attention=per["attn"] * 8, mamba_scan=per["mamba"] * (1 + WARMUP))
+        p_cpu = model_api(c).init(torch.Generator().manual_seed(SEED), c, device="cpu")
+        frames = (frontends.audio_frames(rng, c, 2, device="cpu") if c.is_encdec
+                  else None)
+        want = parity_launches(c)
         smoke[key] = drive(kern, side, want, lambda: parity(
-            c, p_cpu, tree_map(lambda a: a.to("cuda"), p_cpu), rng), f"{key} SMOKE parity")
+            c, p_cpu, tree_map(lambda a: a.to("cuda"), p_cpu), rng, frames=frames),
+            f"{key} SMOKE parity")
         smoke[key].update(head_dim=c.qk_nope_head_dim + c.qk_rope_head_dim
                           if c.mla else c.hd, serve_main="graphed tokens = eager tokens")
         if arch == "deepseek_v3_671b":
@@ -2332,8 +2735,8 @@ def main() -> int:
           f"window of 16: graphed tokens = eager tokens, "
           f"{smoke['danube_serve']['graphed']['new_tokens_per_s']:.1f} against "
           f"{smoke['danube_serve']['eager']['new_tokens_per_s']:.1f} new tokens/s; "
-          "serve.main graphed tokens = eager tokens for the DeepSeek, Qwen3-MoE and "
-          "Jamba (real MoE) SMOKE configs; "
+          "serve.main graphed tokens = eager tokens for the DeepSeek, Qwen3-MoE, "
+          "Jamba (real MoE), whisper and llava SMOKE configs; "
           "float32 SMOKE logits card vs CPU: " + "; ".join(
               f"{n} (hd {v['head_dim']}) prefill {v['prefill_max_abs_err']:.3e}, decode "
               f"{max(v['decode_max_abs_err']):.3e}" for n, v in smoke.items()
@@ -2479,7 +2882,7 @@ def main() -> int:
     dtoks = torch.randint(0, dcfg.vocab, (8, 512), generator=gen, device="cuda")
     n_flash = totals["flash_attention"]
     ds["prefill"], deager, dprefill = prefill_pair("deepseek prefill", dcfg, dparams,
-                                                   dtoks, 3)
+                                                   {"inputs": dtoks}, 3)
     print_pair(f"[15 deepseek prefill] deepseek-v3 widths, 5 layers, no MTP "
                f"({ds['params'] / 1e9:.2f} B params, {ds['param_bytes'] / 1e9:.1f} GB "
                f"bf16, drawn in {ds['init_s']:.1f} s, peak "
@@ -2495,7 +2898,8 @@ def main() -> int:
                "new_tokens_per_s", "new tokens/s", took("16 deepseek serve"))
 
     # 17. DeepSeek-V3: where the time goes, one prefill, one decode step
-    ds["profile"] = prof = profile_pair("deepseek", dcfg, dparams, dtoks, deager, dprefill)
+    ds["profile"] = prof = profile_pair("deepseek", dcfg, dparams, {"inputs": dtoks},
+                                        dtoks[:, 0], deager, dprefill)
     print_profile(f"[17 deepseek profile] {took('17 deepseek profile')}", prof)
     dprefill.release()
     mla_totals["flash_attention_d192"] += totals["flash_attention"] - n_flash
@@ -2657,6 +3061,219 @@ def main() -> int:
     report["streaming"] = phase_streaming(kern, zero)
     print(f"[23 streaming] {took('23 streaming')}", flush=True)
 
+    # 24. whisper-small at its published widths and depth (12 + 12 layers, d
+    # 768, 12 heads of 64, 1,500 frames, vocab 51865), bf16, weights from
+    # seed 0: prefill of 8 x (1,500 frames + 64 tokens), 64 greedy decode
+    # steps from the cross K/V of the encoded frames, and serve_batch 8 x (64
+    # + 64) as the reference serves it (cross K/V zeros), each eager and
+    # graphed and equal; a profile of one prefill and one decode step;
+    # float32 logits card vs CPU on a 2 + 2-layer cut
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = dict(totals)
+    wcfg = get("whisper_small")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    wparams = model_api(wcfg).init(gen, wcfg, device="cuda")
+    wtoks = torch.randint(0, wcfg.vocab, (8, 64), generator=gen, device="cuda")
+    wframes = frontends.audio_frames(gen, wcfg, 8, device="cuda")
+    wbatch = {"frames": wframes, "inputs": wtoks}
+    report["whisper"] = wr = {"params": param_count(wparams),
+                              "param_bytes": param_bytes(wparams)}
+    wr["prefill"], weager, wprefill = prefill_pair(
+        "whisper prefill", wcfg, wparams, wbatch, 4,
+        n_tokens=8 * (wcfg.encoder_seq + 64))
+    print_pair(f"[24 whisper prefill] whisper-small bf16 ({wr['params'] / 1e6:.1f} M "
+               "params), 8 x (1500 frames + 64 tokens), tokens/s counting frames and "
+               "tokens", wr["prefill"], "tokens_per_s", "tokens/s", "")
+    wr["decode"] = encdec_decode_pair("whisper decode", wcfg, wparams, wframes,
+                                      wtoks[:, 0].to(torch.int32), 64)
+    print_pair("[24 whisper decode] 8 x 64 greedy steps from the encoded frames' "
+               "cross K/V", wr["decode"], "new_tokens_per_s", "new tokens/s", "")
+    wr["serve"] = serve_pair("whisper serving", wcfg, wparams,
+                             [r.prompt for r in requests(wcfg, rng)], 64)
+    print_pair("[24 whisper serve] serve_batch 8 x (64 prompt + 64 new), cross K/V "
+               "zeros", wr["serve"], "new_tokens_per_s", "new tokens/s", "")
+    wr["profile"] = prof = profile_pair("whisper", wcfg, wparams, wbatch, wtoks[:, 0],
+                                        weager, wprefill)
+    print_profile("[24 whisper profile]", prof)
+    wprefill.release()
+    wr["peak_bytes"] = torch.cuda.max_memory_allocated()
+    del wparams, wprefill, weager
+    torch.cuda.empty_cache()
+    pcfg = dataclasses.replace(wcfg, n_layers=2, encoder_layers=2, dtype="float32")
+    p_gpu = model_api(pcfg).init(torch.Generator(device="cuda").manual_seed(SEED), pcfg,
+                                 device="cuda")
+    p_cpu = tree_map(lambda a: a.cpu(), p_gpu)
+    frames = frontends.audio_frames(rng, pcfg, 2, device="cpu")
+    wr["parity"] = par = drive(kern, side, parity_launches(pcfg), lambda: parity(
+        pcfg, p_cpu, p_gpu, rng, frames=frames), "whisper parity")
+    par["params"] = param_count(p_cpu)
+    del p_gpu, p_cpu
+    print(f"[24 whisper parity] float32, full width cut to 2 + 2 layers "
+          f"({par['params'] / 1e6:.1f} M params), 2 x (1500 frames + 32 tokens), card vs "
+          f"CPU: prefill max_abs_err {par['prefill_max_abs_err']:.3e}, 8 decode steps "
+          f"from the encoded frames {max(par['decode_max_abs_err']):.3e} (tol "
+          f"{PARITY_TOL:g}; |logits| up to {par['logit_abs_max']:.3f}); peak device "
+          f"memory {wr['peak_bytes'] / 2**30:.2f} GiB {took('24 whisper serve')}",
+          flush=True)
+
+    # 25. whisper-small training at full width and depth: 8 steps of 8 x
+    # (1,500 frames + 448 tokens) through launch.train.train (the audio
+    # frontend's frames drawn per step), eager and graphed
+    wr["train"] = train_pair("whisper_small", {}, "whisper training", seq=448)
+    wr["train"]["frames_per_s"] = {
+        m: 8 * wcfg.encoder_seq / wr["train"][m]["median_step_s"] for m in ("eager", "graphed")}
+    print_train("[25 whisper train] whisper-small, 12 + 12 layers, 8 x (1500 frames + "
+                "448 tokens)", wr["train"], f"; frames/s eager "
+                f"{wr['train']['frames_per_s']['eager']:.0f}, graphed "
+                f"{wr['train']['frames_per_s']['graphed']:.0f} {took('25 whisper train')}")
+    print_ranges("[25 whisper train ranges]", wr["train"]["ranges"])
+    for name, kernel in (("flash_attention_whisper", "flash_attention"),
+                         ("flash_attention_bwd_whisper", "flash_attention_bwd"),
+                         ("decode_attention_whisper", "decode_attention")):
+        frontend_totals[name] = totals[kernel] - before[kernel]
+
+    # 26. llava-next-mistral-7b at its published widths and depth (32
+    # layers, d 4096, 32 / 8 heads of 128, ~7.2 B params), bf16: prefill of 8
+    # x (2,880 image-patch embeddings + 64 text tokens) fused by
+    # fuse_vlm_inputs through the embeds branch, and serving 8 x (64 + 64),
+    # each eager and graphed and equal; peak device memory
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = dict(totals)
+    lcfg = get("llava_next_mistral_7b")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    lparams = model_api(lcfg).init(gen, lcfg, device="cuda")
+    ltoks = torch.randint(0, lcfg.vocab, (8, 64), generator=gen, device="cuda")
+    with torch.no_grad():
+        lbatch = {"embeds": frontends.fuse_vlm_inputs(
+            lparams, frontends.image_patches(gen, lcfg, 8, device="cuda"), ltoks, lcfg)}
+    report["llava"] = lv = {"params": param_count(lparams),
+                            "param_bytes": param_bytes(lparams)}
+    lv["prefill"], leager, lprefill = prefill_pair("llava prefill", lcfg, lparams, lbatch, 3)
+    print_pair(f"[26 llava prefill] llava-next-mistral-7b bf16, 32 layers "
+               f"({lv['params'] / 1e9:.2f} B params, {lv['param_bytes'] / 1e9:.1f} GB), "
+               "8 x (2880 patches + 64 tokens) as embeds", lv["prefill"], "tokens_per_s",
+               "tokens/s", "")
+    lprefill.release()
+    del lprefill, leager, lbatch
+    lv["serve"] = serve_pair("llava serving", lcfg, lparams,
+                             [r.prompt for r in requests(lcfg, rng)], 64)
+    lv["peak_bytes"] = torch.cuda.max_memory_allocated()
+    print_pair("[26 llava serve] 8 requests x (64 prompt + 64 new)", lv["serve"],
+               "new_tokens_per_s", "new tokens/s",
+               f"; peak device memory {lv['peak_bytes'] / 2**30:.2f} GiB "
+               f"{took('26 llava serve')}")
+    del lparams
+    torch.cuda.empty_cache()
+
+    # 27. llava training, the vlm branch of launch.train.train: 8 steps of 8 x
+    # 3,072 positions (2,880 patches + 192 text tokens), at the published
+    # widths cut to LLAVA_TRAIN_CUT layers so that AdamW's 12 bytes a param
+    # fit; the embedding takes no gradient (its moment stays zero)
+    lv["train"] = lt = train_pair("llava_next_mistral_7b", LLAVA_TRAIN_CUT,
+                                  "llava training", seq=3072, lr=LLAVA_TRAIN_LR)
+    if lt["zero_moment_leaves"] != ["/embed"]:
+        fail(f"llava training: the leaves whose AdamW moment stayed zero are "
+             f"{lt['zero_moment_leaves']}, not the embedding alone")
+    print_train(f"[27 llava train] llava widths cut to {LLAVA_TRAIN_CUT['n_layers']} "
+                f"layers, 8 x (2880 patches + 192 tokens), AdamW base rate {LLAVA_TRAIN_LR:g}",
+                lt,
+                f"; the embedding's gradient is zero (its moment alone stayed zero) "
+                f"{took('27 llava train')}")
+    print_ranges("[27 llava train ranges]", lt["ranges"])
+    # float32 training card vs CPU at llava's full width cut to 2 layers, on
+    # an embeds batch of 2 x (96 patches + 32 tokens): the loss, every
+    # gradient (the embedding's none on either side), one AdamW step
+    pcfg = dataclasses.replace(get("llava_next_mistral_7b"), n_layers=2, dtype="float32")
+    p_gpu = model_api(pcfg).init(torch.Generator(device="cuda").manual_seed(SEED), pcfg,
+                                 device="cuda")
+    p_cpu = tree_map(lambda a: a.cpu(), p_gpu)
+    pgen = torch.Generator().manual_seed(SEED + 9)
+    toks = torch.randint(0, pcfg.vocab, (2, 129), generator=pgen)
+    patches = frontends.image_patches(pgen, dataclasses.replace(pcfg, img_tokens=96), 2,
+                                      device="cpu")
+    batch = {"embeds": frontends.fuse_vlm_inputs(p_cpu, patches, toks[:, :32], pcfg),
+             "labels": toks[:, 1:]}
+    pt = per_train_step(pcfg)
+    step_keys = ("sumsq", "clip_finalize", "adamw_update")
+    want = zero(**{k: v * (1 + WARMUP) if k in step_keys else v * (2 + WARMUP)
+                   for k, v in pt.items()})
+    lt["parity"] = tp = drive(kern, side, want, lambda: train_parity(
+        pcfg, p_cpu, p_gpu, batch, model_api(pcfg).loss, make_train_step, adamw),
+        "llava training parity")
+    if not tp["ok"] or tp["no_grad"] != ["/embed"]:
+        fail(f"llava float32 training card vs CPU differs: {tp}")
+    del p_gpu, p_cpu, batch
+    torch.cuda.empty_cache()
+    print(f"[27 llava train parity] float32, full width cut to 2 layers "
+          f"({tp['params'] / 1e9:.2f} B params), 2 x (96 patches + 32 tokens) as embeds, "
+          f"card vs CPU: loss {tp['loss_cpu']:.6f} (err {tp['loss_err']:.2e}), grad_norm "
+          f"err {tp['grad_norm_rel_err']:.2e}, {tp['leaves']} gradient leaves, worst "
+          f"{tp['worst_grad']} at {tp['worst_grad_ratio']:.3f} of its tolerance, no "
+          f"gradient: {tp['no_grad']}; params after one AdamW step max err "
+          f"{tp['param_max_err']:.2e} (tol {tp['param_tol']:.2e})", flush=True)
+    # phase 27 trains at LLAVA_TRAIN_LR; at the trainer's 3e-4 the loss rises.
+    # The rate witness: (1) the phase's batches, 8 x 3,072, at 3e-4 through
+    # launch.train.train, cut to 2 layers, bf16 and then float32 (the
+    # float32 kernels and GEMMs, none of the bf16 path): the two loss curves;
+    # (2) float32 at 3e-4 with the trainer's 8-step schedule, its first
+    # RATE_LOCKSTEP_STEPS steps on the card and on the CPU from the same
+    # params and state, on 2 x (96 patches + 32 tokens)
+    lt["rate_witness"] = wit = {"lr": 3e-4, "layers": 2}
+    for dn in ("bfloat16", "float32"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        out = drive(kern, side, zero(**{k: v * MOE_TRAIN_STEPS for k, v in pt.items()}),
+                    lambda: train("llava_next_mistral_7b", smoke=False,
+                                  steps=MOE_TRAIN_STEPS, batch=8, seq=3072, lr=3e-4,
+                                  log_every=MOE_TRAIN_STEPS, device="cuda", graphs=False,
+                                  overrides=dict(n_layers=2, dtype=dn)),
+                    f"llava rate witness ({dn})")
+        if not all(math.isfinite(x) for x in out["losses"]):
+            fail(f"llava rate witness ({dn}) losses not finite: {out['losses']}")
+        wit[dn] = {"losses": out["losses"], "grad_norms": out["grad_norms"],
+                   "max_memory_allocated": torch.cuda.max_memory_allocated()}
+        del out
+    torch.cuda.empty_cache()
+    p_gpu = model_api(pcfg).init(torch.Generator(device="cuda").manual_seed(SEED), pcfg,
+                                 device="cuda")
+
+    def witness_batch(p_cpu, t):
+        g = torch.Generator().manual_seed(SEED + 10 + t)
+        toks = torch.randint(0, pcfg.vocab, (2, 129), generator=g)
+        patches = frontends.image_patches(g, dataclasses.replace(pcfg, img_tokens=96), 2,
+                                          device="cpu")
+        return {"embeds": frontends.fuse_vlm_inputs(p_cpu, patches, toks[:, :32], pcfg),
+                "labels": toks[:, 1:]}
+
+    wit["lockstep"] = ls = drive(
+        kern, side, zero(**{k: v * RATE_LOCKSTEP_STEPS for k, v in pt.items()}),
+        lambda: lockstep_train(pcfg, p_gpu, witness_batch, RATE_LOCKSTEP_STEPS,
+                               MOE_TRAIN_STEPS, 3e-4, make_train_step, adamw,
+                               warmup_cosine),
+        "llava rate witness (lockstep)")
+    del p_gpu
+    torch.cuda.empty_cache()
+    if not ls["ok"]:
+        fail(f"llava float32 lockstep training card vs CPU differs: {ls}")
+    print(f"[27 llava rate witness] llava widths cut to 2 layers at the trainer's AdamW "
+          f"3e-4, {MOE_TRAIN_STEPS} steps of 8 x (2880 patches + 192 tokens) through "
+          f"launch.train.train: bf16 losses "
+          f"{[round(x, 4) for x in wit['bfloat16']['losses']]}, float32 losses "
+          f"{[round(x, 4) for x in wit['float32']['losses']]} (grad norms bf16 "
+          f"{[round(x, 1) for x in wit['bfloat16']['grad_norms']]}, float32 "
+          f"{[round(x, 1) for x in wit['float32']['grad_norms']]}); float32 card and CPU "
+          f"in lockstep, {RATE_LOCKSTEP_STEPS} steps of 2 x (96 patches + 32 tokens) from "
+          f"the same params and state: losses {[round(x, 4) for x in ls['losses']]} (max "
+          f"err {max(ls['loss_err']):.2e}, tol {LOSS_TOL:g}), grad norm max rel err "
+          f"{max(ls['grad_norm_rel_err']):.2e} (tol {GRAD_TOL:g}), params after each step "
+          f"max err {[float(f'{x:.2e}') for x in ls['param_max_err']]} "
+          f"{took('27 llava rate witness')}", flush=True)
+    for name, kernel in (("flash_attention_llava", "flash_attention"),
+                         ("flash_attention_bwd_llava", "flash_attention_bwd")):
+        frontend_totals[name] = totals[kernel] - before[kernel]
+
     # the kernel table: main-path shapes, bf16; launches over every main path
     table = []
     for name, (source, replaces, case) in KERNELS.items():
@@ -2670,17 +3287,20 @@ def main() -> int:
                       "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                       "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                       "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
-    # MLA's flash instances, forward and backward, each with the launches of
-    # the path that runs it
-    for name, (source, replaces, case, dn, path) in {**MLA_ROWS, **MLA_BWD_ROWS}.items():
-        kernel = "flash_attention_bwd" if name in MLA_BWD_ROWS else "flash_attention"
+    # MLA's flash instances, forward and backward, and the encoder-decoder's
+    # and llava's shapes, each with the launches of the path that runs it
+    path_rows = {name: ("flash_attention_bwd" if name in MLA_BWD_ROWS else "flash_attention",
+                        *row) for name, row in {**MLA_ROWS, **MLA_BWD_ROWS}.items()}
+    path_rows.update(FRONTEND_ROWS)
+    launched = {**mla_totals, **frontend_totals}
+    for name, (kernel, source, replaces, case, dn, path) in path_rows.items():
         r = next(r for r in rows if r["kernel"] == kernel and r["case"] == case
                  and r["dtype"] == dn)
-        if mla_totals[name] == 0:
+        if launched[name] == 0:
             fail(f"{name} was never launched on its path ({path})")
         table.append({"name": name, "route": "cuda", "source": source,
                       "replaces": replaces, "case": f"{case} {dn}", "path": path,
-                      "launches": mla_totals[name],
+                      "launches": launched[name],
                       "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                       "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                       "bound_by": r["bound_by"], "library_ms": r["library_ms"]})

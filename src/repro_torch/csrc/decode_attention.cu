@@ -141,7 +141,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int worker = warp * GPW + lane / GS;
   const bool has = gl < NV;                       // lane holds part of a row
 
-  const int len_raw = __ldg(length + b);
+  const int len_raw = length ? __ldg(length + b) : S;  // no length: every slot
   const size_t head0 = (size_t)b * Hq + (size_t)kvh * G + g0;
   float qf[R][VEC];  // pre-scaled into the log2 domain
 #pragma unroll
@@ -344,7 +344,8 @@ cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// length: (B,) int32 on the device. window < 0 means no sliding window. The
+// length: (B,) int32 on the device, or null when every one of the S slots is
+// valid (a cross-attention cache). window < 0 means no sliding window. The
 // cache is cut into n_split (1..8) chunks of `chunk` keys covering S. q, k,
 // v and o must be 16-byte aligned. Returns a cudaError_t code.
 extern "C" int decode_attention_fwd(const void* q, const void* k, const void* v,

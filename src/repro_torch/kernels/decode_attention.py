@@ -53,29 +53,30 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           scale: Optional[float] = None) -> torch.Tensor:
     """Launch the kernel. q: (B, Hq, D); k/v: (B, Hkv, S, D), contiguous
     and 16-byte aligned, bf16 or f32; length: (B,) int32 on the same device
-    (None: all S valid) -> (B, Hq, D) in q's dtype."""
+    (None: all S valid; the kernel then reads no length) -> (B, Hq, D) in
+    q's dtype."""
     if q.dim() != 3 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"decode_attention: want q (B,Hq,D), k = v "
                          f"(B,Hkv,S,D); got {tuple(q.shape)}, {tuple(k.shape)},"
                          f" {tuple(v.shape)}")
     b, hq, d = q.shape
     _, hkv, s, _ = k.shape
-    if length is None:
-        length = torch.full((b,), s, dtype=torch.int32, device=q.device)
-    require_cuda("decode_attention", q, k, v, length)
+    given = () if length is None else (length,)
+    require_cuda("decode_attention", q, k, v, *given)
     if k.shape[0] != b or k.shape[3] != d or hq % hkv or s == 0:
         raise ValueError(f"decode_attention: q {tuple(q.shape)} does not match"
                          f" k/v {tuple(k.shape)}")
     if q.dtype not in DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"decode_attention: dtypes {q.dtype}/{k.dtype}/"
                         f"{v.dtype}; want one of {list(DTYPE_CODES)} for all")
-    if length.dtype != torch.int32 or tuple(length.shape) != (b,):
+    if length is not None and (length.dtype != torch.int32
+                               or tuple(length.shape) != (b,)):
         raise ValueError(f"decode_attention: length must be int32 ({b},), got"
                          f" {length.dtype} {tuple(length.shape)}")
     require_head_dim("decode_attention", d, q.dtype)
     if window is not None and window < 1:
         raise ValueError(f"decode_attention: window {window} < 1")
-    if not all(t.is_contiguous() for t in (q, k, v, length)):
+    if not all(t.is_contiguous() for t in (q, k, v, *given)):
         raise ValueError("decode_attention: q, k, v and length must be "
                          "contiguous")
     if any(t.data_ptr() % 16 for t in (q, k, v)):
@@ -88,7 +89,8 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     n_split, chunk = split_plan(b, hkv, hq // hkv, s, _build.sm_count(q.device.index))
     lib = _build.load()
     _build.check(lib.decode_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), length.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None if length is None else length.data_ptr(),
         o.data_ptr(), b, hq, hkv, s, d, n_split, chunk,
         -1 if window is None else int(window), float(scale),
         DTYPE_CODES[q.dtype], _build.stream_handle(q)),

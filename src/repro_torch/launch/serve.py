@@ -5,10 +5,13 @@ into fixed slots, prompts are prefilled token by token into per-slot caches
 (KV caches, MLA's compressed caches, and the Mamba/xLSTM states, which
 therefore take the one-step ``mamba_step`` and never the prefill scan),
 then decode steps run the whole
-batch in lockstep. On the card each step replays one CUDA graph of the
-decode step (captured at the first step; the reference jits it): the step's
-tokens and position are copied into the graph's buffers and the graph
-writes the cache in place. Copying each step's next tokens to the host is
+batch in lockstep. An encoder-decoder (whisper) is served as the reference
+serves it: its cross K/V caches are zeros (no audio is encoded), so the
+decoder runs over them; a vlm backbone (llava) is served on text prompts.
+On the card each step replays one CUDA graph of the decode step
+(captured at the first step; the reference jits it): the step's tokens
+and position are copied into the graph's buffers and the graph writes the
+cache in place. Copying each step's next tokens to the host is
 the one sync per step, as the reference's ``np.asarray(nxt)`` is.
 ``--eager`` (``serve_batch(..., step_fn=make_decode_step(cfg,
 graphs=False))``) runs the same step eagerly, for comparison.
@@ -17,10 +20,13 @@ graphs=False))``) runs the same step eagerly, for comparison.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm_125m --full
   PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek_v3_671b \
       --full --layers 5
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper_small --full
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch llava_next_mistral_7b --full
 
 ``--layers`` cuts the depth (DeepSeek-V3's 3 dense layers + 2 MoE layers
-fit one 80 GB card; its 61 do not). The server builds no MTP module: only
-the training loss reads it.
+fit one 80 GB card; its 61 do not; an encoder-decoder's decoder only). The
+server builds no MTP module: only the training loss reads it.
 """
 from __future__ import annotations
 

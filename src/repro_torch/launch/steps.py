@@ -10,9 +10,11 @@ The train step differentiates the loss with autograd (through the backward
 kernels on the card) and updates params and optimizer state in place; the
 prefill and decode steps run under ``torch.no_grad``. The prefill runs
 every ported family (dense, the Jamba hybrid through the CUDA selective
-scan, xLSTM, MoE with MLA or GQA attention); the decode step updates the
-KV caches, MLA's compressed caches and the recurrent states in place
-(DeepSeek's dense prefix as a list beside the stack) and takes its
+scan, xLSTM, MoE with MLA or GQA attention, a vlm backbone on fused
+``embeds``, the Whisper-style encoder-decoder on audio frames); the decode
+step updates the KV caches, MLA's compressed caches and the recurrent
+states in place (DeepSeek's dense prefix as a list beside the stack; the
+encoder-decoder's self caches beside its fixed cross K/V) and takes its
 position as a device tensor, so one graph serves every step.
 """
 from __future__ import annotations
@@ -25,7 +27,7 @@ from torch.profiler import record_function
 from repro_torch import resolve_device
 from repro_torch.kernels.adamw import global_norm_scale
 from repro_torch.launch.graphs import GraphedStep
-from repro_torch.models import model_api, transformer
+from repro_torch.models import encdec, model_api, transformer
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.module import tree_leaves, tree_map
 from repro_torch.optim.optimizers import Optimizer
@@ -54,8 +56,10 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer,
     step marks detached views as requiring grad and the optimizer writes
     params and state in place (the reference donates both), returning the
     same trees. ``batch`` holds 'inputs' or 'embeds', 'labels' and
-    optionally 'mask', as tensors or numpy arrays. ``metrics``: 'loss',
-    'grad_norm' (before clipping), 'ce', 'aux', 'tokens', as 0-d tensors.
+    optionally 'mask' ('frames' besides for an encoder-decoder), as tensors
+    or numpy arrays. ``metrics``: 'loss',
+    'grad_norm' (before clipping) and the loss's metrics ('ce', 'aux',
+    'tokens'; an encoder-decoder has no 'aux'), as 0-d tensors.
 
     On a CUDA device (unless ``graphs=False``) the step is captured in a
     CUDA graph at its first call for a given (params, opt_state) and batch
@@ -96,19 +100,25 @@ def make_prefill_step(cfg: ModelConfig, device="cuda",
     """Inference prefill: full no-grad forward, last-token logits.
 
     The returned ``prefill_step(params, batch)`` takes ``batch["inputs"]``
-    (B, S) token ids or ``batch["embeds"]`` (B, S, D), as tensors or numpy
-    arrays, and returns (B, vocab) float32 logits on ``device``. On a CUDA
+    (B, S) token ids or ``batch["embeds"]`` (B, S, D) (an encoder-decoder:
+    ``batch["frames"]`` (B, enc_seq, D) and ``batch["inputs"]``; it encodes
+    the frames and runs the decoder over the tokens), as tensors or numpy
+    arrays, and returns (B, vocab) float32 logits of the last position on
+    ``device``. On a CUDA
     device (unless ``graphs=False``) each (B, S) is captured once and
     replayed; the logits returned are the graph's output, which the next
     call of the same shape overwrites."""
     dev = resolve_device(device)
-    if cfg.is_encdec:
-        raise NotImplementedError(
-            "encoder-decoder prefill comes with ROADMAP.md queue 1, item 4")
 
     @torch.no_grad()
     def prefill_step(params, batch):
         _require_on(params, dev)
+        if cfg.is_encdec:
+            enc = encdec.encode(
+                params, torch.as_tensor(batch["frames"], device=dev), cfg)
+            h = encdec.decode_train(
+                params, enc, torch.as_tensor(batch["inputs"], device=dev), cfg)
+            return (h[:, -1] @ params["embed"].T).float()
         if "embeds" in batch:
             x = torch.as_tensor(batch["embeds"], device=dev).to(
                 transformer._dtype(cfg))

@@ -8,7 +8,9 @@ CUDA graph (the reference jits it), captured at the first step and replayed
 after: each step copies its batch into the graph's buffers, replays, and
 reads the loss and the grad norm (one sync). Params and optimizer state are
 the graph's own tensors, written in place; a resumed checkpoint is copied
-into them. ``train(..., graphs=False)`` runs the step eagerly.
+into them. ``train(..., graphs=False)`` runs the step eagerly. The vlm and
+audio families get the stub frontends' patches or frames each step, drawn
+from a generator of the (seed, step) pair.
 
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 6
   PYTHONPATH=src python -m repro_torch.launch.train --full --steps 10 \\
@@ -17,7 +19,9 @@ into them. ``train(..., graphs=False)`` runs the step eagerly.
 ``train(..., overrides={"n_layers": 3, "mtp": False})`` cuts a config:
 DeepSeek-V3's 3 dense-FFN prefix layers without its MTP module, or one
 layer of Qwen3-MoE, are what one 80 GB card trains with AdamW at the
-published widths.
+published widths; whisper-small trains whole (``--arch whisper_small
+--full --seq 448``), llava-next-mistral-7b cut in depth (``overrides=
+{"n_layers": ...}``, ``--seq`` above its 2,880 image tokens).
 """
 from __future__ import annotations
 
@@ -35,7 +39,7 @@ from repro_torch.configs import get
 from repro_torch.data.pipeline import Prefetcher, SyntheticLM
 from repro_torch.launch.graphs import GraphedStep
 from repro_torch.launch.steps import make_train_step
-from repro_torch.models import model_api
+from repro_torch.models import frontends, model_api
 from repro_torch.models.module import tree_map
 from repro_torch.optim.optimizers import adamw, warmup_cosine
 
@@ -60,10 +64,9 @@ def train(arch: str, smoke: bool = True, steps: int = 50, batch: int = 8,
             f"mesh_shape {mesh_shape}: the port trains on one device; meshes "
             "come with ROADMAP.md queue 1, item 6")
     cfg = dataclasses.replace(get(arch, smoke=smoke), **(overrides or {}))
-    if cfg.family in ("vlm", "audio"):
-        raise NotImplementedError(
-            f"{cfg.name}: the vlm and audio frontends come with ROADMAP.md "
-            "queue 1, item 4")
+    if cfg.family == "vlm" and seq < cfg.img_tokens:
+        raise ValueError(f"{cfg.name}: seq {seq} is shorter than its "
+                         f"{cfg.img_tokens} image tokens")
     if width_mult > 1:                          # scale toward ~100M on demand
         cfg = dataclasses.replace(
             cfg, d_model=cfg.d_model * width_mult,
@@ -97,7 +100,7 @@ def train(arch: str, smoke: bool = True, steps: int = 50, batch: int = 8,
         for step in range(start_step, steps):
             raw = data.next_batch()
             ts = time.perf_counter()
-            b = {"inputs": raw["inputs"], "labels": raw["labels"]}
+            b = _frontend_batch(cfg, params, raw, seed, step, seq, dev)
             params, opt_state, metrics = step_fn(params, opt_state, b)
             losses.append(float(metrics["loss"]))
             step_s.append(time.perf_counter() - ts)
@@ -119,6 +122,39 @@ def train(arch: str, smoke: bool = True, steps: int = 50, batch: int = 8,
     return {"losses": losses, "grad_norms": grad_norms, "step_s": step_s,
             "params": params, "opt_state": opt_state, "cfg": cfg,
             "start_step": start_step, "capture": capture}
+
+
+def _frontend_generator(seed: int, step: int, device) -> torch.Generator:
+    """A generator of its own for each (seed, step), as the reference folds
+    the step into its key (``jax.random.fold_in``)."""
+    state = np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)
+    return torch.Generator(device=device).manual_seed(int(state[0]))
+
+
+def _frontend_batch(cfg, params, raw, seed: int, step: int, seq: int, dev):
+    """The step's batch: the data pipeline's tokens and labels, and for the
+    modality families the stub frontend's output, as the reference builds
+    it outside its jitted step. vlm: ``embeds`` = [image patches; the
+    embedding of the first ``seq - img_tokens`` tokens] with all ``seq``
+    labels, made with no gradient (data to the step, as in the reference:
+    the embedding takes no gradient through it). audio: ``frames`` beside
+    the tokens."""
+    b = {"inputs": raw["inputs"], "labels": raw["labels"]}
+    if cfg.family == "vlm":
+        with torch.no_grad():
+            patches = frontends.image_patches(
+                _frontend_generator(seed, step, dev), cfg, len(raw["inputs"]),
+                device=dev)
+            text = torch.as_tensor(raw["inputs"][:, :seq - cfg.img_tokens],
+                                   device=dev)
+            b = {"embeds": frontends.fuse_vlm_inputs(params, patches, text,
+                                                     cfg),
+                 "labels": raw["labels"]}
+    elif cfg.family == "audio":
+        b["frames"] = frontends.audio_frames(
+            _frontend_generator(seed, step, dev), cfg, len(raw["inputs"]),
+            device=dev)
+    return b
 
 
 def main(argv=None):

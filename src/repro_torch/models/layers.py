@@ -2,9 +2,8 @@
 DeepSeek's multi-head latent attention (MLA), each for prefill and decode,
 and the SwiGLU MLP.
 
-Counterpart of :mod:`repro.models.layers` (all but the cross attention of
-the encoder-decoder, ROADMAP.md queue 1, item 4), in the same functional
-style: ``*_init(gen, cfg, ...) -> params`` and ``*_apply(params, x, ...) ->
+Counterpart of :mod:`repro.models.layers`, with the encoder-decoder's
+cross attention, in the same functional style: ``*_init(gen, cfg, ...) -> params`` and ``*_apply(params, x, ...) ->
 y``, with the same dict keys and ``x @ W`` layouts.
 """
 from __future__ import annotations
@@ -87,6 +86,18 @@ def attn_apply(p, x, cfg: ModelConfig, positions, causal=True,
                               window=cfg.window)
     out = out.transpose(1, 2).reshape(b, s, h * hd)
     return out @ p["wo"]
+
+
+def cross_attn_apply(p, x, kv_cache, cfg: ModelConfig) -> torch.Tensor:
+    """Cross attention against precomputed encoder K/V: x (B, S, D) ->
+    (B, S, D); ``kv_cache`` = (k, v), each (B, Hkv, S_enc, hd). Every query
+    sees every key (no mask, no RoPE), so Sq and S_enc differ freely."""
+    b, s, _ = x.shape
+    h, hd = cfg.n_heads, cfg.hd
+    q = (x @ p["wq"]).reshape(b, s, h, hd).transpose(1, 2)
+    k, v = kv_cache
+    out = ops.flash_attention(q, k, v, causal=False, window=None)
+    return out.transpose(1, 2).reshape(b, s, h * hd) @ p["wo"]
 
 
 def attn_make_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,

@@ -18,7 +18,8 @@ of unstacked layers (``params["prefix"]``, ``cache["prefix"]``) before the
 stack (a config with no period past the prefix, such as DeepSeek-V3 cut to
 its 3 dense layers, has an empty stack). With ``cfg.mtp`` ``init`` builds
 the MTP module and ``lm_loss`` adds its next-but-one-token loss, as the
-reference's. Encoder-decoder models raise (ROADMAP.md, queue 1, item 4).
+reference's. Encoder-decoder configs belong to ``encdec.py`` and raise
+here.
 """
 from __future__ import annotations
 
@@ -63,7 +64,8 @@ def _check_spec(spec) -> None:
 def _check_supported(cfg: ModelConfig) -> None:
     if cfg.is_encdec:
         raise NotImplementedError(
-            "encoder-decoder models come with ROADMAP.md queue 1, item 4")
+            f"{cfg.name}: an encoder-decoder config runs through "
+            "models.encdec (model_api), not the decoder-only transformer")
     for spec in cfg.period:
         _check_spec(spec)
 

@@ -10,7 +10,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.models import transformer
+from repro_torch.models import model_api
 from repro_torch.models.config import ModelConfig
 
 
@@ -20,13 +20,14 @@ def from_jax_params(tree, cfg: ModelConfig, device="cuda"):
     layers) -> the port's parameter tree on ``device``.
 
     Key sets, list lengths and shapes are checked against the port's
-    ``init(cfg)``; any mismatch raises ValueError. Each leaf takes the dtype the port's ``init``
+    ``model_api(cfg).init`` (the decoder-only or the encoder-decoder
+    tree); any mismatch raises ValueError. Each leaf takes the dtype the port's ``init``
     gives it: the config's dtype for weights; float32 for norm scales,
     Mamba's ``A_log``, ``D`` and ``dt_bias`` and xLSTM's gate weights and
     biases, as in the reference, so a bf16 model does not round them.
     """
     dev = resolve_device(device)
-    template = transformer.init(torch.Generator(), cfg, device="meta")
+    template = model_api(cfg).init(torch.Generator(), cfg, device="meta")
 
     def convert(src, tmpl, path):
         if isinstance(tmpl, dict):

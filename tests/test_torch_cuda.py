@@ -37,7 +37,7 @@ from repro_torch.launch.graphs import GraphedStep, StepGraph
 from repro_torch.launch.steps import (make_decode_step, make_prefill_step,
                                       make_train_step)
 from repro_torch.launch.train import train
-from repro_torch.models import model_api, transformer
+from repro_torch.models import frontends, model_api, transformer
 from repro_torch.models.module import tree_leaves, tree_map
 from repro_torch.optim.optimizers import adamw, warmup_cosine
 
@@ -1246,3 +1246,154 @@ def test_streaming_inference_depths_agree_on_the_card(gen):
     assert {s["seen"] for s in sinks} == {cpu["seen"]} == {40 * 16}
     assert len({s["score"].hex() for s in sinks}) == 1
     assert sinks[0]["score"] == pytest.approx(cpu["score"], rel=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# The encoder-decoder's and the vlm backbone's shapes: whisper's encoder
+# (not causal, G 1, D 64, 1,500 keys: no multiple of a 64-key tile), its
+# cross attention (64 or 448 queries against the 1,500 encoder states), its
+# cross decode (G 1 over 1,500 slots, no length), llava's prefill (bf16 D
+# 128, G 4, causal, 2,880 patches + 64 tokens)
+# ---------------------------------------------------------------------------
+
+def _close_scaled(got, want):
+    """bf16 outputs that sum over ~1,500 keys, whose typical |O| (~0.04) is
+    about TOL itself: each element to one bf16 ulp of the plain value (both
+    sides round a float32 result to bf16; ulp <= 2^-7 |x|) plus 2^-5
+    rms(plain) for the kernels' bf16 P and dS before that rounding."""
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype == torch.bfloat16 and got.shape == want.shape
+    w = want.float()
+    limit = 2.0 ** -7 * w.abs() + 2.0 ** -5 * w.square().mean().sqrt()
+    err = (got.float() - w).abs()
+    assert bool((err <= limit).all()), float((err / limit).max())
+
+
+def _close_encdec(got, want, dtype, tol):
+    if dtype == torch.bfloat16:
+        _close_scaled(got, want)
+    else:
+        _close_tol(got, want, tol)
+
+
+ENCDEC_FLASH = [
+    # b, hq, hkv, sq, skv, d
+    (2, 12, 12, 1500, 1500, 64),     # whisper's encoder, batch cut to 2
+    (2, 12, 12, 64, 1500, 64),       # cross attention of a 64-token prefill
+    (1, 12, 12, 448, 1500, 64),      # cross attention of a 448-token step
+]
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d", ENCDEC_FLASH)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_encdec_shapes(gen, b, hq, hkv, sq, skv, d, dtype):
+    q = _randn(gen, (b, hq, sq, d), dtype)
+    k, v = _randn(gen, (b, hkv, skv, d), dtype), _randn(gen, (b, hkv, skv, d), dtype)
+    _close_encdec(flash_attention_cuda(q, k, v, False, None, 0),
+                  flash_attention_plain(q, k, v, False, None, 0), dtype, TOL[dtype])
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d", ENCDEC_FLASH)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_encdec_shapes(gen, b, hq, hkv, sq, skv, d, dtype):
+    """Not causal: dK/dV sum over every q tile (Sq < Skv in cross
+    attention); bf16 with the forward's L, as training passes it."""
+    q, k, v, do = _bwd_case(gen, b, hq, hkv, sq, skv, d, dtype)
+    lse = None
+    if dtype == torch.bfloat16:
+        o, lse = flash_attention_cuda(q, k, v, False, None, 0, return_lse=True)
+    else:
+        o = flash_attention_cuda(q, k, v, False, None, 0)
+    got = flash_attention_bwd_cuda(q, k, v, o, do, False, None, 0, lse=lse)
+    want = flash_attention_bwd_plain(q, k, v, o, do, False, None, 0)
+    for g, w in zip(got, want):
+        _close_encdec(g, w, dtype, BWD_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_cross_cache(gen, dtype):
+    """Whisper's cross decode: 8 x 12 heads of 64 at G 1 over 1,500 slots
+    with no length (every slot valid), through ``ops`` as the model calls
+    it; the split plan cuts the cache in three."""
+    q, k, v = _decode_inputs(gen, 8, 12, 12, 1500, 64, dtype)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    assert split_plan(8, 12, 1, 1500, n_sm) == (3, 500)
+    n = decode_attention_cuda.launches
+    got = ops.decode_attention(q, k, v)
+    assert decode_attention_cuda.launches == n + 1
+    _close_encdec(got, decode_attention_plain(q, k, v), dtype, TOL[dtype])
+
+
+def test_flash_attention_llava_prefill(gen):
+    """bf16 D 128, G 4 (32 q / 8 kv heads), causal over 2,944 positions:
+    llava's prefill of 2,880 image patches and 64 tokens, batch cut to 1."""
+    dtype = torch.bfloat16
+    q = _randn(gen, (1, 32, 2944, 128), dtype)
+    k, v = _randn(gen, (1, 8, 2944, 128), dtype), _randn(gen, (1, 8, 2944, 128), dtype)
+    _close(flash_attention_cuda(q, k, v, True, None, 0),
+           flash_attention_plain(q, k, v, True, None, 0), dtype)
+
+
+@pytest.mark.parametrize("name", ["whisper_small", "llava_next_mistral_7b"])
+def test_graphed_frontend_steps_match_eager_bit_for_bit(gen, name):
+    """SMOKE whisper and llava on the card: the prefill (frames + tokens;
+    ``embeds``) and 24 decode steps (whisper from a cache of real cross
+    K/V), eager and from their graphs, bit for bit; the launches a replay
+    adds are one call's (whisper: every layer's self and cross attention,
+    the encoder's norms in the prefill only)."""
+    cfg = get(name, smoke=True)
+    api = model_api(cfg)
+    params = api.init(torch.Generator(device="cuda").manual_seed(0), cfg,
+                      device="cuda")
+    fgen = torch.Generator(device="cuda").manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (2, 24), device="cuda", generator=gen)
+    if cfg.is_encdec:
+        from repro_torch.models import encdec
+        batch = {"frames": frontends.audio_frames(fgen, cfg, 2), "inputs": toks}
+        with torch.no_grad():
+            enc = encdec.encode(params, batch["frames"], cfg)
+        caches = [api.init_cache(cfg, 2, 32, enc, params, device="cuda")
+                  for _ in range(2)]
+        n_enc, n_dec = cfg.encoder_layers, cfg.n_layers
+        per_fwd = {"rmsnorm_cuda.launches": 2 * n_enc + 1 + 3 * n_dec + 1,
+                   "flash_attention_cuda.launches": n_enc + 2 * n_dec}
+        per_dec = {"rmsnorm_cuda.launches": 3 * n_dec + 1,
+                   "decode_attention_cuda.launches": 2 * n_dec}
+    else:
+        patches = frontends.image_patches(fgen, cfg, 2)
+        batch = {"embeds": frontends.fuse_vlm_inputs(params, patches, toks, cfg)}
+        caches = [api.init_cache(cfg, 2, 32, device="cuda") for _ in range(2)]
+        per = _per_step(cfg)
+        per_fwd = {"rmsnorm_cuda.launches": per["rmsnorm_cuda.launches"],
+                   "flash_attention_cuda.launches": per["flash"]}
+        per_dec = {"rmsnorm_cuda.launches": per["rmsnorm_cuda.launches"],
+                   "decode_attention_cuda.launches": per["attn"]}
+    eager, graphed = make_prefill_step(cfg, graphs=False), make_prefill_step(cfg)
+    for _ in range(2):
+        assert torch.equal(graphed(params, batch), eager(params, batch))
+    g = _only_graph(graphed)
+    assert {k: g.per_replay[k] for k in per_fwd} == per_fwd
+    graphed.release()
+    eager, graphed = make_decode_step(cfg, graphs=False), make_decode_step(cfg)
+    for t in range(24):
+        n_e, l_e, _ = eager(params, caches[0], toks[:, t], t)
+        n_g, l_g, _ = graphed(params, caches[1], toks[:, t], t)
+        assert torch.equal(l_g, l_e) and torch.equal(n_g, n_e), f"step {t}"
+    for a, b in zip(tree_leaves(caches[0]), tree_leaves(caches[1])):
+        assert torch.equal(a, b)
+    g = _only_graph(graphed)
+    assert {k: g.per_replay[k] for k in per_dec} == per_dec
+    graphed.release()
+
+
+@pytest.mark.parametrize("arch", ["whisper_small", "llava_next_mistral_7b"])
+def test_serve_main_and_train_run_the_frontend_smoke_configs(gen, arch, capsys):
+    """``serve.main`` graphed and eager with the same tokens, and three
+    graphed train steps through ``train()`` with finite losses."""
+    graphed = serve.main(["--arch", arch])
+    eager = serve.main(["--arch", arch, "--eager"])
+    assert "on cuda (graphed)" in capsys.readouterr().out
+    for a, b in zip(graphed, eager):
+        np.testing.assert_array_equal(a.out, b.out)
+    out = train(arch, smoke=True, steps=3, batch=2, seq=16)
+    assert np.isfinite(out["losses"]).all() and out["capture"] is not None

@@ -25,12 +25,13 @@ from repro_torch.launch import graphs, serve
 from repro_torch.launch.graphs import GraphedStep, StepGraph
 from repro_torch.launch.steps import (make_decode_step, make_prefill_step,
                                       make_train_step)
-from repro_torch.models import model_api, transformer
+from repro_torch.models import frontends, model_api
 from repro_torch.models.module import tree_leaves, tree_map
 from repro_torch.optim import optimizers as topt
 
 ARCHS = ["smollm_360m", "h2o_danube_1_8b", "jamba_1_5_large_398b",
-         "xlstm_125m", "deepseek_v3_671b", "qwen3_moe_235b_a22b"]
+         "xlstm_125m", "deepseek_v3_671b", "qwen3_moe_235b_a22b",
+         "whisper_small", "llava_next_mistral_7b"]
 
 
 class NoHostReads(TorchDispatchMode):
@@ -59,8 +60,8 @@ def _cfg(name):
 
 
 def _params(cfg, seed=0):
-    return transformer.init(torch.Generator().manual_seed(seed), cfg,
-                            device="cpu")
+    return model_api(cfg).init(torch.Generator().manual_seed(seed), cfg,
+                               device="cpu")
 
 
 def test_the_guard_catches_host_reads():
@@ -123,6 +124,51 @@ def test_prefill_step_makes_no_host_read(name):
         logits = make_prefill_step(cfg, device="cpu")(
             params, {"inputs": torch.from_numpy(toks)})
     assert logits.shape == (2, cfg.vocab) and bool(torch.isfinite(logits).all())
+
+
+def _frontend_batch(cfg, params, rng, b=2, s=16):
+    """A train batch as ``launch.train`` builds it for the frontend
+    families: whisper's tokens, labels and frames; llava's ``embeds`` of
+    image patches and text, with s labels."""
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (b, s + 1),
+                                         dtype=np.int32))
+    batch = {"inputs": toks[:, :-1], "labels": toks[:, 1:]}
+    gen = torch.Generator().manual_seed(int(rng.integers(1 << 30)))
+    if cfg.family == "audio":
+        batch["frames"] = frontends.audio_frames(gen, cfg, b, device="cpu")
+    else:
+        patches = frontends.image_patches(gen, cfg, b, device="cpu")
+        batch = {"embeds": frontends.fuse_vlm_inputs(
+            params, patches, batch["inputs"][:, :s - cfg.img_tokens], cfg),
+            "labels": batch["labels"]}
+    return batch
+
+
+@pytest.mark.parametrize("name", ["whisper_small", "llava_next_mistral_7b"])
+def test_frontend_steps_make_no_host_read(name):
+    """The encoder-decoder's prefill (frames and tokens) and llava's
+    (``embeds``), and three train steps of each on the batches ``train()``
+    feeds them, with no host read; the train step writes params and
+    optimizer state in place."""
+    cfg = _cfg(name)
+    params = _params(cfg)
+    rng = np.random.default_rng(5)
+    batch = _frontend_batch(cfg, params, rng)
+    with NoHostReads():
+        logits = make_prefill_step(cfg, device="cpu")(
+            params, {k: v for k, v in batch.items() if k != "labels"})
+    assert logits.shape == (2, cfg.vocab) and bool(torch.isfinite(logits).all())
+    opt = topt.adamw(topt.warmup_cosine(1e-2, warmup=2, total=10))
+    state = opt.init(params)
+    leaves = tree_leaves((params, state))
+    step = make_train_step(cfg, opt, device="cpu")
+    for _ in range(3):
+        batch = _frontend_batch(cfg, params, rng)
+        with NoHostReads():
+            p, s, metrics = step(params, state, batch)
+        assert all(a is b for a, b in zip(tree_leaves((p, s)), leaves))
+        assert bool(torch.isfinite(metrics["loss"]))
+    assert int(state["step"]) == 3
 
 
 @pytest.mark.parametrize("name", ["smollm_360m", "deepseek_v3_671b",
@@ -359,3 +405,36 @@ def test_graphed_step_captures_per_binding_and_refills_its_buffers(fake_cuda):
     assert len(g.graphs) == 3 and len(fake_cuda) == 3
     g.release()
     assert not g.graphs and all(f.freed for f in fake_cuda)
+
+
+def test_graphed_step_binds_an_encdec_cache_and_feeds_a_batch_dict(fake_cuda):
+    """The encoder-decoder's cache tree ({'self': {'k', 'v'}, 'cross': (k,
+    v)}) binds like any other: one graph for it, whose warm-ups and capture
+    leave the whole tree as it was; a fed dict of frames and tokens is
+    copied into the graph's buffers each call, and a new frames shape
+    captures again."""
+    cache = {"self": {"k": torch.zeros(2, 3), "v": torch.zeros(2, 3)},
+             "cross": (torch.ones(2, 4), torch.ones(2, 4))}
+
+    def step(cache, batch):
+        rmsnorm.rmsnorm_cuda.launches += 3
+        cache["self"]["k"].add_(batch["frames"].sum())
+        cache["cross"][0].add_(1.0)
+        return batch["inputs"].float().sum() + cache["cross"][1].sum()
+
+    g = GraphedStep(step, 1, torch.device("cuda"), mutates=(0,))
+    g.device = torch.device("cpu")        # its buffers, here
+    frames = torch.ones(2, 5)
+    g(cache, {"frames": frames, "inputs": np.array([[1, 2]], np.int32)})
+    assert len(g.graphs) == 1
+    assert torch.equal(cache["self"]["k"], torch.zeros(2, 3))
+    assert torch.equal(cache["cross"][0], torch.ones(2, 4))
+    out = g(cache, {"frames": 2 * frames, "inputs": np.array([[3, 4]], np.int32)})
+    ((bufs,),) = g._buffers.values()
+    assert torch.equal(bufs["frames"], 2 * frames)
+    assert bufs["inputs"].tolist() == [[3, 4]]
+    assert len(g.graphs) == 1 and fake_cuda[0].replays == 2 and out is not None
+    g(cache, {"frames": torch.ones(2, 6), "inputs": np.array([[1, 2]], np.int32)})
+    assert len(g.graphs) == 2
+    assert rmsnorm.rmsnorm_cuda.launches == 2 * (3 * 2) + 3 * 3
+    g.release()

@@ -24,7 +24,7 @@ from repro.models import model_api as jmodel_api
 from repro_torch.configs import get as tget
 from repro_torch.launch.serve import Request, serve_batch
 from repro_torch.launch.steps import make_decode_step, make_prefill_step
-from repro_torch.models import model_api, transformer
+from repro_torch.models import encdec, model_api, transformer
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.module import param_count, tree_leaves, tree_map
 from repro_torch.weights import from_jax_params
@@ -194,8 +194,9 @@ def test_from_jax_params_rejects_mismatch():
 
 
 def test_unported_blocks_raise():
-    """What still raises: encoder-decoder models. MoE and MLA blocks and the
-    dense prefix build at full size, on the meta device (full Jamba and
+    """What raises: an encoder-decoder config in the decoder-only
+    transformer (``model_api`` sends it to ``models.encdec``). MoE and MLA
+    blocks and the dense prefix build at full size, on the meta device (full Jamba and
     DeepSeek-V3 are hundreds of GB), with the leaves of the reference's init
     (its shapes, by ``jax.eval_shape``); DeepSeek-V3 cut to its dense prefix
     has an empty stack. The MTP branch of the loss is ported: it runs."""
@@ -218,9 +219,8 @@ def test_unported_blocks_raise():
         assert len(cache.get("prefix", [])) == cfg.first_k_dense
     enc = dataclasses.replace(tget("smollm_360m", smoke=True),
                               encoder_layers=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model_api(enc)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    assert model_api(enc).init is encdec.init
+    with pytest.raises(NotImplementedError, match="models.encdec"):
         transformer.init(torch.Generator(), enc, device="meta")
     prefix = dataclasses.replace(tget("deepseek_v3_671b"), n_layers=3, mtp=False)
     params = transformer.init(torch.Generator(), prefix, device="meta")

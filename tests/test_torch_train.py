@@ -416,10 +416,13 @@ def test_train_on_cpu_runs_and_resumes(tmp_path):
 
 
 def test_train_refuses_what_the_port_does_not_run():
+    """A mesh still raises; whisper (the audio frontend and the
+    encoder-decoder) trains."""
     with pytest.raises(NotImplementedError, match="item 6"):
         train("smollm_360m", mesh_shape=(2, 1), device="cpu")
-    with pytest.raises(KeyError, match="not ported"):
-        train("whisper_small", device="cpu")
+    out = train("whisper_small", smoke=True, steps=2, batch=2, seq=16,
+                device="cpu")
+    assert len(out["losses"]) == 2 and np.isfinite(out["losses"]).all()
 
 
 @pytest.mark.parametrize("name", ["granite_3_2b", "stablelm_3b"])

@@ -26,6 +26,15 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(f
   return __float2bfloat16(v);  // round to nearest even, as torch's .to(bfloat16)
 }
 
+// 2^x on the special-function unit alone (a bare MUFU.EX2, no denormal
+// fix-up): inputs below -126 give 0. The scan's forward and backward both
+// discretise with it, so the backward's recomputed states are the forward's.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);

@@ -54,10 +54,18 @@
 // zero. dt is float32, as the model makes it; the wrapper refuses other
 // types rather than cast dt. A ragged tail of channels is masked in the
 // kernel.
+//
+// Training (kSave): the same kernel also writes the float32 state at the
+// start of every stage of kTc steps, hs[b, k, c, :] = h before step k * kTc
+// (h0 or zeros for k = 0), which csrc/mamba_scan_bwd.cu recomputes each
+// stage's states from. At Jamba's shape that is 8 x 32 x 16384 x 16 floats,
+// 268 MB, written 64 contiguous bytes a thread (a warp's 2 KB in a row) as
+// the stage begins; the serving instance (kSave false) has no such store.
 #include "common.cuh"
 
 namespace {
 
+using repro::ex2;
 using repro::from_float;
 using repro::to_float;
 
@@ -134,20 +142,13 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_
       : "memory");
 }
 
-// 2^x on the special-function unit alone: inputs below -126 give 0.
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-template <typename TU, int NM>
+template <typename TU, int NM, bool kSave>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 mamba_scan_kernel(const TU* __restrict__ u, const float* __restrict__ dt,
                   const float* __restrict__ A, const TU* __restrict__ Bm,
                   const TU* __restrict__ Cm, const float* __restrict__ Dv,
                   const float* __restrict__ h0, TU* __restrict__ y,
-                  float* __restrict__ hT, int T, int d_in, int n,
+                  float* __restrict__ hT, float* __restrict__ hs, int T, int d_in, int n,
                   long long b_sb, long long b_st, long long c_sb, long long c_st,
                   int bulk) {
   using L = Layout<TU, NM>;
@@ -242,6 +243,20 @@ mamba_scan_kernel(const TU* __restrict__ u, const float* __restrict__ dt,
   const float dd = active ? Dv[c] : 0.f;
   TU* yp = y + row0 + j;
 
+  // this thread's N states to out[0..n)
+  auto store_state = [&](float* out) {
+    if (n == NM) {
+#pragma unroll
+      for (int q = 0; q < NM / 4; ++q)
+        reinterpret_cast<float4*>(out)[q] =
+            make_float4(h[4 * q], h[4 * q + 1], h[4 * q + 2], h[4 * q + 3]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < NM; ++i)
+        if (i < n) out[i] = h[i];
+    }
+  };
+
   // one time step: u_t and dt_t from the stage, B_t / C_t as broadcasts
   auto step = [&](const float* sdt, const TU* su, const float4* sbc) {
     const float ut = to_float<TU>(*su);
@@ -268,6 +283,9 @@ mamba_scan_kernel(const TU* __restrict__ u, const float* __restrict__ dt,
   uint32_t phase = 0;
   for (int k = 0; k < n_chunks; ++k) {
     const int tn = min(kTc, T - k * kTc);
+    if constexpr (kSave) {
+      if (active) store_state(hs + (((size_t)b * n_chunks + k) * d_in + c) * n);
+    }
     mbar_wait(full0 + 8 * s, phase);
     const unsigned char* st = smem + s * L::kStage;
     const float* sdt = reinterpret_cast<const float*>(st + L::kDt) + j;
@@ -288,24 +306,12 @@ mamba_scan_kernel(const TU* __restrict__ u, const float* __restrict__ dt,
       phase ^= 1;
     }
   }
-  if (active) {
-    float* out = hT + ((size_t)b * d_in + c) * n;
-    if (n == NM) {
-#pragma unroll
-      for (int q = 0; q < NM / 4; ++q)
-        reinterpret_cast<float4*>(out)[q] =
-            make_float4(h[4 * q], h[4 * q + 1], h[4 * q + 2], h[4 * q + 3]);
-    } else {
-#pragma unroll
-      for (int i = 0; i < NM; ++i)
-        if (i < n) out[i] = h[i];
-    }
-  }
+  if (active) store_state(hT + ((size_t)b * d_in + c) * n);
 }
 
-template <typename TU, int NM>
+template <typename TU, int NM, bool kSave>
 cudaError_t configure() {
-  auto kernel = mamba_scan_kernel<TU, NM>;
+  auto kernel = mamba_scan_kernel<TU, NM, kSave>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Layout<TU, NM>::kSmem);
   if (err != cudaSuccess) return err;
@@ -313,46 +319,59 @@ cudaError_t configure() {
                               (int)cudaSharedmemCarveoutMaxShared);
 }
 
-template <typename TU, int NM>
+template <typename TU, int NM, bool kSave>
 cudaError_t launch(const void* u, const float* dt, const float* A, const void* Bm,
                    const void* Cm, const float* D, const float* h0, void* y, float* hT,
-                   int Bt, int T, int d_in, int n, long long b_sb, long long b_st,
+                   float* hs, int Bt, int T, int d_in, int n, long long b_sb, long long b_st,
                    long long c_sb, long long c_st, cudaStream_t stream) {
-  cudaError_t err = configure<TU, NM>();
+  cudaError_t err = configure<TU, NM, kSave>();
   if (err != cudaSuccess) return err;
   // rows of u and dt go by cp.async.bulk when every row starts and ends on
   // 16 bytes; hT is the wrapper's fresh allocation
   const bool bulk = ((reinterpret_cast<uintptr_t>(u) | reinterpret_cast<uintptr_t>(dt)) & 15) == 0 &&
                     d_in % (16 / (int)sizeof(TU)) == 0 && d_in % 4 == 0;
   const dim3 grid((d_in + kCh - 1) / kCh, Bt);
-  mamba_scan_kernel<TU, NM><<<grid, kThreads, Layout<TU, NM>::kSmem, stream>>>(
+  mamba_scan_kernel<TU, NM, kSave><<<grid, kThreads, Layout<TU, NM>::kSmem, stream>>>(
       static_cast<const TU*>(u), dt, A,
       static_cast<const TU*>(Bm), static_cast<const TU*>(Cm), D, h0,
-      static_cast<TU*>(y), hT, T, d_in, n, b_sb, b_st, c_sb, c_st, bulk ? 1 : 0);
+      static_cast<TU*>(y), hT, hs, T, d_in, n, b_sb, b_st, c_sb, c_st, bulk ? 1 : 0);
   return cudaGetLastError();
 }
 
-template <typename TU>
+template <typename TU, bool kSave>
 cudaError_t dispatch_n(const void* u, const float* dt, const float* A, const void* Bm,
                        const void* Cm, const float* D, const float* h0, void* y,
-                       float* hT, int Bt, int T, int d_in, int n, long long b_sb,
-                       long long b_st, long long c_sb, long long c_st,
+                       float* hT, float* hs, int Bt, int T, int d_in, int n,
+                       long long b_sb, long long b_st, long long c_sb, long long c_st,
                        cudaStream_t st) {
   if (n <= 4)
-    return launch<TU, 4>(u, dt, A, Bm, Cm, D, h0, y, hT, Bt, T, d_in, n, b_sb,
-                         b_st, c_sb, c_st, st);
+    return launch<TU, 4, kSave>(u, dt, A, Bm, Cm, D, h0, y, hT, hs, Bt, T, d_in, n,
+                                b_sb, b_st, c_sb, c_st, st);
   if (n <= 8)
-    return launch<TU, 8>(u, dt, A, Bm, Cm, D, h0, y, hT, Bt, T, d_in, n, b_sb,
-                         b_st, c_sb, c_st, st);
-  return launch<TU, 16>(u, dt, A, Bm, Cm, D, h0, y, hT, Bt, T, d_in, n, b_sb,
-                        b_st, c_sb, c_st, st);
+    return launch<TU, 8, kSave>(u, dt, A, Bm, Cm, D, h0, y, hT, hs, Bt, T, d_in, n,
+                                b_sb, b_st, c_sb, c_st, st);
+  return launch<TU, 16, kSave>(u, dt, A, Bm, Cm, D, h0, y, hT, hs, Bt, T, d_in, n,
+                               b_sb, b_st, c_sb, c_st, st);
+}
+
+template <typename TU>
+cudaError_t dispatch_save(const void* u, const float* dt, const float* A, const void* Bm,
+                          const void* Cm, const float* D, const float* h0, void* y,
+                          float* hT, float* hs, int Bt, int T, int d_in, int n,
+                          long long b_sb, long long b_st, long long c_sb, long long c_st,
+                          cudaStream_t st) {
+  if (hs != nullptr)
+    return dispatch_n<TU, true>(u, dt, A, Bm, Cm, D, h0, y, hT, hs, Bt, T, d_in, n,
+                                b_sb, b_st, c_sb, c_st, st);
+  return dispatch_n<TU, false>(u, dt, A, Bm, Cm, D, h0, y, hT, hs, Bt, T, d_in, n,
+                               b_sb, b_st, c_sb, c_st, st);
 }
 
 template <typename TU, int NM>
 int occupancy() {
   int blocks = 0;
-  if (configure<TU, NM>() != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, mamba_scan_kernel<TU, NM>,
+  if (configure<TU, NM, false>() != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, mamba_scan_kernel<TU, NM, false>,
                                                     kThreads, Layout<TU, NM>::kSmem) !=
           cudaSuccess)
     return -1;
@@ -365,12 +384,14 @@ int occupancy() {
 // A: (d_in, n) float32; B, C: (Bt, T, n) in u's type with unit stride over n
 // and the given batch and time strides (in elements); D: (d_in,) float32;
 // h0: (Bt, d_in, n) float32 or NULL for zeros; hT: (Bt, d_in, n) float32,
-// 16-byte aligned. 1 <= n <= 16. u_dtype gives the type of u, B, C and y.
+// 16-byte aligned; hs: NULL (serving), or (Bt, ceil(T / 16), d_in, n)
+// float32, 16-byte aligned, for the state at the start of every 16 steps
+// (training). 1 <= n <= 16. u_dtype gives the type of u, B, C and y.
 // Returns a cudaError_t code.
 extern "C" int mamba_scan_fwd(const void* u, const void* dt, const void* A,
                               const void* Bm, const void* Cm, const void* D,
-                              const void* h0, void* y, void* hT, int Bt, int T,
-                              int d_in, int n, long long b_sb, long long b_st,
+                              const void* h0, void* y, void* hT, void* hs, int Bt,
+                              int T, int d_in, int n, long long b_sb, long long b_st,
                               long long c_sb, long long c_st, int u_dtype,
                               void* stream) {
   if (Bt <= 0 || T <= 0 || d_in <= 0 || n <= 0 || n > 16 || Bt > 65535)
@@ -380,13 +401,14 @@ extern "C" int mamba_scan_fwd(const void* u, const void* dt, const void* A,
   const float* dv = static_cast<const float*>(D);
   const float* h = static_cast<const float*>(h0);
   float* ht = static_cast<float*>(hT);
+  float* hsv = static_cast<float*>(hs);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (u_dtype == repro::kFloat32)
-    return dispatch_n<float>(u, dtf, a, Bm, Cm, dv, h, y, ht, Bt, T, d_in, n, b_sb,
-                             b_st, c_sb, c_st, st);
+    return dispatch_save<float>(u, dtf, a, Bm, Cm, dv, h, y, ht, hsv, Bt, T, d_in, n,
+                                b_sb, b_st, c_sb, c_st, st);
   if (u_dtype == repro::kBFloat16)
-    return dispatch_n<__nv_bfloat16>(u, dtf, a, Bm, Cm, dv, h, y, ht, Bt, T, d_in,
-                                     n, b_sb, b_st, c_sb, c_st, st);
+    return dispatch_save<__nv_bfloat16>(u, dtf, a, Bm, Cm, dv, h, y, ht, hsv, Bt, T,
+                                        d_in, n, b_sb, b_st, c_sb, c_st, st);
   return cudaErrorInvalidValue;
 }
 

@@ -50,10 +50,13 @@ SIGNATURES = {
     # dtype, stream
     "decode_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                              _I, _F, _I, _P],
-    # u, dt, A, B, C, D, h0, y, hT, Bt, T, d_in, n, B batch/time strides,
-    # C batch/time strides, u dtype, stream
-    "mamba_scan_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                       _L, _L, _L, _L, _I, _P],
+    # u, dt, A, B, C, D, h0, y, hT, hs (null when serving), Bt, T, d_in, n,
+    # B batch/time strides, C batch/time strides, u dtype, stream
+    "mamba_scan_fwd": [_P] * 10 + [_I] * 4 + [_L] * 4 + [_I, _P],
+    # u, dt, A, B, C, D, hs, dy, dhT (or null), du, ddt, dB, dC, dA, dD, dh0,
+    # the partial sums of dB/dC, dA, dD, partial blocks, Bt, T, d_in, n, B
+    # batch/time strides, C batch/time strides, u dtype, stream
+    "mamba_scan_bwd": [_P] * 19 + [_I] * 5 + [_L] * 4 + [_I, _P],
     # n, u dtype -> resident blocks per SM of that scan instance
     "mamba_scan_blocks_per_sm": [_I, _I],
     # g, numel, partial (blocks), blocks, dtype, stream

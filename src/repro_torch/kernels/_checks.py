@@ -53,5 +53,5 @@ def require_no_grad(name: str, *tensors: torch.Tensor) -> None:
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad
                                        for t in tensors):
         raise NotImplementedError(
-            f"{name}: the CUDA kernel has no backward; its gradient comes with"
-            " a later slice (ROADMAP.md, queue 2)")
+            f"{name}: the CUDA kernel has no backward (it serves decoding, as "
+            "the reference's does)")

@@ -180,6 +180,67 @@ def mamba_scan_ref(u: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return torch.stack(ys, 1).to(u.dtype), h
 
 
+def mamba_scan_states_ref(u: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                          B: torch.Tensor, C: torch.Tensor, D: torch.Tensor,
+                          h0: Optional[torch.Tensor] = None, every: int = 16):
+    """:func:`mamba_scan_ref` that also returns the float32 state at the
+    start of every ``every`` steps, hs (Bt, ceil(T / every), d_in, N): hs[:,
+    k] is the state before step k * every (h0 or zeros for k = 0), as the
+    scan kernel's training instance saves it for the backward."""
+    t = u.shape[1]
+    hs, h = [], h0
+    ys = []
+    for t0 in range(0, t, every):
+        hs.append(torch.zeros((u.shape[0], u.shape[2], A.shape[1]), dtype=torch.float32,
+                              device=u.device) if h is None else h.float())
+        sl = slice(t0, t0 + every)
+        y, h = mamba_scan_ref(u[:, sl], dt[:, sl], A, B[:, sl], C[:, sl], D, h)
+        ys.append(y)
+    return torch.cat(ys, 1), h, torch.stack(hs, 1)
+
+
+def mamba_scan_bwd_ref(u: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                       B: torch.Tensor, C: torch.Tensor, D: torch.Tensor,
+                       dy: torch.Tensor, h0: Optional[torch.Tensor] = None,
+                       dh_t: Optional[torch.Tensor] = None):
+    """Gradients of :func:`mamba_scan_ref` from dy (Bt, T, d_in) and dh_t
+    (Bt, d_in, N; zeros when None), as the explicit reverse recurrence: with
+    g_t the gradient of h_t, g_t = C_t dy_t + exp(dt_{t+1} A) g_{t+1} from
+    g_T = dh_T; du_t = dt_t sum_n g_t B_t + D dy_t; ddt_t = sum_n g_t (A
+    exp(dt_t A) h_{t-1} + B_t u_t); dB_t = sum_d g_t dt_t u_t; dC_t = sum_d
+    dy_t h_t; dA = sum_{b,t} g_t dt_t exp(dt_t A) h_{t-1}; dD = sum_{b,t}
+    dy_t u_t; dh0 = exp(dt_1 A) g_1. Returns (du, ddt, dA, dB, dC, dD, dh0):
+    du, dB, dC in u's dtype, the others float32."""
+    bt, t, d_in = u.shape
+    n = A.shape[1]
+    uf, dtf, dyf = u.float(), dt.float(), dy.float()
+    Bf, Cf, Af, Df = B.float(), C.float(), A.float(), D.float()
+    h = torch.zeros((bt, d_in, n), dtype=torch.float32, device=u.device) \
+        if h0 is None else h0.float()
+    hs = [h]
+    for i in range(t):
+        h = torch.exp(dtf[:, i, :, None] * Af) * h \
+            + (dtf[:, i, :, None] * Bf[:, i, None, :]) * uf[:, i, :, None]
+        hs.append(h)
+    g = torch.zeros_like(h) if dh_t is None else dh_t.float()
+    du, ddt, dB, dC = ([None] * t for _ in range(4))
+    dA = torch.zeros_like(Af)
+    for i in reversed(range(t)):
+        g = Cf[:, i, None, :] * dyf[:, i, :, None] + g
+        e = torch.exp(dtf[:, i, :, None] * Af)
+        ge = g * (e * hs[i])
+        gB = (g * Bf[:, i, None, :]).sum(-1)
+        du[i] = dtf[:, i] * gB + Df * dyf[:, i]
+        ddt[i] = (ge * Af).sum(-1) + uf[:, i] * gB
+        dB[i] = (g * (dtf[:, i] * uf[:, i])[..., None]).sum(1)
+        dC[i] = (dyf[:, i, :, None] * hs[i + 1]).sum(1)
+        dA += (dtf[:, i, :, None] * ge).sum(0)
+        g = e * g
+    return (torch.stack(du, 1).to(u.dtype), torch.stack(ddt, 1), dA,
+            torch.stack(dB, 1).to(u.dtype), torch.stack(dC, 1).to(u.dtype),
+            (dyf * uf).sum((0, 1)), g)
+
+
 def sumsq_ref(g: torch.Tensor) -> torch.Tensor:
     """The float32 sum of squares of one leaf, 0-d."""
     return torch.sum(torch.square(g.float()))

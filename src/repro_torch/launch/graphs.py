@@ -60,6 +60,8 @@ COUNTERS = (
     (flash_attention.flash_attention_bwd_cuda, "lse_forwards"),
     (decode_attention.decode_attention_cuda, "launches"),
     (mamba_scan.mamba_scan_cuda, "launches"),
+    (mamba_scan.mamba_scan_train_cuda, "launches"),
+    (mamba_scan.mamba_scan_bwd_cuda, "launches"),
     (adamw.sumsq_cuda, "launches"),
     (adamw.clip_finalize_cuda, "launches"),
     (adamw.adamw_update_cuda, "launches"),

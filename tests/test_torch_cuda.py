@@ -23,8 +23,10 @@ from repro_torch.kernels.flash_attention import (INSTANCES,
                                                  flash_attention_cuda,
                                                  flash_attention_plain)
 from repro_torch.kernels.mamba_scan import (BLOCKS_PER_SM, CHANNELS_PER_BLOCK,
-                                            blocks_per_sm, mamba_scan_cuda,
-                                            mamba_scan_plain)
+                                            blocks_per_sm, mamba_scan_bwd_cuda,
+                                            mamba_scan_bwd_plain, mamba_scan_cuda,
+                                            mamba_scan_plain, mamba_scan_states_plain,
+                                            mamba_scan_train_cuda)
 from repro_torch.kernels.adamw import (adamw_update_cuda, adamw_update_plain,
                                        clip_finalize_cuda, clip_finalize_plain,
                                        global_norm_scale, global_norm_scale_cuda,
@@ -319,6 +321,51 @@ def test_mamba_scan_plan_fits_the_card(gen, n, u_dtype):
         sms = torch.cuda.get_device_properties(0).multi_processor_count
         waves = 8 * 16384 / CHANNELS_PER_BLOCK / (sms * blocks)
         assert waves - int(waves) >= 0.9 or waves == int(waves), waves
+
+
+def _close_scan_bwd(got, want, u_dtype):
+    """The backward's seven gradients: float32 ones (all of them for float32
+    u; ddt, dA, dD, dh0 for bf16 u) as gradient leaves, |diff| <= 1e-4
+    max|g| + 1e-6 (dA sums over every batch row and step: at 2 x 513 steps
+    the plain version's own float32 error against float64 reaches 1.2x an
+    elementwise 1e-4 + 1e-4 |g|); bf16 ones (du, dB, dC) per element to one
+    bf16 ulp of the plain value plus 2^-5 rms(plain)."""
+    torch.cuda.synchronize()
+    for name, g, w in zip(("du", "ddt", "dA", "dB", "dC", "dD", "dh0"), got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        if w.dtype == torch.bfloat16:
+            _close_scaled(g, w)
+        else:
+            tol = 1e-4 * float(w.abs().max()) + 1e-6
+            torch.testing.assert_close(g, w, atol=tol, rtol=0, msg=name)
+
+
+@pytest.mark.parametrize("bt,t,d_in,n,with_h0,with_dh", [
+    (2, 1, 64, 4, True, True),       # one step
+    (2, 15, 200, 4, False, False),   # less than a stage; ragged d_in
+    (2, 513, 256, 16, True, False),  # stages past 512; Jamba's N
+    (1, 37, 100, 16, False, True),   # ragged d_in in the 16-wide instance
+    (3, 70, 130, 5, True, True),     # N 5 in the 8-wide instance
+    (2, 33, 300, 1, False, True)])   # N 1; several blocks of 256 channels
+@pytest.mark.parametrize("u_dtype", [torch.float32, torch.bfloat16])
+def test_mamba_scan_bwd(gen, bt, t, d_in, n, with_h0, with_dh, u_dtype):
+    """The training forward against the plain forward that saves states, and
+    the backward kernel on its states against the plain backward, with B
+    and C column slices of one projection; two calls give the same bits."""
+    u, dt, A, _, _, D, h0 = _scan_inputs(gen, bt, t, d_in, n, u_dtype, with_h0)
+    proj = _randn(gen, (bt, t, 5 + 2 * n), u_dtype)
+    B, C = proj[..., 5:5 + n], proj[..., 5 + n:]
+    dy = _randn(gen, (bt, t, d_in), u_dtype)
+    dh = _randn(gen, (bt, d_in, n), torch.float32) if with_dh else None
+    y, h_t, hs = mamba_scan_train_cuda(u, dt, A, B, C, D, h0)
+    y_p, h_p, hs_p = mamba_scan_states_plain(u, dt, A, B, C, D, h0)
+    _close_scan((y, h_t), (y_p, h_p), u_dtype)
+    torch.testing.assert_close(hs, hs_p, atol=1e-4, rtol=1e-4)
+    got = mamba_scan_bwd_cuda(u, dt, A, B, C, D, hs, dy, dh)
+    _close_scan_bwd(got, mamba_scan_bwd_plain(u, dt, A, B, C, D, dy, h0, dh), u_dtype)
+    again = mamba_scan_bwd_cuda(u, dt, A, B, C, D, hs, dy, dh)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
@@ -776,20 +823,33 @@ def test_ops_gradients_go_through_the_backward_kernels(gen, dtype):
 
 
 def test_kernels_without_backward_raise_for_a_gradient(gen):
-    """decode attention and the scan have no backward kernel: asked for a
-    gradient on the card they raise instead of returning an output cut off
-    from the graph; under no_grad they run."""
+    """decode attention has no backward kernel: asked for a gradient on the
+    card it raises instead of returning an output cut off from the graph;
+    under no_grad it runs. The scan has one: asked for a gradient it runs
+    the training forward and the backward kernel, and its gradients equal
+    autograd's of the plain scan; under no_grad it runs the serving kernel."""
     q, k, v = _decode_inputs(gen, 2, 6, 2, 40, 64, torch.float32)
     length = _lengths(40, 17)
     with pytest.raises(NotImplementedError, match="no backward"):
         ops.decode_attention(q.requires_grad_(True), k, v, length)
     with torch.no_grad():
         ops.decode_attention(q, k, v, length)
-    u, dt, A, B, C, D, _ = _scan_inputs(gen, 1, 8, 32, 4, torch.float32, False)
-    with pytest.raises(NotImplementedError, match="no backward"):
-        ops.mamba_scan(u.requires_grad_(True), dt, A, B, C, D)
+    u, dt, A, B, C, D, h0 = _scan_inputs(gen, 1, 8, 32, 4, torch.float32, True)
+    dy = _randn(gen, u.shape, torch.float32)
+    n = (mamba_scan_train_cuda.launches, mamba_scan_bwd_cuda.launches,
+         mamba_scan_cuda.launches)
+    leaves = [x.clone().requires_grad_(True) for x in (u, dt, A, B, C, D, h0)]
+    y, _ = ops.mamba_scan(*leaves)
+    got = torch.autograd.grad(y, leaves, dy)
+    assert (mamba_scan_train_cuda.launches, mamba_scan_bwd_cuda.launches,
+            mamba_scan_cuda.launches) == (n[0] + 1, n[1] + 1, n[2])
+    plain = [x.clone().requires_grad_(True) for x in (u, dt, A, B, C, D, h0)]
+    y_p, _ = mamba_scan_plain(*plain)
+    for g, w in zip(got, torch.autograd.grad(y_p, plain, dy)):
+        torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
     with torch.no_grad():
-        ops.mamba_scan(u, dt, A, B, C, D)
+        assert ops.mamba_scan(*leaves)[0].grad_fn is None
+    assert mamba_scan_cuda.launches == n[2] + 1
 
 
 def _loss_and_grads(cfg, params, batch, device):
@@ -835,15 +895,28 @@ def test_every_param_leaf_gets_the_cpu_gradient(gen, name):
 
 
 def test_jamba_loss_refuses_a_gradient_through_the_scan(gen):
+    """The scan now has a backward kernel: the same Jamba SMOKE loss (dense
+    FFN) takes its gradient through it on the card, and every param leaf's
+    gradient equals the CPU's (plain versions, autograd), |diff| <= 1e-4
+    max|g| + 1e-6, float32; under remat each Mamba layer runs the training
+    forward twice and the backward once."""
     cfg = dataclasses.replace(get("jamba_1_5_large_398b", smoke=True),
                               n_experts=0, top_k=0, d_expert=0,
                               period=(("attn", "mlp"),) + (("mamba", "mlp"),) * 7)
-    params = transformer.init(torch.Generator(device="cuda").manual_seed(0),
-                              cfg, device="cuda")
-    toks = torch.randint(0, cfg.vocab, (2, 17), device="cuda", generator=gen)
-    with pytest.raises(NotImplementedError, match="mamba_scan"):
-        _loss_and_grads(cfg, params, {"inputs": toks[:, :-1],
-                                      "labels": toks[:, 1:]}, "cuda")
+    params = transformer.init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    toks = torch.randint(0, cfg.vocab, (2, 41), generator=torch.Generator()
+                         .manual_seed(1))
+    batch = {"inputs": toks[:, :-1], "labels": toks[:, 1:]}
+    n_f, n_b = mamba_scan_train_cuda.launches, mamba_scan_bwd_cuda.launches
+    loss_c, g_c = _loss_and_grads(cfg, params, batch, "cpu")
+    loss_g, g_g = _loss_and_grads(cfg, params, batch, "cuda")
+    assert (mamba_scan_train_cuda.launches - n_f, mamba_scan_bwd_cuda.launches - n_b) \
+        == (14, 7)
+    assert abs(loss_c - loss_g) <= 1e-4
+    for path, gc, gg in _leaf_pairs(g_c, g_g):
+        assert gg is not None and gg.is_cuda, path
+        tol = 1e-4 * float(gc.abs().max()) + 1e-6
+        torch.testing.assert_close(gg.cpu(), gc, atol=tol, rtol=0, msg=path)
 
 
 # ---------------------------------------------------------------------------
@@ -1095,7 +1168,8 @@ def test_graphed_prefill_matches_eager_bit_for_bit(gen, name):
     graphed.release()
 
 
-@pytest.mark.parametrize("name", ["smollm_360m", "h2o_danube_1_8b"])
+@pytest.mark.parametrize("name", ["smollm_360m", "h2o_danube_1_8b",
+                                  "jamba_1_5_large_398b", "xlstm_125m"])
 def test_graphed_train_steps_match_eager_bit_for_bit(gen, name):
     """Three train steps (forward, backward under remat, clip, AdamW with
     warmup + cosine on the device-side step) eager and from one CUDA graph,
@@ -1125,9 +1199,12 @@ def test_graphed_train_steps_match_eager_bit_for_bit(gen, name):
         assert torch.equal(a, b)
     g = _only_graph(graphed)
     n_attn = _per_step(cfg)["attn"]
+    n_mamba = sum(m == "mamba" for m, _ in cfg.blocks())
     assert g.per_replay["flash_attention_bwd_cuda.launches"] == n_attn
     assert g.per_replay["flash_attention_cuda.launches"] == 2 * n_attn   # remat
-    assert g.per_replay["rmsnorm_bwd_cuda.launches"] == 1 + 2 * len(cfg.blocks())
+    assert g.per_replay["rmsnorm_bwd_cuda.launches"] == _per_step(cfg)["rmsnorm_cuda.launches"]
+    assert g.per_replay["mamba_scan_train_cuda.launches"] == 2 * n_mamba
+    assert g.per_replay["mamba_scan_bwd_cuda.launches"] == n_mamba
     graphed.release()
 
 

@@ -27,8 +27,9 @@ time,
      report of the float32 backward at 24 and 192 too) or if the train step's
      RMSNorm-backward, sumsq or AdamW instance spills, and for each scan
      instance (serving, training: the one that saves states, backward) its SASS
-     instructions, MUFU.EX2 and LDL/STL counts and (serving) resident blocks
-     per SM, failing if one spills or holds fewer blocks than its launch plan;
+     instructions, MUFU.EX2, SHFL and LDL/STL counts and resident blocks per
+     SM (serving, backward), failing if one spills or holds fewer blocks than
+     its launch plan;
   2. holds each kernel against its plain PyTorch version on the card, at the
      main paths' shapes (smollm and Jamba; xLSTM's RMSNorm widths), in bf16
      and float32, with its device time, the kernels one call runs (from
@@ -186,7 +187,11 @@ time,
      Mamba layers with its dense SwiGLU (``JAMBA_TRAIN_CUT``, 3.88 B params),
      8 steps of 8 x 512 through ``launch.train.train``, eager and graphed, as
      phase 20 (launches from ``per_train_step``: the scan's training forward
-     twice a Mamba layer under remat, its backward once);
+     twice a Mamba layer under remat, its backward once); then Jamba's rate
+     witness: ``JAMBA_WITNESS_CUT`` (attention + 1 Mamba layer) at 3e-4 in
+     bf16 and in float32 (both loss and grad-norm curves), and 4 float32
+     steps of Jamba SMOKE at 3e-4 on the card and the CPU in lockstep, at
+     SMOKE's N 4 and at Jamba's N 16;
   29. float32 training parity card vs CPU (phase 14's tolerances): Jamba
      SMOKE with its real MoE layers, and every gradient of one full-width
      Mamba layer at 2 x 32 tokens;
@@ -436,6 +441,14 @@ JAMBA_PARITY = dict(n_layers=2, dtype="float32",
 # each Mamba layer 1.02 B); a MoE layer alone is 16 x 604 M params
 JAMBA_TRAIN_CUT = dict(n_layers=3, n_experts=0, top_k=0, d_expert=0,
                        period=(("attn", "mlp"), ("mamba", "mlp"), ("mamba", "mlp")))
+# Jamba's rate witness (phase 28): its published widths cut to one attention
+# and one Mamba layer with the dense SwiGLU (2.85 B params: 45.6 GB of float32
+# params, grads and AdamW moments), trained at the trainer's 3e-4 in bf16 and
+# in float32; the card-vs-CPU lockstep runs Jamba SMOKE (its MoE layers),
+# since the full-width cut's float32 AdamW state and per-step copies would
+# take ~60 GB of the host's memory
+JAMBA_WITNESS_CUT = dict(n_layers=2, n_experts=0, top_k=0, d_expert=0,
+                         period=(("attn", "mlp"), ("mamba", "mlp")))
 # xlstm-125m training in phase 30: steps of 8 x 512 tokens
 XLSTM_TRAIN_STEPS = 4
 # DeepSeek-V3 at its published widths, cut to what one 80 GB card holds: the
@@ -878,7 +891,9 @@ def scan_train_rows(scan, randn):
                 ops=10 * elems * n, exps=elems * n, ops_dtype="float32", plain_iters=3,
                 scaled=True, leafwise=True, plain_events=True)
             row.update(bit_equal=bit_equal, ok=row["ok"] and bit_equal,
-                       saved_state_bytes=nbytes(hs))
+                       saved_state_bytes=nbytes(hs),
+                       sm_clock_mhz=sm_clock_mhz(lambda bargs=bargs:
+                                                 scan.mamba_scan_bwd_cuda(*bargs)))
             rows.append(row)
             del got, hs
     return rows
@@ -1831,6 +1846,7 @@ def kernel_build_report(build, lib_path: str) -> dict:
             scan_sass[lab] = {
                 "instructions": len(ops),
                 "mufu_ex2": sum(op.startswith("MUFU.EX2") for op in ops),
+                "shfl": sum(op.startswith("SHFL") for op in ops),
                 "ldl_stl": sum(op.split(".")[0] in ("LDL", "STL") for op in ops),
                 "spill_bytes": spills.get(lab)}
             scan_text.append(f"Function : {chunk}")
@@ -2634,6 +2650,10 @@ def main() -> int:
         for dt in (torch.bfloat16, torch.float32) for n in (4, 8, 16)}
     sass["scan_waves"] = waves = (8 * 16384 / scan.CHANNELS_PER_BLOCK
                                   / (n_sm * occ[SCAN_MAIN]))
+    # the backward's: its plan is BWD_BLOCKS_PER_SM (16 warps an SM)
+    sass["scan_bwd_blocks_per_sm"] = bwd_occ = {
+        f"bwd {'bf16' if dt == torch.bfloat16 else 'f32'} N{n}": scan.bwd_blocks_per_sm(n, dt)
+        for dt in (torch.bfloat16, torch.float32) for n in (4, 8, 16)}
     print(f"[1 card] {card} | torch {torch.__version__} cuda {torch.version.cuda}"
           f" | kernels built in {build_s:.1f} s (cached={_build.last_build['cached']})"
           f" | bf16 flash kernel, HGMMA instructions: {sass['hgmma_total']} "
@@ -2655,17 +2675,22 @@ def main() -> int:
           f"{sass['ptxas_flash_bwd']}, RMSNorm {sass['ptxas_rmsnorm_bwd']}; clip and "
           f"AdamW ptxas: {sass['ptxas_adamw']}; "
           f"scan SASS (instructions, "
-          f"MUFU.EX2, LDL/STL): " + ", ".join(
-              f"{k} {v['instructions']}/{v['mufu_ex2']}/{v['ldl_stl']}"
+          f"MUFU.EX2, SHFL, LDL/STL): " + ", ".join(
+              f"{k} {v['instructions']}/{v['mufu_ex2']}/{v['shfl']}/{v['ldl_stl']}"
               for k, v in sorted(scan_sass.items()))
           + f"; scan blocks per SM {occ}, Jamba prefill {waves:.2f} waves on "
-          f"{n_sm} SMs; compiler warnings: {sass['warnings'] or 'none'} {took('1 card')}",
+          f"{n_sm} SMs; scan backward blocks per SM {bwd_occ} (plan "
+          f"{scan.BWD_BLOCKS_PER_SM}); compiler warnings: {sass['warnings'] or 'none'} "
+          f"{took('1 card')}",
           flush=True)
     if spilled:
         fail(f"scan instances spill (the main paths' are {SCAN_MAIN}, {SCAN_TRAIN}): "
              f"{spilled}")
     if min(occ.values()) < scan.BLOCKS_PER_SM:
         fail(f"scan instances hold fewer than {scan.BLOCKS_PER_SM} blocks per SM: {occ}")
+    if min(bwd_occ.values()) < scan.BWD_BLOCKS_PER_SM:
+        fail(f"scan backward instances hold fewer than {scan.BWD_BLOCKS_PER_SM} blocks per "
+             f"SM: {bwd_occ}")
 
     # 2. kernels against their plain versions
     rows = phase_kernels(rms, fla, dec, scan)
@@ -3463,6 +3488,75 @@ def main() -> int:
     print_train("[28 jamba train] jamba-1.5-large widths, attention + 2 Mamba layers, "
                 "dense FFN", jt, took("28 jamba train"))
     print_ranges("[28 jamba train ranges]", jt["ranges"])
+
+    # Jamba's rate witness: phase 28's loss at 3e-4 falls but not monotone.
+    # (1) the witness cut, 8 x 512 through launch.train.train at 3e-4, in
+    # bf16 and in float32 (the float32 kernels and GEMMs): the two loss and
+    # grad-norm curves; (2) float32 at 3e-4 with the trainer's 8-step
+    # schedule, its first RATE_LOCKSTEP_STEPS steps on the card and on the
+    # CPU from the same params and state (Jamba SMOKE, 2 x 128 tokens), at
+    # SMOKE's N 4 and at Jamba's N 16, whose backward instance alone keeps
+    # its exponentials and walks 8-step sub-stages over four lanes a channel
+    jw = report["jamba_rate_witness"] = {"lr": 3e-4, "cut": JAMBA_WITNESS_CUT}
+    wpt = per_train_step(dataclasses.replace(get("jamba_1_5_large_398b"),
+                                             **JAMBA_WITNESS_CUT))
+    for dn in ("bfloat16", "float32"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        out = drive(kern, side, zero(**{k: v * MOE_TRAIN_STEPS for k, v in wpt.items()}),
+                    lambda: train("jamba_1_5_large_398b", smoke=False,
+                                  steps=MOE_TRAIN_STEPS, batch=8, seq=512, lr=3e-4,
+                                  log_every=MOE_TRAIN_STEPS, device="cuda", graphs=False,
+                                  overrides=dict(JAMBA_WITNESS_CUT, dtype=dn)),
+                    f"Jamba rate witness ({dn})")
+        if not all(math.isfinite(x) for x in out["losses"]):
+            fail(f"Jamba rate witness ({dn}) losses not finite: {out['losses']}")
+        jw[dn] = {"losses": out["losses"], "grad_norms": out["grad_norms"],
+                  "params": param_count(out["params"]),
+                  "max_memory_allocated": torch.cuda.max_memory_allocated()}
+        del out
+    for key, n_state in (("lockstep", 4), ("lockstep_n16", 16)):
+        torch.cuda.empty_cache()
+        jcfg_s = dataclasses.replace(get("jamba_1_5_large_398b", smoke=True), dtype="float32",
+                                     ssm_state=n_state)
+        jp_gpu = model_api(jcfg_s).init(torch.Generator(device="cuda").manual_seed(SEED),
+                                        jcfg_s, device="cuda")
+
+        def jamba_witness_batch(p_cpu, t, vocab=jcfg_s.vocab):
+            toks = torch.randint(0, vocab, (2, 129),
+                                 generator=torch.Generator().manual_seed(SEED + 20 + t))
+            return {"inputs": toks[:, :-1], "labels": toks[:, 1:]}
+
+        jw[key] = jls = drive(
+            kern, side, zero(**{k: v * RATE_LOCKSTEP_STEPS
+                                for k, v in per_train_step(jcfg_s).items()}),
+            lambda: lockstep_train(jcfg_s, jp_gpu, jamba_witness_batch, RATE_LOCKSTEP_STEPS,
+                                   MOE_TRAIN_STEPS, 3e-4, make_train_step, adamw,
+                                   warmup_cosine),
+            f"Jamba rate witness (lockstep, N {n_state})")
+        del jp_gpu
+        torch.cuda.empty_cache()
+        if not jls["ok"]:
+            fail(f"Jamba SMOKE (N {n_state}) float32 lockstep training card vs CPU differs: "
+                 f"{jls}")
+    wl = {dn: jw[dn]["losses"] for dn in ("bfloat16", "float32")}
+    jw["max_loss_gap"] = max(abs(a - b) for a, b in zip(wl["bfloat16"], wl["float32"]))
+    print(f"[28 jamba rate witness] jamba-1.5-large widths, attention + 1 Mamba layer, "
+          f"dense FFN ({jw['float32']['params'] / 1e9:.2f} B params) at the trainer's AdamW "
+          f"3e-4, {MOE_TRAIN_STEPS} steps of 8 x 512 through launch.train.train: bf16 losses "
+          f"{[round(x, 4) for x in wl['bfloat16']]}, float32 losses "
+          f"{[round(x, 4) for x in wl['float32']]} (largest gap {jw['max_loss_gap']:.4f}; "
+          f"grad norms bf16 {[round(x, 1) for x in jw['bfloat16']['grad_norms']]}, float32 "
+          f"{[round(x, 1) for x in jw['float32']['grad_norms']]}; peak "
+          f"{jw['bfloat16']['max_memory_allocated'] / 2**30:.2f} / "
+          f"{jw['float32']['max_memory_allocated'] / 2**30:.2f} GiB); float32 card and CPU in "
+          f"lockstep, Jamba SMOKE, {RATE_LOCKSTEP_STEPS} steps of 2 x 128 tokens from the "
+          f"same params and state: "
+          + "; ".join(f"N {n_state}: losses {[round(x, 4) for x in jw[key]['losses']]} (max "
+                      f"err {max(jw[key]['loss_err']):.2e}, tol {LOSS_TOL:g}), grad norm max "
+                      f"rel err {max(jw[key]['grad_norm_rel_err']):.2e} (tol {GRAD_TOL:g})"
+                      for key, n_state in (("lockstep", 4), ("lockstep_n16", 16)))
+          + f" {took('28 jamba rate witness')}", flush=True)
 
     # 29. float32 training parity, card vs CPU (phase 14's tolerances): Jamba
     # SMOKE with its real MoE layers at 2 x 128 tokens (loss, grad norm,

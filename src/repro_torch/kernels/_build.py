@@ -57,8 +57,10 @@ SIGNATURES = {
     # the partial sums of dB/dC, dA, dD, partial blocks, Bt, T, d_in, n, B
     # batch/time strides, C batch/time strides, u dtype, stream
     "mamba_scan_bwd": [_P] * 19 + [_I] * 5 + [_L] * 4 + [_I, _P],
-    # n, u dtype -> resident blocks per SM of that scan instance
+    # n, u dtype -> resident blocks per SM of that scan instance, forward
+    # and backward
     "mamba_scan_blocks_per_sm": [_I, _I],
+    "mamba_scan_bwd_blocks_per_sm": [_I, _I],
     # g, numel, partial (blocks), blocks, dtype, stream
     "adamw_sumsq": [_P, _L, _P, _I, _I, _P],
     # partial, its length, max_norm, out (norm, scale), stream

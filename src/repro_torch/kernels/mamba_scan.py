@@ -31,9 +31,11 @@ BLOCKS_PER_SM = 4
 # the training instance saves the state at the start of every this many
 # steps (the forward's stage); the backward (csrc/mamba_scan_bwd.cu) walks
 # back over stages of as many steps, in blocks of 256 threads, four states a
-# thread: 1024 / NM channels a block, NM = N rounded up to 4, 8 or 16
+# thread: 1024 / NM channels a block, NM = N rounded up to 4, 8 or 16, sized
+# for BWD_BLOCKS_PER_SM resident blocks per SM (16 warps)
 STATE_EVERY = 16
 BWD_THREADS = 256
+BWD_BLOCKS_PER_SM = 2
 
 
 def blocks_per_sm(n: int, dtype: torch.dtype) -> int:
@@ -45,6 +47,18 @@ def blocks_per_sm(n: int, dtype: torch.dtype) -> int:
     blocks = _build.load().mamba_scan_blocks_per_sm(n, DTYPE_CODES[dtype])
     if blocks < 0:
         raise RuntimeError("mamba_scan: the occupancy query failed")
+    return blocks
+
+
+def bwd_blocks_per_sm(n: int, dtype: torch.dtype) -> int:
+    """Blocks of the backward instance for state width ``n`` and u's
+    ``dtype`` that one SM of the current card holds at once; the plan is
+    sized for at least BWD_BLOCKS_PER_SM."""
+    if dtype not in DTYPE_CODES or not 1 <= n <= MAX_N:
+        raise ValueError(f"mamba_scan_bwd: no instance for n={n}, {dtype}")
+    blocks = _build.load().mamba_scan_bwd_blocks_per_sm(n, DTYPE_CODES[dtype])
+    if blocks < 0:
+        raise RuntimeError("mamba_scan_bwd: the occupancy query failed")
     return blocks
 
 

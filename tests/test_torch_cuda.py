@@ -22,8 +22,9 @@ from repro_torch.kernels.flash_attention import (INSTANCES,
                                                  flash_attention_bwd_plain,
                                                  flash_attention_cuda,
                                                  flash_attention_plain)
-from repro_torch.kernels.mamba_scan import (BLOCKS_PER_SM, CHANNELS_PER_BLOCK,
-                                            blocks_per_sm, mamba_scan_bwd_cuda,
+from repro_torch.kernels.mamba_scan import (BLOCKS_PER_SM, BWD_BLOCKS_PER_SM,
+                                            CHANNELS_PER_BLOCK, blocks_per_sm,
+                                            bwd_blocks_per_sm, mamba_scan_bwd_cuda,
                                             mamba_scan_bwd_plain, mamba_scan_cuda,
                                             mamba_scan_plain, mamba_scan_states_plain,
                                             mamba_scan_train_cuda)
@@ -312,11 +313,12 @@ def test_mamba_scan_unaligned_u_takes_element_loads(gen, u_dtype):
 @pytest.mark.parametrize("n", [4, 8, 16])
 @pytest.mark.parametrize("u_dtype", [torch.float32, torch.bfloat16])
 def test_mamba_scan_plan_fits_the_card(gen, n, u_dtype):
-    """Every instance holds at least the plan's blocks per SM; at N 16,
-    Jamba's prefill (8 x 16384 channels) fills a whole number of waves to
-    within 10%."""
+    """Every instance holds at least the plan's blocks per SM, the forward's
+    and the backward's; at N 16, Jamba's prefill (8 x 16384 channels)
+    fills a whole number of waves to within 10%."""
     blocks = blocks_per_sm(n, u_dtype)
     assert blocks >= BLOCKS_PER_SM
+    assert bwd_blocks_per_sm(n, u_dtype) >= BWD_BLOCKS_PER_SM
     if n == 16:
         sms = torch.cuda.get_device_properties(0).multi_processor_count
         waves = 8 * 16384 / CHANNELS_PER_BLOCK / (sms * blocks)
@@ -346,7 +348,11 @@ def _close_scan_bwd(got, want, u_dtype):
     (2, 513, 256, 16, True, False),  # stages past 512; Jamba's N
     (1, 37, 100, 16, False, True),   # ragged d_in in the 16-wide instance
     (3, 70, 130, 5, True, True),     # N 5 in the 8-wide instance
-    (2, 33, 300, 1, False, True)])   # N 1; several blocks of 256 channels
+    (2, 33, 300, 1, False, True),    # N 1; several blocks of 256 channels
+    (2, 9, 64, 16, True, True),      # the last stage padded past T = 9
+    (2, 17, 96, 16, False, True),    # one step into a second stage
+    (2, 40, 129, 16, True, True),    # d_in 129 at N 16: a ragged last block
+    (2, 23, 131, 5, False, True)])   # d_in odd at N 5: rows by plain loads
 @pytest.mark.parametrize("u_dtype", [torch.float32, torch.bfloat16])
 def test_mamba_scan_bwd(gen, bt, t, d_in, n, with_h0, with_dh, u_dtype):
     """The training forward against the plain forward that saves states, and

@@ -76,7 +76,7 @@ def test_streaming_inference_runs_without_jax_or_repro():
 
 
 def test_no_source_imports_jax_or_repro():
-    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "scan_bwd_compare.py"]
     assert len(files) > 15
     for f in files:
         hit = FORBIDDEN.search(f.read_text())

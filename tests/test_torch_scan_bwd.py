@@ -16,12 +16,15 @@ import torch.utils.checkpoint
 
 from repro.kernels import ref as jref
 from repro_torch.kernels import mamba_scan as ms
-from repro_torch.kernels.mamba_scan import (STATE_EVERY, _MambaScan, bwd_blocks,
-                                            mamba_scan_bwd_plain, mamba_scan_plain,
-                                            mamba_scan_states_plain, n_states)
+from repro_torch.kernels.mamba_scan import (BWD_BLOCKS_PER_SM, BWD_THREADS, STATE_EVERY,
+                                            _MambaScan, bwd_blocks, mamba_scan_bwd_plain,
+                                            mamba_scan_plain, mamba_scan_states_plain,
+                                            n_states)
 
 NAMES = ("du", "ddt", "dA", "dB", "dC", "dD", "dh0")
-SHAPES = [(2, 37, 96, 4), (2, 64, 256, 16)]
+# the last three end in a padded stage of the kernel (T 9, 17, 513 against
+# stages of 8 or 16 steps), on ragged widths (d_in 33, 40) and N 5
+SHAPES = [(2, 37, 96, 4), (2, 64, 256, 16), (2, 9, 40, 5), (2, 17, 33, 16), (1, 513, 24, 4)]
 
 
 def _inputs(bt, t, d_in, n, mamba_a, seed=0):
@@ -52,11 +55,34 @@ def _close(name, got, want):
 @pytest.fixture(scope="module")
 def jax_vjp():
     """jax.vjp of the reference scan, jitted once per shape; h0 always given
-    (zeros stand for none: the reference starts from zeros)."""
+    (zeros stand for none: the reference starts from zeros). The reference
+    is a Python loop over steps, whose jit takes minutes to compile past a
+    few hundred steps, so a longer scan is differentiated in segments of 32
+    steps of the same function: the state carried forward segment by
+    segment, then each segment's VJP from the last, its h0 gradient the
+    next one's h_T cotangent."""
     def grads(u, dt, A, B, C, D, h0, dy, dh):
         _, vjp = jax.vjp(jref.mamba_scan_ref, u, dt, A, B, C, D, h0)
         return vjp((dy, dh))
-    return jax.jit(grads)
+
+    jgrads, fwd, seg = jax.jit(grads), jax.jit(jref.mamba_scan_ref), 32
+
+    def chained(u, dt, A, B, C, D, h0, dy, dh):
+        if u.shape[1] <= 64:
+            return jgrads(u, dt, A, B, C, D, h0, dy, dh)
+        cuts = [slice(t0, t0 + seg) for t0 in range(0, u.shape[1], seg)]
+        starts = [h0]
+        for sl in cuts[:-1]:
+            starts.append(fwd(u[:, sl], dt[:, sl], A, B[:, sl], C[:, sl], D, starts[-1])[1])
+        rows, dA, dD, g = [], 0.0, 0.0, dh
+        for sl, h in zip(reversed(cuts), reversed(starts)):
+            du, ddt, dA_s, dB, dC, dD_s, g = jgrads(u[:, sl], dt[:, sl], A, B[:, sl],
+                                                    C[:, sl], D, h, dy[:, sl], g)
+            rows.insert(0, (du, ddt, dB, dC))
+            dA, dD = dA + dA_s, dD + dD_s
+        du, ddt, dB, dC = (jnp.concatenate(x, 1) for x in zip(*rows))
+        return du, ddt, dA, dB, dC, dD, g
+    return chained
 
 
 @pytest.mark.parametrize("shape", SHAPES)
@@ -106,7 +132,7 @@ def test_bwd_plain_keeps_the_dtypes_and_takes_no_dh_t():
         assert torch.equal(g, z)
 
 
-@pytest.mark.parametrize("t", [1, 15, 16, 37, 64])
+@pytest.mark.parametrize("t", [1, 9, 15, 16, 17, 37, 64, 513])
 @pytest.mark.parametrize("with_h0", [True, False])
 def test_states_plain_saves_the_state_every_stage(t, with_h0):
     u, dt, A, B, C, D, h0, _, _ = (torch.from_numpy(x)
@@ -125,12 +151,90 @@ def test_states_plain_saves_the_state_every_stage(t, with_h0):
         assert torch.equal(hs[:, k], want), k
 
 
-def test_backward_workspace_plan():
-    """The backward's blocks along d_in: 1024 / NM channels each."""
+@pytest.mark.parametrize("d_in,n,blocks", [
+    (16384, 16, 256),                  # Jamba: 64 channels a block
+    (128, 4, 1), (257, 3, 2),          # the 4-wide instance: 256 channels
+    (200, 5, 2), (65, 9, 2),           # the 8-wide instance: 128 channels
+    (64, 16, 1), (129, 16, 3), (1, 1, 1)])
+def test_backward_workspace_plan(d_in, n, blocks):
+    """The backward's plan: blocks of 256 threads, four states a thread
+    (1024 / NM channels a block), two blocks resident a SM (16 warps); the
+    states saved every 16 steps; the blocks along d_in and the partial
+    dB / dC rows they write."""
+    assert (BWD_THREADS, BWD_BLOCKS_PER_SM, STATE_EVERY) == (256, 2, 16)
     assert n_states(512) == 32 and n_states(513) == 33 and n_states(1) == 1
-    assert bwd_blocks(16384, 16) == 256
-    assert bwd_blocks(128, 4) == 1 and bwd_blocks(257, 3) == 2
-    assert bwd_blocks(200, 5) == 2 and bwd_blocks(64, 16) == 1 and bwd_blocks(65, 9) == 2
+    assert n_states(17) == 2 and n_states(16) == 1
+    assert bwd_blocks(d_in, n) == blocks
+    nm = 4 if n <= 4 else 8 if n <= 8 else 16
+    assert (blocks - 1) * (1024 // nm) < d_in <= blocks * (1024 // nm)
+
+
+def _staged_bwd(u, dt, A, B, C, D, dy, hs, dh_t, stride, stage):
+    """The kernel's walk in float64 torch: T padded to whole stages of
+    ``stride`` steps with dt = u = dy = B = C = 0; each stage recomputed from
+    its saved state in sub-stages of ``stage`` steps (a later sub-stage
+    advancing through the earlier ones first), every sub-stage's states and
+    exponentials kept and walked back. Returns the seven gradients."""
+    bt, t, d_in = u.shape
+    n = A.shape[1]
+    pad = -(-t // stride) * stride - t
+
+    def padded(x):
+        return torch.nn.functional.pad(x.double(), (0, 0, 0, pad))
+
+    u, dt, dy, B, C = (padded(x) for x in (u, dt, dy, B, C))
+    A, D = A.double(), D.double()
+    g = torch.zeros((bt, d_in, n), dtype=torch.float64) if dh_t is None else dh_t.double()
+    du, ddt = torch.zeros_like(u), torch.zeros_like(u)
+    dB, dC, dA = torch.zeros_like(B), torch.zeros_like(C), torch.zeros_like(A)
+
+    def step(h, i):
+        e = torch.exp(dt[:, i, :, None] * A)
+        return e, e * h + (dt[:, i, :, None] * B[:, i, None, :]) * u[:, i, :, None]
+
+    for k in reversed(range(hs.shape[1])):
+        for j in reversed(range(stride // stage)):
+            t0 = k * stride + j * stage
+            h = hs[:, k].double()
+            for i in range(k * stride, t0):
+                h = step(h, i)[1]
+            hr, er = [h], []
+            for i in range(t0, t0 + stage):
+                e, h = step(h, i)
+                hr.append(h)
+                er.append(e)
+            for tt in reversed(range(stage)):
+                i = t0 + tt
+                g = C[:, i, None, :] * dy[:, i, :, None] + g
+                ge = g * (er[tt] * hr[tt])
+                gB = (g * B[:, i, None, :]).sum(-1)
+                du[:, i] = dt[:, i] * gB + D * dy[:, i]
+                ddt[:, i] = (ge * A).sum(-1) + u[:, i] * gB
+                dB[:, i] = (g * (dt[:, i] * u[:, i])[..., None]).sum(1)
+                dC[:, i] = (dy[:, i, :, None] * hr[tt + 1]).sum(1)
+                dA += (dt[:, i, :, None] * ge).sum(0)
+                g = er[tt] * g
+    return (du[:, :t], ddt[:, :t], dA, dB[:, :t], dC[:, :t], (dy * u).sum((0, 1)), g)
+
+
+@pytest.mark.parametrize("t", [1, 9, 15, 17, 513])
+@pytest.mark.parametrize("n", [5, 16])
+def test_staged_walk_with_padded_stages(jax_vjp, t, n):
+    """The kernel's stage arithmetic on the CPU: states saved every
+    STATE_EVERY steps, walked in register sub-stages of 8 steps at N 16 and
+    of 4 in the narrower instances (N 5 here), the last stage padded past T
+    with zeros (e = 1, no input, g unchanged), against jax.vjp of the
+    reference scan, with h0 and dh_T, on a ragged width (d_in 33)."""
+    bt, d_in, stage = 2, 33, 8 if n > 8 else 4
+    u, dt, A, B, C, D, h0, dy, dh = _inputs(bt, t, d_in, n, False, seed=4)
+    want = jax_vjp(*(jnp.asarray(x) for x in (u, dt, A, B, C, D, h0, dy, dh)))
+    tu, tdt, tA, tB, tC, tD, th0, tdy, tdh = (torch.from_numpy(x)
+                                              for x in (u, dt, A, B, C, D, h0, dy, dh))
+    hs = mamba_scan_states_plain(tu, tdt, tA, tB, tC, tD, th0)[2]
+    assert hs.shape == (bt, n_states(t), d_in, n)
+    got = _staged_bwd(tu, tdt, tA, tB, tC, tD, tdy, hs, tdh, STATE_EVERY, stage)
+    for name, g, w in zip(NAMES, got, want):
+        _close(name, g.float(), w)
 
 
 class _Plain:

@@ -195,8 +195,34 @@ time,
   29. float32 training parity card vs CPU (phase 14's tolerances): Jamba
      SMOKE with its real MoE layers, and every gradient of one full-width
      Mamba layer at 2 x 32 tokens;
-  30. trains xlstm-125m whole, 4 steps of 8 x 512, eager and graphed, with
-     bit-equal losses that fall, step time and peak memory;
+  30. trains xlstm-125m at full width cut to ``XLSTM_TRAIN_CUT`` (two
+     sLSTM + mLSTM periods of its six), 4 steps of 8 x 512, eager and
+     graphed, with bit-equal losses that fall, step time and peak memory;
+  31. trains smollm-360M as phase 13 through ``launch.train.train`` in a
+     process group of one rank over NCCL (``init_process_group`` with a
+     ``HashStore``: no network): the (1, 1) mesh's data-parallel step and,
+     with ``force_fsdp``, its ZeRO-3 step, eager and graphed, each with
+     losses and grad norms equal to phase 13's bit for bit and its launches;
+     step ms, tokens/s, peak memory and capture seconds beside phase 13's;
+     one graphed data-parallel and one ZeRO-3 step, each replay against an
+     eager call (kernels and copies), failing unless the ZeRO-3 replay runs
+     2 x its sharded leaves + 1 device copies more than the data-parallel
+     one (NCCL at one rank copies for an all-gather or a reduce-scatter and
+     runs nothing for an in-place sum);
+  32. two ranks on the one card over gloo (``torch.multiprocessing``, a
+     ``TCPStore`` that this process serves on 127.0.0.1, gloo on the
+     loopback device; the ranks are killed and the phase fails past
+     ``GLOO_DEADLINE_S``), eager: the port's collectives on CUDA
+     tensors under gloo (all-reduce, all-gather, reduce-scatter; the phase
+     fails if gloo refuses one), then
+     smollm-360M at full width cut to 2 layers, float32, 4 steps of 8 x 128,
+     data-parallel and ZeRO-3, against one rank on the same weights and
+     batches (losses and grad norms to 1e-4 relative, params to lr / 4:
+     a missing last update moves most weights by about lr);
+  33. ``smollm-360m+padheads`` (16 / 8 heads of 64, GQA group 2) whole:
+     prefill 8 x 512 and 4 train steps of 8 x 512, each eager and graphed
+     and equal, its launches; phase 2 holds the bf16 flash forward and
+     backward at its shape;
 Every path runs with the launch counts set to 0 just before it and read just
 after; a graphed path's counts include its warm-up calls (``WARMUP`` eager
 calls before capture), and a replay adds what the capture recorded. Then it prints the kernel table as one JSON line (the rows of
@@ -205,9 +231,13 @@ DeepSeek-V3 prefill for bf16 D 192, the parity phases for float32 D 192
 and 24; for the backward, DeepSeek-V3 training for bf16 D 192 and phase
 22 for float32 D 192 and 24; whisper's and llava's shapes the launches of
 phases 24-25 and 26-27; the scan's training forward and backward those of
-phase 28) and, last,
+phase 28; the G-2 shape of smollm-360m+padheads those of phase 33) and,
+last,
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
-with no CUDA device, or outside a checkout, it exits non-zero at once. The
+with no CUDA device, or outside a checkout, it exits non-zero at once. Each
+phase's end and the seconds since the start go to standard error; past
+``WATCHDOG_S`` the script prints every thread's stack there and exits
+non-zero (``faulthandler``), so a run that hangs names where. The
 full report goes to ``build/chip_smoke.json``, the compiler's output (ptxas
 registers and spills) to ``build/kernels/build_<hash>.log``, the scan
 instances' SASS to ``build/scan_sass.txt``.
@@ -217,6 +247,8 @@ from __future__ import annotations
 import bisect
 import collections
 import dataclasses
+import datetime
+import faulthandler
 import json
 import math
 import os
@@ -403,6 +435,31 @@ FRONTEND_ROWS = {
         "src/repro/kernels/flash_attention.py:84", LLAVA_BWD_CASE, "bfloat16",
         "llava training (phase 27)"),
 }
+# smollm-360m+padheads (phase 33): 16 q / 8 kv heads of 64, GQA group 2;
+# rows of the kernel table counted on phase 33 (name: (kernel, source, TPU
+# kernel it replaces, phase-2 case, dtype, path))
+PADHEADS_CASE = "padheads causal 8x16/8x512x512x64"
+PADHEADS_ROWS = {
+    "flash_attention_padheads": (
+        "flash_attention", "src/repro_torch/csrc/flash_attention_sm90.cu",
+        "src/repro/kernels/flash_attention.py:84", PADHEADS_CASE, "bfloat16",
+        "smollm-360m+padheads prefill and training (phase 33)"),
+    "flash_attention_bwd_padheads": (
+        "flash_attention_bwd", "src/repro_torch/csrc/flash_attention_bwd_sm90.cu",
+        "src/repro/kernels/flash_attention.py:84", PADHEADS_CASE + " with L",
+        "bfloat16", "smollm-360m+padheads training (phase 33)"),
+}
+PADHEADS_TRAIN_STEPS = 4
+# phase 32: two ranks on the one card over gloo, smollm-360M at full width
+# cut to 2 layers, float32, steps of 8 x GLOO_SEQ
+GLOO_CUT = dict(n_layers=2, dtype="float32")
+GLOO_STEPS, GLOO_SEQ = 4, 128
+# seconds phase 32's two ranks may take (~25 s on the H100) before they are
+# killed and the phase fails; each collective of theirs times out sooner
+GLOO_DEADLINE_S = 240
+GLOO_TIMEOUT_S = 120
+# the collectives the port runs, probed on CUDA tensors under gloo
+GLOO_PROBES = ("all_reduce", "all_gather", "reduce_scatter")
 # llava training at its published widths, cut to 16 of its 32 layers: 3.75 B
 # params, 45 GB of bf16 params and grads and float32 AdamW moments, beside
 # ~12 GB of activations at 8 x 3,072 positions (remat)
@@ -422,7 +479,10 @@ LLAVA_TRAIN_LR = 1e-5
 DEEPSEEK_TRAIN_CUT = dict(n_layers=3, mtp=False)
 QWEN_TRAIN_CUT = dict(n_layers=1)
 MOE_TRAIN_STEPS = 8
-# steps of phase 27's float32 card-vs-CPU lockstep (each ~20 s on the CPU)
+# steps of phase 27's float32 llava card-vs-CPU lockstep (each ~25 s on the
+# host: the CPU step and the copies of 0.7 B params and their AdamW state)
+LLAVA_LOCKSTEP_STEPS = 2
+# steps of phase 28's float32 Jamba SMOKE card-vs-CPU lockstep
 RATE_LOCKSTEP_STEPS = 4
 # smollm-360M training in phase 13: steps of 8 x 512 tokens
 TRAIN_STEPS = 16
@@ -449,13 +509,19 @@ JAMBA_TRAIN_CUT = dict(n_layers=3, n_experts=0, top_k=0, d_expert=0,
 # take ~60 GB of the host's memory
 JAMBA_WITNESS_CUT = dict(n_layers=2, n_experts=0, top_k=0, d_expert=0,
                          period=(("attn", "mlp"), ("mamba", "mlp")))
-# xlstm-125m training in phase 30: steps of 8 x 512 tokens
+# xlstm-125m training in phase 30: its full width cut to two of its six
+# sLSTM + mLSTM periods (an eager step launches ~20 k kernels a layer, ~9 s a
+# step at 12 layers), steps of 8 x 512 tokens
+XLSTM_TRAIN_CUT = dict(n_layers=4)
 XLSTM_TRAIN_STEPS = 4
 # DeepSeek-V3 at its published widths, cut to what one 80 GB card holds: the
 # 3 dense-FFN layers of its prefix and 2 MLA + MoE layers (26.6 B params,
 # 53.2 GB bf16; a third MoE layer would not fit), without the MTP module,
 # which only the training loss reads
 DEEPSEEK_CUT = dict(n_layers=5, mtp=False)
+# seconds after which the script dumps every thread's stack to standard error
+# and exits non-zero (a run must end within 1,200 s; a whole run takes ~600)
+WATCHDOG_S = 1100
 
 
 def fail(msg: str):
@@ -828,7 +894,59 @@ def phase_kernels(rms, fla, dec, scan):
     rows += backward_rows(rms, fla, randn)
     rows += mla_backward_rows(fla, randn)
     rows += frontend_rows(fla, dec, randn)
+    rows += padheads_rows(fla, randn)
     rows += optimizer_rows(gen)
+    return rows
+
+
+def padheads_rows(fla, randn):
+    """Flash attention forward and backward at smollm-360m+padheads' shape
+    (q 8 x 16 x 512 x 64, k and v 8 x 8: GQA group 2), causal: bf16 timed
+    against SDPA (``enable_gqa``; its backward as in ``backward_rows``),
+    the backward with the forward's L as training passes it; float32
+    checked."""
+    rows = []
+    b, hq, hkv, s, hd = 8, 16, 8, 512, 64
+    pairs = s * (s + 1) // 2
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).split(".")[1]
+        q, do = randn((b, hq, s, hd), dtype), randn((b, hq, s, hd), dtype)
+        k, v = randn((b, hkv, s, hd), dtype), randn((b, hkv, s, hd), dtype)
+        args = (q, k, v, True, None, 0)
+        ql, kl, vl = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+
+        def lib_f(ql=ql, kl=kl, vl=vl):
+            return F.scaled_dot_product_attention(ql, kl, vl, is_causal=True,
+                                                  enable_gqa=True)
+
+        timed = {} if dtype == torch.float32 else dict(
+            run=lambda a=args: fla.flash_attention_cuda(*a),
+            plain=lambda a=args: fla.flash_attention_plain(*a),
+            library=lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True),
+            n_bytes=2 * nbytes(q) + 2 * nbytes(k), ops=4 * b * hq * hd * pairs)
+        rows.append(compare("flash_attention", PADHEADS_CASE, dn,
+                            fla.flash_attention_cuda(*args),
+                            fla.flash_attention_plain(*args), "attn", **timed))
+        rows[-1]["instance"] = fla.INSTANCES[dtype]
+        lse = None
+        if dtype == torch.bfloat16:
+            o, lse = fla.flash_attention_cuda(*args, return_lse=True)
+        else:
+            o = fla.flash_attention_cuda(*args)
+        bargs = (q, k, v, o, do, True, None, 0)
+        timed = {} if dtype == torch.float32 else dict(
+            run=lambda a=bargs, l=lse: fla.flash_attention_bwd_cuda(*a, lse=l),
+            plain=lambda a=bargs: fla.flash_attention_bwd_plain(*a),
+            library=lambda f=lib_f, ins=(ql, kl, vl), do=do:
+                torch.autograd.grad(f(), ins, do),
+            library_fwd=lib_f, n_bytes=4 * nbytes(q) + 4 * nbytes(k),
+            ops=10 * b * hq * hd * pairs)
+        rows.append(compare(
+            "flash_attention_bwd", PADHEADS_CASE + (" with L" if lse is not None else ""),
+            dn, fla.flash_attention_bwd_cuda(*bargs, lse=lse),
+            fla.flash_attention_bwd_plain(*bargs), "attn_bwd", **timed))
+        rows[-1]["instance"] = fla.INSTANCES[dtype]
     return rows
 
 
@@ -2198,6 +2316,56 @@ def phase_streaming(kern, zero) -> dict:
     return out
 
 
+def gloo_rank(rank: int, world: int, port: int, tmp: str) -> None:
+    """Rank ``rank`` of phase 32 (``world`` ranks on the one card over gloo,
+    eager; the parent serves the ``TCPStore`` on 127.0.0.1:``port``): which
+    of the port's collectives gloo takes CUDA tensors for, then smollm-360M
+    cut to GLOO_CUT, data-parallel and ZeRO-3, through
+    ``launch.train.train``; writes its losses, grad norms and (rank 0) the
+    whole params, gathered, to ``tmp``."""
+    import torch.distributed as dist
+    from repro_torch.launch import shardings as SH
+    from repro_torch.launch.train import train
+    from repro_torch.models.module import tree_map
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # gloo's default device is the address the host name resolves to: a
+    # lookup that a machine without a resolver may stall on
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    timeout = datetime.timedelta(seconds=GLOO_TIMEOUT_S)
+    store = dist.TCPStore("127.0.0.1", port, is_master=False, timeout=timeout)
+    dist.init_process_group("gloo", store=store, rank=rank, world_size=world,
+                            timeout=timeout)
+    try:
+        x = torch.arange(8 * world, dtype=torch.float32, device="cuda") + rank
+        probes = {
+            "all_reduce": lambda: dist.all_reduce(x.clone()),
+            "all_gather": lambda: dist.all_gather_into_tensor(x.new_empty(world * x.numel()), x),
+            "reduce_scatter": lambda: dist.reduce_scatter_tensor(x.new_empty(8), x)}
+        out = {"takes_cuda": {}, "runs": {}}
+        for name in GLOO_PROBES:
+            try:
+                probes[name]()
+                torch.cuda.synchronize()
+                out["takes_cuda"][name] = True
+            except Exception as e:   # the finding: this collective refuses CUDA
+                out["takes_cuda"][name] = f"{type(e).__name__}: {e}"[:300]
+        for label, over in (("data_parallel", {}), ("zero3", {"force_fsdp": True})):
+            r = train("smollm_360m", smoke=False, steps=GLOO_STEPS, batch=8, seq=GLOO_SEQ,
+                      device="cuda", graphs=False, overrides={**GLOO_CUT, **over},
+                      log_every=GLOO_STEPS)
+            whole = SH.gather_tree(r["params"], r["shardings"], r["mesh"])
+            out["runs"][label] = {
+                "losses": r["losses"], "grad_norms": r["grad_norms"],
+                "params": tree_map(lambda a: a.cpu(), whole) if rank == 0 else None}
+            del r, whole
+        torch.save(out, f"{tmp}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2206,6 +2374,7 @@ def main() -> int:
         print("chip_smoke: run from a checkout of the repository "
               "(src/repro_torch is missing)", file=sys.stderr)
         return 2
+    faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs import get
     from repro_torch.kernels import _build
@@ -2243,13 +2412,16 @@ def main() -> int:
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
     report = {"phase_s": {}}
-    clock = [time.perf_counter()]
+    start = time.perf_counter()
+    clock = [start]
 
     def took(phase):
         """Seconds since the previous phase ended; recorded in the report."""
         now = time.perf_counter()
         report["phase_s"][phase] = sec = now - clock[0]
         clock[0] = now
+        print(f"chip_smoke: phase {phase} done, {sec:.1f} s, {now - start:.1f} s since "
+              "the start", file=sys.stderr, flush=True)
         return f"({sec:.1f} s)"
 
     def zero(**nonzero):
@@ -2291,11 +2463,12 @@ def main() -> int:
             fail(f"{what}: a replay launches {got}, one step {want}")
         return dict(stats, launches_per_replay=got)
 
-    def replay_check(what, g, eager_fn, iters=5) -> dict:
+    def replay_check(what, g, eager_fn, iters=5, named=()) -> dict:
         """The kernels and copies of one replay of ``g`` against one eager
         call of the same step on the same tensors (profiler), and the
         launches the wrappers' counters add per replay against the kernels
-        the replay ran."""
+        the replay ran; with ``named``, the replay's counts of the kernels
+        and copies whose names hold each of those words."""
         rc = kernel_counts(g.replay, iters)
         ec = kernel_counts(lambda: eager_fn(*g.args), iters)
         counted, seen = launches_of(g.stats), wrapper_calls(rc)
@@ -2304,8 +2477,11 @@ def main() -> int:
         if rc != ec:
             fail(f"{what}: a replay runs other kernels than an eager call: "
                  f"{ {k: (rc.get(k), ec.get(k)) for k in set(rc) | set(ec) if rc.get(k) != ec.get(k)} }")
-        return {"kernels_per_replay": sum(rc.values()),
-                "kernels_per_eager_call": sum(ec.values()), "launches_per_replay": counted}
+        out = {"kernels_per_replay": sum(rc.values()),
+               "kernels_per_eager_call": sum(ec.values()), "launches_per_replay": counted}
+        out.update({word: {k: v for k, v in rc.items() if word in k.lower()}
+                    for word in named})
+        return out
 
     def prefill_pair(what, cfg, params, batch, n_runs, n_tokens=None):
         """Eager and graphed prefill, ``n_runs`` calls each on the same
@@ -3439,7 +3615,7 @@ def main() -> int:
     # launch.train.train, cut to 2 layers, bf16 and then float32 (the
     # float32 kernels and GEMMs, none of the bf16 path): the two loss curves;
     # (2) float32 at 3e-4 with the trainer's 8-step schedule, its first
-    # RATE_LOCKSTEP_STEPS steps on the card and on the CPU from the same
+    # LLAVA_LOCKSTEP_STEPS steps on the card and on the CPU from the same
     # params and state, on 2 x (96 patches + 32 tokens)
     lt["rate_witness"] = wit = {"lr": 3e-4, "layers": 2}
     for dn in ("bfloat16", "float32"):
@@ -3469,8 +3645,8 @@ def main() -> int:
                 "labels": toks[:, 1:]}
 
     wit["lockstep"] = ls = drive(
-        kern, side, zero(**{k: v * RATE_LOCKSTEP_STEPS for k, v in pt.items()}),
-        lambda: lockstep_train(pcfg, p_gpu, witness_batch, RATE_LOCKSTEP_STEPS,
+        kern, side, zero(**{k: v * LLAVA_LOCKSTEP_STEPS for k, v in pt.items()}),
+        lambda: lockstep_train(pcfg, p_gpu, witness_batch, LLAVA_LOCKSTEP_STEPS,
                                MOE_TRAIN_STEPS, 3e-4, make_train_step, adamw,
                                warmup_cosine),
         "llava rate witness (lockstep)")
@@ -3485,7 +3661,7 @@ def main() -> int:
           f"{[round(x, 4) for x in wit['float32']['losses']]} (grad norms bf16 "
           f"{[round(x, 1) for x in wit['bfloat16']['grad_norms']]}, float32 "
           f"{[round(x, 1) for x in wit['float32']['grad_norms']]}); float32 card and CPU "
-          f"in lockstep, {RATE_LOCKSTEP_STEPS} steps of 2 x (96 patches + 32 tokens) from "
+          f"in lockstep, {LLAVA_LOCKSTEP_STEPS} steps of 2 x (96 patches + 32 tokens) from "
           f"the same params and state: losses {[round(x, 4) for x in ls['losses']]} (max "
           f"err {max(ls['loss_err']):.2e}, tol {LOSS_TOL:g}), grad norm max rel err "
           f"{max(ls['grad_norm_rel_err']):.2e} (tol {GRAD_TOL:g}), params after each step "
@@ -3636,12 +3812,195 @@ def main() -> int:
           f"{blk['worst_grad_ratio']:.3f} of its tolerance ({GRAD_TOL:g} max|g| + 1e-6) "
           f"{took('29 jamba train parity')}", flush=True)
 
-    # 30. xlstm-125m training at full width and depth: XLSTM_TRAIN_STEPS steps
+    # 30. xlstm-125m training at full width, cut to XLSTM_TRAIN_CUT: XLSTM_TRAIN_STEPS steps
     # of 8 x 512, eager and graphed (the sLSTM loop over time inside the
     # train step's graph); no new kernel (its norms' backward)
-    report["xlstm_train"] = xt = train_pair("xlstm_125m", {}, "xLSTM training",
+    report["xlstm_train"] = xt = train_pair("xlstm_125m", XLSTM_TRAIN_CUT, "xLSTM training",
                                             steps=XLSTM_TRAIN_STEPS, ranges=False)
-    print_train("[30 xlstm train] xlstm-125m, whole", xt, took("30 xlstm train"))
+    print_train(f"[30 xlstm train] xlstm-125m widths, {XLSTM_TRAIN_CUT['n_layers']} of "
+                "its 12 layers", xt, took("30 xlstm train"))
+
+    # 31. smollm-360M training as phase 13 in a process group of one rank over
+    # NCCL: the (1, 1) mesh's data-parallel step and its ZeRO-3 step, eager
+    # and graphed, equal to phase 13 bit for bit
+    import torch.distributed as dist
+    import torch.multiprocessing as tmp_mp
+
+    torch.cuda.set_device(0)
+    # NCCL's bootstrap listens on a socket even at one rank: the loopback
+    # device, so no interface of the machine is asked for
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    nt = report["mesh_train"] = {"steps": TRAIN_STEPS, "batch": 8, "seq": 512,
+                                 "launches_per_step": per_t}
+    try:
+        keep = None
+        for label, over in (("data_parallel", {}), ("zero3", {"force_fsdp": True})):
+            rec = nt[label] = {}
+            # graphed first: the last run (ZeRO-3, eager) is kept for the
+            # replays below, and its params and AdamW moments (3.4 GiB) must
+            # not sit in another run's peak
+            for mode, graphs_on, n in (("graphed", True, TRAIN_STEPS + WARMUP),
+                                       ("eager", False, TRAIN_STEPS)):
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                out = drive(kern, totals, zero(**{k: v * n for k, v in per_t.items()}),
+                            lambda: train("smollm_360m", smoke=False, steps=TRAIN_STEPS,
+                                          batch=8, seq=512, log_every=TRAIN_STEPS,
+                                          device="cuda", graphs=graphs_on, overrides=over),
+                            f"NCCL {label} training ({mode})")
+                if out["mesh"] is None:
+                    fail(f"NCCL {label} training ({mode}) ran without a mesh")
+                run = rec[mode] = {
+                    "losses": out["losses"], "grad_norms": out["grad_norms"],
+                    "median_step_s": statistics.median(out["step_s"][1:]),
+                    "max_memory_allocated": torch.cuda.max_memory_allocated()}
+                run["tokens_per_s"] = 8 * 512 / run["median_step_s"]
+                for key in ("losses", "grad_norms"):
+                    if run[key] != tr[mode][key]:
+                        fail(f"NCCL {label} training ({mode}): {key} {run[key]} differ "
+                             f"from phase 13's {tr[mode][key]}")
+                if graphs_on:
+                    run["capture"] = capture_report(out["capture"], zero(**per_t),
+                                                    f"NCCL {label} training")
+                if label == "zero3" and mode == "eager":
+                    keep = out
+                del out
+        # one graphed step of each on the trained params (at one rank the
+        # ZeRO-3 slices are whole): each replay against an eager call on the
+        # same tensors, two calls a profiler session (the profiler's event
+        # processing is most of the phase's time). NCCL runs no kernel for a one-rank sum in place and a
+        # device copy for a one-rank all-gather or reduce-scatter, so the
+        # ZeRO-3 replay shows its collectives as copies beyond the
+        # data-parallel replay's: an all-gather and a reduce-scatter a
+        # sharded leaf, and the all-gather of the clip's partial sums
+        opt = adamw(warmup_cosine(3e-4, warmup=max(TRAIN_STEPS // 10, 1),
+                                  total=TRAIN_STEPS))
+        toks = torch.randint(0, keep["cfg"].vocab, (8, 513),
+                             generator=torch.Generator().manual_seed(SEED + 2)).to("cuda")
+        nt["replay"] = {}
+        t_replay = time.perf_counter()
+        for label, shardings in (("data_parallel", None), ("zero3", keep["shardings"])):
+            mk = dict(mesh=keep["mesh"], shardings=shardings)
+            step_e = make_train_step(keep["cfg"], opt, device="cuda", graphs=False, **mk)
+            step_g = make_train_step(keep["cfg"], opt, device="cuda", **mk)
+            step_g(keep["params"], keep["opt_state"],
+                   {"inputs": toks[:, :-1], "labels": toks[:, 1:]})
+            g = graph_of(step_g)
+            nt["replay"][label] = replay_check(f"NCCL {label} train step", g, step_e,
+                                               iters=2, named=("nccl", "memcpy"))
+            step_g.release()
+            del step_e, step_g, g
+        nt["replay_s"] = time.perf_counter() - t_replay
+        sharded = []
+        tree_map(lambda _, pl: sharded.append(any(p.is_shard() for p in pl)),
+                 keep["params"], keep["shardings"])
+        rp = nt["replay"]
+        extra = sum(rp["zero3"]["memcpy"].values()) - sum(rp["data_parallel"]["memcpy"].values())
+        nt["zero3_collective_copies"] = {"sharded_leaves": sum(sharded), "extra_copies": extra}
+        if extra != 2 * sum(sharded) + 1:
+            fail(f"NCCL ZeRO-3 replay: {extra} copies beyond the data-parallel replay's, "
+                 f"{sum(sharded)} sharded leaves want {2 * sum(sharded) + 1}")
+        del keep
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    cap13 = tr["graphed"]["capture"]
+    print("[31 nccl train] smollm-360M bf16 as phase 13 in a process group of one rank over "
+          "NCCL, (1, 1) mesh, losses and grad norms = phase 13's bit for bit: " + "; ".join(
+              f"{label} median step eager {r['eager']['median_step_s'] * 1e3:.1f} ms, "
+              f"graphed {r['graphed']['median_step_s'] * 1e3:.1f} ms "
+              f"({r['eager']['tokens_per_s']:.0f} -> {r['graphed']['tokens_per_s']:.0f} "
+              f"tokens/s), peak {r['eager']['max_memory_allocated'] / 2**30:.2f} / "
+              f"{r['graphed']['max_memory_allocated'] / 2**30:.2f} GiB, capture "
+              f"{r['graphed']['capture']['capture_s']:.2f} s"
+              for label, r in ((k, nt[k]) for k in ("data_parallel", "zero3")))
+          + f"; phase 13: {tr['eager']['median_step_s'] * 1e3:.1f} / "
+          f"{tr['graphed']['median_step_s'] * 1e3:.1f} ms, peak "
+          f"{tr['eager']['max_memory_allocated'] / 2**30:.2f} / "
+          f"{tr['graphed']['max_memory_allocated'] / 2**30:.2f} GiB, capture "
+          f"{cap13['capture_s']:.2f} s; replays = eager calls (kernels and copies): "
+          f"data-parallel {rp['data_parallel']['kernels_per_replay']}, ZeRO-3 "
+          f"{rp['zero3']['kernels_per_replay']}; NCCL kernels in them "
+          f"{rp['zero3']['nccl'] or 'none (one rank: a sum in place is no work)'}; "
+          f"the ZeRO-3 replay's {extra} extra device copies = 2 x "
+          f"{sum(sharded)} sharded leaves + 1, its one-rank all-gathers and "
+          f"reduce-scatters {took('31 nccl train')}", flush=True)
+
+    # 32. two ranks on the one card over gloo, eager: which collectives take
+    # CUDA tensors; smollm-360M cut to 2 layers, float32, against one rank
+    gcfg = dataclasses.replace(get("smollm_360m"), **GLOO_CUT)
+    per_g = per_train_step(gcfg)
+    one = drive(kern, side, zero(**{k: v * GLOO_STEPS for k, v in per_g.items()}),
+                lambda: train("smollm_360m", smoke=False, steps=GLOO_STEPS, batch=8,
+                              seq=GLOO_SEQ, device="cuda", graphs=False, overrides=GLOO_CUT,
+                              log_every=GLOO_STEPS), "one-rank float32 training")
+    gdir = out_dir / "gloo"
+    if gdir.exists():
+        for f in gdir.iterdir():
+            f.unlink()
+    gdir.mkdir(exist_ok=True)
+    store = dist.TCPStore("127.0.0.1", 0, is_master=True, wait_for_workers=False,
+                          timeout=datetime.timedelta(seconds=GLOO_TIMEOUT_S))
+    ranks_ctx = tmp_mp.start_processes(gloo_rank, args=(2, store.port, str(gdir)),
+                                       nprocs=2, join=False, start_method="spawn")
+    deadline = time.monotonic() + GLOO_DEADLINE_S
+    while not ranks_ctx.join(timeout=5):
+        if time.monotonic() > deadline:
+            for proc in ranks_ctx.processes:
+                proc.kill()
+            fail(f"two gloo ranks still running after {GLOO_DEADLINE_S} s; killed")
+    del store
+    ranks = [torch.load(gdir / f"rank{r}.pt", weights_only=False) for r in range(2)]
+    gl = report["gloo"] = {"takes_cuda": ranks[0]["takes_cuda"], "runs": {}}
+    refused = {n: ok for n, ok in ranks[0]["takes_cuda"].items() if ok is not True}
+    if refused:
+        fail(f"gloo refuses CUDA tensors for {refused}; the port's collectives "
+             "(src/repro_torch/collectives.py) hand them over as they are")
+    p_tol = 3e-4 / 4       # a missing last update moves most weights ~lr
+    for label in ("data_parallel", "zero3"):
+        rec = gl["runs"][label] = {}
+        for key in ("losses", "grad_norms"):
+            rel = max(abs(a - b) / abs(b) for r in ranks
+                      for a, b in zip(r["runs"][label][key], one[key]))
+            rec[f"{key}_max_rel_err"] = rel
+            if not rel <= LOSS_TOL:
+                fail(f"two gloo ranks ({label}): {key} differ from one rank's by {rel}")
+        rec["param_max_err"] = max(
+            float((a - b.cpu()).abs().max()) for _, a, b in _paired_leaves(
+                ranks[0]["runs"][label]["params"], one["params"]))
+        if not rec["param_max_err"] <= p_tol:
+            fail(f"two gloo ranks ({label}): params differ from one rank's by "
+                 f"{rec['param_max_err']}")
+    del one, ranks
+    print(f"[32 gloo] two ranks on the one card over gloo: CUDA tensors taken by "
+          + ", ".join(gl["takes_cuda"]) + "; smollm-360M, 2 layers, float32, "
+          f"{GLOO_STEPS} steps of 8x{GLOO_SEQ} eager against one rank: " + "; ".join(
+              f"{k} losses {v['losses_max_rel_err']:.2e}, grad norms "
+              f"{v['grad_norms_max_rel_err']:.2e} rel (tol {LOSS_TOL:g}), params "
+              f"{v['param_max_err']:.2e} (tol {p_tol:.2e})" for k, v in gl["runs"].items())
+          + f" {took('32 gloo')}", flush=True)
+
+    # 33. smollm-360m+padheads (16 / 8 heads, GQA group 2) whole: prefill 8 x
+    # 512 and training, each eager and graphed
+    before = dict(totals)
+    pcfg = get("smollm_360m_padheads")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    pparams = transformer.init(gen, pcfg, device="cuda")
+    ptoks = torch.randint(0, pcfg.vocab, (8, 512), generator=gen, device="cuda")
+    ph = report["padheads"] = {"params": param_count(pparams)}
+    ph["prefill"], _, pprefill = prefill_pair("padheads prefill", pcfg, pparams,
+                                              {"inputs": ptoks}, 3)
+    pprefill.release()
+    del pparams, pprefill
+    torch.cuda.empty_cache()
+    print_pair(f"[33 padheads] {pcfg.name} ({ph['params'] / 1e6:.1f} M params) bf16 prefill "
+               "8x512", ph["prefill"], "tokens_per_s", "tokens/s", "")
+    ph["train"] = train_pair("smollm_360m_padheads", {}, "padheads training",
+                             steps=PADHEADS_TRAIN_STEPS, ranges=False)
+    print_train(f"[33 padheads train] {pcfg.name}, whole", ph["train"], took("33 padheads"))
+    for name, (kernel, *_rest) in PADHEADS_ROWS.items():
+        frontend_totals[name] = totals[kernel] - before[kernel]
 
     # the kernel table: main-path shapes, bf16; launches over every main path
     table = []
@@ -3661,6 +4020,7 @@ def main() -> int:
     path_rows = {name: ("flash_attention_bwd" if name in MLA_BWD_ROWS else "flash_attention",
                         *row) for name, row in {**MLA_ROWS, **MLA_BWD_ROWS}.items()}
     path_rows.update(FRONTEND_ROWS)
+    path_rows.update(PADHEADS_ROWS)
     launched = {**mla_totals, **frontend_totals}
     for name, (kernel, source, replaces, case, dn, path) in path_rows.items():
         r = next(r for r in rows if r["kernel"] == kernel and r["case"] == case
@@ -3678,6 +4038,7 @@ def main() -> int:
     print(f"[profiler] sessions run again: {dict(PROFILER_RETRIES) or 'none'}", flush=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     print(json.dumps({"kernels": table}), flush=True)
+    faulthandler.cancel_dump_traceback_later()
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

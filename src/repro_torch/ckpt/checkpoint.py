@@ -26,6 +26,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from repro_torch.layout import local_shard, whole_shape
 from repro_torch.models.module import tree_leaves
 
 
@@ -37,6 +38,17 @@ def _unflatten(tree, leaves):
     if isinstance(tree, (list, tuple)):
         return type(tree)(_unflatten(v, leaves) for v in tree)
     return next(leaves)
+
+
+def _at_leaves(tree, other) -> list:
+    """The parts of ``other`` at ``tree``'s leaves, in ``tree_leaves``'
+    order (``other`` has ``tree``'s structure down to its leaves, where it
+    may hold a tuple: a leaf's placements)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _at_leaves(tree[k], other[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v, o in zip(tree, other) for x in _at_leaves(v, o)]
+    return [other]
 
 
 def _describe(tree) -> str:
@@ -141,24 +153,34 @@ def latest_step(directory: str) -> Optional[int]:
 
 
 def restore(directory: str, step: int, target_tree: Any,
-            strict_crc: bool = True):
+            shardings: Any = None, strict_crc: bool = True, mesh=None):
     """Restore into the structure of ``target_tree``: each leaf on the
     device of the target's leaf, in the checkpoint's dtype (which must be
     the target's); an int target leaf comes back as an int. Returns
     (tree, extra). Raises ValueError for a missing or uncommitted
     checkpoint, a leaf count, shape or dtype that does not match, or a
-    crc32 that does not."""
+    crc32 that does not.
+
+    ``shardings`` (a tree of DTensor placements with the target's
+    structure, None where a leaf is taken whole) lays each leaf out for
+    ``mesh``: the checkpoint holds whole tensors, and this rank gets its
+    slice, so a checkpoint saved at one world size restores at another.
+    A target leaf is then this rank's slice."""
+    if shardings is not None and mesh is None:
+        raise ValueError("restore: shardings need the mesh they are on")
     path = os.path.join(directory, f"step_{step:08d}")
     if not os.path.exists(os.path.join(path, "COMMIT")):
         raise ValueError(f"uncommitted or missing checkpoint {path}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
     targets = tree_leaves(target_tree)
+    layouts = [None] * len(targets) if shardings is None else \
+        _at_leaves(target_tree, shardings)
     if manifest["n_leaves"] != len(targets):
         raise ValueError(f"leaf count mismatch: checkpoint "
                          f"{manifest['n_leaves']}, target {len(targets)}")
     out = []
-    for i, target in enumerate(targets):
+    for i, (target, layout) in enumerate(zip(targets, layouts)):
         arr = np.load(os.path.join(path, f"leaf_{i:05d}.npy"))
         meta = manifest["leaves"][i]
         if strict_crc and zlib.crc32(arr.tobytes()) & 0xFFFFFFFF != meta["crc32"]:
@@ -171,10 +193,14 @@ def restore(directory: str, step: int, target_tree: Any,
         else:
             t = torch.from_numpy(arr)
         if isinstance(target, torch.Tensor):
-            if tuple(t.shape) != tuple(target.shape) or t.dtype != target.dtype:
+            want = tuple(target.shape) if layout is None else \
+                whole_shape(target.shape, layout, mesh)
+            if tuple(t.shape) != want or t.dtype != target.dtype:
                 raise ValueError(
                     f"{path}: leaf {i} is {meta['dtype']} {tuple(t.shape)}, "
-                    f"the target {target.dtype} {tuple(target.shape)}")
+                    f"the target {target.dtype} {want}")
+            if layout is not None:
+                t = local_shard(t, layout, mesh)
             out.append(t.to(target.device))
         elif isinstance(target, (int, np.integer)):
             out.append(int(t))

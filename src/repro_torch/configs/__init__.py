@@ -2,7 +2,8 @@
 
 Each module exports CONFIG (full size) and SMOKE (reduced, CPU-runnable),
 copied from the reference package. ``get(name)`` resolves by id with '-' or
-'_' separators. Every architecture of the reference is here.
+'_' separators, and resolves the hillclimb variants (:mod:`.variants`) by
+key or display name. Every architecture of the reference is here.
 """
 from __future__ import annotations
 
@@ -20,10 +21,15 @@ def canon(name: str) -> str:
 
 def get(name: str, smoke: bool = False):
     cname = canon(name)
+    # hillclimb variants ("<arch>+<change>" display names or keys), whatever
+    # ``smoke`` says, as the reference resolves them
+    from . import variants as _v
+    vkey = cname.replace("+", "_")
+    if vkey in _v.VARIANTS:
+        return _v.VARIANTS[vkey]
     if cname not in ARCHS:
-        raise KeyError(f"unknown architecture {name!r}; have {ARCHS} (the "
-                       "reference's hillclimb variants come with ROADMAP.md "
-                       "queue 1, item 6)")
+        raise KeyError(f"unknown architecture {name!r}; have {ARCHS} and the "
+                       f"variants {sorted(_v.VARIANTS)}")
     mod = importlib.import_module(f"repro_torch.configs.{cname}")
     return mod.SMOKE if smoke else mod.CONFIG
 

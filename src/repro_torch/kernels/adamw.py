@@ -22,12 +22,15 @@ from __future__ import annotations
 from typing import List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
+from repro_torch import collectives
 from . import _build
 from ._checks import DTYPE_CODES, require_cuda
 from .ref import adamw_update_ref as adamw_update_plain
 from .ref import clip_finalize_ref as clip_finalize_plain
 from .ref import global_norm_scale_ref as global_norm_scale_plain
+from .ref import norm_scale_ref as norm_scale_plain
 from .ref import sumsq_ref as sumsq_plain
 
 # csrc/adamw.cu: threads a block, 16-byte vectors in flight a thread in
@@ -114,22 +117,66 @@ def global_norm_scale_cuda(grads: List[torch.Tensor],
     """The clip's (norm, scale) over ``grads`` on the card: ``sumsq`` per
     leaf into one workspace, each leaf at a fixed offset, then
     ``clip_finalize`` over all of it."""
+    partial, _ = _sumsq_partials(grads)
+    return clip_finalize_cuda(partial, max_norm)
+
+
+def _sumsq_partials(grads: List[torch.Tensor]) -> Tuple[torch.Tensor, List[int]]:
+    """(workspace, blocks of each leaf): ``sumsq`` per leaf into one
+    workspace, each leaf at a fixed offset."""
     require_cuda("global_norm_scale", *grads)
     n_sm = _build.sm_count(grads[0].device.index)
     blocks = [sumsq_blocks(g.numel(), g.dtype, n_sm) for g in grads]
     partial = torch.empty(sum(blocks), dtype=torch.float32, device=grads[0].device)
     for g, piece in zip(grads, torch.split(partial, blocks)):
         sumsq_cuda(g, piece)
-    return clip_finalize_cuda(partial, max_norm)
+    return partial, blocks
 
 
-def global_norm_scale(grads: List[torch.Tensor],
-                      max_norm: float) -> Tuple[torch.Tensor, torch.Tensor]:
+def global_norm_scale(grads: List[torch.Tensor], max_norm: float,
+                      sharded: Optional[List[bool]] = None,
+                      group=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """(norm, scale) of global-norm clipping to ``max_norm``: the kernels
-    for CUDA leaves, the plain version for CPU ones."""
+    for CUDA leaves, the plain version for CPU ones.
+
+    ``sharded`` (a flag per leaf) marks the leaves that hold this rank's
+    slice of a gradient split over the process group ``group`` (ZeRO-3):
+    their partial sums of squares are gathered from every rank of the group
+    in rank order, and each leaf's partials, in leaf order, go to one
+    ``clip_finalize``, so every rank gets the whole gradient's norm, and two
+    calls the same bits. With one rank these are the unsharded call's
+    partials, in its order."""
+    if not sharded or not any(sharded):
+        if grads[0].device.type == "cpu":
+            return global_norm_scale_plain(grads, max_norm)
+        return global_norm_scale_cuda(grads, max_norm)
     if grads[0].device.type == "cpu":
-        return global_norm_scale_plain(grads, max_norm)
-    return global_norm_scale_cuda(grads, max_norm)
+        partial = torch.stack([sumsq_plain(g) for g in grads])
+        every = _every_rank(partial, [1] * len(grads), sharded, group)
+        return norm_scale_plain(list(every.unbind()), max_norm)
+    partial, blocks = _sumsq_partials(grads)
+    return clip_finalize_cuda(_every_rank(partial, blocks, sharded, group),
+                              max_norm)
+
+
+def _every_rank(partial: torch.Tensor, blocks: List[int], sharded: List[bool],
+                group) -> torch.Tensor:
+    """This rank's partial sums (``blocks`` a leaf, in leaf order) -> the
+    partials of the whole gradient in leaf order: a replicated leaf's own,
+    a sharded leaf's from every rank of ``group`` in rank order."""
+    pieces = torch.split(partial, blocks)
+    mine = torch.cat([p for p, s in zip(pieces, sharded) if s])
+    n = dist.get_world_size(group)
+    every = collectives.all_gather(mine.new_empty(n * mine.numel()), mine,
+                                   group).view(n, -1)
+    out, at = [], 0
+    for p, s in zip(pieces, sharded):
+        if s:
+            out.append(every[:, at:at + p.numel()].reshape(-1))
+            at += p.numel()
+        else:
+            out.append(p)
+    return torch.cat(out)
 
 
 def adamw_update_cuda(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,

@@ -257,7 +257,13 @@ def global_norm_scale_ref(grads, max_norm: float):
     """(norm, scale) of the reference's ``clip_by_global_norm`` over a list
     of leaves, with its arithmetic: the sum of each leaf's float32 sum of
     squares, then its square root."""
-    norm = torch.sqrt(sum(sumsq_ref(g) for g in grads))
+    return norm_scale_ref([sumsq_ref(g) for g in grads], max_norm)
+
+
+def norm_scale_ref(sumsqs, max_norm: float):
+    """(norm, scale) from a list of 0-d sums of squares, added in order as
+    :func:`global_norm_scale_ref` adds its leaves'."""
+    norm = torch.sqrt(sum(sumsqs))
     return norm, _clip_scale(norm, max_norm)
 
 

@@ -22,12 +22,17 @@ from __future__ import annotations
 from typing import Callable
 
 import torch
+import torch.distributed as dist
 from torch.profiler import record_function
 
 from repro_torch import resolve_device
 from repro_torch.kernels.adamw import global_norm_scale
+from repro_torch.launch import shardings as SH
 from repro_torch.launch.graphs import GraphedStep
+from repro_torch.launch.mesh import fsdp_axis
+from repro_torch.layout import coordinate, mesh_shape, shard_dim
 from repro_torch.models import encdec, model_api, transformer
+from repro_torch.models import partitioning as part
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.module import tree_leaves, tree_map
 from repro_torch.optim.optimizers import Optimizer
@@ -41,7 +46,8 @@ def _require_on(params, dev: torch.device) -> None:
 
 def make_train_step(cfg: ModelConfig, optimizer: Optimizer,
                     clip_norm: float = 1.0, device="cuda",
-                    graphs: bool = True) -> Callable:
+                    graphs: bool = True, mesh=None,
+                    shardings=None) -> Callable:
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)``: the loss and its gradient (``backward()``), global-norm
     clipping to ``clip_norm`` and the optimizer's update, each phase in a
@@ -61,38 +67,122 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer,
     'grad_norm' (before clipping) and the loss's metrics ('ce', 'aux',
     'tokens'; an encoder-decoder has no 'aux'), as 0-d tensors.
 
+    With a ``mesh`` (:mod:`.mesh`) the step is data-parallel over the axes
+    of :func:`_dp_axes`: it takes the global batch and runs its rank's
+    rows; the model's loss is this rank's part of the global batch's (the
+    token count all-reduced, the aux loss weighted by 1 / ranks), the
+    gradients are all-reduced before the clip, and the metrics are the
+    global ones. Where ``shardings`` (the params' placements,
+    ``shardings.param_shardings``) shard a leaf over ``fsdp_axis(mesh)``,
+    it is ZeRO-3: params and AdamW moments stay this rank's slices; the
+    step all-gathers the whole tree for the forward and backward,
+    reduce-scatters each such gradient, gathers the clip's partial sums of
+    squares over the axis in rank order, and updates the slices. Tensor
+    parallelism (a 'model' axis above 1 without ``cfg.pure_dp``) raises.
+    With no mesh there is no collective.
+
     On a CUDA device (unless ``graphs=False``) the step is captured in a
     CUDA graph at its first call for a given (params, opt_state) and batch
-    shapes: forward, backward (remat included), clip and update replay as
-    one graph; the batch is copied into the graph's buffers and the metrics
-    are the graph's outputs, overwritten by the next step."""
+    shapes: forward, backward (remat included), clip, update and the
+    collectives replay as one graph; the batch is copied into the graph's
+    buffers and the metrics are the graph's outputs, overwritten by the
+    next step."""
     dev = resolve_device(device)
     api = model_api(cfg)
+    shape = {} if mesh is None else mesh_shape(mesh)
+    if shape.get("model", 1) > 1 and not cfg.pure_dp:
+        raise NotImplementedError(
+            f"{cfg.name}: a 'model' axis of {shape['model']} without pure_dp "
+            "is tensor parallelism, which comes with ROADMAP.md queue 1, "
+            "item 6e2")
+    f_axis = None if mesh is None else fsdp_axis(mesh)
+    f_size = shape.get(f_axis, 1)
+
+    def reduce_grad(g, dim, axes, f_group):
+        """The sum over ``axes`` of a whole gradient: this rank's slice of
+        it where ``dim`` is its fsdp dim, the whole of it elsewhere."""
+        if dim is None:
+            return _all_reduce(g, mesh, axes)
+        g = SH.scatter_dim(g, dim, f_group, f_size)
+        return _all_reduce(g, mesh, [a for a in axes if a != f_axis])
 
     def train_step(params, opt_state, batch):
         _require_on(params, dev)
-        with record_function("loss_fwd"):
-            b = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
-            p = tree_map(lambda a: a.detach().requires_grad_(True), params)
-            loss, metrics = api.loss(p, b, cfg)
-        with record_function("backward"):
-            loss.backward()
-            # a leaf the loss does not reach has a zero gradient, as under
-            # jax.grad
-            grads = tree_map(lambda a: a.grad if a.grad is not None
-                             else torch.zeros_like(a), p)
-        with record_function("clip"):
-            gnorm, scale = global_norm_scale(tree_leaves(grads), clip_norm)
-        with record_function("optimizer"):
-            params, opt_state = optimizer.update(grads, opt_state, params,
-                                                 grad_scale=scale)
+        f_group = mesh.get_group(f_axis) if f_axis else None
+        # the dim each leaf is sliced in over the fsdp axis, or None (the
+        # placements tree is cut at the params' leaves)
+        dims = None if shardings is None or f_axis is None else tree_map(
+            lambda _, pl: shard_dim(pl, mesh, f_axis), params, shardings)
+        n_rows = len(next(iter(batch.values())))
+        axes = () if mesh is None else _dp_axes(cfg, mesh, n_rows)
+        if dims is not None and f_size > 1 and f_axis not in axes:
+            raise ValueError(f"batch {n_rows} does not split over the fsdp "
+                             f"axis {f_axis!r} of {f_size}")
+        index, count = coordinate(mesh, axes) if axes else (0, 1)
+        lo, hi = n_rows // count * index, n_rows // count * (index + 1)
+        with part.use_mesh(mesh, axes):
+            with record_function("loss_fwd"):
+                b = {k: torch.as_tensor(v, device=dev)[lo:hi]
+                     for k, v in batch.items()}
+                whole = params if dims is None else tree_map(
+                    lambda a, d: a if d is None
+                    else SH.gather_dim(a, d, f_group, f_size), params, dims)
+                p = tree_map(lambda a: a.detach().requires_grad_(True), whole)
+                total = (lambda n: _all_reduce(n.clone(), mesh, axes)) \
+                    if axes else None
+                loss, metrics = api.loss(p, b, cfg, total=total,
+                                         aux_weight=1.0 / count)
+            with record_function("backward"):
+                loss.backward()
+                # a leaf the loss does not reach has a zero gradient, as
+                # under jax.grad
+                grads = tree_map(lambda a: a.grad if a.grad is not None
+                                 else torch.zeros_like(a), p)
+                if dims is None:
+                    grads = tree_map(lambda g: _all_reduce(g, mesh, axes),
+                                     grads)
+                else:
+                    grads = tree_map(lambda g, d: reduce_grad(g, d, axes,
+                                                              f_group),
+                                     grads, dims)
+            with record_function("clip"):
+                sharded = None if dims is None else [
+                    d is not None for d in tree_leaves(dims)]
+                gnorm, scale = global_norm_scale(
+                    tree_leaves(grads), clip_norm, sharded=sharded,
+                    group=f_group)
+            with record_function("optimizer"):
+                params, opt_state = optimizer.update(grads, opt_state, params,
+                                                     grad_scale=scale)
         out = {"loss": loss.detach(), "grad_norm": gnorm}
         out.update({k: v.detach() for k, v in metrics.items()})
+        if axes:
+            # this rank's parts of the loss and its terms -> the global ones
+            # ('tokens' is global already)
+            keys = [k for k in out if k not in ("grad_norm", "tokens")]
+            vals = _all_reduce(torch.stack([out[k] for k in keys]), mesh, axes)
+            out.update(zip(keys, vals))
         return params, opt_state, out
 
     if dev.type != "cuda" or not graphs:
         return train_step
     return GraphedStep(train_step, 2, dev, mutates=(0, 1), name="train")
+
+
+def _dp_axes(cfg: ModelConfig, mesh, batch: int) -> tuple:
+    """The axes the batch's rows are split over: the reference's
+    ``batch_pspec`` (every axis under ``cfg.pure_dp``, else the batch axes;
+    fewer where they do not divide the batch)."""
+    entry = SH.batch_pspec(mesh, batch, pure_dp=cfg.pure_dp)[0]
+    return () if entry is None else (entry,) if isinstance(entry, str) \
+        else tuple(entry)
+
+
+def _all_reduce(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """Sum ``x`` in place over the ranks of ``axes``, an axis at a time."""
+    for axis in axes:
+        dist.all_reduce(x, group=mesh.get_group(axis))
+    return x
 
 
 def make_prefill_step(cfg: ModelConfig, device="cuda",

@@ -2,8 +2,20 @@
 
 Counterpart of :mod:`repro.launch.train`: config -> params on the device ->
 data pipeline -> train step (loss, backward through the CUDA kernels,
-clip, AdamW with warmup + cosine) -> async checkpoints with resume. The port
-has no mesh yet: it trains on one device. On the card the train step is one
+clip, AdamW with warmup + cosine) -> async checkpoints with resume.
+
+With no process group it trains on one device (``mesh_shape`` None or
+(1, 1)). In a process group that the caller started (``torchrun``, or
+``torch.multiprocessing.spawn`` and ``init_process_group``; NCCL on the
+card, gloo on the CPU) it builds ``make_mesh(mesh_shape or (world, 1),
+("data", "model"))``, registers it with ``partitioning.set_mesh`` and trains
+data-parallel over the batch axes (every axis under ``cfg.pure_dp``), with
+ZeRO-3 over 'data' for ``cfg.force_fsdp`` or above 8e9 params (the
+reference dry-run's rule): params and AdamW moments held as this rank's
+slices (``shardings.param_shardings``). Every rank draws the same global
+batch and the step takes its rows. Rank 0 saves whole tensors, gathered,
+and every rank waits for the commit, so a checkpoint saved at one world
+size resumes at another. On the card the train step is one
 CUDA graph (the reference jits it), captured at the first step and replayed
 after: each step copies its batch into the graph's buffers, replays, and
 reads the loss and the grad norm (one sync). Params and optimizer state are
@@ -32,16 +44,23 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import resolve_device
 from repro_torch.ckpt import checkpoint as ckpt
 from repro_torch.configs import get
 from repro_torch.data.pipeline import Prefetcher, SyntheticLM
+from repro_torch.launch import shardings as SH
 from repro_torch.launch.graphs import GraphedStep
+from repro_torch.launch.mesh import batch_axes, make_mesh
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models import frontends, model_api
-from repro_torch.models.module import tree_map
+from repro_torch.models import partitioning as part
+from repro_torch.models.module import param_count, tree_map
 from repro_torch.optim.optimizers import adamw, warmup_cosine
+
+# ZeRO-3 above this many params, as the reference's dry-run decides
+FSDP_PARAMS = 8e9
 
 
 def train(arch: str, smoke: bool = True, steps: int = 50, batch: int = 8,
@@ -54,15 +73,35 @@ def train(arch: str, smoke: bool = True, steps: int = 50, batch: int = 8,
     reading its loss; the first includes the capture on the card),
     'params', 'opt_state', 'cfg', 'start_step', 'capture' (the train
     step's ``StepGraph.stats``: warm-up and capture seconds, pool bytes,
-    launches per replay; None when the step ran eagerly)}. With
+    launches per replay; None when the step ran eagerly), 'mesh' and
+    'shardings' (the params' placements: 'params' and 'opt_state' hold
+    this rank's slices; both None with no process group)}. With
     ``ckpt_dir`` it resumes from the last committed checkpoint there and
     saves every ``ckpt_every`` steps. ``overrides`` replaces config fields
-    (``dataclasses.replace``), e.g. ``{"n_layers": 3, "mtp": False}``."""
+    (``dataclasses.replace``), e.g. ``{"n_layers": 3, "mtp": False}``.
+    ``mesh_shape`` other than None or (1, 1) needs a process group of
+    its size."""
     dev = resolve_device(device)
-    if mesh_shape is not None and tuple(mesh_shape) != (1, 1):
-        raise NotImplementedError(
-            f"mesh_shape {mesh_shape}: the port trains on one device; meshes "
-            "come with ROADMAP.md queue 1, item 6")
+    grouped = dist.is_available() and dist.is_initialized()
+    if not grouped and mesh_shape is not None and tuple(mesh_shape) != (1, 1):
+        raise RuntimeError(
+            f"mesh_shape {tuple(mesh_shape)} needs an initialised process "
+            "group of its size: start the ranks (torchrun, or "
+            "torch.multiprocessing.spawn and init_process_group) first")
+    mesh = make_mesh(mesh_shape or (dist.get_world_size(), 1),
+                     ("data", "model"), device_type=dev.type) \
+        if grouped else None
+    part.set_mesh(mesh, batch_axes(mesh) if mesh is not None else ("data",))
+    try:
+        return _train(arch, smoke, steps, batch, seq, lr, ckpt_dir,
+                      ckpt_every, log_every, width_mult, seed, dev, graphs,
+                      overrides, mesh)
+    finally:
+        part.set_mesh(None)
+
+
+def _train(arch, smoke, steps, batch, seq, lr, ckpt_dir, ckpt_every,
+           log_every, width_mult, seed, dev, graphs, overrides, mesh):
     cfg = dataclasses.replace(get(arch, smoke=smoke), **(overrides or {}))
     if cfg.family == "vlm" and seq < cfg.img_tokens:
         raise ValueError(f"{cfg.name}: seq {seq} is shorter than its "
@@ -76,23 +115,35 @@ def train(arch: str, smoke: bool = True, steps: int = 50, batch: int = 8,
                                     total=steps))
     params = api.init(torch.Generator(device=dev).manual_seed(seed), cfg,
                       device=dev)
+    p_shards = o_shards = None
+    if mesh is not None:
+        fsdp = cfg.force_fsdp or param_count(params) > FSDP_PARAMS
+        p_shards = SH.param_shardings(cfg, params, mesh, fsdp)
+        params = SH.shard_tree(params, p_shards, mesh)
+        o_shards = {"mu": p_shards, "nu": p_shards, "step": None}
     opt_state = optimizer.init(params)
+    step_fn = make_train_step(cfg, optimizer, device=dev, graphs=graphs,
+                              mesh=mesh, shardings=p_shards)
+    rank0 = mesh is None or dist.get_rank() == 0
 
     source = SyntheticLM(batch, seq, cfg.vocab, seed=seed)
     start_step = 0
     if ckpt_dir:
         last = ckpt.latest_step(ckpt_dir)
         if last is not None:
-            loaded, extra = ckpt.restore(ckpt_dir, last, (params, opt_state))
+            loaded, extra = ckpt.restore(
+                ckpt_dir, last, (params, opt_state),
+                shardings=None if mesh is None else (p_shards, o_shards),
+                mesh=mesh)
             # into the tensors the step is bound to, not in their place
             tree_map(lambda dst, src: dst.copy_(src), (params, opt_state),
                      loaded)
             source.restore(extra["data"])
             start_step = last
-            print(f"[train] resumed from step {last}")
+            if rank0:
+                print(f"[train] resumed from step {last}")
     data = Prefetcher(source)
     saver = ckpt.AsyncCheckpointer()
-    step_fn = make_train_step(cfg, optimizer, device=dev, graphs=graphs)
     losses, grad_norms, step_s = [], [], []
     capture = None
     t0 = time.time()
@@ -100,19 +151,30 @@ def train(arch: str, smoke: bool = True, steps: int = 50, batch: int = 8,
         for step in range(start_step, steps):
             raw = data.next_batch()
             ts = time.perf_counter()
-            b = _frontend_batch(cfg, params, raw, seed, step, seq, dev)
+            front = params if cfg.family != "vlm" or p_shards is None else {
+                "embed": SH.gather_tree(params["embed"], p_shards["embed"],
+                                        mesh)}
+            b = _frontend_batch(cfg, front, raw, seed, step, seq, dev)
             params, opt_state, metrics = step_fn(params, opt_state, b)
             losses.append(float(metrics["loss"]))
             step_s.append(time.perf_counter() - ts)
             grad_norms.append(float(metrics["grad_norm"]))
-            if step % log_every == 0 or step == steps - 1:
+            if rank0 and (step % log_every == 0 or step == steps - 1):
                 print(f"[train] step={step} loss={losses[-1]:.4f} "
                       f"grad_norm={grad_norms[-1]:.3f} "
                       f"({time.time() - t0:.1f}s)", flush=True)
             if ckpt_dir and (step + 1) % ckpt_every == 0:
-                saver.save(ckpt_dir, step + 1, (params, opt_state),
-                           extra={"data": source.state(),
-                                  "loss": losses[-1]})
+                extra = {"data": source.state(), "loss": losses[-1]}
+                # whole tensors (gathered under a mesh), written by rank 0
+                whole = (params, opt_state) if mesh is None else \
+                    SH.gather_tree((params, opt_state), (p_shards, o_shards),
+                                   mesh)
+                if rank0:
+                    saver.save(ckpt_dir, step + 1, whole, extra)
+                del whole
+                if mesh is not None:        # every rank waits for the commit
+                    saver.join()
+                    dist.barrier()
     finally:
         data.close()
         saver.join()
@@ -121,7 +183,8 @@ def train(arch: str, smoke: bool = True, steps: int = 50, batch: int = 8,
             step_fn.release()
     return {"losses": losses, "grad_norms": grad_norms, "step_s": step_s,
             "params": params, "opt_state": opt_state, "cfg": cfg,
-            "start_step": start_step, "capture": capture}
+            "start_step": start_step, "capture": capture, "mesh": mesh,
+            "shardings": p_shards}
 
 
 def _frontend_generator(seed: int, step: int, device) -> torch.Generator:

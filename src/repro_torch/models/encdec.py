@@ -13,7 +13,7 @@ Entry points:
   encode(params, frames, cfg)                    -> encoder states
   cross_kv(params, enc_states, cfg)              -> (k, v) of every layer
   decode_train(params, enc_states, tokens, cfg)  -> hidden
-  lm_loss(params, batch, cfg)                    -> (loss, metrics)
+  lm_loss(params, batch, cfg[, total, aux_weight]) -> (loss, metrics)
   init_cache(cfg, batch, max_len, enc_states, params, device) -> cache
   decode_step(params, cache, tokens, pos, cfg)   -> (logits, cache)
 
@@ -149,10 +149,13 @@ def decode_train(params, enc_states, tokens, cfg: ModelConfig) -> torch.Tensor:
     return L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
 
 
-def lm_loss(params, batch, cfg: ModelConfig) -> Tuple[torch.Tensor, Dict]:
+def lm_loss(params, batch, cfg: ModelConfig, total=None,
+            aux_weight: float = 1.0) -> Tuple[torch.Tensor, Dict]:
     """batch: {'frames': (B, enc_seq, D), 'inputs': (B, S), 'labels': (B,
     S), optional 'mask': (B, S)}, tensors on the params' device. Returns
-    (loss, {'ce', 'tokens'}) as 0-d float32 tensors."""
+    (loss, {'ce', 'tokens'}) as 0-d float32 tensors. ``total`` as
+    :func:`.transformer.lm_loss`'s (the mean over every rank's tokens);
+    there is no aux term for ``aux_weight`` to weight."""
     enc = encode(params, batch["frames"], cfg)
     h = decode_train(params, enc, batch["inputs"], cfg)
     labels = batch["labels"]
@@ -161,6 +164,8 @@ def lm_loss(params, batch, cfg: ModelConfig) -> Tuple[torch.Tensor, Dict]:
         mask = torch.ones(labels.shape, dtype=torch.float32,
                           device=labels.device)
     tot, cnt = _chunked_ce(params, h, labels, mask, cfg)
+    if total is not None:
+        cnt = total(cnt)
     loss = tot / torch.clamp(cnt, min=1.0)
     return loss, {"ce": loss, "tokens": cnt}
 

@@ -14,6 +14,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.layout import mesh_shape
+from . import partitioning as part
 from .config import ModelConfig
 from .module import dense_init
 
@@ -66,11 +68,21 @@ def attn_apply(p, x, cfg: ModelConfig, positions, causal=True,
                use_rope=True) -> torch.Tensor:
     """Full-sequence attention. x: (B, S, D) -> (B, S, D).
 
-    ``cfg.seq_shard`` asks for context-parallel attention, which the
-    reference runs only under a mesh; the port has no mesh yet (ROADMAP.md,
-    queue 1, item 6), so it runs plain flash attention, as the reference
-    does without one."""
+    ``cfg.seq_shard`` asks for context-parallel attention (the sequence over
+    the mesh's 'model' axis), which the reference runs under a registered
+    mesh whose 'model' axis divides S, for causal attention. The port has
+    no context-parallel attention yet (ROADMAP.md, queue 1, item 6e): there
+    it raises NotImplementedError. With no mesh, or a 'model' axis of size
+    1, it runs plain flash attention, as the reference does."""
     b, s, d = x.shape
+    mesh = part.current_mesh()
+    if cfg.seq_shard and causal and mesh is not None:
+        m = mesh_shape(mesh).get("model", 1)
+        if m > 1 and s % m == 0:
+            raise NotImplementedError(
+                f"{cfg.name}: seq_shard over a 'model' axis of {m} is context-"
+                "parallel attention, which comes with ROADMAP.md queue 1, "
+                "item 6e")
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     q = (x @ p["wq"]).reshape(b, s, h, hd)
     k = (x @ p["wk"]).reshape(b, s, hkv, hd)

@@ -8,14 +8,26 @@ dropped, and a switch-style load-balance auxiliary loss. The expert
 products are batched matrix products (cuBLAS on the card), as the
 reference leaves them to XLA outside any Pallas kernel.
 
-Two differences of form, none of result:
-- ``partitioning.constrain`` is a no-op without a mesh, and the port has no
-  mesh yet (ROADMAP.md, queue 1, item 6), so it is left out.
-- The combine gathers instead of scatter-adding. Each (token, j) copy finds
-  its slot from its place in the sorted order, and a token sums its k
-  contributions in the order j = 0..k-1. A float scatter-add on the card
-  adds in the order its atomics land, so eager and graphed steps would
-  differ in their last bits; the gather gives the same bits on every call.
+Under a mesh (:mod:`.partitioning`) the dispatch, expert and combine
+tensors pass through ``partitioning.constrain`` where the reference's do.
+The port lays every group's slots of an expert out in one batch, (E, G *
+cap, D), for one and for several groups, so its spec is the reference's
+one-group spec ("model", "BATCH", None) for both. Under the port's data
+parallelism each rank holds its own rows as a plain tensor, which
+``constrain`` returns as it is. The load-balance loss's token fractions are
+averaged over the ranks of the batch axes (``partitioning.batch_mean``):
+the reference takes them over the global batch. They carry no gradient;
+the router's probabilities stay this rank's, so the mean of the ranks'
+aux losses is the global one. Capacity is computed from this rank's tokens,
+which equals the global run's when each rank holds whole dispatch groups
+(``moe_dispatch_groups`` a multiple of the data-parallel degree).
+
+One difference of form, none of result: the combine gathers instead of
+scatter-adding. Each (token, j) copy finds its slot from its place in the
+sorted order, and a token sums its k contributions in the order j =
+0..k-1. A float scatter-add on the card adds in the order its atomics
+land, so eager and graphed steps would differ in their last bits; the
+gather gives the same bits on every call.
 Nothing here reads a value on the host (the per-expert counts are a
 ``scatter_add_``, not ``bincount``), so a CUDA graph can capture it.
 """
@@ -26,6 +38,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from . import partitioning as part
 from .config import ModelConfig
 from .layers import mlp_apply, mlp_init
 from .module import normal_init
@@ -121,8 +134,8 @@ def moe_apply(p, x, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
 
     # switch-style load balance loss
     top1 = torch.argmax(probs, dim=-1)
-    frac_tokens = (top1[:, None] == torch.arange(e, device=x.device)).float() \
-        .mean(dim=0)
+    frac_tokens = part.batch_mean(
+        (top1[:, None] == torch.arange(e, device=x.device)).float().mean(dim=0))
     frac_probs = probs.mean(dim=0)
     aux = e * torch.sum(frac_tokens * frac_probs) * cfg.router_aux_weight
 
@@ -132,9 +145,12 @@ def moe_apply(p, x, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
               for i in range(g)]
     # (E, G * cap, D): every group's slots of an expert in one batch
     xg = groups[0][0] if g == 1 else torch.cat([grp[0] for grp in groups], dim=1)
+    xg = part.constrain(xg, "model", "BATCH", None)
     ex = p["experts"]
     h = F.silu(torch.bmm(xg, ex["gate"])) * torch.bmm(xg, ex["up"])
+    h = part.constrain(h, "model", "BATCH", None)
     out = torch.bmm(h, ex["down"])                              # (E, G*cap, D)
+    out = part.constrain(out, "model", "BATCH", None)
 
     acc_dt = torch.bfloat16 if cfg.moe_combine_dtype == "bfloat16" \
         else torch.float32
@@ -147,7 +163,8 @@ def moe_apply(p, x, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
         for j in range(k):
             y = y + contrib[:, j].to(acc_dt)
         ys.append(y)
-    y = (ys[0] if g == 1 else torch.cat(ys)).to(x.dtype)
+    y = part.constrain(ys[0] if g == 1 else torch.cat(ys), "BATCH", None)
+    y = y.to(x.dtype)
     if cfg.n_shared_experts:
         y = y + mlp_apply(p["shared"], xf)
     return y.reshape(b, s, d), aux

@@ -1,0 +1,91 @@
+"""Activation-sharding constraints for model internals.
+
+Counterpart of the reference's ``models/partitioning.py``. The launch layer
+registers the active mesh and the batch axes here; model code calls
+:func:`constrain` where the reference steers GSPMD (MoE dispatch and
+combine). Under the port's data parallelism every activation is a plain
+tensor holding this rank's rows, so ``constrain`` returns it as it is; a
+``DTensor`` is redistributed to the spec's placements. With no mesh
+registered ``constrain`` returns its argument. Like the reference's, it
+never raises on a spec it cannot apply.
+
+:func:`batch_mean` is what GSPMD does for the reference when a model takes a
+mean over the batch: the mean of a per-rank mean over the ranks that hold
+the batch's rows (the registered batch axes).
+"""
+from __future__ import annotations
+
+import contextlib
+from typing import Tuple
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.layout import mesh_shape, named
+
+_STATE = {"mesh": None, "batch_axes": ("data",)}
+
+
+def set_mesh(mesh, batch_axes: Tuple[str, ...] = ("data",)):
+    _STATE["mesh"] = mesh
+    _STATE["batch_axes"] = tuple(batch_axes)
+
+
+@contextlib.contextmanager
+def use_mesh(mesh, batch_axes: Tuple[str, ...] = ("data",)):
+    prev = (_STATE["mesh"], _STATE["batch_axes"])
+    set_mesh(mesh, batch_axes)
+    try:
+        yield
+    finally:
+        set_mesh(*prev)
+
+
+def current_mesh():
+    """The registered mesh, or None."""
+    return _STATE["mesh"]
+
+
+def batch_axes() -> Tuple[str, ...]:
+    return _STATE["batch_axes"]
+
+
+def resolve(*spec) -> tuple:
+    """``spec`` with 'BATCH' expanded to the registered batch axes."""
+    return tuple(_STATE["batch_axes"] if s == "BATCH" else s for s in spec)
+
+
+def constrain(x, *spec):
+    """``x`` laid out as ``spec`` on the registered mesh: a ``DTensor`` is
+    redistributed to the spec's placements; anything else, or any ``x`` with
+    no mesh registered, is returned as it is.
+
+    Spec entries: None, a mesh axis name, 'BATCH' (the registered batch
+    axes), or a tuple of axis names."""
+    mesh = _STATE["mesh"]
+    if mesh is None:
+        return x
+    try:
+        from torch.distributed.tensor import DTensor
+        if not isinstance(x, DTensor):
+            return x
+        return x.redistribute(x.device_mesh, named(mesh, *resolve(*spec)))
+    except Exception:
+        return x
+
+
+def batch_mean(x: torch.Tensor) -> torch.Tensor:
+    """The mean of ``x`` over the ranks of the registered batch axes (a new
+    tensor; ``x`` is not written), or ``x`` with no mesh registered. Every
+    rank of those axes must call it. ``x`` takes no gradient through it."""
+    mesh = _STATE["mesh"]
+    if mesh is None:
+        return x
+    shape = mesh_shape(mesh)
+    out = x.detach().clone()
+    n = 1
+    for axis in _STATE["batch_axes"]:
+        if axis in shape:
+            dist.all_reduce(out, group=mesh.get_group(axis))
+            n *= shape[axis]
+    return out / n

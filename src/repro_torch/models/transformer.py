@@ -8,7 +8,7 @@ port loops over it in Python.
 Entry points:
   init(gen, cfg, device)                 -> params
   forward(params, x, cfg, positions)     -> (hidden, aux_loss)
-  lm_loss(params, batch, cfg)            -> (loss, metrics)
+  lm_loss(params, batch, cfg[, total, aux_weight]) -> (loss, metrics)
   init_cache(cfg, batch, max_len, device) -> decode cache
   decode_step(params, cache, tok, pos, cfg) -> (logits, cache)
 
@@ -269,14 +269,21 @@ def _chunked_ce(params, h, labels, mask, cfg: ModelConfig,
     return tot, cnt
 
 
-def lm_loss(params, batch, cfg: ModelConfig) -> Tuple[torch.Tensor, Dict]:
+def lm_loss(params, batch, cfg: ModelConfig, total=None,
+            aux_weight: float = 1.0) -> Tuple[torch.Tensor, Dict]:
     """batch: {'inputs': (B,S) int | 'embeds': (B,S,D), 'labels': (B,S),
     optional 'mask': (B,S)}, tensors on the params' device. Returns (loss,
     {'ce', 'aux', 'tokens'}) as 0-d float32 tensors; loss = ce + aux. With
     ``cfg.mtp`` and token inputs the MTP module predicts token t + 2 from
     h_t and the embedding of token t + 1 through one ``cfg.period[0]``
     block, and loss = ce + mtp_weight * mtp + aux, with 'mtp' in the
-    metrics (the reference's order of sums)."""
+    metrics (the reference's order of sums).
+
+    Under data parallelism each rank's loss is its part of the global
+    batch's: ``total`` maps a token count (a 0-d tensor) to the count over
+    every rank, which each mean then divides by ('tokens' is that count),
+    and ``aux_weight`` (1 / ranks) weights the aux loss, so the ranks'
+    losses, terms and gradients sum to the global ones."""
     _check_supported(cfg)
     if "embeds" in batch:
         x = batch["embeds"].to(_dtype(cfg))
@@ -289,7 +296,11 @@ def lm_loss(params, batch, cfg: ModelConfig) -> Tuple[torch.Tensor, Dict]:
         mask = torch.ones(labels.shape, dtype=torch.float32,
                           device=labels.device)
     h, aux = forward(params, x, cfg, positions)
+    if aux_weight != 1.0:
+        aux = aux * aux_weight
     tot, cnt = _chunked_ce(params, h, labels, mask, cfg)
+    if total is not None:
+        cnt = total(cnt)
     loss = tot / torch.clamp(cnt, min=1.0)
     metrics = {"ce": loss, "aux": aux, "tokens": cnt}
     if cfg.mtp and "inputs" in batch:
@@ -304,6 +315,8 @@ def lm_loss(params, batch, cfg: ModelConfig) -> Tuple[torch.Tensor, Dict]:
         x2 = L.rmsnorm(x2, mp["final_norm"], cfg.norm_eps)
         # S - 1 positions: the last chunk may be ragged
         tot2, cnt2 = _chunked_ce(params, x2, labels[:, 1:], mask[:, 1:], cfg)
+        if total is not None:
+            cnt2 = total(cnt2)
         mtp = tot2 / torch.clamp(cnt2, min=1.0)
         loss = loss + cfg.mtp_weight * mtp
         metrics["mtp"] = mtp

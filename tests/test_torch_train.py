@@ -416,9 +416,9 @@ def test_train_on_cpu_runs_and_resumes(tmp_path):
 
 
 def test_train_refuses_what_the_port_does_not_run():
-    """A mesh still raises; whisper (the audio frontend and the
-    encoder-decoder) trains."""
-    with pytest.raises(NotImplementedError, match="item 6"):
+    """A (2, 1) mesh with no process group raises (the caller starts the
+    ranks); whisper (the audio frontend and the encoder-decoder) trains."""
+    with pytest.raises(RuntimeError, match="process group"):
         train("smollm_360m", mesh_shape=(2, 1), device="cpu")
     out = train("whisper_small", smoke=True, steps=2, batch=2, seq=16,
                 device="cpu")

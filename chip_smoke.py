@@ -223,6 +223,19 @@ time,
      prefill 8 x 512 and 4 train steps of 8 x 512, each eager and graphed
      and equal, its launches; phase 2 holds the bf16 flash forward and
      backward at its shape;
+  34. tensor parallelism over 'model' at (1, 2): two ranks on the one card
+     over gloo as phase 32's, eager, each through ``launch.train.train(
+     mesh_shape=(1, 2))``: (a) smollm-360M (15 / 5 heads: every head on
+     every rank) and smollm-360m+padheads (8 / 4 heads a rank) cut to 2
+     layers, float32, 4 steps of 8 x 128, against one rank (losses and grad
+     norms to 1e-5 relative, params to lr / 4); (b) smollm-360m+padheads
+     whole, bf16, 4 steps of 8 x 512: each rank's launches against
+     ``per_train_step``, its flash calls all at q 8x8x512x64, kv 8x4, losses
+     within 2e-2 of phase 33's eager run, step ms and peak memory a rank;
+     (c) Qwen3-MoE at its widths cut to 1 layer (64 experts and 32 / 2
+     heads of 128 a rank), bf16, 2 steps of 8 x 512, against phase 21's
+     first two eager losses; phase 2 holds the flash forward and backward
+     at both ranks' shapes;
 Every path runs with the launch counts set to 0 just before it and read just
 after; a graphed path's counts include its warm-up calls (``WARMUP`` eager
 calls before capture), and a replay adds what the capture recorded. Then it prints the kernel table as one JSON line (the rows of
@@ -231,7 +244,8 @@ DeepSeek-V3 prefill for bf16 D 192, the parity phases for float32 D 192
 and 24; for the backward, DeepSeek-V3 training for bf16 D 192 and phase
 22 for float32 D 192 and 24; whisper's and llava's shapes the launches of
 phases 24-25 and 26-27; the scan's training forward and backward those of
-phase 28; the G-2 shape of smollm-360m+padheads those of phase 33) and,
+phase 28; the G-2 shape of smollm-360m+padheads those of phase 33; the
+ranks' shapes of phase 34 the launches of both ranks) and,
 last,
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
 with no CUDA device, or outside a checkout, it exits non-zero at once. Each
@@ -450,6 +464,33 @@ PADHEADS_ROWS = {
         "bfloat16", "smollm-360m+padheads training (phase 33)"),
 }
 PADHEADS_TRAIN_STEPS = 4
+# phase 34: tensor parallelism over 'model' at (1, 2), each rank's attention
+# shapes (smollm-360m+padheads: 8 / 4 heads of 64; Qwen3-MoE: 32 / 2 of 128)
+# and the rows of the kernel table counted on both ranks of phase 34
+TP_PADHEADS_SHAPE = (8, 8, 4, 512, 64)
+TP_QWEN_SHAPE = (8, 32, 2, 512, 128)
+TP_PADHEADS_CASE = "TP rank padheads causal 8x8/4x512x512x64"
+TP_QWEN_CASE = "TP rank qwen3 causal 8x32/2x512x512x128"
+TP_ROWS = {
+    f"flash_attention{bwd}_tp_{tag}": (
+        f"flash_attention{bwd}", f"src/repro_torch/csrc/flash_attention{bwd}_sm90.cu",
+        "src/repro/kernels/flash_attention.py:84", case + (" with L" if bwd else ""),
+        "bfloat16", f"{what} tensor-parallel training at (1, 2), both ranks (phase 34)")
+    for tag, case, what in (("padheads", TP_PADHEADS_CASE, "smollm-360m+padheads"),
+                            ("qwen3", TP_QWEN_CASE, "Qwen3-MoE (1 layer)"))
+    for bwd in ("", "_bwd")}
+# phase 34's runs: (a) float32 lockstep at GLOO_CUT, GLOO_STEPS steps of 8 x
+# GLOO_SEQ; (b) smollm-360m+padheads whole, bf16, PADHEADS_TRAIN_STEPS steps
+# of 8 x 512 (phase 33's eager run is its one-rank oracle); (c) Qwen3-MoE at
+# QWEN_TRAIN_CUT, bf16, TP_MOE_STEPS steps of 8 x 512 (the first steps of
+# phase 21's eager run, whose rate schedule is the same for them)
+TP_MOE_STEPS = 2
+# (a) against one rank: float32 sums over two ranks in another order
+TP_F32_TOL = 1e-5
+# (b), (c): bf16 against one rank
+TP_BF16_TOL = 2e-2
+# seconds phase 34's two ranks may take before they are killed
+TP_DEADLINE_S = 240
 # phase 32: two ranks on the one card over gloo, smollm-360M at full width
 # cut to 2 layers, float32, steps of 8 x GLOO_SEQ
 GLOO_CUT = dict(n_layers=2, dtype="float32")
@@ -894,21 +935,24 @@ def phase_kernels(rms, fla, dec, scan):
     rows += backward_rows(rms, fla, randn)
     rows += mla_backward_rows(fla, randn)
     rows += frontend_rows(fla, dec, randn)
-    rows += padheads_rows(fla, randn)
+    rows += gqa_rows(fla, randn, PADHEADS_CASE, (8, 16, 8, 512, 64))
+    rows += gqa_rows(fla, randn, TP_PADHEADS_CASE, TP_PADHEADS_SHAPE, (torch.bfloat16,))
+    rows += gqa_rows(fla, randn, TP_QWEN_CASE, TP_QWEN_SHAPE, (torch.bfloat16,))
     rows += optimizer_rows(gen)
     return rows
 
 
-def padheads_rows(fla, randn):
-    """Flash attention forward and backward at smollm-360m+padheads' shape
-    (q 8 x 16 x 512 x 64, k and v 8 x 8: GQA group 2), causal: bf16 timed
-    against SDPA (``enable_gqa``; its backward as in ``backward_rows``),
-    the backward with the forward's L as training passes it; float32
-    checked."""
+def gqa_rows(fla, randn, case, shape, dtypes=(torch.bfloat16, torch.float32)):
+    """Flash attention forward and backward at a GQA training shape
+    ``shape`` = (b, hq, hkv, s, hd), causal (smollm-360m+padheads' q 8 x 16 x
+    512 x 64 with k and v 8 x 8, and the ranks' shapes of phase 34): bf16
+    timed against SDPA (``enable_gqa``; its backward as in
+    ``backward_rows``), the backward with the forward's L as training
+    passes it; float32 checked."""
     rows = []
-    b, hq, hkv, s, hd = 8, 16, 8, 512, 64
+    b, hq, hkv, s, hd = shape
     pairs = s * (s + 1) // 2
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype in dtypes:
         dn = str(dtype).split(".")[1]
         q, do = randn((b, hq, s, hd), dtype), randn((b, hq, s, hd), dtype)
         k, v = randn((b, hkv, s, hd), dtype), randn((b, hkv, s, hd), dtype)
@@ -925,7 +969,7 @@ def padheads_rows(fla, randn):
             library=lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
                 q, k, v, is_causal=True, enable_gqa=True),
             n_bytes=2 * nbytes(q) + 2 * nbytes(k), ops=4 * b * hq * hd * pairs)
-        rows.append(compare("flash_attention", PADHEADS_CASE, dn,
+        rows.append(compare("flash_attention", case, dn,
                             fla.flash_attention_cuda(*args),
                             fla.flash_attention_plain(*args), "attn", **timed))
         rows[-1]["instance"] = fla.INSTANCES[dtype]
@@ -943,7 +987,7 @@ def padheads_rows(fla, randn):
             library_fwd=lib_f, n_bytes=4 * nbytes(q) + 4 * nbytes(k),
             ops=10 * b * hq * hd * pairs)
         rows.append(compare(
-            "flash_attention_bwd", PADHEADS_CASE + (" with L" if lse is not None else ""),
+            "flash_attention_bwd", case + (" with L" if lse is not None else ""),
             dn, fla.flash_attention_bwd_cuda(*bargs, lse=lse),
             fla.flash_attention_bwd_plain(*bargs), "attn_bwd", **timed))
         rows[-1]["instance"] = fla.INSTANCES[dtype]
@@ -2361,6 +2405,91 @@ def gloo_rank(rank: int, world: int, port: int, tmp: str) -> None:
                 "losses": r["losses"], "grad_norms": r["grad_norms"],
                 "params": tree_map(lambda a: a.cpu(), whole) if rank == 0 else None}
             del r, whole
+        torch.save(out, f"{tmp}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def tp_rank(rank: int, world: int, port: int, tmp: str) -> None:
+    """Rank ``rank`` of phase 34 (tensor parallelism over 'model' at (1,
+    ``world``), the ranks on the one card over gloo, eager; the parent
+    serves the ``TCPStore`` on 127.0.0.1:``port``), each run through
+    ``launch.train.train(mesh_shape=(1, world))``: (a) smollm-360M (every
+    head on every rank) and smollm-360m+padheads (each rank its heads) cut
+    to GLOO_CUT, float32; (b) smollm-360m+padheads whole, bf16, with this
+    rank's launch counts and the shapes of its flash calls; (c) Qwen3-MoE
+    cut to QWEN_TRAIN_CUT, bf16. Writes losses, grad norms, step seconds,
+    peak memory, counts and (rank 0, (a)) the whole params, gathered, to
+    ``tmp``."""
+    import torch.distributed as dist
+    from repro_torch.kernels import adamw as ka
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import flash_attention as fla
+    from repro_torch.kernels import mamba_scan as scan
+    from repro_torch.kernels import rmsnorm as rms
+    from repro_torch.launch import shardings as SH
+    from repro_torch.launch.train import train
+    from repro_torch.models.module import tree_map
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    timeout = datetime.timedelta(seconds=GLOO_TIMEOUT_S)
+    store = dist.TCPStore("127.0.0.1", port, is_master=False, timeout=timeout)
+    dist.init_process_group("gloo", store=store, rank=rank, world_size=world,
+                            timeout=timeout)
+    kern = {"rmsnorm": rms.rmsnorm_cuda, "flash_attention": fla.flash_attention_cuda,
+            "decode_attention": dec.decode_attention_cuda,
+            "mamba_scan": scan.mamba_scan_cuda, "mamba_scan_train": scan.mamba_scan_train_cuda,
+            "mamba_scan_bwd": scan.mamba_scan_bwd_cuda, "rmsnorm_bwd": rms.rmsnorm_bwd_cuda,
+            "flash_attention_bwd": fla.flash_attention_bwd_cuda,
+            "sumsq": ka.sumsq_cuda, "clip_finalize": ka.clip_finalize_cuda,
+            "adamw_update": ka.adamw_update_cuda}
+    # the (q, k) shapes of every flash launch, forward and backward: each
+    # wrapper is called through a stand-in that records them, which also
+    # takes its counters (the wrapper adds to them under its module name)
+    shapes = collections.Counter()
+
+    def recording(name, tag):
+        fn = getattr(fla, name)
+
+        def call(q, k, *args, **kw):
+            shapes[(tag, tuple(q.shape), tuple(k.shape), str(q.dtype))] += 1
+            return fn(q, k, *args, **kw)
+        call.__dict__.update(vars(fn))
+        setattr(fla, name, call)
+        return call
+
+    kern["flash_attention"] = recording("flash_attention_cuda", "fwd")
+    kern["flash_attention_bwd"] = recording("flash_attention_bwd_cuda", "bwd")
+    mesh_shape = (1, world)
+    out = {}
+    try:
+        for label, arch in (("smollm", "smollm_360m"), ("padheads", "smollm_360m_padheads")):
+            r = train(arch, smoke=False, steps=GLOO_STEPS, batch=8, seq=GLOO_SEQ,
+                      device="cuda", graphs=False, overrides=GLOO_CUT, mesh_shape=mesh_shape,
+                      log_every=GLOO_STEPS)
+            whole = SH.gather_tree(r["params"], r["shardings"], r["mesh"])
+            out[label] = {"losses": r["losses"], "grad_norms": r["grad_norms"],
+                          "params": tree_map(lambda a: a.cpu(), whole) if rank == 0 else None}
+            del r, whole
+        for label, arch, steps, over in (
+                ("padheads_bf16", "smollm_360m_padheads", PADHEADS_TRAIN_STEPS, None),
+                ("qwen3", "qwen3_moe_235b_a22b", TP_MOE_STEPS, QWEN_TRAIN_CUT)):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            for fn in kern.values():
+                fn.launches = 0
+            shapes.clear()
+            r = train(arch, smoke=False, steps=steps, batch=8, seq=512, device="cuda",
+                      graphs=False, overrides=over, mesh_shape=mesh_shape, log_every=steps)
+            out[label] = {"losses": r["losses"], "grad_norms": r["grad_norms"],
+                          "step_s": r["step_s"],
+                          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                          "counts": {name: fn.launches for name, fn in kern.items()},
+                          "shapes": dict(shapes)}
+            del r
         torch.save(out, f"{tmp}/rank{rank}.pt")
     finally:
         dist.destroy_process_group()
@@ -3972,6 +4101,9 @@ def main() -> int:
         if not rec["param_max_err"] <= p_tol:
             fail(f"two gloo ranks ({label}): params differ from one rank's by "
                  f"{rec['param_max_err']}")
+    # phase 34's one-rank oracle for smollm-360M at GLOO_CUT
+    one32 = {"losses": one["losses"], "grad_norms": one["grad_norms"],
+             "params": one["params"]}
     del one, ranks
     print(f"[32 gloo] two ranks on the one card over gloo: CUDA tensors taken by "
           + ", ".join(gl["takes_cuda"]) + "; smollm-360M, 2 layers, float32, "
@@ -4002,6 +4134,112 @@ def main() -> int:
     for name, (kernel, *_rest) in PADHEADS_ROWS.items():
         frontend_totals[name] = totals[kernel] - before[kernel]
 
+    # 34. tensor parallelism over 'model' at (1, 2): two ranks on the one card
+    # over gloo, each its heads, FFN columns, vocab slice and experts
+    tcfg = dataclasses.replace(get("smollm_360m_padheads"), **GLOO_CUT)
+    per_t = per_train_step(tcfg)
+    one_f32 = {"smollm": one32, "padheads": drive(
+        kern, side, zero(**{k: v * GLOO_STEPS for k, v in per_t.items()}),
+        lambda: train("smollm_360m_padheads", smoke=False, steps=GLOO_STEPS, batch=8,
+                      seq=GLOO_SEQ, device="cuda", graphs=False, overrides=GLOO_CUT,
+                      log_every=GLOO_STEPS), "one-rank float32 padheads training")}
+    del one32
+    torch.cuda.empty_cache()
+    tdir = out_dir / "tp"
+    if tdir.exists():
+        for f in tdir.iterdir():
+            f.unlink()
+    tdir.mkdir(exist_ok=True)
+    store = dist.TCPStore("127.0.0.1", 0, is_master=True, wait_for_workers=False,
+                          timeout=datetime.timedelta(seconds=GLOO_TIMEOUT_S))
+    ranks_ctx = tmp_mp.start_processes(tp_rank, args=(2, store.port, str(tdir)),
+                                       nprocs=2, join=False, start_method="spawn")
+    deadline = time.monotonic() + TP_DEADLINE_S
+    while not ranks_ctx.join(timeout=5):
+        if time.monotonic() > deadline:
+            for proc in ranks_ctx.processes:
+                proc.kill()
+            fail(f"two tensor-parallel ranks still running after {TP_DEADLINE_S} s; killed")
+    del store
+    ranks = [torch.load(tdir / f"rank{r}.pt", weights_only=False) for r in range(2)]
+    tpr = report["tensor_parallel"] = {}
+    for label in ("smollm", "padheads"):
+        rec = tpr[label] = {}
+        for key in ("losses", "grad_norms"):
+            rel = max(abs(a - b) / abs(b) for r in ranks
+                      for a, b in zip(r[label][key], one_f32[label][key]))
+            rec[f"{key}_max_rel_err"] = rel
+            if not rel <= TP_F32_TOL:
+                fail(f"tensor parallelism ({label}, float32): {key} differ from one "
+                     f"rank's by {rel}")
+        rec["param_max_err"] = max(
+            float((a - b.cpu()).abs().max()) for _, a, b in _paired_leaves(
+                ranks[0][label]["params"], one_f32[label]["params"]))
+        if not rec["param_max_err"] <= p_tol:
+            fail(f"tensor parallelism ({label}, float32): params differ from one rank's "
+                 f"by {rec['param_max_err']}")
+    del one_f32
+    for label, arch, over, steps, oracle, shape in (
+            ("padheads_bf16", "smollm_360m_padheads", {}, PADHEADS_TRAIN_STEPS,
+             ph["train"]["eager"], TP_PADHEADS_SHAPE),
+            ("qwen3", "qwen3_moe_235b_a22b", QWEN_TRAIN_CUT, TP_MOE_STEPS,
+             mt["qwen3_moe"]["eager"], TP_QWEN_SHAPE)):
+        want = {k: v * steps for k, v in
+                per_train_step(dataclasses.replace(get(arch), **over)).items()}
+        b, hq, hkv, sq, hd = shape
+        q, kv = (b, hq, sq, hd), (b, hkv, sq, hd)
+        rec = tpr[label] = {"one_rank_losses": oracle["losses"][:steps],
+                            "one_rank_median_step_s": oracle["median_step_s"],
+                            "one_rank_max_memory_allocated": oracle["max_memory_allocated"],
+                            "ranks": []}
+        for i, r in enumerate(ranks):
+            got = r[label]
+            if got["counts"] != zero(**want):
+                fail(f"tensor-parallel {label} rank {i}: launches {got['counts']}, "
+                     f"expected {zero(**want)}")
+            flash = {tag: n for (tag, qs, ks, dn), n in got["shapes"].items()
+                     if qs == q and ks == kv and dn == "torch.bfloat16"}
+            if flash != {"fwd": want["flash_attention"], "bwd": want["flash_attention_bwd"]}:
+                fail(f"tensor-parallel {label} rank {i}: flash calls {got['shapes']}, want "
+                     f"q {q} kv {kv} forward {want['flash_attention']} backward "
+                     f"{want['flash_attention_bwd']}")
+            losses = got["losses"]
+            rel = max(abs(a - b) / abs(b) for a, b in zip(losses, oracle["losses"]))
+            if len(losses) != steps or not all(math.isfinite(x) for x in losses) \
+                    or not rel <= TP_BF16_TOL:
+                fail(f"tensor-parallel {label} rank {i}: losses {losses}, one rank's "
+                     f"{oracle['losses'][:steps]} (rel {rel}, tol {TP_BF16_TOL})")
+            rec["ranks"].append({
+                "losses": losses, "grad_norms": got["grad_norms"], "loss_max_rel_err": rel,
+                "step_s": got["step_s"], "median_step_s": statistics.median(got["step_s"][1:]),
+                "max_memory_allocated": got["max_memory_allocated"], "launches": got["counts"],
+                "flash_shapes": {f"{t} q{list(qs)} k{list(ks)} {dn}": n
+                                 for (t, qs, ks, dn), n in got["shapes"].items()}})
+        tag = "padheads" if label == "padheads_bf16" else "qwen3"
+        for name, kernel in ((f"flash_attention_tp_{tag}", "flash_attention"),
+                             (f"flash_attention_bwd_tp_{tag}", "flash_attention_bwd")):
+            frontend_totals[name] = sum(r[label]["counts"][kernel] for r in ranks)
+    del ranks
+    print("[34 tensor parallel] (1, 2) over 'model', two ranks on the one card over gloo, "
+          "eager: float32 at GLOO_CUT, "
+          f"{GLOO_STEPS} steps of 8x{GLOO_SEQ} against one rank: " + "; ".join(
+              f"{k} losses {tpr[k]['losses_max_rel_err']:.2e}, grad norms "
+              f"{tpr[k]['grad_norms_max_rel_err']:.2e} rel (tol {TP_F32_TOL:g}), params "
+              f"{tpr[k]['param_max_err']:.2e} (tol {p_tol:.2e})"
+              for k in ("smollm", "padheads")) + "; bf16: " + "; ".join(
+              f"{k} losses {[round(x, 4) for x in tpr[k]['ranks'][0]['losses']]} vs one rank "
+              f"{[round(x, 4) for x in tpr[k]['one_rank_losses']]} (max rel "
+              f"{max(r['loss_max_rel_err'] for r in tpr[k]['ranks']):.2e}, tol "
+              f"{TP_BF16_TOL:g}), median step "
+              + " / ".join(f"{r['median_step_s'] * 1e3:.1f}" for r in tpr[k]["ranks"])
+              + f" ms a rank (one rank eager {tpr[k]['one_rank_median_step_s'] * 1e3:.1f} ms), "
+              "peak " + " / ".join(f"{r['max_memory_allocated'] / 2**30:.2f}"
+                                   for r in tpr[k]["ranks"])
+              + f" GiB a rank (one rank {tpr[k]['one_rank_max_memory_allocated'] / 2**30:.2f}), "
+              f"flash per rank {tpr[k]['ranks'][0]['flash_shapes']}"
+              for k in ("padheads_bf16", "qwen3")) + f" {took('34 tensor parallel')}",
+          flush=True)
+
     # the kernel table: main-path shapes, bf16; launches over every main path
     table = []
     for name, (source, replaces, case) in KERNELS.items():
@@ -4021,6 +4259,7 @@ def main() -> int:
                         *row) for name, row in {**MLA_ROWS, **MLA_BWD_ROWS}.items()}
     path_rows.update(FRONTEND_ROWS)
     path_rows.update(PADHEADS_ROWS)
+    path_rows.update(TP_ROWS)
     launched = {**mla_totals, **frontend_totals}
     for name, (kernel, source, replaces, case, dn, path) in path_rows.items():
         r = next(r for r in rows if r["kernel"] == kernel and r["case"] == case

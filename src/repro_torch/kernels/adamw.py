@@ -19,7 +19,7 @@ The kernels take contiguous tensors and refuse others.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import Any, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -134,36 +134,43 @@ def _sumsq_partials(grads: List[torch.Tensor]) -> Tuple[torch.Tensor, List[int]]
 
 
 def global_norm_scale(grads: List[torch.Tensor], max_norm: float,
-                      sharded: Optional[List[bool]] = None,
-                      group=None) -> Tuple[torch.Tensor, torch.Tensor]:
+                      splits: Sequence[Tuple[Sequence[bool], Any]] = ()
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(norm, scale) of global-norm clipping to ``max_norm``: the kernels
     for CUDA leaves, the plain version for CPU ones.
 
-    ``sharded`` (a flag per leaf) marks the leaves that hold this rank's
-    slice of a gradient split over the process group ``group`` (ZeRO-3):
-    their partial sums of squares are gathered from every rank of the group
-    in rank order, and each leaf's partials, in leaf order, go to one
-    ``clip_finalize``, so every rank gets the whole gradient's norm, and two
-    calls the same bits. With one rank these are the unsharded call's
-    partials, in its order."""
-    if not sharded or not any(sharded):
+    ``splits``: (a flag per leaf, a process group) pairs. A flag marks a
+    leaf that holds this rank's slice of a gradient split over the group
+    (ZeRO-3 over 'data', tensor parallelism over 'model'). Each leaf's
+    partial sums of squares are gathered over each of its groups in turn,
+    in rank order (a leaf split over two is gathered over both), and every
+    leaf's partials, in leaf order, go to one ``clip_finalize``, so every
+    rank gets the whole gradient's norm, and two calls the same bits. A
+    leaf no flag marks is counted once. With one rank in each group these
+    are the unsharded call's partials, in its order."""
+    splits = [(flags, group) for flags, group in splits if any(flags)]
+    if not splits:
         if grads[0].device.type == "cpu":
             return global_norm_scale_plain(grads, max_norm)
         return global_norm_scale_cuda(grads, max_norm)
     if grads[0].device.type == "cpu":
-        partial = torch.stack([sumsq_plain(g) for g in grads])
-        every = _every_rank(partial, [1] * len(grads), sharded, group)
-        return norm_scale_plain(list(every.unbind()), max_norm)
-    partial, blocks = _sumsq_partials(grads)
-    return clip_finalize_cuda(_every_rank(partial, blocks, sharded, group),
-                              max_norm)
+        partial, blocks = torch.stack([sumsq_plain(g) for g in grads]), \
+            [1] * len(grads)
+    else:
+        partial, blocks = _sumsq_partials(grads)
+    for flags, group in splits:
+        partial, blocks = _every_rank(partial, blocks, flags, group)
+    if grads[0].device.type == "cpu":
+        return norm_scale_plain(list(partial.unbind()), max_norm)
+    return clip_finalize_cuda(partial, max_norm)
 
 
-def _every_rank(partial: torch.Tensor, blocks: List[int], sharded: List[bool],
-                group) -> torch.Tensor:
+def _every_rank(partial: torch.Tensor, blocks: List[int],
+                sharded: Sequence[bool], group) -> Tuple[torch.Tensor, List[int]]:
     """This rank's partial sums (``blocks`` a leaf, in leaf order) -> the
-    partials of the whole gradient in leaf order: a replicated leaf's own,
-    a sharded leaf's from every rank of ``group`` in rank order."""
+    partials of the whole gradient in leaf order and their blocks a leaf:
+    a replicated leaf's own, a sharded leaf's from every rank of ``group``
+    in rank order."""
     pieces = torch.split(partial, blocks)
     mine = torch.cat([p for p, s in zip(pieces, sharded) if s])
     n = dist.get_world_size(group)
@@ -176,7 +183,7 @@ def _every_rank(partial: torch.Tensor, blocks: List[int], sharded: List[bool],
             at += p.numel()
         else:
             out.append(p)
-    return torch.cat(out)
+    return torch.cat(out), [p.numel() for p in out]
 
 
 def adamw_update_cuda(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,

@@ -26,8 +26,9 @@ paths (``weights.from_jax_params`` is a checked tree map).
 What the port runs of them (``launch.steps``): data parallelism over the
 batch axes, and ZeRO-3 over ``fsdp_axis``, where :func:`shard_tree` holds
 each leaf that the rules shard over it as this rank's slice of the leaf's
-dim, and :func:`gather_dim` / :func:`scatter_dim` move whole tensors and
-slices between the ranks.
+dim, and :func:`gather_dim` / :func:`scatter_dim` (from
+:mod:`repro_torch.collectives`) move whole tensors and slices between the
+ranks.
 """
 from __future__ import annotations
 
@@ -36,7 +37,7 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
-from repro_torch import collectives
+from repro_torch.collectives import gather_dim, scatter_dim  # noqa: F401
 from repro_torch.layout import (axis_names, local_shard, mesh_shape, named,
                                 sharded_axes)
 from repro_torch.models.config import ModelConfig
@@ -274,28 +275,6 @@ def cache_shardings(cfg: ModelConfig, cache_tree, mesh):
 # --------------------------------------------------------------------------
 # Slices at rest, whole tensors in the step
 # --------------------------------------------------------------------------
-
-def gather_dim(t: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
-    """The whole tensor from the ``n`` ranks' slices ``t`` of its dim
-    ``dim`` over ``group`` (an all-gather; a new tensor)."""
-    flat = t.new_empty((n * t.numel(),))
-    collectives.all_gather(flat, t.contiguous(), group)
-    whole = list(t.shape)
-    whole[dim] *= n
-    return flat.view(n, *t.shape).movedim(0, dim).reshape(whole)
-
-
-def scatter_dim(g: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
-    """This rank's slice of dim ``dim`` of the sum over ``group`` of every
-    rank's whole ``g`` (a reduce-scatter; a new contiguous tensor)."""
-    shape = list(g.shape)
-    split = shape[:dim] + [n, shape[dim] // n] + shape[dim + 1:]
-    ranks_first = g.reshape(split).movedim(dim, 0).contiguous()
-    local = shape[:dim] + [shape[dim] // n] + shape[dim + 1:]
-    out = g.new_empty(local)
-    collectives.reduce_scatter(out, ranks_first, group)
-    return out
-
 
 def shard_tree(tree, shardings, mesh):
     """Every leaf of ``tree`` (whole tensors) as this rank's slice."""

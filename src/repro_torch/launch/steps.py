@@ -77,9 +77,19 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer,
     it is ZeRO-3: params and AdamW moments stay this rank's slices; the
     step all-gathers the whole tree for the forward and backward,
     reduce-scatters each such gradient, gathers the clip's partial sums of
-    squares over the axis in rank order, and updates the slices. Tensor
-    parallelism (a 'model' axis above 1 without ``cfg.pure_dp``) raises.
-    With no mesh there is no collective.
+    squares over the axis in rank order, and updates the slices.
+
+    A 'model' axis above 1 without ``cfg.pure_dp`` is tensor parallelism
+    (:mod:`repro_torch.models.tensor_parallel`), for the families of
+    :func:`tensor_parallel_supported` (others raise NotImplementedError):
+    a leaf that ``shardings`` shard over 'model' stays this rank's slice
+    of it through the step (ZeRO-3 gathers only its 'data' slice), and so
+    do its gradient, with no collective over 'model', and its AdamW
+    moments; a leaf replicated over 'model' gets the same gradient on every
+    rank of 'model'. The clip's partial sums of squares of a leaf sharded
+    over 'model' (or over 'data' and 'model') are gathered over each axis
+    in rank order, a replicated leaf's counted once, so every rank gets
+    the whole gradient's norm. With no mesh there is no collective.
 
     On a CUDA device (unless ``graphs=False``) the step is captured in a
     CUDA graph at its first call for a given (params, opt_state) and batch
@@ -90,11 +100,12 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer,
     dev = resolve_device(device)
     api = model_api(cfg)
     shape = {} if mesh is None else mesh_shape(mesh)
-    if shape.get("model", 1) > 1 and not cfg.pure_dp:
+    tensor_parallel = shape.get("model", 1) > 1 and not cfg.pure_dp
+    if tensor_parallel and not tensor_parallel_supported(cfg):
         raise NotImplementedError(
-            f"{cfg.name}: a 'model' axis of {shape['model']} without pure_dp "
-            "is tensor parallelism, which comes with ROADMAP.md queue 1, "
-            "item 6e2")
+            f"{cfg.name}: tensor parallelism over a 'model' axis of "
+            f"{shape['model']} runs the dense decoders and Qwen3-MoE; this "
+            "family comes with ROADMAP.md queue 1, item 6e2b")
     f_axis = None if mesh is None else fsdp_axis(mesh)
     f_size = shape.get(f_axis, 1)
 
@@ -109,10 +120,14 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer,
     def train_step(params, opt_state, batch):
         _require_on(params, dev)
         f_group = mesh.get_group(f_axis) if f_axis else None
+        m_group = mesh.get_group("model") if tensor_parallel else None
         # the dim each leaf is sliced in over the fsdp axis, or None (the
         # placements tree is cut at the params' leaves)
         dims = None if shardings is None or f_axis is None else tree_map(
             lambda _, pl: shard_dim(pl, mesh, f_axis), params, shardings)
+        # the leaves that hold this rank's slice over 'model'
+        m_dims = None if shardings is None or m_group is None else tree_map(
+            lambda _, pl: shard_dim(pl, mesh, "model"), params, shardings)
         n_rows = len(next(iter(batch.values())))
         axes = () if mesh is None else _dp_axes(cfg, mesh, n_rows)
         if dims is not None and f_size > 1 and f_axis not in axes:
@@ -146,11 +161,11 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer,
                                                               f_group),
                                      grads, dims)
             with record_function("clip"):
-                sharded = None if dims is None else [
-                    d is not None for d in tree_leaves(dims)]
-                gnorm, scale = global_norm_scale(
-                    tree_leaves(grads), clip_norm, sharded=sharded,
-                    group=f_group)
+                splits = [([d is not None for d in tree_leaves(ds)], group)
+                          for ds, group in ((dims, f_group), (m_dims, m_group))
+                          if ds is not None]
+                gnorm, scale = global_norm_scale(tree_leaves(grads),
+                                                 clip_norm, splits=splits)
             with record_function("optimizer"):
                 params, opt_state = optimizer.update(grads, opt_state, params,
                                                      grad_scale=scale)
@@ -167,6 +182,16 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer,
     if dev.type != "cuda" or not graphs:
         return train_step
     return GraphedStep(train_step, 2, dev, mutates=(0, 1), name="train")
+
+
+def tensor_parallel_supported(cfg: ModelConfig) -> bool:
+    """Whether the port trains ``cfg`` tensor-parallel over 'model': the
+    decoder-only families of GQA attention with a dense SwiGLU or a MoE FFN
+    (the dense decoders, Qwen3-MoE). MLA, the recurrent mixers, the
+    encoder-decoder and the vlm come with ROADMAP.md queue 1, item 6e2b."""
+    return (cfg.family in ("dense", "moe") and not cfg.is_encdec
+            and not cfg.first_k_dense and not cfg.mtp
+            and all(mixer == "attn" for mixer, _ in cfg.period))
 
 
 def _dp_axes(cfg: ModelConfig, mesh, batch: int) -> tuple:

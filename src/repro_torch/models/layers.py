@@ -16,6 +16,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops
 from repro_torch.layout import mesh_shape
 from . import partitioning as part
+from . import tensor_parallel as tp
 from .config import ModelConfig
 from .module import dense_init
 
@@ -73,7 +74,17 @@ def attn_apply(p, x, cfg: ModelConfig, positions, causal=True,
     mesh whose 'model' axis divides S, for causal attention. The port has
     no context-parallel attention yet (ROADMAP.md, queue 1, item 6e): there
     it raises NotImplementedError. With no mesh, or a 'model' axis of size
-    1, it runs plain flash attention, as the reference does."""
+    1, it runs plain flash attention, as the reference does.
+
+    Tensor parallelism (:mod:`.tensor_parallel`) is read from the leaves:
+    a projection narrower than its whole width is this rank's slice over
+    'model' (wq / wk / wv by columns, wo by rows). Where 'model' divides
+    both head counts and slices every projection, each rank runs its heads
+    (their GQA groups unchanged) and its rows of wo, and the ranks' outputs
+    are summed. Otherwise (smollm's 15 / 5 heads at 2 ranks) every rank
+    runs every head, as GSPMD does for the reference: wq / wk / wv gathered
+    whole, then each rank's rows of wo on its columns of the attention
+    output, summed over the ranks."""
     b, s, d = x.shape
     mesh = part.current_mesh()
     if cfg.seq_shard and causal and mesh is not None:
@@ -84,9 +95,25 @@ def attn_apply(p, x, cfg: ModelConfig, positions, causal=True,
                 "parallel attention, which comes with ROADMAP.md queue 1, "
                 "item 6e")
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = (x @ p["wq"]).reshape(b, s, h, hd)
-    k = (x @ p["wk"]).reshape(b, s, hkv, hd)
-    v = (x @ p["wv"]).reshape(b, s, hkv, hd)
+    wq, wk, wv, wo = p["wq"], p["wk"], p["wv"], p["wo"]
+    split = (wq.shape[1] != h * hd, wk.shape[1] != hkv * hd,
+             wv.shape[1] != hkv * hd, wo.shape[0] != h * hd)
+    # wq and wo share the width h * hd, which 'model' divides wherever it
+    # divides wk's: a split leaves wq and wo split, wk / wv perhaps whole
+    cols = None
+    if any(split):
+        m = tp.model_size()
+        x = tp.copy_to_model(x)
+        if all(split) and h % m == 0 and hkv % m == 0:
+            h, hkv = h // m, hkv // m          # this rank's heads
+        else:                                   # every head on every rank
+            wq, wk, wv = (tp.gather_from_model(w, 1) if sp
+                          else tp.copy_to_model(w)
+                          for w, sp in zip((wq, wk, wv), split))
+            cols = slice(*tp.local_range(h * hd))
+    q = (x @ wq).reshape(b, s, h, hd)
+    k = (x @ wk).reshape(b, s, hkv, hd)
+    v = (x @ wv).reshape(b, s, hkv, hd)
     if use_rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
@@ -97,7 +124,11 @@ def attn_apply(p, x, cfg: ModelConfig, positions, causal=True,
                               v.transpose(1, 2), causal=causal,
                               window=cfg.window)
     out = out.transpose(1, 2).reshape(b, s, h * hd)
-    return out @ p["wo"]
+    if cols is not None:
+        out = out[..., cols]
+    if not any(split):
+        return out @ wo
+    return tp.reduce_from_model(out @ wo)
 
 
 def cross_attn_apply(p, x, kv_cache, cfg: ModelConfig) -> torch.Tensor:
@@ -300,5 +331,13 @@ def mlp_init(gen, cfg: ModelConfig, dtype, d_ff: int = None,
                                dtype=dtype, device=device)}
 
 
-def mlp_apply(p, x) -> torch.Tensor:
-    return (F.silu(x @ p["gate"]) * (x @ p["up"])) @ p["down"]
+def mlp_apply(p, x, width: int = None) -> torch.Tensor:
+    """SwiGLU. ``width``: the hidden width of the whole MLP; where gate is
+    narrower, gate / up hold this rank's columns and down its rows over
+    'model' (:mod:`.tensor_parallel`), and the ranks' outputs are summed.
+    Without ``width`` the leaves are taken whole."""
+    if width is None or p["gate"].shape[-1] == width:
+        return (F.silu(x @ p["gate"]) * (x @ p["up"])) @ p["down"]
+    x = tp.copy_to_model(x)
+    return tp.reduce_from_model(
+        (F.silu(x @ p["gate"]) * (x @ p["up"])) @ p["down"])

@@ -30,6 +30,14 @@ land, so eager and graphed steps would differ in their last bits; the
 gather gives the same bits on every call.
 Nothing here reads a value on the host (the per-expert counts are a
 ``scatter_add_``, not ``bincount``), so a CUDA graph can capture it.
+
+Under tensor parallelism the experts' leaves hold this rank's E / ranks
+experts over 'model' (``launch.shardings``: gate / up ("model", f, None),
+down ("model", None, f)). Router, top-k, capacity and dispatch run the same
+on every rank of 'model'; each rank multiplies its experts' slots only, a
+token's k parts are gathered in order with those of other ranks' experts as
+zeros, and the ranks' sums are summed (:mod:`.tensor_parallel`). The aux
+loss is the same on every rank of 'model' and is not summed over it.
 """
 from __future__ import annotations
 
@@ -39,6 +47,7 @@ import torch
 import torch.nn.functional as F
 
 from . import partitioning as part
+from . import tensor_parallel as tp
 from .config import ModelConfig
 from .layers import mlp_apply, mlp_init
 from .module import normal_init
@@ -74,13 +83,14 @@ def capacity(cfg: ModelConfig, t: int) -> int:
                         // (cfg.n_experts * g))))
 
 
-def _dispatch_group(xf, probs, k: int, e: int, cap: int):
+def _dispatch_group(xf, probs, k: int, e: int, cap: int, experts=None):
     """Sorted capacity dispatch for one token group.
 
     xf: (Tg, D); probs: (Tg, E). Returns (xg (E, cap, D), tok (E, cap),
     wgt (E, cap)) as the reference's, ``tok`` local to the group, and for
     the combine (slot (Tg, k): the flat index e * cap + c of each copy's
-    slot, w (Tg, k): its weight, 0 where it was dropped)."""
+    slot, w (Tg, k): its weight, 0 where it was dropped). ``experts`` (lo,
+    hi): xg holds the slots of experts lo .. hi - 1 only."""
     t = xf.shape[0]
     dev = xf.device
     top_p, top_idx = torch.topk(probs, k, dim=-1)               # (Tg, k)
@@ -100,7 +110,8 @@ def _dispatch_group(xf, probs, k: int, e: int, cap: int):
     tok = st_[win]                                              # (E, cap)
     wgt = torch.where(valid, sw[win], torch.zeros((), dtype=sw.dtype,
                                                   device=dev))
-    xg = xf[tok] * valid[..., None].to(xf.dtype)                # (E, cap, D)
+    mine = slice(None) if experts is None else slice(*experts)
+    xg = xf[tok[mine]] * valid[mine, :, None].to(xf.dtype)      # (E, cap, D)
     # each copy's place in the sorted order, hence its slot in its expert's
     # window; a copy at c >= cap was dropped
     place = torch.empty_like(order).scatter_(
@@ -140,13 +151,19 @@ def moe_apply(p, x, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     aux = e * torch.sum(frac_tokens * frac_probs) * cfg.router_aux_weight
 
     cap = capacity(cfg, t)
-    groups = [_dispatch_group(xf[i * tg:(i + 1) * tg],
-                              probs[i * tg:(i + 1) * tg], k, e, cap)
+    ex = p["experts"]
+    # this rank's experts over 'model' (all of them without tensor
+    # parallelism); the tokens enter their products through copy_to_model
+    lo, hi = tp.local_range(e) if ex["gate"].shape[0] != e else (0, e)
+    split = hi - lo != e
+    xin = tp.copy_to_model(xf) if split else xf
+    groups = [_dispatch_group(xin[i * tg:(i + 1) * tg],
+                              probs[i * tg:(i + 1) * tg], k, e, cap,
+                              experts=(lo, hi) if split else None)
               for i in range(g)]
     # (E, G * cap, D): every group's slots of an expert in one batch
     xg = groups[0][0] if g == 1 else torch.cat([grp[0] for grp in groups], dim=1)
     xg = part.constrain(xg, "model", "BATCH", None)
-    ex = p["experts"]
     h = F.silu(torch.bmm(xg, ex["gate"])) * torch.bmm(xg, ex["up"])
     h = part.constrain(h, "model", "BATCH", None)
     out = torch.bmm(h, ex["down"])                              # (E, G*cap, D)
@@ -157,14 +174,23 @@ def moe_apply(p, x, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     ys = []
     for i, (_, _, _, slot, w) in enumerate(groups):
         # group i's slots of expert e are rows e * cap .. of its block
-        out_g = out[:, i * cap:(i + 1) * cap].reshape(e * cap, d)
+        out_g = out[:, i * cap:(i + 1) * cap].reshape((hi - lo) * cap, d)
+        if split:
+            # the parts of other ranks' experts are zeros; the weights take
+            # their whole gradient through copy_to_model
+            mine = (slot >= lo * cap) & (slot < hi * cap)
+            slot = torch.where(mine, slot - lo * cap, 0)
+            w = torch.where(mine, tp.copy_to_model(w), 0.0)
         contrib = out_g[slot] * w[..., None]                    # (Tg, k, D)
         y = torch.zeros((tg, d), dtype=acc_dt, device=x.device)
         for j in range(k):
             y = y + contrib[:, j].to(acc_dt)
         ys.append(y)
     y = part.constrain(ys[0] if g == 1 else torch.cat(ys), "BATCH", None)
+    if split:
+        y = tp.reduce_from_model(y)
     y = y.to(x.dtype)
     if cfg.n_shared_experts:
-        y = y + mlp_apply(p["shared"], xf)
+        y = y + mlp_apply(p["shared"], xf,
+                          width=cfg.n_shared_experts * cfg.d_expert)
     return y.reshape(b, s, d), aux

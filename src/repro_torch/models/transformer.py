@@ -32,6 +32,7 @@ from repro_torch import resolve_device
 from . import layers as L
 from . import moe as M
 from . import ssm as S
+from . import tensor_parallel as tp
 from .config import ModelConfig
 from .module import dense_init, embed_init, stack_init, tree_map
 
@@ -125,7 +126,7 @@ def block_apply(bp, x, spec, cfg: ModelConfig, positions):
         if ffn == "moe":
             y, aux = M.moe_apply(bp["ffn"], h2, cfg)
         else:
-            y = L.mlp_apply(bp["ffn"], h2)
+            y = L.mlp_apply(bp["ffn"], h2, width=cfg.d_ff)
         x = x + y
     return x, aux
 
@@ -246,24 +247,56 @@ def logits_fn(params, h, cfg: ModelConfig) -> torch.Tensor:
 
 
 def embed_tokens(params, tokens, cfg: ModelConfig) -> torch.Tensor:
-    return params["embed"][tokens]
+    """The rows of ``tokens``. Where ``embed`` holds fewer than ``cfg.vocab``
+    rows it is this rank's slice over 'model' (vocab-parallel): each rank
+    looks up the tokens in its rows, the others give zeros, and the ranks'
+    lookups are summed."""
+    e = params["embed"]
+    if e.shape[0] == cfg.vocab:
+        return e[tokens]
+    lo, hi = tp.local_range(cfg.vocab)
+    inside = (tokens >= lo) & (tokens < hi)
+    rows = e[torch.where(inside, tokens - lo, 0)]
+    return tp.reduce_from_model(rows.masked_fill(~inside[..., None], 0))
 
 
 def _chunked_ce(params, h, labels, mask, cfg: ModelConfig,
                 chunk: int = 256) -> Tuple[torch.Tensor, torch.Tensor]:
     """Cross-entropy summed over chunks of ``chunk`` positions, so the
     float32 logits never hold (B, S, V) at once. Returns (sum of the masked
-    token losses, sum of the mask)."""
+    token losses, sum of the mask).
+
+    Where the output embedding (``embed`` tied, else ``head``) holds this
+    rank's slice of the vocab over 'model', each rank computes the logits
+    of its vocab slice only: the log-sum-exp takes the maximum over the
+    ranks (no gradient: the log-sum-exp's does not depend on it) and sums
+    their exponentials, and the gold logit comes from the rank that holds
+    the label (the others add zero); no rank holds a chunk's logits over
+    the whole vocab."""
     s = h.shape[1]
     chunk = min(chunk, s)
+    w = params["embed"] if cfg.tie_embeddings else params["head"].T
+    split = w.shape[0] != cfg.vocab
+    if split:
+        h = tp.copy_to_model(h)
+        lo, hi = tp.local_range(cfg.vocab)
     tot = torch.zeros((), dtype=torch.float32, device=h.device)
     cnt = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(0, s, chunk):
         lg = logits_fn(params, h[:, i:i + chunk], cfg)       # (B, c, V) f32
         lab = labels[:, i:i + chunk].long()
         msk = mask[:, i:i + chunk]
-        lse = torch.logsumexp(lg, dim=-1)
-        gold = torch.gather(lg, -1, lab[..., None])[..., 0]
+        if split:                                   # lg: (B, c, V / ranks)
+            top = tp.max_over_model(lg.amax(dim=-1))
+            inside = (lab >= lo) & (lab < hi)
+            gold = torch.gather(lg, -1, torch.where(inside, lab - lo, 0)[..., None])
+            gold = torch.where(inside, gold[..., 0], 0.0)
+            sums, gold = tp.reduce_from_model(torch.stack(
+                [torch.exp(lg - top[..., None]).sum(dim=-1), gold])).unbind()
+            lse = top + torch.log(sums)
+        else:
+            lse = torch.logsumexp(lg, dim=-1)
+            gold = torch.gather(lg, -1, lab[..., None])[..., 0]
         tot = tot + torch.sum((lse - gold) * msk)
         cnt = cnt + torch.sum(msk)
     return tot, cnt

@@ -16,6 +16,7 @@ saved at world size 2 and resumed at 1. One spawn runs every job; each
 test reads its results.
 """
 import dataclasses
+import importlib
 import math
 import warnings
 
@@ -138,7 +139,7 @@ JOBS = {
 }
 
 
-def _child(rank, world, tmp, jobs):
+def _child(rank, world, tmp, jobs, module=__name__):
     torch.set_num_threads(1)
     # torch 2.13 calls all_gather_into_tensor / reduce_scatter_tensor
     # deprecated; the card's torch has no replacement yet
@@ -146,15 +147,18 @@ def _child(rank, world, tmp, jobs):
     dist.init_process_group("gloo", init_method=f"file://{tmp}/pg",
                             rank=rank, world_size=world)
     try:
-        out = {name: JOBS[name](tmp) for name in jobs}
+        table = importlib.import_module(module).JOBS
+        out = {name: table[name](tmp) for name in jobs}
         torch.save(out, f"{tmp}/rank{rank}.pt")
     finally:
         dist.destroy_process_group()
 
 
-def _spawn(tmp, world, jobs):
-    """Each rank's results of ``jobs``."""
-    mp.spawn(_child, args=(world, str(tmp), jobs), nprocs=world, join=True)
+def _spawn(tmp, world, jobs, module=__name__):
+    """Each rank's results of ``jobs``, names in the ``JOBS`` table of the
+    test module ``module`` (this one by default)."""
+    mp.spawn(_child, args=(world, str(tmp), jobs, module), nprocs=world,
+             join=True)
     return [torch.load(tmp / f"rank{r}.pt", weights_only=False)
             for r in range(world)]
 

@@ -7,7 +7,8 @@ paper's streaming apps with the inference app's predictor on the card,
 serving and training whisper-small (encoder-decoder) and
 llava-next-mistral-7b (a vlm backbone on image-patch embeddings), and
 training Jamba (through the selective scan's backward kernel) and
-xlstm-125m.
+xlstm-125m, training over meshes (data, ZeRO-3 and tensor parallelism),
+and ring context-parallel attention with the tokens over 'model'.
 
   python3 chip_smoke.py
 
@@ -236,6 +237,27 @@ time,
      heads of 128 a rank), bf16, 2 steps of 8 x 512, against phase 21's
      first two eager losses; phase 2 holds the flash forward and backward
      at both ranks' shapes;
+  35. ring context-parallel attention over 'model' at (1, 4): four ranks on
+     the one card over gloo as phase 34's, each its contiguous shard of the
+     tokens, against one-process oracles run here: (a)
+     ``ops.cp_flash_attention`` float32 at q = k = v 2 x 4 x 256 x 32,
+     windows None / 64 / 100, each rank's output and dq / dk / dv against
+     the plain version on the whole sequence (2e-5; gradient leaves); (b)
+     the same in bf16 at h2o-danube-1.8b's attention width (q 2 x 32 x
+     8,192 x 80, kv 8 heads), window 4,096 and causal, against the kernels
+     on the whole sequence (per element, ROW_SCALED_LIMIT), forward and
+     backward ms a rank (CUDA events), the ring's exchange ms and its flash
+     calls' (q and k shapes, offset, window); (c) ``lm_loss`` of
+     h2o-danube-1.8b+seqp at full width cut to 2 layers, float32, 1 x 8,192
+     tokens: the ranks' losses sum to one process's within 1e-5 relative,
+     their gradients summed within 1e-4 max|g| + 1e-6 a leaf; (d) the same
+     in bf16 at 2 x 8,192: the loss within 2e-2, each summed gradient leaf
+     within 2^-5 of its norm, and a control (each rank its shard alone, no
+     token split) that must exceed that; forward + backward ms and peak
+     memory a rank; each rank's launches and flash shapes; phase 2 holds
+     the bf16 flash forward and backward at the ranks' shapes (q 2 x 32 x
+     2,048 x 80 against 2,048 / 4,096 / 6,144 keys with the window, 8,192
+     causal) per element to ROW_SCALED_LIMIT;
 Every path runs with the launch counts set to 0 just before it and read just
 after; a graphed path's counts include its warm-up calls (``WARMUP`` eager
 calls before capture), and a replay adds what the capture recorded. Then it prints the kernel table as one JSON line (the rows of
@@ -245,7 +267,8 @@ and 24; for the backward, DeepSeek-V3 training for bf16 D 192 and phase
 22 for float32 D 192 and 24; whisper's and llava's shapes the launches of
 phases 24-25 and 26-27; the scan's training forward and backward those of
 phase 28; the G-2 shape of smollm-360m+padheads those of phase 33; the
-ranks' shapes of phase 34 the launches of both ranks) and,
+ranks' shapes of phase 34 the launches of both ranks; the ring's shapes
+the bf16 launches of phase 35's four ranks) and,
 last,
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
 with no CUDA device, or outside a checkout, it exits non-zero at once. Each
@@ -327,6 +350,14 @@ TOL = {("rmsnorm", "float32"): 1e-5, ("rmsnorm", "bfloat16"): 2e-2,
 BF16_ULP_SHARE = 2.0 ** -7
 BF16_RMS_SHARE = 2.0 ** -5
 SCALED_LIMIT = "2^-7 |plain| + 2^-5 rms(plain)"
+# the same with the floor raised to its row's (the last dim) where that is
+# larger: a causal row over few keys (the first rows of a shard at offset
+# 0) is a mean of few values, O(1) against a tensor's rms of ~0.1, and its
+# bf16 P error is of that row's size; a row over thousands of keys has about
+# the tensor's rms, so its limit is the tensor-wide one; a row that is 0 in
+# the plain version (dq of a row that sees one key: dP - delta) keeps the
+# tensor-wide floor for its rounding noise
+ROW_SCALED_LIMIT = "2^-7 |plain| + 2^-5 max(rms(plain row), rms(plain))"
 # AdamW's moments m and v, float32 on both sides: relative
 ADAMW_MV_TOL = 1e-6
 # RMSNorm's dscale sums dy * x * r over every row, float32 on both sides:
@@ -479,6 +510,57 @@ TP_ROWS = {
     for tag, case, what in (("padheads", TP_PADHEADS_CASE, "smollm-360m+padheads"),
                             ("qwen3", TP_QWEN_CASE, "Qwen3-MoE (1 layer)"))
     for bwd in ("", "_bwd")}
+# phase 35: ring context-parallel attention over 'model' at (1, CP_WORLD),
+# four gloo ranks sharing the card, the tokens over 'model' (r > 1 needs
+# more than two ranks). (a) float32, the reference oracle's case: q = k = v
+# shape CP_OP_SHAPE, windows CP_OP_WINDOWS (r 3 / 1 / 2 at L 64); (b) bf16
+# at h2o-danube-1.8b's attention width, CP_BF16_SHAPE = (b, hq, hkv, s,
+# hd), window 4096 (L 2048, r 2) and full causal (r 3), CP_BF16_ITERS
+# timed calls after one untimed; (c) h2o-danube-1.8b+seqp at full width
+# cut to CP_MODEL_CUT, float32, batch 1 x CP_MODEL_SEQ; (d) the same cut in
+# bf16, batch 2 x CP_MODEL_SEQ, CP_MODEL_ITERS timed forward + backward
+# passes after one untimed
+CP_WORLD = 4
+CP_OP_SHAPE = (2, 4, 4, 256, 32)
+CP_OP_WINDOWS = (None, 64, 100)
+CP_BF16_SHAPE = (2, 32, 8, 8192, 80)
+CP_BF16_WINDOWS = (4096, None)
+CP_BF16_ITERS = 3
+CP_MODEL_CUT = dict(n_layers=2)
+CP_MODEL_SEQ = 8192
+CP_MODEL_ITERS = 2
+# (c): the loss against one process, float32 sums in another order
+CP_LOSS_TOL = 1e-5
+# (d): bf16 against one process: the loss, and each gradient leaf summed
+# over the ranks by the norm of its difference over its own norm (a bf16
+# leaf is accumulated in bf16 over the loss's chunks and the layers, on
+# both sides in another order, so one element is not held to an ulp). A
+# control, each rank its shard alone, must exceed the gradients' limit
+CP_BF16_LOSS_TOL = 2e-2
+CP_BF16_GRAD_TOL = 2 ** -5
+# seconds phase 35's four ranks may take before they are killed
+CP_DEADLINE_S = 240
+# the shapes of a rank's flash calls at CP_BF16_SHAPE, each a row of the
+# kernel table (forward and backward) counted over phase 35's bf16 runs of
+# both ranks' shapes: q 2x32x2048x80 against the pulled shards and its own,
+# kv 2x8; (Skv, window) with offset Skv - 2048
+CP_RING_SHAPES = ((2048, 4096), (4096, 4096), (6144, 4096), (8192, None))
+
+
+def cp_case(skv: int, window) -> str:
+    b, hq, hkv, s, hd = CP_BF16_SHAPE
+    sq = s // CP_WORLD
+    mask = "causal" if window is None else f"window{window}"
+    return f"CP rank danube {mask} offset{skv - sq} {b}x{hq}/{hkv}x{sq}x{skv}x{hd}"
+
+
+CP_ROWS = {
+    f"flash_attention{bwd}_cp_kv{skv}": (
+        f"flash_attention{bwd}", f"src/repro_torch/csrc/flash_attention{bwd}_sm90.cu",
+        "src/repro/kernels/flash_attention.py:84", cp_case(skv, window) + (" with L" if bwd else ""),
+        "bfloat16", f"ring attention at (1, {CP_WORLD}), the ranks that pull "
+        f"{skv // (CP_BF16_SHAPE[3] // CP_WORLD) - 1} shards (phase 35)")
+    for skv, window in CP_RING_SHAPES for bwd in ("", "_bwd")}
 # phase 34's runs: (a) float32 lockstep at GLOO_CUT, GLOO_STEPS steps of 8 x
 # GLOO_SEQ; (b) smollm-360m+padheads whole, bf16, PADHEADS_TRAIN_STEPS steps
 # of 8 x 512 (phase 33's eager run is its one-rank oracle); (c) Qwen3-MoE at
@@ -737,8 +819,10 @@ def compare(kernel, case, dtype, got, want, tol_key, run=None, plain=None,
             plain_events=False):
     """One row of phase 2. ``got``/``want`` are a tensor or a tuple of
     tensors, each held to the tolerance of its own dtype; with ``scaled`` a
-    bf16 tensor is held per element to SCALED_LIMIT instead, and the row
-    keeps rms(plain), max|plain| and the worst err / limit of each; with
+    bf16 tensor is held per element to SCALED_LIMIT instead (``scaled=
+    "row"``: ROW_SCALED_LIMIT, the tensor-wide ratio kept beside it), and
+    the row keeps rms(plain), max|plain| and the worst err / limit of each;
+    with
     ``leafwise`` a float32 tensor is held as a gradient leaf, |diff| <=
     tol * max|plain| + 1e-6. With ``plain_events`` the plain version is
     timed by CUDA events (``event_ms``), not the profiler. The row keeps the
@@ -756,9 +840,14 @@ def compare(kernel, case, dtype, got, want, tol_key, run=None, plain=None,
         if scaled and w.dtype == torch.bfloat16:
             rms = float(wf.square().mean().sqrt())
             ratio = float((err / (BF16_ULP_SHARE * wf.abs() + BF16_RMS_SHARE * rms)).max())
+            entry = {"rms_plain": rms, "max_abs_plain": float(wf.abs().max()),
+                     "max_abs_err": float(err.max()), "err_over_limit": ratio}
+            if scaled == "row":
+                floor = wf.square().mean(-1, keepdim=True).sqrt().clamp(min=rms)
+                ratio = float((err / (BF16_ULP_SHARE * wf.abs() + BF16_RMS_SHARE * floor)).max())
+                entry.update(err_over_limit=ratio, err_over_global_limit=entry["err_over_limit"])
             ok = ok and ratio <= 1.0    # NaN fails
-            held.append({"rms_plain": rms, "max_abs_plain": float(wf.abs().max()),
-                         "max_abs_err": float(err.max()), "err_over_limit": ratio})
+            held.append(entry)
         elif leafwise and w.dtype == torch.float32:
             t = TOL[(tol_key, "float32")]
             ok = ok and bool((err <= t * float(wf.abs().max()) + 1e-6).all())
@@ -769,7 +858,7 @@ def compare(kernel, case, dtype, got, want, tol_key, run=None, plain=None,
     row = dict(kernel=kernel, case=case, dtype=dtype, max_abs_err=max_err,
                tol=TOL[(tol_key, dtype)], ok=ok)
     if held:
-        row.update(tol=SCALED_LIMIT, scaled=held)
+        row.update(tol=ROW_SCALED_LIMIT if scaled == "row" else SCALED_LIMIT, scaled=held)
     if leafwise:
         leaf = f"{TOL[(tol_key, 'float32')]:g} max|plain| + 1e-6 (float32)"
         row["tol"] = f"{row['tol']} (bf16), {leaf}" if held else leaf
@@ -938,6 +1027,7 @@ def phase_kernels(rms, fla, dec, scan):
     rows += gqa_rows(fla, randn, PADHEADS_CASE, (8, 16, 8, 512, 64))
     rows += gqa_rows(fla, randn, TP_PADHEADS_CASE, TP_PADHEADS_SHAPE, (torch.bfloat16,))
     rows += gqa_rows(fla, randn, TP_QWEN_CASE, TP_QWEN_SHAPE, (torch.bfloat16,))
+    rows += ring_rows(fla, randn)
     rows += optimizer_rows(gen)
     return rows
 
@@ -991,6 +1081,57 @@ def gqa_rows(fla, randn, case, shape, dtypes=(torch.bfloat16, torch.float32)):
             dn, fla.flash_attention_bwd_cuda(*bargs, lse=lse),
             fla.flash_attention_bwd_plain(*bargs), "attn_bwd", **timed))
         rows[-1]["instance"] = fla.INSTANCES[dtype]
+    return rows
+
+
+def ring_rows(fla, randn):
+    """Flash attention forward and backward (with the forward's L) in bf16
+    at the ring's shapes (phase 35, ``CP_RING_SHAPES``): a rank's q of
+    h2o-danube-1.8b's 32 heads of 80 over 2,048 positions against the K/V
+    of its shard and the shards it pulls, kv 8 heads, its rows at offset
+    Skv - 2,048, window 4,096 or causal. Held per element to
+    ROW_SCALED_LIMIT: softmax over thousands of keys gives a typical |o|
+    and |dk| about the flat bf16 tolerance, while rank 0's first rows see
+    few keys. Timed against SDPA with a boolean mask and
+    ``enable_gqa`` (its backward as in ``backward_rows``)."""
+    rows = []
+    b, hq, hkv, s, hd = CP_BF16_SHAPE
+    sq = s // CP_WORLD
+    dt = torch.bfloat16
+    for skv, window in CP_RING_SHAPES:
+        case, off = cp_case(skv, window), skv - sq
+        q, do = randn((b, hq, sq, hd), dt), randn((b, hq, sq, hd), dt)
+        k, v = randn((b, hkv, skv, hd), dt), randn((b, hkv, skv, hd), dt)
+        mask = fla_mask(sq, skv, window, off)
+        pairs, lib_mask = int(mask.sum()), mask.cuda()
+        args = (q, k, v, True, window, off)
+        rows.append(compare(
+            "flash_attention", case, "bfloat16", fla.flash_attention_cuda(*args),
+            fla.flash_attention_plain(*args), "attn", scaled="row",
+            run=lambda a=args: fla.flash_attention_cuda(*a),
+            plain=lambda a=args: fla.flash_attention_plain(*a),
+            library=lambda q=q, k=k, v=v, m=lib_mask: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=m, enable_gqa=True),
+            n_bytes=2 * nbytes(q) + 2 * nbytes(k), ops=4 * b * hq * hd * pairs))
+        rows[-1]["instance"] = fla.INSTANCES[dt]
+        o, lse = fla.flash_attention_cuda(*args, return_lse=True)
+        bargs = (q, k, v, o, do, True, window, off)
+        ql, kl, vl = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+
+        def lib_f(ql=ql, kl=kl, vl=vl, m=lib_mask):
+            return F.scaled_dot_product_attention(ql, kl, vl, attn_mask=m, enable_gqa=True)
+
+        rows.append(compare(
+            "flash_attention_bwd", case + " with L", "bfloat16",
+            fla.flash_attention_bwd_cuda(*bargs, lse=lse),
+            fla.flash_attention_bwd_plain(*bargs), "attn_bwd", scaled="row",
+            run=lambda a=bargs, l=lse: fla.flash_attention_bwd_cuda(*a, lse=l),
+            plain=lambda a=bargs: fla.flash_attention_bwd_plain(*a),
+            library=lambda f=lib_f, ins=(ql, kl, vl), do=do:
+                torch.autograd.grad(f(), ins, do),
+            library_fwd=lib_f, n_bytes=4 * nbytes(q) + 4 * nbytes(k),
+            ops=10 * b * hq * hd * pairs))
+        rows[-1]["instance"] = fla.INSTANCES[dt]
     return rows
 
 
@@ -2360,6 +2501,97 @@ def phase_streaming(kern, zero) -> dict:
     return out
 
 
+def kernel_wrappers() -> dict:
+    """Each kernel's wrapper by the name of its counter."""
+    from repro_torch.kernels import adamw as ka
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import flash_attention as fla
+    from repro_torch.kernels import mamba_scan as scan
+    from repro_torch.kernels import rmsnorm as rms
+    return {"rmsnorm": rms.rmsnorm_cuda, "flash_attention": fla.flash_attention_cuda,
+            "decode_attention": dec.decode_attention_cuda,
+            "mamba_scan": scan.mamba_scan_cuda, "mamba_scan_train": scan.mamba_scan_train_cuda,
+            "mamba_scan_bwd": scan.mamba_scan_bwd_cuda, "rmsnorm_bwd": rms.rmsnorm_bwd_cuda,
+            "flash_attention_bwd": fla.flash_attention_bwd_cuda,
+            "sumsq": ka.sumsq_cuda, "clip_finalize": ka.clip_finalize_cuda,
+            "adamw_update": ka.adamw_update_cuda}
+
+
+def gloo_join(rank: int, world: int, port: int) -> None:
+    """A spawned rank's set-up: the one card, no TF32, and the gloo group
+    of ``world`` ranks through the parent's ``TCPStore`` on
+    127.0.0.1:``port``, each collective timed out after GLOO_TIMEOUT_S."""
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # gloo's default device is the address the host name resolves to: a
+    # lookup that a machine without a resolver may stall on
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    timeout = datetime.timedelta(seconds=GLOO_TIMEOUT_S)
+    store = dist.TCPStore("127.0.0.1", port, is_master=False, timeout=timeout)
+    dist.init_process_group("gloo", store=store, rank=rank, world_size=world,
+                            timeout=timeout)
+
+
+def counted_kernels():
+    """A rank's kernel wrappers by counter (``kernel_wrappers``), the two
+    flash wrappers replaced in their module by stand-ins that record each
+    launch's (direction, q shape, k shape, offset, window, dtype) in the
+    returned Counter and take the wrappers' counters (each wrapper adds to
+    the counter under its module name)."""
+    from repro_torch.kernels import flash_attention as fla
+    kern, shapes = kernel_wrappers(), collections.Counter()
+    real_fwd, real_bwd = fla.flash_attention_cuda, fla.flash_attention_bwd_cuda
+
+    def fwd(q, k, v, causal=True, window=None, offset=0, scale=None, return_lse=False):
+        shapes[("fwd", tuple(q.shape), tuple(k.shape), offset, window, str(q.dtype))] += 1
+        return real_fwd(q, k, v, causal, window, offset, scale, return_lse)
+
+    def bwd(q, k, v, o, do, causal=True, window=None, offset=0, scale=None, lse=None):
+        shapes[("bwd", tuple(q.shape), tuple(k.shape), offset, window, str(q.dtype))] += 1
+        return real_bwd(q, k, v, o, do, causal, window, offset, scale, lse)
+
+    for name, fn, real in (("flash_attention", fwd, real_fwd),
+                           ("flash_attention_bwd", bwd, real_bwd)):
+        fn.__dict__.update(vars(real))
+        setattr(fla, real.__name__, fn)
+        kern[name] = fn
+    return kern, shapes
+
+
+def gloo_ranks(fn, world: int, rdir: Path, deadline_s: float, what: str, meanwhile=None):
+    """Runs ``fn(rank, world, port, str(rdir))`` in ``world`` spawned
+    processes, the parent serving their ``TCPStore`` on 127.0.0.1 (a free
+    port), and ``meanwhile()`` here while they start. Fails, and kills
+    them, if they are still running ``deadline_s`` s after ``meanwhile``
+    returned; kills any that is left if a rank or ``meanwhile`` raised.
+    Returns what ``meanwhile`` returned and each rank's ``rank{r}.pt``
+    from ``rdir`` (emptied first)."""
+    import torch.distributed as dist
+    import torch.multiprocessing as tmp_mp
+    if rdir.exists():
+        for f in rdir.iterdir():
+            f.unlink()
+    rdir.mkdir(exist_ok=True)
+    store = dist.TCPStore("127.0.0.1", 0, is_master=True, wait_for_workers=False,
+                          timeout=datetime.timedelta(seconds=GLOO_TIMEOUT_S))
+    ctx = tmp_mp.start_processes(fn, args=(world, store.port, str(rdir)),
+                                 nprocs=world, join=False, start_method="spawn")
+    try:
+        got = None if meanwhile is None else meanwhile()
+        deadline = time.monotonic() + deadline_s
+        while not ctx.join(timeout=5):
+            if time.monotonic() > deadline:
+                fail(f"{what} still running after {deadline_s} s; killed")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+        del store
+    return got, [torch.load(rdir / f"rank{r}.pt", weights_only=False) for r in range(world)]
+
+
 def gloo_rank(rank: int, world: int, port: int, tmp: str) -> None:
     """Rank ``rank`` of phase 32 (``world`` ranks on the one card over gloo,
     eager; the parent serves the ``TCPStore`` on 127.0.0.1:``port``): which
@@ -2372,16 +2604,7 @@ def gloo_rank(rank: int, world: int, port: int, tmp: str) -> None:
     from repro_torch.launch.train import train
     from repro_torch.models.module import tree_map
 
-    torch.cuda.set_device(0)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    # gloo's default device is the address the host name resolves to: a
-    # lookup that a machine without a resolver may stall on
-    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
-    timeout = datetime.timedelta(seconds=GLOO_TIMEOUT_S)
-    store = dist.TCPStore("127.0.0.1", port, is_master=False, timeout=timeout)
-    dist.init_process_group("gloo", store=store, rank=rank, world_size=world,
-                            timeout=timeout)
+    gloo_join(rank, world, port)
     try:
         x = torch.arange(8 * world, dtype=torch.float32, device="cuda") + rank
         probes = {
@@ -2422,47 +2645,12 @@ def tp_rank(rank: int, world: int, port: int, tmp: str) -> None:
     peak memory, counts and (rank 0, (a)) the whole params, gathered, to
     ``tmp``."""
     import torch.distributed as dist
-    from repro_torch.kernels import adamw as ka
-    from repro_torch.kernels import decode_attention as dec
-    from repro_torch.kernels import flash_attention as fla
-    from repro_torch.kernels import mamba_scan as scan
-    from repro_torch.kernels import rmsnorm as rms
     from repro_torch.launch import shardings as SH
     from repro_torch.launch.train import train
     from repro_torch.models.module import tree_map
 
-    torch.cuda.set_device(0)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
-    timeout = datetime.timedelta(seconds=GLOO_TIMEOUT_S)
-    store = dist.TCPStore("127.0.0.1", port, is_master=False, timeout=timeout)
-    dist.init_process_group("gloo", store=store, rank=rank, world_size=world,
-                            timeout=timeout)
-    kern = {"rmsnorm": rms.rmsnorm_cuda, "flash_attention": fla.flash_attention_cuda,
-            "decode_attention": dec.decode_attention_cuda,
-            "mamba_scan": scan.mamba_scan_cuda, "mamba_scan_train": scan.mamba_scan_train_cuda,
-            "mamba_scan_bwd": scan.mamba_scan_bwd_cuda, "rmsnorm_bwd": rms.rmsnorm_bwd_cuda,
-            "flash_attention_bwd": fla.flash_attention_bwd_cuda,
-            "sumsq": ka.sumsq_cuda, "clip_finalize": ka.clip_finalize_cuda,
-            "adamw_update": ka.adamw_update_cuda}
-    # the (q, k) shapes of every flash launch, forward and backward: each
-    # wrapper is called through a stand-in that records them, which also
-    # takes its counters (the wrapper adds to them under its module name)
-    shapes = collections.Counter()
-
-    def recording(name, tag):
-        fn = getattr(fla, name)
-
-        def call(q, k, *args, **kw):
-            shapes[(tag, tuple(q.shape), tuple(k.shape), str(q.dtype))] += 1
-            return fn(q, k, *args, **kw)
-        call.__dict__.update(vars(fn))
-        setattr(fla, name, call)
-        return call
-
-    kern["flash_attention"] = recording("flash_attention_cuda", "fwd")
-    kern["flash_attention_bwd"] = recording("flash_attention_bwd_cuda", "bwd")
+    gloo_join(rank, world, port)
+    kern, shapes = counted_kernels()
     mesh_shape = (1, world)
     out = {}
     try:
@@ -2495,6 +2683,376 @@ def tp_rank(rank: int, world: int, port: int, tmp: str) -> None:
         dist.destroy_process_group()
 
 
+def cp_inputs(shape, dtype, seed):
+    """q, k, v and dO of ``shape`` = (b, hq, hkv, s, hd) on the card, drawn
+    from ``seed``: the same in every process."""
+    b, hq, hkv, s, hd = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return tuple(torch.randn(sh, generator=gen, device="cuda").to(dtype)
+                 for sh in ((b, hq, s, hd), (b, hkv, s, hd), (b, hkv, s, hd), (b, hq, s, hd)))
+
+
+def cp_model(dtype: str):
+    """h2o-danube-1.8b+seqp at full width cut to CP_MODEL_CUT in ``dtype``,
+    its params drawn on the card from SEED, and a batch of 1 (float32) or 2
+    (bf16) rows of CP_MODEL_SEQ tokens: the same in every process."""
+    from repro_torch.configs import get
+    from repro_torch.models import model_api
+    cfg = dataclasses.replace(get("h2o_danube_1_8b_seqp"), **CP_MODEL_CUT, dtype=dtype)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = model_api(cfg).init(gen, cfg, device="cuda")
+    rows = 1 if dtype == "float32" else 2
+    toks = torch.randint(0, cfg.vocab, (rows, CP_MODEL_SEQ + 1), generator=gen, device="cuda")
+    return cfg, params, {"inputs": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+def cp_rank(rank: int, world: int, port: int, tmp: str) -> None:
+    """Rank ``rank`` of phase 35 (ring context-parallel attention over
+    'model' at (1, ``world``), the ranks on the one card over gloo, eager;
+    the parent serves the ``TCPStore`` on 127.0.0.1:``port``), each rank
+    its contiguous shard of the tokens: (a) ``ops.cp_flash_attention``
+    float32 at CP_OP_SHAPE, output and dq / dk / dv; (b) the same in bf16 at
+    CP_BF16_SHAPE, with forward and backward ms (CUDA events), the ring's
+    exchange ms (host clock, synchronised) and its flash calls' shapes; (c)
+    ``lm_loss`` of h2o-danube-1.8b+seqp cut to CP_MODEL_CUT, float32, its
+    loss and its gradient summed over the ranks (rank 0 writes it); (d) the
+    same in bf16 (its gradient summed in float32), forward + backward ms
+    and peak memory. Launch counts and flash shapes per run; results to
+    ``tmp``."""
+    import torch.distributed as dist
+    from repro_torch import collectives
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model_api
+    from repro_torch.models import partitioning as part
+    from repro_torch.models.module import tree_leaves, tree_map
+
+    gloo_join(rank, world, port)
+    kern, shapes = counted_kernels()
+    # the ring's moves, each timed on the host between two synchronisations
+    exchange = collections.defaultdict(list)
+
+    def timed(name):
+        real = getattr(collectives, name)
+
+        def call(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real(*args, **kw)
+            torch.cuda.synchronize()
+            exchange[name].append((time.perf_counter() - t0) * 1e3)
+            return out
+        setattr(collectives, name, call)
+
+    timed("ring_pull")
+    timed("ring_push")
+
+    def start():
+        for fn in kern.values():
+            fn.launches = 0
+        shapes.clear()
+        exchange.clear()
+        staged[0] = collectives.p2p.staged
+
+    def record(**more):
+        return {"counts": {name: fn.launches for name, fn in kern.items()},
+                "shapes": dict(shapes), "exchange_ms": dict(exchange),
+                "staged_copies": collectives.p2p.staged - staged[0], **more}
+
+    staged = [0]
+    mesh = make_mesh((1, world), ("data", "model"), device_type="cuda")
+    group = mesh.get_group("model")
+    idx = dist.get_rank(group)
+    out = {"model_index": idx}
+    try:
+        # (a), (b): the op on this rank's shard, output and gradients
+        for label, shape, dtype, windows, seed, iters in (
+                ("op_f32", CP_OP_SHAPE, torch.float32, CP_OP_WINDOWS, 1, 0),
+                ("op_bf16", CP_BF16_SHAPE, torch.bfloat16, CP_BF16_WINDOWS, 2, CP_BF16_ITERS)):
+            length = shape[3] // world
+            toks = slice(idx * length, (idx + 1) * length)
+            q, k, v, do = (t[:, :, toks].contiguous() for t in cp_inputs(shape, dtype, seed))
+            rec = out[label] = {}
+            for window in windows:
+                start()
+                ms = {"fwd": [], "bwd": []}
+                for i in range(iters + 1):
+                    ins = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+                    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+                    torch.cuda.synchronize()
+                    ev[0].record()
+                    o = ops.cp_flash_attention(*ins, mesh, window=window)
+                    ev[1].record()
+                    o.backward(do)
+                    ev[2].record()
+                    torch.cuda.synchronize()
+                    if i:
+                        ms["fwd"].append(ev[0].elapsed_time(ev[1]))
+                        ms["bwd"].append(ev[1].elapsed_time(ev[2]))
+                rec[window] = record(
+                    out=o.detach().cpu(), grads=[t.grad.cpu() for t in ins], ms=ms)
+        # (c), (d): the model's loss on this rank's shard of the tokens
+        for label, dtype, iters in (("model_f32", "float32", 0),
+                                    ("model_bf16", "bfloat16", CP_MODEL_ITERS)):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            cfg, params, batch = cp_model(dtype)
+            length = CP_MODEL_SEQ // world
+            b = {k: t[:, idx * length:(idx + 1) * length] for k, t in batch.items()}
+
+            def total(n):
+                n = n.clone()
+                dist.all_reduce(n)
+                return n
+
+            start()
+            step_s = []
+            for i in range(iters + 1):
+                p = tree_map(lambda a: a.detach().requires_grad_(True), params)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with part.use_mesh(mesh, ("data",), seq_axis="model"):
+                    loss, metrics = model_api(cfg).loss(p, b, cfg, total=total)
+                    loss.backward()
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t0)
+            rec = out[label] = record(
+                loss=loss.item(), tokens=float(metrics["tokens"]), step_s=step_s,
+                max_memory_allocated=torch.cuda.max_memory_allocated())
+            runs = {label: [a.grad.float() for a in tree_leaves(p)]}
+            if dtype == "bfloat16":
+                # the control, after the counts are read: each rank its
+                # shard alone (no token split registered: attention within
+                # the shard at local positions), whose summed gradients
+                # the parent's check must refuse
+                p = tree_map(lambda a: a.detach().requires_grad_(True), params)
+                with part.use_mesh(mesh, ("data",)):
+                    model_api(cfg).loss(p, b, cfg, total=total)[0].backward()
+                runs[label + "_control"] = [a.grad.float() for a in tree_leaves(p)]
+            del params, p, loss
+            for name, grads in runs.items():
+                for g in grads:
+                    dist.all_reduce(g)
+                if rank == 0:
+                    torch.save([g.cpu() for g in grads], f"{tmp}/grads_{name}.pt")
+            del runs, grads
+        torch.save(out, f"{tmp}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_ring(fla, zero, report, frontend_totals, out_dir, took) -> None:
+    """Phase 35: ring context-parallel attention over 'model' at (1,
+    CP_WORLD), CP_WORLD ranks on the one card over gloo (``cp_rank``), each
+    its contiguous shard of the tokens, held against the one-process
+    oracles run here while the ranks start; fills ``report
+    ["ring_attention"]`` and the launches of the ``CP_ROWS`` of the kernel
+    table (``frontend_totals``)."""
+    from repro_torch.models import model_api
+    from repro_torch.models import partitioning as part
+    from repro_torch.models.module import tree_leaves, tree_map
+
+    def oracles():
+        """The one-process oracles, run while the ranks start: (a) the
+        plain version and (b) the kernels on the whole sequence, (c) and
+        (d) the loss and gradient on the whole batch."""
+        got = {}
+        for label, shape, dtype, windows, seed in (
+                ("op_f32", CP_OP_SHAPE, torch.float32, CP_OP_WINDOWS, 1),
+                ("op_bf16", CP_BF16_SHAPE, torch.bfloat16, CP_BF16_WINDOWS, 2)):
+            q, k, v, do = cp_inputs(shape, dtype, seed)
+            for window in windows:
+                if dtype == torch.float32:
+                    o = fla.flash_attention_plain(q, k, v, True, window, 0)
+                    grads = fla.flash_attention_bwd_plain(q, k, v, o, do, True, window, 0)
+                else:
+                    o, lse = fla.flash_attention_cuda(q, k, v, True, window, 0, return_lse=True)
+                    grads = fla.flash_attention_bwd_cuda(q, k, v, o, do, True, window, 0, lse=lse)
+                got[(label, window)] = (o, grads)
+            del q, k, v, do
+        cfgs = {}
+        with part.use_mesh(None):
+            for label, dtype in (("model_f32", "float32"), ("model_bf16", "bfloat16")):
+                cfg, params, batch = cp_model(dtype)
+                cfgs[label] = cfg
+                p = tree_map(lambda a: a.detach().requires_grad_(True), params)
+                loss, _ = model_api(cfg).loss(p, batch, cfg)
+                loss.backward()
+                got[label] = (loss.item(), [a.grad for a in tree_leaves(p)])
+                del params, p, loss
+        torch.cuda.empty_cache()
+        return got, cfgs
+
+    (oracle, cfgs), ranks = gloo_ranks(cp_rank, CP_WORLD, out_dir / "cp", CP_DEADLINE_S,
+                                       f"{CP_WORLD} ring ranks", oracles)
+    cfg32, cfg16 = cfgs["model_f32"], cfgs["model_bf16"]
+    cpr = report["ring_attention"] = {"ranks": [{} for _ in ranks]}
+
+    def flash_calls(shape, pulled, window, dn, n_fwd, n_bwd):
+        """A rank's flash launches at ``shape`` = (b, hq, hkv, s, hd) of the
+        whole sequence: its L = s / CP_WORLD rows against the K/V of the
+        ``pulled`` shards and its own, at offset ``pulled`` L."""
+        b, hq, hkv, s, hd = shape
+        length = s // CP_WORLD
+        key = ((b, hq, length, hd), (b, hkv, (pulled + 1) * length, hd),
+               pulled * length, window, dn)
+        return {("fwd",) + key: n_fwd, ("bwd",) + key: n_bwd}
+
+    for label, dtype, windows, iters, dn in (
+            ("op_f32", torch.float32, CP_OP_WINDOWS, 0, "torch.float32"),
+            ("op_bf16", torch.bfloat16, CP_BF16_WINDOWS, CP_BF16_ITERS, "torch.bfloat16")):
+        shape = CP_OP_SHAPE if label == "op_f32" else CP_BF16_SHAPE
+        length = shape[3] // CP_WORLD
+        for window in windows:
+            ring = CP_WORLD - 1 if window is None else min(CP_WORLD - 1, -(-window // length))
+            o_w, g_w = oracle[(label, window)]
+            for i, r in enumerate(ranks):
+                got = r[label][window]
+                toks = slice(i * length, (i + 1) * length)
+                pulled = min(i, ring)
+                case = f"{label} window {window} rank {i}"
+                # bf16: per element to ROW_SCALED_LIMIT (a typical |o| or
+                # |dk| at thousands of keys is about phase 2's flat
+                # tolerance; rank 0's first keys' dK / dV are O(1))
+                held = [compare("cp_flash_attention", case, dn[6:], got["out"].cuda(),
+                                o_w[:, :, toks], "attn", scaled="row"),
+                        compare("cp_flash_attention", case, dn[6:],
+                                tuple(g.cuda() for g in got["grads"]),
+                                tuple(w[:, :, toks] for w in g_w), "attn_bwd",
+                                scaled="row", leafwise=True)]
+                errs = {"out": held[0]["max_abs_err"], "grads": held[1]["max_abs_err"]}
+                if not (held[0]["ok"] and held[1]["ok"]):
+                    fail(f"ring attention {case}: max abs errors {errs} beyond "
+                         f"{held[0]['tol']} / {held[1]['tol']}")
+                want = zero(flash_attention=iters + 1, flash_attention_bwd=iters + 1)
+                want_sh = flash_calls(shape, pulled, window, dn, iters + 1, iters + 1)
+                if got["counts"] != want or got["shapes"] != want_sh:
+                    fail(f"ring attention {label} window {window} rank {i}: launches "
+                         f"{got['counts']}, flash calls {got['shapes']}; want {want}, {want_sh}")
+                rec = {"max_abs_err": errs, "flash_calls": {str(k): n for k, n in got["shapes"].items()},
+                       "exchange_ms": got["exchange_ms"], "staged_copies": got["staged_copies"]}
+                if dtype == torch.bfloat16:
+                    rec["err_over_limit"] = {
+                        "out": held[0]["scaled"][0]["err_over_limit"],
+                        "grads": max(h["err_over_limit"] for h in held[1]["scaled"])}
+                if iters:
+                    rec.update(fwd_ms=got["ms"]["fwd"], bwd_ms=got["ms"]["bwd"])
+                cpr["ranks"][i][f"{label} window {window}"] = rec
+    model_err = {}
+    for label, cfg_m, iters in (("model_f32", cfg32, 0), ("model_bf16", cfg16, CP_MODEL_ITERS)):
+        per = {k: v * (iters + 1) for k, v in per_train_step(cfg_m).items()
+               if k not in ("sumsq", "clip_finalize", "adamw_update")}
+        length = CP_MODEL_SEQ // CP_WORLD
+        ring = min(CP_WORLD - 1, -(-cfg_m.window // length))
+        dn = "torch.float32" if label == "model_f32" else "torch.bfloat16"
+        shape = (1 if label == "model_f32" else 2, cfg_m.n_heads, cfg_m.n_kv_heads,
+                 CP_MODEL_SEQ, cfg_m.hd)
+        for i, r in enumerate(ranks):
+            got = r[label]
+            want_sh = flash_calls(shape, min(i, ring), cfg_m.window, dn,
+                                  per["flash_attention"], per["flash_attention_bwd"])
+            if got["counts"] != zero(**per) or got["shapes"] != want_sh:
+                fail(f"ring {label} rank {i}: launches {got['counts']}, flash calls "
+                     f"{got['shapes']}; want {per}, {want_sh}")
+            cpr["ranks"][i][label] = {
+                "loss_part": got["loss"], "tokens": got["tokens"], "step_s": got["step_s"],
+                "max_memory_allocated": got["max_memory_allocated"],
+                "exchange_ms": got["exchange_ms"], "staged_copies": got["staged_copies"],
+                "flash_calls": {str(k): n for k, n in got["shapes"].items()}}
+        loss = sum(r[label]["loss"] for r in ranks)
+        want = oracle[label][0]
+        rel = abs(loss - want) / abs(want)
+        lim = CP_LOSS_TOL if label == "model_f32" else CP_BF16_LOSS_TOL
+        model_err[label] = {"loss": loss, "one_process": want, "rel": rel, "tol": lim}
+        tokens = (1 if label == "model_f32" else 2) * CP_MODEL_SEQ
+        if not (rel <= lim and all(r[label]["tokens"] == tokens for r in ranks)):
+            fail(f"ring {label}: the ranks' losses sum to {loss}, one process {want} "
+                 f"(rel {rel}, tol {lim}); tokens {[r[label]['tokens'] for r in ranks]}")
+        # the ranks' gradients summed (in float32) against one process's,
+        # each leaf (the loss of random weights sits near ln V whatever
+        # attention computes; the gradients do not): float32 as a gradient
+        # leaf, bf16 by CP_BF16_GRAD_TOL of its norm; the bf16 control must
+        # fail that
+        runs = [label] + ([label + "_control"] if label == "model_bf16" else [])
+        for run in runs:
+            summed = torch.load(out_dir / "cp" / f"grads_{run}.pt", weights_only=False)
+            if [g.shape for g in summed] != [w.shape for w in oracle[label][1]]:
+                fail(f"ring {run}: the ranks' gradient leaves are not one process's")
+            ratios = []
+            for g, w in zip(summed, oracle[label][1]):
+                wf, g = w.float(), g.cuda()
+                if label == "model_f32":
+                    ratios.append(float((g - wf).abs().max())
+                                  / (GRAD_TOL * float(wf.abs().max()) + 1e-6))
+                else:
+                    ratios.append(float((g - wf).norm() / wf.norm()) / CP_BF16_GRAD_TOL)
+            model_err[label][f"{run[6:]}_grad_err_over_limit"] = ratios
+            del summed
+        worst = max(model_err[label][f"{label[6:]}_grad_err_over_limit"])
+        model_err[label]["grad_worst_err_over_limit"] = worst
+        model_err[label]["grad_tol"] = (f"{GRAD_TOL:g} max|g| + 1e-6" if label == "model_f32"
+                                        else f"{CP_BF16_GRAD_TOL:g} |g| (norms)")
+        if not worst <= 1:
+            fail(f"ring {label}: the ranks' gradients summed differ from one process's by "
+                 f"{worst:.3f} times their limit, {model_err[label]['grad_tol']}")
+        if label == "model_bf16":
+            control = max(model_err[label]["bf16_control_grad_err_over_limit"])
+            model_err[label]["control_grad_worst_err_over_limit"] = control
+            if not control > 1:
+                fail(f"ring {label}: the control (each rank its shard alone) passes the "
+                     f"gradients' check ({control:.3f} of the limit), which so cannot see "
+                     "a ring that drops the other shards")
+    cpr["models"] = model_err
+    del oracle
+    torch.cuda.empty_cache()
+    for skv, window in CP_RING_SHAPES:
+        for d, kernel in (("fwd", "flash_attention"), ("bwd", "flash_attention_bwd")):
+            frontend_totals[f"{kernel}_cp_kv{skv}"] = sum(
+                n for r in ranks for label in ("op_bf16", "model_bf16")
+                for run in ([r[label][w] for w in CP_BF16_WINDOWS] if label == "op_bf16"
+                            else [r[label]])
+                for (dd, qs, ks, off, win, dn), n in run["shapes"].items()
+                if dd == d and ks[2] == skv and win == window and dn == "torch.bfloat16")
+    del ranks
+
+    def med(xs):
+        return statistics.median(xs) if xs else float("nan")
+
+    rk = cpr["ranks"]
+    print(f"[35 ring attention] (1, {CP_WORLD}) over 'model', {CP_WORLD} ranks on the one card "
+          "over gloo, each its shard of the tokens: (a) float32 q=k=v "
+          f"{'x'.join(map(str, CP_OP_SHAPE[:2] + CP_OP_SHAPE[3:]))}, windows {CP_OP_WINDOWS}: "
+          "max abs err out / dq, dk, dv " + "; ".join(
+              f"w{w} " + "/".join(f"{max(r[f'op_f32 window {w}']['max_abs_err'][k] for r in rk):.1e}"
+                                  for k in ("out", "grads")) for w in CP_OP_WINDOWS)
+          + f"; (b) bf16 q {CP_BF16_SHAPE[:2]} kv {CP_BF16_SHAPE[2]} heads x "
+          f"{CP_BF16_SHAPE[3]} x {CP_BF16_SHAPE[4]}: " + "; ".join(
+              f"w{w} worst err / limit out / grads "
+              + "/".join(f"{max(r[f'op_bf16 window {w}']['err_over_limit'][k] for r in rk):.3f}"
+                         for k in ("out", "grads"))
+              + f" ({ROW_SCALED_LIMIT}), fwd / bwd ms a rank " + ", ".join(
+                  f"{med(r[f'op_bf16 window {w}']['fwd_ms']):.2f}/{med(r[f'op_bf16 window {w}']['bwd_ms']):.2f}"
+                  f" (pull {med(r[f'op_bf16 window {w}']['exchange_ms'].get('ring_pull', [])):.2f}, "
+                  f"push {med(r[f'op_bf16 window {w}']['exchange_ms'].get('ring_push', [])):.2f})"
+                  for r in rk) for w in CP_BF16_WINDOWS)
+          + f"; (c) danube+seqp {CP_MODEL_CUT['n_layers']} layers float32 1x{CP_MODEL_SEQ}: loss "
+          f"{model_err['model_f32']['loss']:.6f} vs one process "
+          f"{model_err['model_f32']['one_process']:.6f} (rel {model_err['model_f32']['rel']:.2e}, "
+          f"tol {CP_LOSS_TOL:g}), gradients summed worst err / limit "
+          f"{model_err['model_f32']['grad_worst_err_over_limit']:.3f}; (d) bf16 2x{CP_MODEL_SEQ}: "
+          f"loss rel {model_err['model_bf16']['rel']:.2e} (tol {CP_BF16_LOSS_TOL:g}), gradients "
+          f"summed worst err / limit {model_err['model_bf16']['grad_worst_err_over_limit']:.3f} "
+          f"({model_err['model_bf16']['grad_tol']}; the control, each rank its shard alone, "
+          f"{model_err['model_bf16']['control_grad_worst_err_over_limit']:.3f}), "
+          "fwd+bwd "
+          + "/".join(f"{med(r['model_bf16']['step_s'][1:]) * 1e3:.1f}" for r in rk)
+          + " ms a rank, peak " + "/".join(
+              f"{r['model_bf16']['max_memory_allocated'] / 2**30:.2f}" for r in rk)
+          + " GiB a rank, staged copies a pass " + "/".join(
+              str(r["model_bf16"]["staged_copies"] // (CP_MODEL_ITERS + 1)) for r in rk)
+          + f" {took('35 ring attention')}", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2507,7 +3065,6 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs import get
     from repro_torch.kernels import _build
-    from repro_torch.kernels import adamw as ka
     from repro_torch.kernels import decode_attention as dec
     from repro_torch.kernels import flash_attention as fla
     from repro_torch.kernels import mamba_scan as scan
@@ -2526,13 +3083,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     # each kernel's wrapper, which counts its launches
-    kern = {"rmsnorm": rms.rmsnorm_cuda, "flash_attention": fla.flash_attention_cuda,
-            "decode_attention": dec.decode_attention_cuda,
-            "mamba_scan": scan.mamba_scan_cuda, "mamba_scan_train": scan.mamba_scan_train_cuda,
-            "mamba_scan_bwd": scan.mamba_scan_bwd_cuda, "rmsnorm_bwd": rms.rmsnorm_bwd_cuda,
-            "flash_attention_bwd": fla.flash_attention_bwd_cuda,
-            "sumsq": ka.sumsq_cuda, "clip_finalize": ka.clip_finalize_cuda,
-            "adamw_update": ka.adamw_update_cuda}
+    kern = kernel_wrappers()
     totals = {name: 0 for name in kern}     # launches over every main path
     side = {name: 0 for name in kern}       # launches of the parity phases
     mla_totals = {name: 0 for name in MLA_ROWS}   # launches of MLA's instances
@@ -3953,7 +4504,6 @@ def main() -> int:
     # NCCL: the (1, 1) mesh's data-parallel step and its ZeRO-3 step, eager
     # and graphed, equal to phase 13 bit for bit
     import torch.distributed as dist
-    import torch.multiprocessing as tmp_mp
 
     torch.cuda.set_device(0)
     # NCCL's bootstrap listens on a socket even at one rank: the loopback
@@ -4064,23 +4614,7 @@ def main() -> int:
                 lambda: train("smollm_360m", smoke=False, steps=GLOO_STEPS, batch=8,
                               seq=GLOO_SEQ, device="cuda", graphs=False, overrides=GLOO_CUT,
                               log_every=GLOO_STEPS), "one-rank float32 training")
-    gdir = out_dir / "gloo"
-    if gdir.exists():
-        for f in gdir.iterdir():
-            f.unlink()
-    gdir.mkdir(exist_ok=True)
-    store = dist.TCPStore("127.0.0.1", 0, is_master=True, wait_for_workers=False,
-                          timeout=datetime.timedelta(seconds=GLOO_TIMEOUT_S))
-    ranks_ctx = tmp_mp.start_processes(gloo_rank, args=(2, store.port, str(gdir)),
-                                       nprocs=2, join=False, start_method="spawn")
-    deadline = time.monotonic() + GLOO_DEADLINE_S
-    while not ranks_ctx.join(timeout=5):
-        if time.monotonic() > deadline:
-            for proc in ranks_ctx.processes:
-                proc.kill()
-            fail(f"two gloo ranks still running after {GLOO_DEADLINE_S} s; killed")
-    del store
-    ranks = [torch.load(gdir / f"rank{r}.pt", weights_only=False) for r in range(2)]
+    _, ranks = gloo_ranks(gloo_rank, 2, out_dir / "gloo", GLOO_DEADLINE_S, "two gloo ranks")
     gl = report["gloo"] = {"takes_cuda": ranks[0]["takes_cuda"], "runs": {}}
     refused = {n: ok for n, ok in ranks[0]["takes_cuda"].items() if ok is not True}
     if refused:
@@ -4145,23 +4679,8 @@ def main() -> int:
                       log_every=GLOO_STEPS), "one-rank float32 padheads training")}
     del one32
     torch.cuda.empty_cache()
-    tdir = out_dir / "tp"
-    if tdir.exists():
-        for f in tdir.iterdir():
-            f.unlink()
-    tdir.mkdir(exist_ok=True)
-    store = dist.TCPStore("127.0.0.1", 0, is_master=True, wait_for_workers=False,
-                          timeout=datetime.timedelta(seconds=GLOO_TIMEOUT_S))
-    ranks_ctx = tmp_mp.start_processes(tp_rank, args=(2, store.port, str(tdir)),
-                                       nprocs=2, join=False, start_method="spawn")
-    deadline = time.monotonic() + TP_DEADLINE_S
-    while not ranks_ctx.join(timeout=5):
-        if time.monotonic() > deadline:
-            for proc in ranks_ctx.processes:
-                proc.kill()
-            fail(f"two tensor-parallel ranks still running after {TP_DEADLINE_S} s; killed")
-    del store
-    ranks = [torch.load(tdir / f"rank{r}.pt", weights_only=False) for r in range(2)]
+    _, ranks = gloo_ranks(tp_rank, 2, out_dir / "tp", TP_DEADLINE_S,
+                          "two tensor-parallel ranks")
     tpr = report["tensor_parallel"] = {}
     for label in ("smollm", "padheads"):
         rec = tpr[label] = {}
@@ -4197,7 +4716,7 @@ def main() -> int:
             if got["counts"] != zero(**want):
                 fail(f"tensor-parallel {label} rank {i}: launches {got['counts']}, "
                      f"expected {zero(**want)}")
-            flash = {tag: n for (tag, qs, ks, dn), n in got["shapes"].items()
+            flash = {tag: n for (tag, qs, ks, _off, _win, dn), n in got["shapes"].items()
                      if qs == q and ks == kv and dn == "torch.bfloat16"}
             if flash != {"fwd": want["flash_attention"], "bwd": want["flash_attention_bwd"]}:
                 fail(f"tensor-parallel {label} rank {i}: flash calls {got['shapes']}, want "
@@ -4214,7 +4733,7 @@ def main() -> int:
                 "step_s": got["step_s"], "median_step_s": statistics.median(got["step_s"][1:]),
                 "max_memory_allocated": got["max_memory_allocated"], "launches": got["counts"],
                 "flash_shapes": {f"{t} q{list(qs)} k{list(ks)} {dn}": n
-                                 for (t, qs, ks, dn), n in got["shapes"].items()}})
+                                 for (t, qs, ks, _off, _win, dn), n in got["shapes"].items()}})
         tag = "padheads" if label == "padheads_bf16" else "qwen3"
         for name, kernel in ((f"flash_attention_tp_{tag}", "flash_attention"),
                              (f"flash_attention_bwd_tp_{tag}", "flash_attention_bwd")):
@@ -4240,6 +4759,9 @@ def main() -> int:
               for k in ("padheads_bf16", "qwen3")) + f" {took('34 tensor parallel')}",
           flush=True)
 
+    # 35. ring context-parallel attention over 'model' at (1, 4)
+    phase_ring(fla, zero, report, frontend_totals, out_dir, took)
+
     # the kernel table: main-path shapes, bf16; launches over every main path
     table = []
     for name, (source, replaces, case) in KERNELS.items():
@@ -4260,6 +4782,7 @@ def main() -> int:
     path_rows.update(FRONTEND_ROWS)
     path_rows.update(PADHEADS_ROWS)
     path_rows.update(TP_ROWS)
+    path_rows.update(CP_ROWS)
     launched = {**mla_totals, **frontend_totals}
     for name, (kernel, source, replaces, case, dn, path) in path_rows.items():
         r = next(r for r in rows if r["kernel"] == kernel and r["case"] == case

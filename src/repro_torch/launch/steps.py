@@ -91,6 +91,12 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer,
     in rank order, a replicated leaf's counted once, so every rank gets
     the whole gradient's norm. With no mesh there is no collective.
 
+    ``cfg.seq_shard`` under a 'model' axis above 1 (training with the
+    tokens over 'model') raises NotImplementedError: it comes with
+    ROADMAP.md queue 1, item 6e1. The reference refuses its batch spec
+    wherever ``pure_dp``'s rows divide every axis (the rows and the tokens
+    would both take 'model').
+
     On a CUDA device (unless ``graphs=False``) the step is captured in a
     CUDA graph at its first call for a given (params, opt_state) and batch
     shapes: forward, backward (remat included), clip, update and the
@@ -100,6 +106,11 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer,
     dev = resolve_device(device)
     api = model_api(cfg)
     shape = {} if mesh is None else mesh_shape(mesh)
+    if cfg.seq_shard and shape.get("model", 1) > 1:
+        raise NotImplementedError(
+            f"{cfg.name}: training with the tokens over a 'model' axis of "
+            f"{shape['model']} (seq_shard) comes with ROADMAP.md queue 1, "
+            "item 6e1")
     tensor_parallel = shape.get("model", 1) > 1 and not cfg.pure_dp
     if tensor_parallel and not tensor_parallel_supported(cfg):
         raise NotImplementedError(

@@ -14,7 +14,6 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
-from repro_torch.layout import mesh_shape
 from . import partitioning as part
 from . import tensor_parallel as tp
 from .config import ModelConfig
@@ -69,12 +68,19 @@ def attn_apply(p, x, cfg: ModelConfig, positions, causal=True,
                use_rope=True) -> torch.Tensor:
     """Full-sequence attention. x: (B, S, D) -> (B, S, D).
 
-    ``cfg.seq_shard`` asks for context-parallel attention (the sequence over
-    the mesh's 'model' axis), which the reference runs under a registered
-    mesh whose 'model' axis divides S, for causal attention. The port has
-    no context-parallel attention yet (ROADMAP.md, queue 1, item 6e): there
-    it raises NotImplementedError. With no mesh, or a 'model' axis of size
-    1, it runs plain flash attention, as the reference does.
+    ``cfg.seq_shard`` asks for context-parallel attention: where the caller
+    registered a token split over 'model' (``partitioning.use_mesh(...,
+    seq_axis="model")``) of more than one rank, ``x`` is this rank's
+    contiguous shard of S tokens, ``positions`` their absolute positions,
+    and causal attention runs the ring (``ops.cp_flash_attention``; the
+    reference's ``cp_flash_attention`` under a mesh whose 'model' axis
+    divides S). With no token split registered every rank holds whole
+    sequences and runs plain flash attention on them, as the reference
+    does where 'model' does not divide S. ``seq_shard`` with projections
+    split over 'model' raises NotImplementedError: the reference's only
+    ``seq_shard`` config is ``pure_dp``. So does attention under a token
+    split that the ring does not run (no ``seq_shard``, or not causal),
+    which would see the rank's shard alone.
 
     Tensor parallelism (:mod:`.tensor_parallel`) is read from the leaves:
     a projection narrower than its whole width is this rank's slice over
@@ -86,18 +92,21 @@ def attn_apply(p, x, cfg: ModelConfig, positions, causal=True,
     whole, then each rank's rows of wo on its columns of the attention
     output, summed over the ranks."""
     b, s, d = x.shape
-    mesh = part.current_mesh()
-    if cfg.seq_shard and causal and mesh is not None:
-        m = mesh_shape(mesh).get("model", 1)
-        if m > 1 and s % m == 0:
-            raise NotImplementedError(
-                f"{cfg.name}: seq_shard over a 'model' axis of {m} is context-"
-                "parallel attention, which comes with ROADMAP.md queue 1, "
-                "item 6e")
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     wq, wk, wv, wo = p["wq"], p["wk"], p["wv"], p["wo"]
     split = (wq.shape[1] != h * hd, wk.shape[1] != hkv * hd,
              wv.shape[1] != hkv * hd, wo.shape[0] != h * hd)
+    if cfg.seq_shard and any(split):
+        raise NotImplementedError(
+            f"{cfg.name}: seq_shard with projections split over 'model' "
+            "(tensor parallelism); the reference runs seq_shard only with "
+            "pure_dp")
+    ring = part.seq_axis() is not None
+    if ring and not (cfg.seq_shard and causal):
+        raise NotImplementedError(
+            f"{cfg.name}: attention under a token split over 'model' runs "
+            "the ring, which takes causal attention of a seq_shard config "
+            f"(seq_shard {cfg.seq_shard}, causal {causal})")
     # wq and wo share the width h * hd, which 'model' divides wherever it
     # divides wk's: a split leaves wq and wo split, wk / wv perhaps whole
     cols = None
@@ -120,9 +129,12 @@ def attn_apply(p, x, cfg: ModelConfig, positions, causal=True,
     # (B, H, S, D) views: the kernel reads them through their strides and
     # lays its output out as q is, so the reshape back to (B, S, H * D) is
     # free on the card
-    out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                              v.transpose(1, 2), causal=causal,
-                              window=cfg.window)
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    if ring:
+        out = ops.cp_flash_attention(qt, kt, vt, part.current_mesh(),
+                                     part.seq_axis(), window=cfg.window)
+    else:
+        out = ops.flash_attention(qt, kt, vt, causal=causal, window=cfg.window)
     out = out.transpose(1, 2).reshape(b, s, h * hd)
     if cols is not None:
         out = out[..., cols]

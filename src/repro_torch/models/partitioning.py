@@ -12,29 +12,43 @@ never raises on a spec it cannot apply.
 :func:`batch_mean` is what GSPMD does for the reference when a model takes a
 mean over the batch: the mean of a per-rank mean over the ranks that hold
 the batch's rows (the registered batch axes).
+
+A caller that gives each rank a contiguous shard of the tokens registers
+``seq_axis="model"`` (the reference's ``input_pspec`` puts tokens on
+'model'); it is the one gate of that split. Under it causal attention of a
+``seq_shard`` config runs the ring (``layers.attn_apply``), and what the
+ring does not cover raises NotImplementedError rather than compute over the
+rank's shard alone: other attention (``attn_apply``), and any other model
+(``transformer.forward``, ``init_cache``).
 """
 from __future__ import annotations
 
 import contextlib
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.distributed as dist
 
-from repro_torch.layout import mesh_shape, named
+from repro_torch.layout import coordinate, mesh_shape, named
 
-_STATE = {"mesh": None, "batch_axes": ("data",)}
+_STATE = {"mesh": None, "batch_axes": ("data",), "seq_axis": None}
 
 
-def set_mesh(mesh, batch_axes: Tuple[str, ...] = ("data",)):
+def set_mesh(mesh, batch_axes: Tuple[str, ...] = ("data",),
+             seq_axis: Optional[str] = None):
+    if seq_axis not in (None, "model"):
+        raise ValueError(f"seq_axis {seq_axis!r}: the tokens split over "
+                         "'model' only")
     _STATE["mesh"] = mesh
     _STATE["batch_axes"] = tuple(batch_axes)
+    _STATE["seq_axis"] = seq_axis
 
 
 @contextlib.contextmanager
-def use_mesh(mesh, batch_axes: Tuple[str, ...] = ("data",)):
-    prev = (_STATE["mesh"], _STATE["batch_axes"])
-    set_mesh(mesh, batch_axes)
+def use_mesh(mesh, batch_axes: Tuple[str, ...] = ("data",),
+             seq_axis: Optional[str] = None):
+    prev = (_STATE["mesh"], _STATE["batch_axes"], _STATE["seq_axis"])
+    set_mesh(mesh, batch_axes, seq_axis)
     try:
         yield
     finally:
@@ -48,6 +62,22 @@ def current_mesh():
 
 def batch_axes() -> Tuple[str, ...]:
     return _STATE["batch_axes"]
+
+
+def seq_axis() -> Optional[str]:
+    """The axis the tokens are split over, where the caller registered one
+    whose size is above 1, else None."""
+    axis, mesh = _STATE["seq_axis"], _STATE["mesh"]
+    if axis is None or mesh is None or mesh_shape(mesh).get(axis, 1) == 1:
+        return None
+    return axis
+
+
+def seq_index() -> int:
+    """This rank's index along :func:`seq_axis` (0 with none): its shard of
+    L tokens starts at position ``seq_index() * L``."""
+    axis = seq_axis()
+    return 0 if axis is None else coordinate(_STATE["mesh"], (axis,))[0]
 
 
 def resolve(*spec) -> tuple:

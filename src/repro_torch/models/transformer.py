@@ -31,6 +31,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import resolve_device
 from . import layers as L
 from . import moe as M
+from . import partitioning as part
 from . import ssm as S
 from . import tensor_parallel as tp
 from .config import ModelConfig
@@ -69,6 +70,25 @@ def _check_supported(cfg: ModelConfig) -> None:
             "models.encdec (model_api), not the decoder-only transformer")
     for spec in cfg.period:
         _check_spec(spec)
+
+
+def _check_token_split(cfg: ModelConfig) -> None:
+    """Under a token split (``partitioning.seq_axis()``) a rank holds its
+    shard of each row, and only the ring sees the other shards: the model
+    must be a ``seq_shard`` decoder of attention blocks with dense FFNs
+    and no MTP module, as the reference's ``seq_shard`` configs are. An
+    MLA, Mamba or LSTM mixer, MoE routing and its load-balance loss, or
+    MTP's next-shard token would see the shard alone, and raise
+    NotImplementedError."""
+    if part.seq_axis() is None:
+        return
+    other = sorted({f"{m}/{f}" for m, f in cfg.blocks()
+                    if m != "attn" or f == "moe"})
+    if not cfg.seq_shard or other or cfg.mtp:
+        raise NotImplementedError(
+            f"{cfg.name}: a token split over 'model' runs seq_shard decoders "
+            f"of attention and dense FFN blocks (seq_shard {cfg.seq_shard}, "
+            f"other blocks {other}, mtp {bool(cfg.mtp)})")
 
 
 def _prefix_spec(cfg: ModelConfig):
@@ -214,7 +234,10 @@ def forward(params, x, cfg: ModelConfig, positions) -> Tuple[torch.Tensor,
     its forward runs again in the backward pass; the prefix layers run
     unscanned and uncheckpointed, as in the reference. Each stacked leaf is
     taken apart once (``_unstack``), outside the checkpointed periods, so
-    its gradient is written once."""
+    its gradient is written once. Under a token split ``x`` is this rank's
+    shard and ``positions`` its absolute positions; a model that the ring
+    does not cover raises (``_check_token_split``)."""
+    _check_token_split(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for bp in params.get("prefix", []):
         x, _ = block_apply(bp, x, _prefix_spec(cfg), cfg, positions)
@@ -316,13 +339,19 @@ def lm_loss(params, batch, cfg: ModelConfig, total=None,
     batch's: ``total`` maps a token count (a 0-d tensor) to the count over
     every rank, which each mean then divides by ('tokens' is that count),
     and ``aux_weight`` (1 / ranks) weights the aux loss, so the ranks'
-    losses, terms and gradients sum to the global ones."""
+    losses, terms and gradients sum to the global ones. Under a token split
+    (``partitioning.seq_axis()``) the batch holds this rank's contiguous
+    shard of L tokens of each row, at positions ``seq_index() * L`` on, and
+    ``total`` counts over the token axis too; a model the ring does not
+    cover raises NotImplementedError there (``_check_token_split``)."""
     _check_supported(cfg)
+    _check_token_split(cfg)     # before the shard's positions are placed
     if "embeds" in batch:
         x = batch["embeds"].to(_dtype(cfg))
     else:
         x = embed_tokens(params, batch["inputs"], cfg)
-    positions = torch.arange(x.shape[1], device=x.device)
+    length = x.shape[1]
+    positions = torch.arange(length, device=x.device) + part.seq_index() * length
     labels = batch["labels"]
     mask = batch.get("mask")
     if mask is None:
@@ -362,8 +391,13 @@ def lm_loss(params, batch, cfg: ModelConfig, total=None,
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device="cuda") -> Params:
+    """Decoding holds whole rows: under a token split it raises
+    NotImplementedError."""
     dev = resolve_device(device)
     _check_supported(cfg)
+    if part.seq_axis() is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: decoding under a token split over 'model'")
     dtype = _dtype(cfg)
     cache: Params = {}
     if cfg.first_k_dense:

@@ -8,7 +8,8 @@ serving and training whisper-small (encoder-decoder) and
 llava-next-mistral-7b (a vlm backbone on image-patch embeddings), and
 training Jamba (through the selective scan's backward kernel) and
 xlstm-125m, training over meshes (data, ZeRO-3 and tensor parallelism),
-and ring context-parallel attention with the tokens over 'model'.
+and ring context-parallel attention with the tokens over 'model', and
+training that way.
 
   python3 chip_smoke.py
 
@@ -258,6 +259,18 @@ time,
      the bf16 flash forward and backward at the ranks' shapes (q 2 x 32 x
      2,048 x 80 against 2,048 / 4,096 / 6,144 keys with the window, 8,192
      causal) per element to ROW_SCALED_LIMIT;
+  36. training with the tokens over 'model': four ranks on the one card
+     over gloo as phase 35's, eager, each through ``launch.train.train(
+     mesh_shape=)`` of h2o-danube-1.8b+seqp at full width cut to 2 layers
+     (the step takes each rank's rows and its shard of the tokens, the ring
+     runs attention, every sum goes over every axis), against one process's
+     ``train()`` on the same weights and batches, run here while the ranks
+     start: (a) float32 at (2, 2), 2 steps of 2 x 4,096 (losses and grad
+     norms to 1e-5 relative, rank 0's params to lr / 4); (b) bf16 at (1, 4),
+     3 steps of 2 x 8,192: losses within 2e-2, each rank's launches against
+     ``per_train_step`` and its flash calls at the ring's shapes (rank i:
+     (min(i, 2) + 1) x 2,048 keys), step ms, peak memory and the ring's
+     staged copies a step a rank;
 Every path runs with the launch counts set to 0 just before it and read just
 after; a graphed path's counts include its warm-up calls (``WARMUP`` eager
 calls before capture), and a replay adds what the capture recorded. Then it prints the kernel table as one JSON line (the rows of
@@ -268,7 +281,8 @@ and 24; for the backward, DeepSeek-V3 training for bf16 D 192 and phase
 phases 24-25 and 26-27; the scan's training forward and backward those of
 phase 28; the G-2 shape of smollm-360m+padheads those of phase 33; the
 ranks' shapes of phase 34 the launches of both ranks; the ring's shapes
-the bf16 launches of phase 35's four ranks) and,
+the bf16 launches of phase 35's four ranks, and of phase 36's (b) for
+those with the window) and,
 last,
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
 with no CUDA device, or outside a checkout, it exits non-zero at once. Each
@@ -559,8 +573,25 @@ CP_ROWS = {
         f"flash_attention{bwd}", f"src/repro_torch/csrc/flash_attention{bwd}_sm90.cu",
         "src/repro/kernels/flash_attention.py:84", cp_case(skv, window) + (" with L" if bwd else ""),
         "bfloat16", f"ring attention at (1, {CP_WORLD}), the ranks that pull "
-        f"{skv // (CP_BF16_SHAPE[3] // CP_WORLD) - 1} shards (phase 35)")
+        f"{skv // (CP_BF16_SHAPE[3] // CP_WORLD) - 1} shards (phase 35"
+        + (", and its training, phase 36)" if window else ")"))
     for skv, window in CP_RING_SHAPES for bwd in ("", "_bwd")}
+# phase 36: training with the tokens over 'model' through launch.train.train,
+# CP_WORLD gloo ranks sharing the card, eager: h2o-danube-1.8b+seqp at full
+# width cut to CP_MODEL_CUT, each run (label, mesh shape, rows, tokens a
+# row, steps, overrides): (a) float32 at (2, 2) (rows over 'data', L 2,048,
+# r 1); (b) bf16 at (1, 4) (L 2,048, r 2: the ring rows' shapes with the
+# window)
+CPT_RUNS = (("f32", (2, 2), 2, 4096, 2, dict(CP_MODEL_CUT, dtype="float32")),
+            ("bf16", (1, CP_WORLD), 2, CP_MODEL_SEQ, 3, dict(CP_MODEL_CUT)))
+# (a): losses and grad norms against one process, float32 sums in another
+# order; params within lr / 4 (a missing last update moves most weights by
+# about lr); (b): losses against one process's eager bf16 run
+CPT_F32_TOL = 1e-5
+CPT_BF16_TOL = 2e-2
+CPT_LR = 3e-4
+# seconds phase 36's four ranks may take before they are killed
+CPT_DEADLINE_S = 240
 # phase 34's runs: (a) float32 lockstep at GLOO_CUT, GLOO_STEPS steps of 8 x
 # GLOO_SEQ; (b) smollm-360m+padheads whole, bf16, PADHEADS_TRAIN_STEPS steps
 # of 8 x 512 (phase 33's eager run is its one-rank oracle); (c) Qwen3-MoE at
@@ -643,7 +674,7 @@ XLSTM_TRAIN_STEPS = 4
 # which only the training loss reads
 DEEPSEEK_CUT = dict(n_layers=5, mtp=False)
 # seconds after which the script dumps every thread's stack to standard error
-# and exits non-zero (a run must end within 1,200 s; a whole run takes ~600)
+# and exits non-zero (a run must end within 1,200 s; a whole run takes ~700-830)
 WATCHDOG_S = 1100
 
 
@@ -3053,6 +3084,167 @@ def phase_ring(fla, zero, report, frontend_totals, out_dir, took) -> None:
           + f" {took('35 ring attention')}", flush=True)
 
 
+def cpt_rank(rank: int, world: int, port: int, tmp: str) -> None:
+    """Rank ``rank`` of phase 36 (training with the tokens over 'model',
+    the ranks on the one card over gloo, eager; the parent serves the
+    ``TCPStore`` on 127.0.0.1:``port``): each run of CPT_RUNS through
+    ``launch.train.train(mesh_shape=)`` with its losses, grad norms, step
+    seconds, peak memory, launch counts, flash shapes and the ring's staged
+    copies; rank 0 writes (a)'s params after the last step. Results to
+    ``tmp``."""
+    import torch.distributed as dist
+    from repro_torch import collectives
+    from repro_torch.launch.train import train
+    from repro_torch.models.module import tree_map
+
+    gloo_join(rank, world, port)
+    kern, shapes = counted_kernels()
+    out = {}
+    try:
+        for label, shape, rows, seq, steps, over in CPT_RUNS:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            for fn in kern.values():
+                fn.launches = 0
+            shapes.clear()
+            staged = collectives.p2p.staged
+            r = train("h2o_danube_1_8b_seqp", smoke=False, steps=steps, batch=rows, seq=seq,
+                      lr=CPT_LR, device="cuda", graphs=False, overrides=over,
+                      mesh_shape=shape, log_every=steps)
+            out[label] = {"losses": r["losses"], "grad_norms": r["grad_norms"],
+                          "step_s": r["step_s"],
+                          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                          "counts": {name: fn.launches for name, fn in kern.items()},
+                          "shapes": dict(shapes),
+                          "staged_copies": collectives.p2p.staged - staged,
+                          "model_index": r["mesh"].get_coordinate()[1]}
+            if label == "f32" and rank == 0:
+                torch.save(tree_map(lambda a: a.cpu(), r["params"]), f"{tmp}/params_f32.pt")
+            del r
+        torch.save(out, f"{tmp}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_cp_train(kern, side, zero, report, frontend_totals, out_dir, took) -> None:
+    """Phase 36: training with the tokens over 'model', CP_WORLD ranks on
+    the one card over gloo (``cpt_rank``), each run of CPT_RUNS held
+    against one process's ``train()`` on the same weights and batches, run
+    here while the ranks start; fills ``report["cp_train"]`` and adds the
+    bf16 run's flash launches to the ring rows of the kernel table
+    (``frontend_totals``)."""
+    from repro_torch.configs import get
+    from repro_torch.launch.train import train
+    from repro_torch.models.module import tree_map
+
+    cfgs = {label: dataclasses.replace(get("h2o_danube_1_8b_seqp"), **over)
+            for label, *_rest, over in CPT_RUNS}
+    per = {label: per_train_step(cfg) for label, cfg in cfgs.items()}
+
+    def oracles():
+        """One process's eager ``train()`` of each run, no mesh."""
+        got = {}
+        for label, _shape, rows, seq, steps, over in CPT_RUNS:
+            torch.cuda.reset_peak_memory_stats()
+            r = drive(kern, side, zero(**{k: v * steps for k, v in per[label].items()}),
+                      lambda: train("h2o_danube_1_8b_seqp", smoke=False, steps=steps,
+                                    batch=rows, seq=seq, lr=CPT_LR, device="cuda",
+                                    graphs=False, overrides=over, log_every=steps),
+                      f"one-process {label} danube+seqp training")
+            got[label] = {"losses": r["losses"], "grad_norms": r["grad_norms"],
+                          "step_s": r["step_s"],
+                          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                          "params": tree_map(lambda a: a.cpu(), r["params"])
+                          if label == "f32" else None}
+            del r
+        torch.cuda.empty_cache()
+        return got
+
+    one, ranks = gloo_ranks(cpt_rank, CP_WORLD, out_dir / "cpt", CPT_DEADLINE_S,
+                            f"{CP_WORLD} context-parallel training ranks", oracles)
+    rec = report["cp_train"] = {}
+    for label, shape, rows, seq, steps, _over in CPT_RUNS:
+        tol = CPT_F32_TOL if label == "f32" else CPT_BF16_TOL
+        run = rec[label] = {"mesh": shape, "batch": [rows, seq], "steps": steps,
+                            "one_process": {k: v for k, v in one[label].items()
+                                            if k != "params"}, "ranks": []}
+        keys = ("losses", "grad_norms") if label == "f32" else ("losses",)
+        for i, r in enumerate(ranks):
+            got = r[label]
+            errs = {}
+            for key in keys:
+                want = one[label][key]
+                errs[key] = max(abs(a - b) / abs(b) for a, b in zip(got[key], want))
+                if len(got[key]) != steps or not all(map(math.isfinite, got[key])) \
+                        or not errs[key] <= tol:
+                    fail(f"context-parallel training ({label}) rank {i}: {key} {got[key]}, "
+                         f"one process {want} (rel {errs[key]}, tol {tol})")
+            run["ranks"].append({
+                "losses": got["losses"], "grad_norms": got["grad_norms"],
+                "max_rel_err": errs, "step_s": got["step_s"],
+                "median_step_s": statistics.median(got["step_s"][1:]),
+                "max_memory_allocated": got["max_memory_allocated"],
+                "staged_copies_a_step": got["staged_copies"] / steps,
+                "launches": got["counts"],
+                "flash_shapes": {str(k): n for k, n in got["shapes"].items()}})
+        if label == "f32":
+            params = torch.load(out_dir / "cpt" / "params_f32.pt", weights_only=False)
+            run["param_max_err"] = max(
+                float((a - b).abs().max()) for _, a, b in _paired_leaves(
+                    params, one[label]["params"]))
+            run["param_tol"] = CPT_LR / 4
+            del params
+            if not run["param_max_err"] <= CPT_LR / 4:
+                fail(f"context-parallel training (f32): rank 0's params differ from one "
+                     f"process's by {run['param_max_err']} (tol {CPT_LR / 4})")
+            continue
+        # (b): each rank's launches, and its flash calls at the ring's
+        # shapes: its L rows against the K/V of min(i, r) shards and its own
+        cfg = cfgs[label]
+        length = seq // shape[1]
+        ring = min(shape[1] - 1, -(-cfg.window // length))
+        want = zero(**{k: v * steps for k, v in per[label].items()})
+        for i, r in enumerate(ranks):
+            got = r[label]
+            pulled = min(got["model_index"], ring)
+            key = ((rows, cfg.n_heads, length, cfg.hd),
+                   (rows, cfg.n_kv_heads, (pulled + 1) * length, cfg.hd),
+                   pulled * length, cfg.window, "torch.bfloat16")
+            want_sh = {("fwd",) + key: want["flash_attention"],
+                       ("bwd",) + key: want["flash_attention_bwd"]}
+            if got["counts"] != want or got["shapes"] != want_sh:
+                fail(f"context-parallel training (bf16) rank {i}: launches {got['counts']}, "
+                     f"flash calls {got['shapes']}; want {want}, {want_sh}")
+        for skv, window in CP_RING_SHAPES:
+            for d, kernel in (("fwd", "flash_attention"), ("bwd", "flash_attention_bwd")):
+                frontend_totals[f"{kernel}_cp_kv{skv}"] += sum(
+                    n for r in ranks for (dd, _qs, ks, _off, win, dn), n
+                    in r[label]["shapes"].items()
+                    if dd == d and ks[2] == skv and win == window and dn == "torch.bfloat16")
+    del ranks, one
+    torch.cuda.empty_cache()
+    a, b = rec["f32"], rec["bf16"]
+    print(f"[36 cp train] danube+seqp {CP_MODEL_CUT['n_layers']} layers through "
+          f"launch.train.train, {CP_WORLD} ranks on the one card over gloo, eager: (a) float32 "
+          f"at {a['mesh']}, {a['steps']} steps of {a['batch'][0]}x{a['batch'][1]}: losses "
+          f"{max(r['max_rel_err']['losses'] for r in a['ranks']):.2e}, grad norms "
+          f"{max(r['max_rel_err']['grad_norms'] for r in a['ranks']):.2e} rel of one process "
+          f"(tol {CPT_F32_TOL:g}), params {a['param_max_err']:.2e} (tol {a['param_tol']:.2e}), "
+          f"step " + "/".join(f"{r['median_step_s'] * 1e3:.1f}" for r in a["ranks"])
+          + f" ms a rank; (b) bf16 at {b['mesh']}, {b['steps']} steps of "
+          f"{b['batch'][0]}x{b['batch'][1]}: losses {[round(x, 4) for x in b['ranks'][0]['losses']]}"
+          f" vs one process {[round(x, 4) for x in b['one_process']['losses']]} (max rel "
+          f"{max(r['max_rel_err']['losses'] for r in b['ranks']):.2e}, tol {CPT_BF16_TOL:g}), "
+          "median step " + "/".join(f"{r['median_step_s'] * 1e3:.1f}" for r in b["ranks"])
+          + f" ms a rank (one process {statistics.median(b['one_process']['step_s'][1:]) * 1e3:.1f}"
+          "), peak " + "/".join(f"{r['max_memory_allocated'] / 2**30:.2f}" for r in b["ranks"])
+          + f" GiB a rank (one process {b['one_process']['max_memory_allocated'] / 2**30:.2f}), "
+          "staged copies a step " + "/".join(f"{r['staged_copies_a_step']:g}" for r in b["ranks"])
+          + ", flash fwd / bwd a rank " + "; ".join(
+              ", ".join(f"{k} x{n}" for k, n in r["flash_shapes"].items()) for r in b["ranks"])
+          + f" {took('36 cp train')}", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4761,6 +4953,8 @@ def main() -> int:
 
     # 35. ring context-parallel attention over 'model' at (1, 4)
     phase_ring(fla, zero, report, frontend_totals, out_dir, took)
+    # 36. training with the tokens over 'model' at (2, 2) and (1, 4)
+    phase_cp_train(kern, side, zero, report, frontend_totals, out_dir, took)
 
     # the kernel table: main-path shapes, bf16; launches over every main path
     table = []

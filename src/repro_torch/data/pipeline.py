@@ -114,10 +114,15 @@ class BinTokenSource:
 
 
 class Prefetcher:
-    """Bounded background prefetch (jumbo-batch queue with backpressure)."""
+    """Bounded background prefetch (jumbo-batch queue with backpressure).
+
+    :meth:`state` is the source's state as of the last batch taken, the one
+    a checkpoint saves: the thread has drawn up to ``prefetch`` + 1 batches
+    further, and a resume from the source's own state would skip them."""
 
     def __init__(self, source, prefetch: int = 2):
         self.source = source
+        self._state = source.state()
         self.q: queue.Queue = queue.Queue(maxsize=prefetch)
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._run, daemon=True)
@@ -125,16 +130,21 @@ class Prefetcher:
 
     def _run(self):
         while not self._stop.is_set():
-            batch = self.source.next_batch()
+            item = (self.source.next_batch(), self.source.state())
             while not self._stop.is_set():
                 try:
-                    self.q.put(batch, timeout=0.1)
+                    self.q.put(item, timeout=0.1)
                     break
                 except queue.Full:
                     continue
 
     def next_batch(self):
-        return self.q.get()
+        batch, self._state = self.q.get()
+        return batch
+
+    def state(self) -> Dict:
+        """The source's state after the last batch taken."""
+        return self._state
 
     def close(self):
         self._stop.set()

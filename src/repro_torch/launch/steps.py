@@ -19,6 +19,7 @@ position as a device tensor, so one graph serves every step.
 """
 from __future__ import annotations
 
+import math
 from typing import Callable
 
 import torch
@@ -30,7 +31,7 @@ from repro_torch.kernels.adamw import global_norm_scale
 from repro_torch.launch import shardings as SH
 from repro_torch.launch.graphs import GraphedStep
 from repro_torch.launch.mesh import fsdp_axis
-from repro_torch.layout import coordinate, mesh_shape, shard_dim
+from repro_torch.layout import coordinate, mesh_shape, named, shard_dim
 from repro_torch.models import encdec, model_api, transformer
 from repro_torch.models import partitioning as part
 from repro_torch.models.config import ModelConfig
@@ -91,11 +92,23 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer,
     in rank order, a replicated leaf's counted once, so every rank gets
     the whole gradient's norm. With no mesh there is no collective.
 
-    ``cfg.seq_shard`` under a 'model' axis above 1 (training with the
-    tokens over 'model') raises NotImplementedError: it comes with
-    ROADMAP.md queue 1, item 6e1. The reference refuses its batch spec
-    wherever ``pure_dp``'s rows divide every axis (the rows and the tokens
-    would both take 'model').
+    ``cfg.seq_shard`` under a 'model' axis above 1 is context parallelism
+    (``cfg.pure_dp``, as the reference's ``seq_shard`` configs are; without
+    it NotImplementedError: a token split beside tensor parallelism). The
+    batch is laid out by the reference's ``input_pspec``: the rows over
+    the axes of :func:`_dp_axes`, and, where 'model' divides the sequence,
+    the tokens over 'model'. There the step takes its rows and its
+    contiguous shard of L = S / M tokens at ``seq_index() * L`` (inputs,
+    labels and mask alike), runs the loss under a registered token split
+    (``partitioning.use_mesh(..., seq_axis="model")``: attention runs the
+    ring), counts the tokens over every axis of the mesh, and all-reduces
+    every gradient (its rows, its tokens and the K/V gradients the ring
+    pushed home) and the metrics over every axis; a ZeRO-3 leaf is still
+    reduce-scattered over ``fsdp_axis`` and all-reduced over the others,
+    so the clip sees whole gradients. Where ``pure_dp``'s rows divide
+    every axis, the spec puts 'model' on the rows and on the tokens; the
+    reference refuses it (``DuplicateSpecError``), and the step raises
+    ValueError ("used twice") before any collective.
 
     On a CUDA device (unless ``graphs=False``) the step is captured in a
     CUDA graph at its first call for a given (params, opt_state) and batch
@@ -106,11 +119,12 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer,
     dev = resolve_device(device)
     api = model_api(cfg)
     shape = {} if mesh is None else mesh_shape(mesh)
-    if cfg.seq_shard and shape.get("model", 1) > 1:
+    seq_split = cfg.seq_shard and shape.get("model", 1) > 1
+    if seq_split and not cfg.pure_dp:
         raise NotImplementedError(
-            f"{cfg.name}: training with the tokens over a 'model' axis of "
-            f"{shape['model']} (seq_shard) comes with ROADMAP.md queue 1, "
-            "item 6e1")
+            f"{cfg.name}: seq_shard with tensor parallelism over a 'model' "
+            f"axis of {shape['model']}; the reference trains seq_shard with "
+            "pure_dp only")
     tensor_parallel = shape.get("model", 1) > 1 and not cfg.pure_dp
     if tensor_parallel and not tensor_parallel_supported(cfg):
         raise NotImplementedError(
@@ -130,6 +144,14 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer,
 
     def train_step(params, opt_state, batch):
         _require_on(params, dev)
+        n_rows = len(next(iter(batch.values())))
+        axes = () if mesh is None else _dp_axes(cfg, mesh, n_rows)
+        # the leaves whose tokens go over 'model' (raises before any
+        # collective where the spec puts 'model' twice)
+        toks = _token_split(cfg, mesh, batch) if seq_split else set()
+        # the axes the token count, the gradients and the metrics are
+        # summed over: the rows' axes, or every axis under a token split
+        red = tuple(a for a, n in shape.items() if n > 1) if toks else axes
         f_group = mesh.get_group(f_axis) if f_axis else None
         m_group = mesh.get_group("model") if tensor_parallel else None
         # the dim each leaf is sliced in over the fsdp axis, or None (the
@@ -139,25 +161,30 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer,
         # the leaves that hold this rank's slice over 'model'
         m_dims = None if shardings is None or m_group is None else tree_map(
             lambda _, pl: shard_dim(pl, mesh, "model"), params, shardings)
-        n_rows = len(next(iter(batch.values())))
-        axes = () if mesh is None else _dp_axes(cfg, mesh, n_rows)
-        if dims is not None and f_size > 1 and f_axis not in axes:
+        if dims is not None and f_size > 1 and f_axis not in red:
             raise ValueError(f"batch {n_rows} does not split over the fsdp "
                              f"axis {f_axis!r} of {f_size}")
         index, count = coordinate(mesh, axes) if axes else (0, 1)
         lo, hi = n_rows // count * index, n_rows // count * (index + 1)
-        with part.use_mesh(mesh, axes):
+        t_index, t_count = coordinate(mesh, ("model",)) if toks else (0, 1)
+        with part.use_mesh(mesh, axes, seq_axis="model" if toks else None):
             with record_function("loss_fwd"):
-                b = {k: torch.as_tensor(v, device=dev)[lo:hi]
-                     for k, v in batch.items()}
+                b = {}
+                for k, v in batch.items():
+                    v = torch.as_tensor(v, device=dev)[lo:hi]
+                    if k in toks:
+                        n = v.shape[1] // t_count
+                        v = v[:, n * t_index:n * (t_index + 1)]
+                    b[k] = v
                 whole = params if dims is None else tree_map(
                     lambda a, d: a if d is None
                     else SH.gather_dim(a, d, f_group, f_size), params, dims)
                 p = tree_map(lambda a: a.detach().requires_grad_(True), whole)
-                total = (lambda n: _all_reduce(n.clone(), mesh, axes)) \
-                    if axes else None
-                loss, metrics = api.loss(p, b, cfg, total=total,
-                                         aux_weight=1.0 / count)
+                total = (lambda n: _all_reduce(n.clone(), mesh, red)) \
+                    if red else None
+                loss, metrics = api.loss(
+                    p, b, cfg, total=total,
+                    aux_weight=1.0 / math.prod(shape[a] for a in red))
             with record_function("backward"):
                 loss.backward()
                 # a leaf the loss does not reach has a zero gradient, as
@@ -165,10 +192,10 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer,
                 grads = tree_map(lambda a: a.grad if a.grad is not None
                                  else torch.zeros_like(a), p)
                 if dims is None:
-                    grads = tree_map(lambda g: _all_reduce(g, mesh, axes),
+                    grads = tree_map(lambda g: _all_reduce(g, mesh, red),
                                      grads)
                 else:
-                    grads = tree_map(lambda g, d: reduce_grad(g, d, axes,
+                    grads = tree_map(lambda g, d: reduce_grad(g, d, red,
                                                               f_group),
                                      grads, dims)
             with record_function("clip"):
@@ -182,11 +209,11 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer,
                                                      grad_scale=scale)
         out = {"loss": loss.detach(), "grad_norm": gnorm}
         out.update({k: v.detach() for k, v in metrics.items()})
-        if axes:
+        if red:
             # this rank's parts of the loss and its terms -> the global ones
             # ('tokens' is global already)
             keys = [k for k in out if k not in ("grad_norm", "tokens")]
-            vals = _all_reduce(torch.stack([out[k] for k in keys]), mesh, axes)
+            vals = _all_reduce(torch.stack([out[k] for k in keys]), mesh, red)
             out.update(zip(keys, vals))
         return params, opt_state, out
 
@@ -212,6 +239,19 @@ def _dp_axes(cfg: ModelConfig, mesh, batch: int) -> tuple:
     entry = SH.batch_pspec(mesh, batch, pure_dp=cfg.pure_dp)[0]
     return () if entry is None else (entry,) if isinstance(entry, str) \
         else tuple(entry)
+
+
+def _token_split(cfg: ModelConfig, mesh, batch) -> set:
+    """The keys of the batch leaves whose tokens the reference's
+    ``input_pspec`` puts on 'model'. ValueError ("used twice") where it
+    puts 'model' on the rows as well, as the reference refuses the spec."""
+    split = set()
+    for k, v in batch.items():
+        spec = SH.input_pspec(cfg, v, mesh)
+        named(mesh, *spec)
+        if len(spec) > 1 and spec[1] == "model":
+            split.add(k)
+    return split
 
 
 def _all_reduce(x: torch.Tensor, mesh, axes) -> torch.Tensor:

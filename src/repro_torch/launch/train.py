@@ -12,9 +12,15 @@ card, gloo on the CPU) it builds ``make_mesh(mesh_shape or (world, 1),
 data-parallel over the batch axes (every axis under ``cfg.pure_dp``), with
 ZeRO-3 over 'data' for ``cfg.force_fsdp`` or above 8e9 params (the
 reference dry-run's rule): params and AdamW moments held as this rank's
-slices (``shardings.param_shardings``). Every rank draws the same global
-batch and the step takes its rows. Rank 0 saves whole tensors, gathered,
-and every rank waits for the commit, so a checkpoint saved at one world
+slices (``shardings.param_shardings``; a ``pure_dp`` config's are whole, as
+the reference's rules place them). A ``seq_shard`` config
+(``h2o_danube_1_8b_seqp``, or ``overrides={"pure_dp": True, "seq_shard":
+True}``) at a ``mesh_shape`` whose 'model' axis is above 1, e.g. (2, 4),
+trains with the tokens over 'model' as well (``make_train_step``: the
+ring, every sum over every axis). Every rank draws the same global batch
+and the step takes its rows (and its tokens); losses and grad norms are
+the global ones. Rank 0 saves whole tensors, gathered, and every rank
+waits for the commit, so a checkpoint saved at one world
 size resumes at another. On the card the train step is one
 CUDA graph (the reference jits it), captured at the first step and replayed
 after: each step copies its batch into the graph's buffers, replays, and
@@ -164,7 +170,7 @@ def _train(arch, smoke, steps, batch, seq, lr, ckpt_dir, ckpt_every,
                       f"grad_norm={grad_norms[-1]:.3f} "
                       f"({time.time() - t0:.1f}s)", flush=True)
             if ckpt_dir and (step + 1) % ckpt_every == 0:
-                extra = {"data": source.state(), "loss": losses[-1]}
+                extra = {"data": data.state(), "loss": losses[-1]}
                 # whole tensors (gathered under a mesh), written by rank 0
                 whole = (params, opt_state) if mesh is None else \
                     SH.gather_tree((params, opt_state), (p_shards, o_shards),

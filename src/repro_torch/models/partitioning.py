@@ -15,11 +15,13 @@ the batch's rows (the registered batch axes).
 
 A caller that gives each rank a contiguous shard of the tokens registers
 ``seq_axis="model"`` (the reference's ``input_pspec`` puts tokens on
-'model'); it is the one gate of that split. Under it causal attention of a
-``seq_shard`` config runs the ring (``layers.attn_apply``), and what the
-ring does not cover raises NotImplementedError rather than compute over the
-rank's shard alone: other attention (``attn_apply``), and any other model
-(``transformer.forward``, ``init_cache``).
+'model'): the train step does, for a ``seq_shard`` config whose tokens it
+splits (``launch.steps.make_train_step``), and so may a caller of the
+model's loss. It is the one gate of that split. Under it causal attention
+of a ``seq_shard`` config runs the ring (``layers.attn_apply``), and what
+the ring does not cover raises NotImplementedError rather than compute
+over the rank's shard alone: other attention (``attn_apply``), and any
+other model (``transformer.forward``, ``init_cache``).
 """
 from __future__ import annotations
 

@@ -283,15 +283,47 @@ def test_ring_refuses_what_it_does_not_define():
     assert part.seq_axis() is None
 
 
-def test_training_with_the_tokens_over_model_raises_item_6e1():
-    """``make_train_step`` for h2o-danube-1.8b+seqp under a 'model' axis
-    above 1 names ROADMAP.md queue 1, item 6e1; at (2, 1) it makes a step."""
+@pytest.mark.parametrize("mesh", [{"data": 1, "model": 2},
+                                  {"data": 2, "model": 4}])
+def test_training_with_the_tokens_over_model_builds(mesh):
+    """``make_train_step`` for h2o-danube-1.8b+seqp makes a step under a
+    'model' axis above 1 (and at (2, 1)); ``seq_shard`` without
+    ``pure_dp`` there (a token split beside tensor parallelism, which the
+    reference never trains) raises NotImplementedError when the step is
+    made."""
     cfg = get("h2o_danube_1_8b_seqp")
-    for mesh in ({"data": 1, "model": 2}, {"data": 2, "model": 4}):
-        with pytest.raises(NotImplementedError, match="item 6e1"):
-            make_train_step(cfg, adamw(1e-3), device="cpu", mesh=mesh)
+    assert callable(make_train_step(cfg, adamw(1e-3), device="cpu",
+                                    mesh=mesh))
     make_train_step(cfg, adamw(1e-3), device="cpu",
                     mesh={"data": 2, "model": 1})
+    with pytest.raises(NotImplementedError, match="pure_dp only"):
+        make_train_step(dataclasses.replace(cfg, pure_dp=False), adamw(1e-3),
+                        device="cpu", mesh=mesh)
+
+
+@pytest.mark.parametrize("rows", [8, 16])
+def test_training_refuses_model_twice_before_any_collective(rows):
+    """Where ``pure_dp``'s rows divide every axis of (2, 4), the reference's
+    input spec puts 'model' on the rows and on the tokens and the reference
+    refuses it (``DuplicateSpecError``); the port's step raises ValueError
+    ("used twice") when it reads the batch, before any collective (the
+    mesh is a ``{axis: size}`` mapping, which has no process groups)."""
+    import jax
+    from jax.sharding import AbstractMesh
+    from repro.configs import get as jget
+    from repro.launch import shardings as JSH
+
+    mesh = {"data": 2, "model": 4}
+    jb = {"inputs": jax.ShapeDtypeStruct((rows, MODEL_SEQ), np.int32)}
+    with pytest.raises(Exception) as e:
+        JSH.input_shardings(jget("h2o_danube_1_8b_seqp"), jb,
+                            AbstractMesh((2, 4), ("data", "model")))
+    assert type(e.value).__name__ == "DuplicateSpecError"
+    step = make_train_step(get("h2o_danube_1_8b_seqp"), adamw(1e-3),
+                           device="cpu", mesh=mesh)
+    toks = np.zeros((rows, MODEL_SEQ), np.int32)
+    with pytest.raises(ValueError, match="used twice"):
+        step({"embed": torch.zeros(1)}, {}, {"inputs": toks, "labels": toks})
 
 
 @pytest.mark.parametrize("arch,seq_shard", [

@@ -9,7 +9,8 @@ llava-next-mistral-7b (a vlm backbone on image-patch embeddings), and
 training Jamba (through the selective scan's backward kernel) and
 xlstm-125m, training over meshes (data, ZeRO-3 and tensor parallelism),
 and ring context-parallel attention with the tokens over 'model', and
-training that way.
+training that way, and DeepSeek-V3's MLA and Jamba's Mamba layers trained
+tensor-parallel.
 
   python3 chip_smoke.py
 
@@ -271,6 +272,24 @@ time,
      ``per_train_step`` and its flash calls at the ring's shapes (rank i:
      (min(i, 2) + 1) x 2,048 keys), step ms, peak memory and the ring's
      staged copies a step a rank;
+  37. tensor parallelism over 'model' for MLA and Mamba at (1, 2): two
+     ranks on the one card over gloo as phase 34's, eager, each through
+     ``launch.train.train(mesh_shape=(1, 2))``: (a) float32 DeepSeek SMOKE
+     (MLA, a dense prefix of 1, MoE with a shared expert, MTP; seed 1) and
+     Jamba SMOKE (its real MoE), 4 steps of 8 x 128, against one process on
+     the card run here while the ranks start (losses and grad norms to 1e-5
+     relative, rank 0's params to lr / 4); (b) bf16 at the published widths,
+     2 steps of 8 x 512: DeepSeek-V3 cut to its 3 MLA prefix layers (64 of
+     128 heads of 192 a rank) and Jamba cut to attention + 1 Mamba layer
+     (8,192 of 16,384 channels a rank), losses within 2e-2 of phases 20 and
+     28's eager runs; every run's launches against ``per_train_step``, its
+     collectives over 'model' (``tensor_parallel.counts``) against
+     ``tp_collectives_per_step``, (b)'s flash and scan calls at the rank's
+     shapes; step ms, the host seconds of it in gloo, peak memory and the
+     collectives a step a rank (phase 34 prints and checks its collectives
+     too); phase 2 holds the D-192 flash forward and backward at 64 heads,
+     the scan's training forward and backward at 8,192 channels, Jamba's
+     attention at 32 / 4 heads and RMSNorm over rows of 1,536 and 512;
 Every path runs with the launch counts set to 0 just before it and read just
 after; a graphed path's counts include its warm-up calls (``WARMUP`` eager
 calls before capture), and a replay adds what the capture recorded. Then it prints the kernel table as one JSON line (the rows of
@@ -282,7 +301,8 @@ phases 24-25 and 26-27; the scan's training forward and backward those of
 phase 28; the G-2 shape of smollm-360m+padheads those of phase 33; the
 ranks' shapes of phase 34 the launches of both ranks; the ring's shapes
 the bf16 launches of phase 35's four ranks, and of phase 36's (b) for
-those with the window) and,
+those with the window; the ranks' shapes of phase 37 the launches of (b)'s
+two ranks) and,
 last,
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
 with no CUDA device, or outside a checkout, it exits non-zero at once. Each
@@ -592,6 +612,67 @@ CPT_BF16_TOL = 2e-2
 CPT_LR = 3e-4
 # seconds phase 36's four ranks may take before they are killed
 CPT_DEADLINE_S = 240
+# phase 37: tensor parallelism over 'model' for MLA and Mamba at (1, 2), two
+# gloo ranks sharing the card, eager, each run (label, arch, smoke, overrides,
+# steps, tokens a row, seed) through launch.train.train(mesh_shape=(1, 2)),
+# 8 rows a step: (a) float32 lockstep at SMOKE widths against one process
+# on the card, run here while the ranks start: DeepSeek SMOKE as configured
+# (MLA, a dense prefix of 1, MoE with a shared expert, MTP) at seed 1 (at
+# seed 0 one element of its first gradient sits at float32 rounding, 2.6e-7
+# of its leaf's largest, and AdamW's first update moves it by about lr in
+# either sign; tests/test_torch_tp.py SEEDS), Jamba SMOKE with its real
+# MoE; (b) bf16 at the published widths against the first TPM_BF16_STEPS
+# losses of phases 20 and 28's one-process eager runs (the same weights,
+# batches and first-step rate): DeepSeek-V3 cut to its 3 MLA prefix layers,
+# Jamba cut to attention + 1 Mamba layer with its dense SwiGLU
+TPM_F32_STEPS = 4
+TPM_BF16_STEPS = 2
+# seconds phase 37's two ranks may take before they are killed
+TPM_DEADLINE_S = 240
+# a rank's kernel shapes in (b): DeepSeek's q = k = v of 64 of its 128 heads
+# of 192 in mla_apply's layout; Jamba's scan over 8,192 of its 16,384
+# channels (u (b, t, d_in), N, dt_rank); and MLA's latent rows, whole
+TP_MLA_SHAPE = (8, 64, 512, 192)
+TP_MLA_CASE = "TP rank MLA causal 8x64/64x512x512x192 model layout (B,S,H,D) views, V padded"
+TP_SCAN_SHAPE = (8, 512, 8192, 16, 512)
+TP_SCAN_CASE = "TP rank jamba 8x512x8192 N16 dt f32 random A, B/C slices"
+# Jamba's attention a rank, (b, hq, hkv, s, hd): 32 / 4 of its 64 / 8 heads
+TP_JAMBA_ATTN_SHAPE = (8, 32, 4, 512, 128)
+TP_JAMBA_ATTN_CASE = "TP rank jamba causal 8x32/4x512x512x128"
+TP_MIXER_ROWS = {
+    **{f"flash_attention{bwd}_tp_jamba": (
+        f"flash_attention{bwd}", f"src/repro_torch/csrc/flash_attention{bwd}_sm90.cu",
+        "src/repro/kernels/flash_attention.py:84",
+        TP_JAMBA_ATTN_CASE + (" with L" if bwd else ""), "bfloat16",
+        "Jamba (attention + 1 Mamba layer) tensor-parallel training at (1, 2), both ranks "
+        "(phase 37)") for bwd in ("", "_bwd")},
+    "flash_attention_tp_mla": (
+        "flash_attention", "src/repro_torch/csrc/flash_attention_sm90.cu",
+        "src/repro/kernels/flash_attention.py:84", TP_MLA_CASE + " with L", "bfloat16",
+        "DeepSeek-V3 (3 MLA prefix layers) tensor-parallel training at (1, 2), both ranks "
+        "(phase 37)"),
+    "flash_attention_bwd_tp_mla": (
+        "flash_attention_bwd", "src/repro_torch/csrc/flash_attention_bwd_sm90.cu",
+        "src/repro/kernels/flash_attention.py:84", TP_MLA_CASE + " with L", "bfloat16",
+        "DeepSeek-V3 (3 MLA prefix layers) tensor-parallel training at (1, 2), both ranks "
+        "(phase 37)"),
+    "mamba_scan_train_tp_jamba": (
+        "mamba_scan_train", "src/repro_torch/csrc/mamba_scan.cu",
+        "src/repro/kernels/mamba_scan.py:46", TP_SCAN_CASE, "bfloat16",
+        "Jamba (attention + 1 Mamba layer) tensor-parallel training at (1, 2), both ranks "
+        "(phase 37)"),
+    "mamba_scan_bwd_tp_jamba": (
+        "mamba_scan_bwd", "src/repro_torch/csrc/mamba_scan_bwd.cu",
+        "src/repro/kernels/mamba_scan.py:46", TP_SCAN_CASE, "bfloat16",
+        "Jamba (attention + 1 Mamba layer) tensor-parallel training at (1, 2), both ranks "
+        "(phase 37)"),
+    **{f"{kernel}_tp_mla_{tag}": (
+        kernel, f"src/repro_torch/csrc/{kernel}.cu", "src/repro/kernels/rmsnorm.py:23",
+        f"4096x{width}", "bfloat16",
+        f"MLA's {tag} latent rows, whole on each rank, in DeepSeek-V3's tensor-parallel "
+        "training at (1, 2), both ranks (phase 37)")
+       for tag, width in (("q", 1536), ("kv", 512)) for kernel in ("rmsnorm", "rmsnorm_bwd")},
+}
 # phase 34's runs: (a) float32 lockstep at GLOO_CUT, GLOO_STEPS steps of 8 x
 # GLOO_SEQ; (b) smollm-360m+padheads whole, bf16, PADHEADS_TRAIN_STEPS steps
 # of 8 x 512 (phase 33's eager run is its one-rank oracle); (c) Qwen3-MoE at
@@ -673,6 +754,13 @@ XLSTM_TRAIN_STEPS = 4
 # 53.2 GB bf16; a third MoE layer would not fit), without the MTP module,
 # which only the training loss reads
 DEEPSEEK_CUT = dict(n_layers=5, mtp=False)
+# phase 37's runs (above)
+TPM_RUNS = (("deepseek_f32", "deepseek_v3_671b", True, {}, TPM_F32_STEPS, GLOO_SEQ, 1),
+            ("jamba_f32", "jamba_1_5_large_398b", True, {}, TPM_F32_STEPS, GLOO_SEQ, 0),
+            ("deepseek_bf16", "deepseek_v3_671b", False, DEEPSEEK_TRAIN_CUT,
+             TPM_BF16_STEPS, 512, 0),
+            ("jamba_bf16", "jamba_1_5_large_398b", False, JAMBA_WITNESS_CUT,
+             TPM_BF16_STEPS, 512, 0))
 # seconds after which the script dumps every thread's stack to standard error
 # and exits non-zero (a run must end within 1,200 s; a whole run takes ~700-830)
 WATCHDOG_S = 1100
@@ -686,10 +774,20 @@ def fail(msg: str):
 # few events, for a spell of about a tenth of a second, into which several
 # short sessions in a row can fall. A session that shows it is run again
 # after a pause that doubles each time, up to PROFILER_ATTEMPTS sessions;
-# PROFILER_RETRIES counts the sessions run again, by what they showed.
+# PROFILER_RETRIES counts the sessions run again, by what they showed. On
+# some machines every session dropped events from the scan's rows of phase
+# 2 on (417 sessions run again in one run; another, which retried each to
+# the end, passed WATCHDOG_S in phase 2): once the pauses reach
+# PROFILER_PAUSE_BUDGET_S in all, retries no longer pause, and a timing
+# session that dropped events is kept without another try (a kernel's
+# time is the median of its events by name, which a dropped event does
+# not move); one with no events is still run again. PROFILER_PAUSED holds
+# the seconds paused so far.
 PROFILER_ATTEMPTS = 6
 PROFILER_PAUSE_S = 0.1
+PROFILER_PAUSE_BUDGET_S = 20.0
 PROFILER_RETRIES = collections.Counter()
+PROFILER_PAUSED = [0.0]
 
 
 def cuda_event_counts(prof) -> collections.Counter:
@@ -710,15 +808,23 @@ def whole_session(seen: collections.Counter, iters: int) -> bool:
 
 
 def pause(attempt: int):
-    if attempt + 1 < PROFILER_ATTEMPTS:
+    if attempt + 1 < PROFILER_ATTEMPTS and not pauses_spent():
         time.sleep(PROFILER_PAUSE_S * 2 ** attempt)
+        PROFILER_PAUSED[0] += PROFILER_PAUSE_S * 2 ** attempt
+
+
+def pauses_spent() -> bool:
+    """Whether the profiler's retries have paused PROFILER_PAUSE_BUDGET_S
+    in all."""
+    return PROFILER_PAUSED[0] >= PROFILER_PAUSE_BUDGET_S
 
 
 def profiled(fn, iters: int = 1, whole: bool = False):
     """The profiler (CUPTI) around ``iters`` calls of ``fn``. A session
     with no device activity, or with ``whole`` one that dropped events
-    (``whole_session``), is run again after a pause; if none was whole, the
-    one with the most events is kept, and if none recorded any the phase
+    (``whole_session``), is run again after a pause (past the pause budget,
+    ``pauses_spent``, only one with no events); if none was whole, the one
+    with the most events is kept, and if none recorded any the phase
     fails."""
     best, most = None, 0
     for attempt in range(PROFILER_ATTEMPTS):
@@ -731,6 +837,8 @@ def profiled(fn, iters: int = 1, whole: bool = False):
             return prof
         if sum(seen.values()) > most:
             best, most = prof, sum(seen.values())
+        if best is not None and pauses_spent():
+            break
         pause(attempt)
     if best is None:
         fail("the profiler recorded no device time")
@@ -927,7 +1035,7 @@ def phase_kernels(rms, fla, dec, scan):
         dn = str(dtype).split(".")[1]
         # RMSNorm: prefill rows (8 x 512) and decode rows (8)
         for n, d in ((4096, 960), (8, 960), (4096, 8192), (8, 8192),
-                     (4096, 768), (4096, 1536)):
+                     (4096, 768), (4096, 1536), (4096, 512)):
             x, s = randn((n, d), dtype), randn((d,), torch.float32)
             sw = s.to(dtype)
             rows.append(compare(
@@ -1050,6 +1158,8 @@ def phase_kernels(rms, fla, dec, scan):
             dec.decode_attention_cuda(q, k, v, length, window=window),
             dec.decode_attention_plain(q, k, v, length, window=window), "attn"))
     rows += scan_train_rows(scan, randn)
+    rows += tp_mixer_rows(fla, scan, randn)
+    rows += gqa_rows(fla, randn, TP_JAMBA_ATTN_CASE, TP_JAMBA_ATTN_SHAPE, (torch.bfloat16,))
     rows += smoke_head_dim_rows(fla, dec, randn, gen)
     rows += mla_rows(fla, randn)
     rows += backward_rows(rms, fla, randn)
@@ -1163,6 +1273,79 @@ def ring_rows(fla, randn):
             library_fwd=lib_f, n_bytes=4 * nbytes(q) + 4 * nbytes(k),
             ops=10 * b * hq * hd * pairs))
         rows[-1]["instance"] = fla.INSTANCES[dt]
+    return rows
+
+
+def tp_mixer_rows(fla, scan, randn):
+    """The kernels at a rank's shapes of phase 37 (tensor parallelism at (1,
+    2)), bf16, each timed against its plain version: the D-192 flash
+    forward (with L) and backward in ``mla_apply``'s layout at DeepSeek-V3's
+    64 heads a rank ((B, H, S, D) views of (B, S, H, 192) q, k, dO and of V
+    padded from 128; SDPA with the scale as yardstick), and the scan's
+    training forward and backward at Jamba's 8,192 channels a rank (random
+    A; B and C column slices of the summed x_proj output, as the rank
+    passes them). RMSNorm at MLA's latent rows (4096 x 1536 and 512) is in
+    the forward and backward rows already."""
+    rows = []
+    b, h, s, d = TP_MLA_SHAPE
+    dt = torch.bfloat16
+    v = F.pad(randn((b, s, h, 128), dt), (0, d - 128))
+    q, k, do = (randn((b, s, h, d), dt).transpose(1, 2) for _ in range(3))
+    v = v.transpose(1, 2)
+    scale, pairs = d ** -0.5, s * (s + 1) // 2
+    args = (q, k, v, True, None, 0, scale)
+    rows.append(compare(
+        "flash_attention", TP_MLA_CASE + " with L", "bfloat16",
+        fla.flash_attention_cuda(*args, return_lse=True),
+        fla.flash_attention_plain(*args, return_lse=True), "attn_lse",
+        run=lambda a=args: fla.flash_attention_cuda(*a, return_lse=True),
+        plain=lambda a=args: fla.flash_attention_plain(*a, return_lse=True),
+        library=lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, scale=scale),
+        n_bytes=4 * nbytes(q) + 4 * b * h * s, ops=4 * b * h * d * pairs, plain_iters=5))
+    rows[-1]["instance"] = fla.INSTANCES[dt]
+    o, lse = fla.flash_attention_cuda(*args, return_lse=True)
+    bargs = (q, k, v, o, do, True, None, 0, scale)
+    ql, kl, vl = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+
+    def lib_f():
+        return F.scaled_dot_product_attention(ql, kl, vl, is_causal=True, scale=scale)
+
+    rows.append(compare(
+        "flash_attention_bwd", TP_MLA_CASE + " with L", "bfloat16",
+        fla.flash_attention_bwd_cuda(*bargs, lse=lse),
+        fla.flash_attention_bwd_plain(*bargs), "attn_bwd",
+        run=lambda: fla.flash_attention_bwd_cuda(*bargs, lse=lse),
+        plain=lambda: fla.flash_attention_bwd_plain(*bargs),
+        library=lambda: torch.autograd.grad(lib_f(), (ql, kl, vl), do), library_fwd=lib_f,
+        n_bytes=8 * nbytes(q), ops=10 * b * h * d * pairs, plain_iters=5))
+    rows[-1]["instance"] = fla.INSTANCES[dt]
+    del q, k, v, do, o, lse, ql, kl, vl
+    bt, t, d_in, n, r = TP_SCAN_SHAPE
+    u, dy = randn((bt, t, d_in), dt), randn((bt, t, d_in), dt)
+    dts = F.softplus(randn((bt, t, d_in), torch.float32))
+    proj = randn((bt, t, r + 2 * n), dt)
+    Bm, Cm = proj[..., r:r + n], proj[..., r + n:]
+    A, D = -torch.exp(randn((d_in, n), torch.float32)), randn((d_in,), torch.float32)
+    elems = u.numel()
+    args = (u, dts, A, Bm, Cm, D, None)
+    rows.append(compare(
+        "mamba_scan_train", TP_SCAN_CASE, "bfloat16", scan.mamba_scan_train_cuda(*args),
+        scan.mamba_scan_states_plain(*args), "scan",
+        run=lambda: scan.mamba_scan_train_cuda(*args),
+        plain=lambda: scan.mamba_scan_states_plain(*args), library=None,
+        n_bytes=nbytes(u, dts, A, Bm, Cm, D, u) + 4 * bt * d_in * n * (1 + scan.n_states(t)),
+        ops=6 * elems * n + 3 * elems, exps=elems * n, ops_dtype="float32", plain_iters=3,
+        plain_events=True))
+    _, _, hs = scan.mamba_scan_train_cuda(*args)
+    bargs = (u, dts, A, Bm, Cm, D, hs, dy, None)
+    got = scan.mamba_scan_bwd_cuda(*bargs)
+    pargs = (u, dts, A, Bm, Cm, D, dy, None, None)
+    rows.append(compare(
+        "mamba_scan_bwd", TP_SCAN_CASE, "bfloat16", got, scan.mamba_scan_bwd_plain(*pargs),
+        "scan_bwd", run=lambda: scan.mamba_scan_bwd_cuda(*bargs),
+        plain=lambda: scan.mamba_scan_bwd_plain(*pargs), library=None,
+        n_bytes=nbytes(u, dts, dy, A, Bm, Cm, D, *got), ops=10 * elems * n, exps=elems * n,
+        ops_dtype="float32", plain_iters=3, scaled=True, leafwise=True, plain_events=True))
     return rows
 
 
@@ -1585,7 +1768,7 @@ def backward_rows(rms, fla, randn):
     """The backward kernels against their plain versions: flash attention at
     smollm-360M's training shape (bf16 and float32), at Jamba's attention
     shape (bf16, head dim 128) and at the SMOKE shapes (float32), RMSNorm
-    over rows of 960, 768 and 1536. The bf16 flash rows pass the forward's
+    over rows of 960, 768, 1536 and 512. The bf16 flash rows pass the forward's
     L, as training does (``instance`` names the kernel that ran). The library
     yardstick is autograd's forward + backward of one PyTorch call
     (``scaled_dot_product_attention`` with ``enable_gqa``, and a boolean
@@ -1634,7 +1817,7 @@ def backward_rows(rms, fla, randn):
             rows[-1]["instance"] = fla.INSTANCES[dtype]
     for dtype in (torch.bfloat16, torch.float32):
         dn = str(dtype).split(".")[1]
-        for n, d in ((4096, 960), (4096, 768), (4096, 1536)):
+        for n, d in ((4096, 960), (4096, 768), (4096, 1536), (4096, 512)):
             x, dy = randn((n, d), dtype), randn((n, d), dtype)
             s = randn((d,), torch.float32)
             dx, ds = rms.rmsnorm_bwd_cuda(x, s, dy, 1e-5)
@@ -2565,13 +2748,19 @@ def gloo_join(rank: int, world: int, port: int) -> None:
                             timeout=timeout)
 
 
-def counted_kernels():
+def counted_kernels(scan_and_norms: bool = False):
     """A rank's kernel wrappers by counter (``kernel_wrappers``), the two
     flash wrappers replaced in their module by stand-ins that record each
     launch's (direction, q shape, k shape, offset, window, dtype) in the
     returned Counter and take the wrappers' counters (each wrapper adds to
-    the counter under its module name)."""
+    the counter under its module name). With ``scan_and_norms`` the scan's
+    training forward and backward (``("scan_fwd" / "scan_bwd", u shape, B
+    shape, 0, None, dtype)``) and RMSNorm forward and backward
+    (``("rmsnorm" / "rmsnorm_bwd", x shape, scale shape, 0, None,
+    dtype)``) are recorded too."""
     from repro_torch.kernels import flash_attention as fla
+    from repro_torch.kernels import mamba_scan as scan
+    from repro_torch.kernels import rmsnorm as rms
     kern, shapes = kernel_wrappers(), collections.Counter()
     real_fwd, real_bwd = fla.flash_attention_cuda, fla.flash_attention_bwd_cuda
 
@@ -2583,12 +2772,154 @@ def counted_kernels():
         shapes[("bwd", tuple(q.shape), tuple(k.shape), offset, window, str(q.dtype))] += 1
         return real_bwd(q, k, v, o, do, causal, window, offset, scale, lse)
 
-    for name, fn, real in (("flash_attention", fwd, real_fwd),
-                           ("flash_attention_bwd", bwd, real_bwd)):
+    stand_ins = [(fla, "flash_attention", fwd, real_fwd),
+                 (fla, "flash_attention_bwd", bwd, real_bwd)]
+    if scan_and_norms:
+        def recorder(tag, real, first, second):
+            def fn(*args, **kw):
+                a, b = args[first], args[second]
+                shapes[(tag, tuple(a.shape), tuple(b.shape), 0, None, str(a.dtype))] += 1
+                return real(*args, **kw)
+            return fn
+
+        for mod, name, tag, second in ((scan, "mamba_scan_train", "scan_fwd", 3),
+                                       (scan, "mamba_scan_bwd", "scan_bwd", 3),
+                                       (rms, "rmsnorm", "rmsnorm", 1),
+                                       (rms, "rmsnorm_bwd", "rmsnorm_bwd", 1)):
+            real = getattr(mod, f"{name}_cuda")
+            stand_ins.append((mod, name, recorder(tag, real, 0, second), real))
+    for mod, name, fn, real in stand_ins:
         fn.__dict__.update(vars(real))
-        setattr(fla, real.__name__, fn)
+        setattr(mod, real.__name__, fn)
         kern[name] = fn
     return kern, shapes
+
+
+def timed_collectives() -> dict:
+    """Host seconds inside ``torch.distributed``'s all-reduce, all-gather
+    and reduce-scatter in this process from now on (the device synchronised
+    before each, so no kernel still in flight is counted), by name, in the
+    returned dict (the caller clears it): the port's collectives call them
+    through the module, so they are replaced there. Gloo stages a CUDA
+    tensor through host memory, so these are its whole cost."""
+    import torch.distributed as dist
+    spent = collections.Counter()
+    for name in ("all_reduce", "all_gather_into_tensor", "reduce_scatter_tensor"):
+        real = getattr(dist, name)
+
+        def timed(*args, real=real, name=name, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            try:
+                return real(*args, **kw)
+            finally:
+                spent[name] += time.perf_counter() - t
+
+        setattr(dist, name, timed)
+    return spent
+
+
+def tp_collectives_per_step(cfg, m: int, seq: int) -> dict:
+    """The collectives over 'model' of one train step of ``cfg`` at a
+    'model' axis of ``m`` (``models.tensor_parallel.counts``: all-reduces,
+    all-gathers, reduce-scatters), as the port's layers run them where the
+    rules split a leaf (a width that ``m`` divides). A block: attention
+    with each rank its heads sums its output (forward) and x's gradient
+    (backward); with every head on every rank it also gathers each split
+    wq / wk / wv (forward; their reduce-scatters backward) and sums the
+    gradient of a whole one; MLA gathers its two latents and sums its
+    output (backward: the reduce-scatters, and the sums of x's, wkr's and
+    the two norms' gradients); Mamba gathers x @ in_proj and sums (dt_r, B,
+    C) and its output (backward: the reduce-scatter, and the sums of x's,
+    (dt_r, B, C)'s and dt_bias's gradients); a split SwiGLU sums its output
+    and x's gradient; a split MoE sums its output and, backward, the
+    tokens' and each dispatch group's weights' gradients (a split shared
+    expert as a SwiGLU). A vocab split sums the embedding lookup, and each
+    256-position chunk of the loss's maximum and sums, and backward h's
+    gradient. MTP adds its lookup, its ``proj``'s gather (forward only: its
+    block's gradient is whole on every rank) and the sum of its input's
+    gradient, its block and its loss over S - 1 positions. Remat runs each
+    period's forward again in the backward, up to its last saved tensor
+    (``torch.utils.checkpoint``'s early stop): all but its closing sum; the
+    dense prefix and MTP run once."""
+    zero = collections.Counter
+
+    def swiglu(width):
+        return (zero(all_reduce=1), zero(all_reduce=1)) if width % m == 0 else (zero(), zero())
+
+    def mixer(kind):
+        if kind == "attn":
+            h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+            split = [(h * hd) % m == 0] + [(hkv * hd) % m == 0] * 2
+            if not any(split):
+                return zero(), zero()
+            fwd, bwd = zero(all_reduce=1), zero(all_reduce=1)
+            if not (all(split) and h % m == 0 and hkv % m == 0):
+                fwd["all_gather"] += sum(split)
+                bwd["reduce_scatter"] += sum(split)
+                bwd["all_reduce"] += 3 - sum(split)
+            return fwd, bwd
+        if kind == "mla":
+            widths = (cfg.q_lora_rank, cfg.kv_lora_rank, cfg.n_heads)
+            if any(w % m for w in widths):
+                fail(f"tp_collectives_per_step: {cfg.name}'s MLA widths {widths} at {m}")
+            return zero(all_gather=2, all_reduce=1), zero(reduce_scatter=2, all_reduce=4)
+        if kind == "mamba":
+            if cfg.d_inner % m:
+                return zero(), zero()
+            return zero(all_gather=1, all_reduce=2), zero(reduce_scatter=1, all_reduce=3)
+        fail(f"tp_collectives_per_step: no count for the {kind} mixer")
+
+    def ffn(kind, width=None):
+        if kind is None:
+            return zero(), zero()
+        if kind == "mlp":
+            return swiglu(width or cfg.d_ff)
+        fwd, bwd = zero(), zero()
+        if cfg.n_experts % m == 0:
+            fwd["all_reduce"] += 1
+            bwd["all_reduce"] += 1 + max(1, cfg.moe_dispatch_groups)
+        if cfg.n_shared_experts:
+            f, b = swiglu(cfg.n_shared_experts * cfg.d_expert)
+            fwd, bwd = fwd + f, bwd + b
+        return fwd, bwd
+
+    def block(spec):
+        (f1, b1), (f2, b2) = mixer(spec[0]), ffn(spec[1])
+        return f1 + f2, b1 + b2
+
+    def loss(s):
+        if cfg.vocab % m:
+            return zero(), zero()
+        return zero(all_reduce=2 * -(-s // min(256, s))), zero(all_reduce=1)
+
+    total = collections.Counter()
+    once = [(cfg.period[0][0], "mlp")] * cfg.first_k_dense
+    if cfg.mtp:
+        once.append(cfg.period[0])
+    for spec in once:
+        f, b = block(spec)
+        total += f + b
+    period_f, period_b = zero(), zero()
+    for spec in cfg.period:
+        f, b = block(spec)
+        period_f, period_b = period_f + f, period_b + b
+    again = period_f.copy()
+    if period_f["all_reduce"]:
+        # the recompute stops at the last tensor the backward saved: the
+        # period's closing sum (of its last mixer or FFN) does not run again
+        again["all_reduce"] -= 1
+    for _ in range(cfg.n_periods):
+        total += period_f + period_b + (again if cfg.remat else zero())
+    lookups = 1 + bool(cfg.mtp)
+    if cfg.vocab % m == 0:
+        total["all_reduce"] += lookups
+    for s in [seq] + ([seq - 1] if cfg.mtp else []):
+        f, b = loss(s)
+        total += f + b
+    if cfg.mtp and cfg.d_model % m == 0:
+        total += zero(all_gather=1, all_reduce=1)
+    return dict(sorted(total.items()))
 
 
 def gloo_ranks(fn, world: int, rdir: Path, deadline_s: float, what: str, meanwhile=None):
@@ -2671,13 +3002,15 @@ def tp_rank(rank: int, world: int, port: int, tmp: str) -> None:
     ``launch.train.train(mesh_shape=(1, world))``: (a) smollm-360M (every
     head on every rank) and smollm-360m+padheads (each rank its heads) cut
     to GLOO_CUT, float32; (b) smollm-360m+padheads whole, bf16, with this
-    rank's launch counts and the shapes of its flash calls; (c) Qwen3-MoE
-    cut to QWEN_TRAIN_CUT, bf16. Writes losses, grad norms, step seconds,
-    peak memory, counts and (rank 0, (a)) the whole params, gathered, to
-    ``tmp``."""
+    rank's launch counts, the shapes of its flash calls and its collectives
+    over 'model' (``tensor_parallel.counts``); (c) Qwen3-MoE cut to
+    QWEN_TRAIN_CUT, bf16, the same. Writes losses, grad norms, step
+    seconds, peak memory, counts and (rank 0, (a)) the whole params,
+    gathered, to ``tmp``."""
     import torch.distributed as dist
     from repro_torch.launch import shardings as SH
     from repro_torch.launch.train import train
+    from repro_torch.models import tensor_parallel as tp
     from repro_torch.models.module import tree_map
 
     gloo_join(rank, world, port)
@@ -2701,17 +3034,227 @@ def tp_rank(rank: int, world: int, port: int, tmp: str) -> None:
             for fn in kern.values():
                 fn.launches = 0
             shapes.clear()
+            tp.counts.clear()
             r = train(arch, smoke=False, steps=steps, batch=8, seq=512, device="cuda",
                       graphs=False, overrides=over, mesh_shape=mesh_shape, log_every=steps)
             out[label] = {"losses": r["losses"], "grad_norms": r["grad_norms"],
                           "step_s": r["step_s"],
                           "max_memory_allocated": torch.cuda.max_memory_allocated(),
                           "counts": {name: fn.launches for name, fn in kern.items()},
-                          "shapes": dict(shapes)}
+                          "shapes": dict(shapes), "collectives": dict(tp.counts)}
             del r
         torch.save(out, f"{tmp}/rank{rank}.pt")
     finally:
         dist.destroy_process_group()
+
+
+def collectives_text(per_step: dict) -> str:
+    """A step's collectives over 'model' (``tensor_parallel.counts`` over
+    steps) as "n kind (MB)"."""
+    return ", ".join(f"{per_step[k]:g} {k.replace('_', '-')}s "
+                     f"({per_step.get(k + '_bytes', 0) / 1e6:.1f} MB)"
+                     for k in ("all_reduce", "all_gather", "reduce_scatter") if k in per_step)
+
+
+def tpm_rank(rank: int, world: int, port: int, tmp: str) -> None:
+    """Rank ``rank`` of phase 37 (tensor parallelism over 'model' for MLA
+    and Mamba at (1, ``world``), the ranks on the one card over gloo,
+    eager; the parent serves the ``TCPStore`` on 127.0.0.1:``port``): each
+    run of TPM_RUNS through ``launch.train.train(mesh_shape=(1, world))``,
+    with its losses, grad norms, step seconds, peak memory, launch counts,
+    the shapes of its flash, scan and RMSNorm calls, its collectives over
+    'model' (``tensor_parallel.counts``) and the host seconds spent in gloo
+    (``timed_collectives``); rank 0 writes the float32 runs' whole params,
+    gathered. Results to ``tmp``."""
+    import torch.distributed as dist
+    from repro_torch.launch import shardings as SH
+    from repro_torch.launch.train import train
+    from repro_torch.models import tensor_parallel as tp
+    from repro_torch.models.module import tree_map
+
+    gloo_join(rank, world, port)
+    kern, shapes = counted_kernels(scan_and_norms=True)
+    spent = timed_collectives()
+    out = {}
+    try:
+        for label, arch, smoke, over, steps, seq, seed in TPM_RUNS:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            for fn in kern.values():
+                fn.launches = 0
+            shapes.clear()
+            tp.counts.clear()
+            spent.clear()
+            r = train(arch, smoke=smoke, steps=steps, batch=8, seq=seq, seed=seed,
+                      device="cuda", graphs=False, overrides=over or None,
+                      mesh_shape=(1, world), log_every=steps)
+            out[label] = {"losses": r["losses"], "grad_norms": r["grad_norms"],
+                          "step_s": r["step_s"],
+                          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                          "counts": {name: fn.launches for name, fn in kern.items()},
+                          "shapes": dict(shapes), "collectives": dict(tp.counts),
+                          "gloo_s": dict(spent), "params": None}
+            if smoke:
+                whole = SH.gather_tree(r["params"], r["shardings"], r["mesh"])
+                if rank == 0:
+                    out[label]["params"] = tree_map(lambda a: a.cpu(), whole)
+                del whole
+            del r
+        torch.save(out, f"{tmp}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_tp_mixers(kern, side, zero, report, frontend_totals, out_dir, took,
+                    bf16_oracles) -> None:
+    """Phase 37: tensor parallelism over 'model' for MLA and Mamba at (1,
+    2), two ranks on the one card over gloo (``tpm_rank``). (a) each
+    float32 run of TPM_RUNS against one process's ``train()`` on the card,
+    run here while the ranks start (losses and grad norms to TP_F32_TOL,
+    rank 0's params to lr / 4); (b) each bf16 run's losses against
+    ``bf16_oracles[label]``'s first ones (TP_BF16_TOL), its flash calls at
+    the rank's heads, its scan calls at the rank's channels; every run's
+    launches against ``per_train_step`` and its collectives over 'model'
+    against ``tp_collectives_per_step``. Fills ``report["tp_mixers"]`` and
+    the launches of TP_MIXER_ROWS (``frontend_totals``)."""
+    from repro_torch.configs import get
+    from repro_torch.launch.train import train
+    from repro_torch.models.module import tree_map
+
+    world = 2
+    cfgs = {label: dataclasses.replace(get(arch, smoke=smoke), **over)
+            for label, arch, smoke, over, *_rest in TPM_RUNS}
+    per = {label: per_train_step(cfg) for label, cfg in cfgs.items()}
+    lr = 3e-4
+
+    def oracles():
+        """One process's eager ``train()`` of each float32 run, no mesh."""
+        got = {}
+        for label, arch, smoke, over, steps, seq, seed in TPM_RUNS:
+            if not smoke:
+                continue
+            r = drive(kern, side, zero(**{k: v * steps for k, v in per[label].items()}),
+                      lambda: train(arch, smoke=True, steps=steps, batch=8, seq=seq, seed=seed,
+                                    device="cuda", graphs=False, overrides=over or None,
+                                    log_every=steps),
+                      f"one-process {label} training")
+            got[label] = {"losses": r["losses"], "grad_norms": r["grad_norms"],
+                          "params": tree_map(lambda a: a.cpu(), r["params"])}
+            del r
+        torch.cuda.empty_cache()
+        return got
+
+    torch.cuda.empty_cache()
+    one, ranks = gloo_ranks(tpm_rank, world, out_dir / "tpm", TPM_DEADLINE_S,
+                            "two tensor-parallel ranks (MLA, Mamba)", oracles)
+    rec = report["tp_mixers"] = {}
+    for label, arch, smoke, over, steps, seq, seed in TPM_RUNS:
+        cfg = cfgs[label]
+        want = zero(**{k: v * steps for k, v in per[label].items()})
+        want_coll = {k: v * steps for k, v in tp_collectives_per_step(cfg, world, seq).items()}
+        run = rec[label] = {"arch": arch, "smoke": smoke, "overrides": over, "steps": steps,
+                            "batch": [8, seq], "seed": seed, "ranks": []}
+        if smoke:
+            oracle, keys, tol = one[label], ("losses", "grad_norms"), TP_F32_TOL
+        else:
+            oracle, keys, tol = bf16_oracles[label], ("losses",), TP_BF16_TOL
+        run["one_process_losses"] = oracle["losses"][:steps]
+        for i, r in enumerate(ranks):
+            got = r[label]
+            errs = {}
+            for key in keys:
+                w = oracle[key][:steps]
+                errs[key] = max(abs(a - b) / abs(b) for a, b in zip(got[key], w))
+                if len(got[key]) != steps or not all(map(math.isfinite, got[key])) \
+                        or not errs[key] <= tol:
+                    fail(f"tensor parallelism ({label}) rank {i}: {key} {got[key]}, one "
+                         f"process {w} (rel {errs[key]}, tol {tol})")
+            coll = {k: n for k, n in got["collectives"].items() if not k.endswith("_bytes")}
+            if got["counts"] != want or coll != want_coll:
+                fail(f"tensor parallelism ({label}) rank {i}: launches {got['counts']}, "
+                     f"collectives over 'model' {coll}; want {want}, {want_coll}")
+            run["ranks"].append({
+                "losses": got["losses"], "grad_norms": got["grad_norms"], "max_rel_err": errs,
+                "step_s": got["step_s"], "median_step_s": statistics.median(got["step_s"][1:]),
+                "mean_step_s": sum(got["step_s"]) / steps,
+                "gloo_s_a_step": sum(got["gloo_s"].values()) / steps,
+                "max_memory_allocated": got["max_memory_allocated"], "launches": got["counts"],
+                "collectives_a_step": {k: n / steps for k, n in got["collectives"].items()},
+                "shapes": {str(k): n for k, n in got["shapes"].items()}})
+        if smoke:
+            run["param_max_err"] = max(
+                float((a - b).abs().max()) for _, a, b in _paired_leaves(
+                    ranks[0][label]["params"], one[label]["params"]))
+            run["param_tol"] = lr / 4
+            if not run["param_max_err"] <= lr / 4:
+                fail(f"tensor parallelism ({label}): rank 0's params differ from one "
+                     f"process's by {run['param_max_err']} (tol {lr / 4})")
+            continue
+        # (b): the kernels at the rank's shapes
+        b, s = 8, seq
+        if cfg.mla:
+            qk = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+            q = kv = (b, cfg.n_heads // world, s, qk)
+            if q != TP_MLA_SHAPE:
+                fail(f"phase 37: DeepSeek's rank shape {q} is not phase 2's {TP_MLA_SHAPE}")
+        else:
+            q = (b, cfg.n_heads // world, s, cfg.hd)
+            kv = (b, cfg.n_kv_heads // world, s, cfg.hd)
+            if (b, q[1], kv[1], s, cfg.hd) != TP_JAMBA_ATTN_SHAPE:
+                fail(f"phase 37: Jamba's attention rank shape {q} / {kv} is not phase 2's "
+                     f"{TP_JAMBA_ATTN_SHAPE}")
+        want_sh = {("fwd", q, kv, 0, None, "torch.bfloat16"): want["flash_attention"],
+                   ("bwd", q, kv, 0, None, "torch.bfloat16"): want["flash_attention_bwd"]}
+        if want["mamba_scan_train"]:
+            u = (b, s, cfg.d_inner // world)
+            if u + (cfg.ssm_state, cfg.dt_rank) != TP_SCAN_SHAPE:
+                fail(f"phase 37: Jamba's scan rank shape {u} is not phase 2's {TP_SCAN_SHAPE}")
+            bc = (b, s, cfg.ssm_state)
+            want_sh[("scan_fwd", u, bc, 0, None, "torch.bfloat16")] = want["mamba_scan_train"]
+            want_sh[("scan_bwd", u, bc, 0, None, "torch.bfloat16")] = want["mamba_scan_bwd"]
+        for i, r in enumerate(ranks):
+            got = {k: n for k, n in r[label]["shapes"].items()
+                   if k[0] not in ("rmsnorm", "rmsnorm_bwd")}
+            if got != want_sh:
+                fail(f"tensor parallelism ({label}) rank {i}: kernel calls {got}, want {want_sh}")
+        for name, (kernel, *_rest) in TP_MIXER_ROWS.items():
+            if cfg.mla and kernel.startswith("rmsnorm"):
+                width = cfg.q_lora_rank if name.endswith("_q") else cfg.kv_lora_rank
+                frontend_totals[name] = sum(
+                    n for r in ranks for (tag, xs, *_x), n in r[label]["shapes"].items()
+                    if tag == kernel and xs == (b, s, width))
+            elif name.endswith("_tp_mla" if cfg.mla else "_tp_jamba"):
+                frontend_totals[name] = sum(r[label]["counts"][kernel] for r in ranks)
+    del ranks, one
+    torch.cuda.empty_cache()
+
+    def rank_line(run):
+        return ("step " + "/".join(f"{r['median_step_s'] * 1e3:.1f}" for r in run["ranks"])
+                + " ms a rank (mean " + "/".join(f"{r['mean_step_s'] * 1e3:.1f}"
+                                                 for r in run["ranks"])
+                + ", of it in gloo " + "/".join(f"{r['gloo_s_a_step'] * 1e3:.1f}"
+                                                for r in run["ranks"])
+                + "), peak " + "/".join(f"{r['max_memory_allocated'] / 2**30:.2f}"
+                                        for r in run["ranks"])
+                + f" GiB a rank, collectives over 'model' a step a rank "
+                + collectives_text(run["ranks"][0]["collectives_a_step"]))
+
+    print("[37 tp mla mamba] (1, 2) over 'model', two ranks on the one card over gloo, eager: "
+          "(a) float32 SMOKE against one process: " + "; ".join(
+              f"{label.split('_')[0]} losses "
+              f"{max(r['max_rel_err']['losses'] for r in rec[label]['ranks']):.2e}, grad norms "
+              f"{max(r['max_rel_err']['grad_norms'] for r in rec[label]['ranks']):.2e} rel (tol "
+              f"{TP_F32_TOL:g}), params {rec[label]['param_max_err']:.2e} (tol "
+              f"{rec[label]['param_tol']:.2e}), {rank_line(rec[label])}"
+              for label in ("deepseek_f32", "jamba_f32"))
+          + "; (b) bf16 at the published widths: " + "; ".join(
+              f"{label.split('_')[0]} losses "
+              f"{[round(x, 4) for x in rec[label]['ranks'][0]['losses']]} vs one process "
+              f"{[round(x, 4) for x in rec[label]['one_process_losses']]} (max rel "
+              f"{max(r['max_rel_err']['losses'] for r in rec[label]['ranks']):.2e}, tol "
+              f"{TP_BF16_TOL:g}), {rank_line(rec[label])}"
+              for label in ("deepseek_bf16", "jamba_bf16"))
+          + f" {took('37 tp mla mamba')}", flush=True)
 
 
 def cp_inputs(shape, dtype, seed):
@@ -4903,11 +5446,17 @@ def main() -> int:
                             "one_rank_median_step_s": oracle["median_step_s"],
                             "one_rank_max_memory_allocated": oracle["max_memory_allocated"],
                             "ranks": []}
+        acfg = dataclasses.replace(get(arch), **over)
+        want_coll = {k: v * steps for k, v in tp_collectives_per_step(acfg, 2, 512).items()}
         for i, r in enumerate(ranks):
             got = r[label]
             if got["counts"] != zero(**want):
                 fail(f"tensor-parallel {label} rank {i}: launches {got['counts']}, "
                      f"expected {zero(**want)}")
+            coll = {k: n for k, n in got["collectives"].items() if not k.endswith("_bytes")}
+            if coll != want_coll:
+                fail(f"tensor-parallel {label} rank {i}: collectives over 'model' {coll}, "
+                     f"the design's {want_coll}")
             flash = {tag: n for (tag, qs, ks, _off, _win, dn), n in got["shapes"].items()
                      if qs == q and ks == kv and dn == "torch.bfloat16"}
             if flash != {"fwd": want["flash_attention"], "bwd": want["flash_attention_bwd"]}:
@@ -4924,6 +5473,7 @@ def main() -> int:
                 "losses": losses, "grad_norms": got["grad_norms"], "loss_max_rel_err": rel,
                 "step_s": got["step_s"], "median_step_s": statistics.median(got["step_s"][1:]),
                 "max_memory_allocated": got["max_memory_allocated"], "launches": got["counts"],
+                "collectives_a_step": {k: n / steps for k, n in got["collectives"].items()},
                 "flash_shapes": {f"{t} q{list(qs)} k{list(ks)} {dn}": n
                                  for (t, qs, ks, _off, _win, dn), n in got["shapes"].items()}})
         tag = "padheads" if label == "padheads_bf16" else "qwen3"
@@ -4947,7 +5497,8 @@ def main() -> int:
               "peak " + " / ".join(f"{r['max_memory_allocated'] / 2**30:.2f}"
                                    for r in tpr[k]["ranks"])
               + f" GiB a rank (one rank {tpr[k]['one_rank_max_memory_allocated'] / 2**30:.2f}), "
-              f"flash per rank {tpr[k]['ranks'][0]['flash_shapes']}"
+              f"flash per rank {tpr[k]['ranks'][0]['flash_shapes']}, collectives over 'model' "
+              f"a step a rank {collectives_text(tpr[k]['ranks'][0]['collectives_a_step'])}"
               for k in ("padheads_bf16", "qwen3")) + f" {took('34 tensor parallel')}",
           flush=True)
 
@@ -4955,6 +5506,9 @@ def main() -> int:
     phase_ring(fla, zero, report, frontend_totals, out_dir, took)
     # 36. training with the tokens over 'model' at (2, 2) and (1, 4)
     phase_cp_train(kern, side, zero, report, frontend_totals, out_dir, took)
+    # 37. tensor parallelism over 'model' for MLA and Mamba at (1, 2)
+    phase_tp_mixers(kern, side, zero, report, frontend_totals, out_dir, took,
+                    {"deepseek_bf16": mt["deepseek"]["eager"], "jamba_bf16": jw["bfloat16"]})
 
     # the kernel table: main-path shapes, bf16; launches over every main path
     table = []
@@ -4977,6 +5531,7 @@ def main() -> int:
     path_rows.update(PADHEADS_ROWS)
     path_rows.update(TP_ROWS)
     path_rows.update(CP_ROWS)
+    path_rows.update(TP_MIXER_ROWS)
     launched = {**mla_totals, **frontend_totals}
     for name, (kernel, source, replaces, case, dn, path) in path_rows.items():
         r = next(r for r in rows if r["kernel"] == kernel and r["case"] == case
@@ -4991,7 +5546,9 @@ def main() -> int:
                       "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     report["table"] = table
     report["profiler_retries"] = dict(PROFILER_RETRIES)
-    print(f"[profiler] sessions run again: {dict(PROFILER_RETRIES) or 'none'}", flush=True)
+    report["profiler_paused_s"] = PROFILER_PAUSED[0]
+    print(f"[profiler] sessions run again: {dict(PROFILER_RETRIES) or 'none'}, paused "
+          f"{PROFILER_PAUSED[0]:.1f} s (budget {PROFILER_PAUSE_BUDGET_S:g})", flush=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     print(json.dumps({"kernels": table}), flush=True)
     faulthandler.cancel_dump_traceback_later()

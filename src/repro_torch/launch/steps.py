@@ -129,8 +129,10 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer,
     if tensor_parallel and not tensor_parallel_supported(cfg):
         raise NotImplementedError(
             f"{cfg.name}: tensor parallelism over a 'model' axis of "
-            f"{shape['model']} runs the dense decoders and Qwen3-MoE; this "
-            "family comes with ROADMAP.md queue 1, item 6e2b")
+            f"{shape['model']} runs the decoders of attention, MLA and Mamba "
+            "mixers (the dense decoders, Qwen3-MoE, DeepSeek-V3, Jamba); "
+            "mLSTM / sLSTM, the encoder-decoder and the vlm come with "
+            "ROADMAP.md queue 1, item 6e2b")
     f_axis = None if mesh is None else fsdp_axis(mesh)
     f_size = shape.get(f_axis, 1)
 
@@ -224,12 +226,14 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer,
 
 def tensor_parallel_supported(cfg: ModelConfig) -> bool:
     """Whether the port trains ``cfg`` tensor-parallel over 'model': the
-    decoder-only families of GQA attention with a dense SwiGLU or a MoE FFN
-    (the dense decoders, Qwen3-MoE). MLA, the recurrent mixers, the
-    encoder-decoder and the vlm come with ROADMAP.md queue 1, item 6e2b."""
-    return (cfg.family in ("dense", "moe") and not cfg.is_encdec
-            and not cfg.first_k_dense and not cfg.mtp
-            and all(mixer == "attn" for mixer, _ in cfg.period))
+    decoder-only families whose mixers are attention, MLA or Mamba, with a
+    dense SwiGLU or a MoE FFN (the dense decoders, Qwen3-MoE, DeepSeek-V3
+    with its dense prefix and MTP, Jamba). mLSTM / sLSTM (xLSTM), the
+    encoder-decoder (whisper) and the vlm (llava) come with ROADMAP.md
+    queue 1, item 6e2b."""
+    return (cfg.family in ("dense", "moe", "hybrid") and not cfg.is_encdec
+            and all(mixer in ("attn", "mla", "mamba")
+                    for mixer, _ in cfg.period))
 
 
 def _dp_axes(cfg: ModelConfig, mesh, batch: int) -> tuple:

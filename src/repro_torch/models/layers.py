@@ -223,18 +223,29 @@ def mla_init(gen, cfg: ModelConfig, dtype, device="cpu") -> Dict:
     }
 
 
+def _latent(x, w, scale, width: int, eps):
+    """RMSNorm of the latent ``x @ w`` of ``width`` columns. Where ``w``
+    holds this rank's columns of it over 'model', the product's columns are
+    gathered first: the norm reads whole rows."""
+    y = x @ w
+    if w.shape[1] != width:
+        y = tp.gather_from_model(y, -1)
+    return rmsnorm(y, scale, eps)
+
+
 def _mla_qkv(p, x, cfg: ModelConfig, positions):
     """The queries and the compressed keys of x (B, S, D): q_nope (B, S, H,
     dn), q_rope (B, S, H, dr) with RoPE, c_kv (B, S, r_kv) normed, k_rope
-    (B, S, 1, dr) with RoPE."""
+    (B, S, 1, dr) with RoPE. H is the number of heads that ``wuq`` holds
+    (this rank's under tensor parallelism); ``wdq`` / ``wdkv`` may hold this
+    rank's columns of the latents (:func:`_latent`)."""
     b, s, _ = x.shape
-    cq = rmsnorm(x @ p["wdq"], p["q_norm"], cfg.norm_eps)
-    q = (cq @ p["wuq"]).reshape(
-        b, s, cfg.n_heads, cfg.qk_nope_head_dim + cfg.qk_rope_head_dim)
-    q_nope, q_rope = q.split([cfg.qk_nope_head_dim, cfg.qk_rope_head_dim],
-                             dim=-1)
+    dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    cq = _latent(x, p["wdq"], p["q_norm"], cfg.q_lora_rank, cfg.norm_eps)
+    q = (cq @ p["wuq"]).reshape(b, s, -1, dn + dr)
+    q_nope, q_rope = q.split([dn, dr], dim=-1)
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
-    c_kv = rmsnorm(x @ p["wdkv"], p["kv_norm"], cfg.norm_eps)
+    c_kv = _latent(x, p["wdkv"], p["kv_norm"], cfg.kv_lora_rank, cfg.norm_eps)
     k_rope = apply_rope((x @ p["wkr"])[:, :, None, :], positions,
                         cfg.rope_theta)
     return q_nope, q_rope, c_kv, k_rope
@@ -245,10 +256,46 @@ def mla_apply(p, x, cfg: ModelConfig, positions) -> torch.Tensor:
     decompressed (k = [c_kv W_uk, k_rope] per head) and V is padded with
     zeros to the qk head width, so one flash-attention kernel of head dim
     qk (192 at DeepSeek-V3's widths) with scale qk^-0.5 computes it; the
-    padding columns of its output are dropped."""
+    padding columns of its output are dropped.
+
+    Tensor parallelism (:mod:`.tensor_parallel`) is read from the leaves,
+    as in :func:`attn_apply`: ``wdq`` / ``wdkv`` / ``wuq`` / ``wukv``
+    narrower than their whole width hold this rank's columns over 'model',
+    ``wo`` its rows. The latents' columns are gathered before their norms
+    (:func:`_latent`). Where 'model' divides the heads and slices wuq,
+    wukv and wo, each rank runs its heads (their columns are contiguous);
+    otherwise wuq / wukv are gathered whole and every rank runs every
+    head, then its columns of the output. Its rows of wo follow, and the
+    ranks' outputs are summed. ``x`` and every leaf that stays whole
+    (``wkr``, the norms, an unsplit down projection) enter this rank's
+    work through ``copy_to_model``, so each takes its whole gradient. A
+    split that leaves ``wo`` whole raises NotImplementedError."""
     b, s, _ = x.shape
     h, dn, dr, dv = (cfg.n_heads, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
                      cfg.v_head_dim)
+    widths = {"wdq": cfg.q_lora_rank, "wdkv": cfg.kv_lora_rank,
+              "wuq": h * (dn + dr), "wukv": h * (dn + dv)}
+    split = {k: p[k].shape[1] != n for k, n in widths.items()}
+    split_wo = p["wo"].shape[0] != h * dv
+    if any(split.values()) and not split_wo:
+        raise NotImplementedError(
+            f"{cfg.name}: MLA with {sorted(k for k in split if split[k])} "
+            "split over 'model' and wo whole")
+    cols = None
+    if split_wo:
+        m = tp.model_size()
+        x = tp.copy_to_model(x)
+        p = dict(p)
+        for k in ("wkr", "q_norm", "kv_norm", "wdq", "wdkv"):
+            if not split.get(k):
+                p[k] = tp.copy_to_model(p[k])
+        if split["wuq"] and split["wukv"] and h % m == 0:
+            h //= m                                 # this rank's heads
+        else:                                       # every head on every rank
+            for k in ("wuq", "wukv"):
+                p[k] = tp.gather_from_model(p[k], 1) if split[k] \
+                    else tp.copy_to_model(p[k])
+            cols = slice(*tp.local_range(h * dv))
     q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, x, cfg, positions)
     kv = (c_kv @ p["wukv"]).reshape(b, s, h, dn + dv)
     k_nope, v = kv.split([dn, dv], dim=-1)
@@ -258,8 +305,11 @@ def mla_apply(p, x, cfg: ModelConfig, positions) -> torch.Tensor:
     out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                               vp.transpose(1, 2), causal=True, window=None,
                               scale=(dn + dr) ** -0.5)
-    out = out.transpose(1, 2)[..., :dv]
-    return out.reshape(b, s, h * dv) @ p["wo"]
+    out = out.transpose(1, 2)[..., :dv].reshape(b, s, h * dv)
+    if cols is not None:
+        out = out[..., cols]
+    out = out @ p["wo"]
+    return tp.reduce_from_model(out) if split_wo else out
 
 
 def mla_make_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,

@@ -7,7 +7,9 @@ CPU); where the reference loops with ``lax.scan`` (sLSTM) the port loops in
 Python. Decode paths are single-step state updates, and unlike the
 reference, which returns a new cache, they write the new states into the
 given cache tensors in place (``copy_``): the model's ``decode_step`` hands
-each layer views into the stacked cache and keeps no returned copy.
+each layer views into the stacked cache and keeps no returned copy. Under
+tensor parallelism (:mod:`.tensor_parallel`) ``mamba_apply`` runs this
+rank's channels of d_inner.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from . import tensor_parallel as tp
 from .config import ModelConfig
 from .layers import rmsnorm, rmsnorm_init
 from .module import dense_init, normal_init
@@ -80,24 +83,54 @@ def mamba_init(gen, cfg: ModelConfig, dtype, device="cpu") -> Dict:
 
 
 def _mamba_core(p, xc, z, cfg, h0=None):
-    """xc: (B,S,di) post-conv activations; z: gate. Returns (y, h_last)."""
+    """xc: (B,S,di) post-conv activations; z: gate. Returns (y, h_last).
+    Under tensor parallelism (``x_proj`` holds this rank's rows of d_inner,
+    :func:`mamba_apply`) xc and z are this rank's channels: the ranks'
+    partial (dt_r, B, C) are summed, and each rank takes its channels of
+    ``dt_bias``."""
     r, n = cfg.dt_rank, cfg.ssm_state
     proj = xc @ p["x_proj"]                                     # (B,S,r+2n)
+    dt_bias = p["dt_bias"]
+    if p["x_proj"].shape[0] != cfg.d_inner:
+        # the sum feeds this rank's channels again: its gradient is summed
+        proj = tp.copy_to_model(tp.reduce_from_model(proj))
+        dt_bias = tp.copy_to_model(dt_bias)[slice(*tp.local_range(
+            cfg.d_inner))]
     dt_r, Bm, Cm = torch.split(proj, [r, n, n], dim=-1)
     # bf16 @ bf16 + f32 bias promotes: dt is float32, as in the reference
-    dt = F.softplus(dt_r @ p["dt_proj"] + p["dt_bias"])
+    dt = F.softplus(dt_r @ p["dt_proj"] + dt_bias)
     A = -torch.exp(p["A_log"])
     y, h_last = ops.mamba_scan(xc, dt, A, Bm, Cm, p["D"], h0=h0)
     return y * F.silu(z), h_last
 
 
 def mamba_apply(p, x, cfg: ModelConfig) -> torch.Tensor:
-    xz = x @ p["in_proj"]
-    xin, z = xz.chunk(2, dim=-1)
+    """Prefill Mamba, x: (B, S, D) -> (B, S, D).
+
+    Tensor parallelism (:mod:`.tensor_parallel`) is read from the leaves:
+    where ``in_proj`` holds fewer than its 2 d_inner columns, ``conv``,
+    ``x_proj``, ``A_log``, ``D`` (rows), ``dt_proj`` (columns) and
+    ``out_proj`` (rows) hold this rank's channels [lo, hi) of d_inner
+    (``tp.local_range``; the rules split them all where 'model' divides
+    d_inner). ``in_proj``'s columns are [x | z] and the rules split them
+    contiguously (at 2 ranks rank 0 holds x's, rank 1 z's), so the product
+    ``x @ in_proj`` is gathered whole and each rank takes channels [lo, hi)
+    of x and of z (the gather's backward reduce-scatters their gradients
+    home). The scan runs on the rank's channels, and the ranks' outputs
+    through their rows of ``out_proj`` are summed."""
+    di = cfg.d_inner
+    split = p["in_proj"].shape[1] != 2 * di
+    if split:
+        lo, hi = tp.local_range(di)
+        xz = tp.gather_from_model(tp.copy_to_model(x) @ p["in_proj"], -1)
+        xin, z = xz[..., lo:hi], xz[..., di + lo:di + hi]
+    else:
+        xin, z = (x @ p["in_proj"]).chunk(2, dim=-1)
     xc, _ = _causal_conv(xin, p["conv"])
     xc = F.silu(xc)
     y, _ = _mamba_core(p, xc, z, cfg)
-    return y @ p["out_proj"]
+    out = y @ p["out_proj"]
+    return tp.reduce_from_model(out) if split else out
 
 
 def mamba_make_cache(cfg: ModelConfig, batch: int, dtype, device="cpu"):

@@ -15,7 +15,9 @@ ranks of the 'model' axis through the three autograd functions here:
   replicated over 'model'.
 * :func:`gather_from_model`: an all-gather of the ranks' slices of a dim;
   its backward reduce-scatters the gradient (each rank's is partial there:
-  the work after the gather is split again before its reduce).
+  the work after the gather is split again before its reduce), or, with
+  ``whole_grad`` (the work after it runs whole on every rank, as DeepSeek's
+  MTP block after its ``proj``), takes this rank's slice of it.
 
 Activations between blocks are replicated over 'model'. Each function reads
 the mesh that :mod:`.partitioning` registers and goes through
@@ -23,9 +25,18 @@ the mesh that :mod:`.partitioning` registers and goes through
 no mesh, or a 'model' axis of 1, it returns its input untouched and runs no
 collective. Like :mod:`repro_torch.layout`, this module imports nothing of
 ``launch/``.
+
+``counts`` counts this rank's collectives over 'model', forward and backward
+alike: ``all_reduce`` (the sums of :func:`reduce_from_model`,
+:func:`max_over_model` and :func:`copy_to_model`'s backward),
+``all_gather`` (:func:`gather_from_model`) and ``reduce_scatter`` (its
+backward), each beside ``<kind>_bytes``, the bytes of the whole tensor (the
+sum's, the gathered one's, the one scattered). The caller resets it
+(``counts.clear()``).
 """
 from __future__ import annotations
 
+import collections
 from typing import Tuple
 
 import torch
@@ -36,6 +47,13 @@ from repro_torch.layout import coordinate, mesh_shape
 from . import partitioning as part
 
 AXIS = "model"
+
+counts = collections.Counter()
+
+
+def _count(kind: str, t: torch.Tensor) -> None:
+    counts[kind] += 1
+    counts[f"{kind}_bytes"] += t.numel() * t.element_size()
 
 
 def model_size() -> int:
@@ -72,6 +90,7 @@ class _CopyToModel(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         g = g.clone(memory_format=torch.contiguous_format)
+        _count("all_reduce", g)
         dist.all_reduce(g, group=_group())
         return g
 
@@ -80,6 +99,7 @@ class _ReduceFromModel(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x):
         out = x.clone(memory_format=torch.contiguous_format)
+        _count("all_reduce", out)
         dist.all_reduce(out, group=_group())
         return out
 
@@ -90,13 +110,20 @@ class _ReduceFromModel(torch.autograd.Function):
 
 class _GatherFromModel(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, dim: int):
-        ctx.dim = dim
-        return collectives.gather_dim(x, dim, _group(), model_size())
+    def forward(ctx, x, dim: int, whole_grad: bool):
+        ctx.dim, ctx.whole_grad = dim, whole_grad
+        out = collectives.gather_dim(x, dim, _group(), model_size())
+        _count("all_gather", out)
+        return out
 
     @staticmethod
     def backward(ctx, g):
-        return collectives.scatter_dim(g, ctx.dim, _group(), model_size()), None
+        if ctx.whole_grad:
+            lo, hi = local_range(g.shape[ctx.dim])
+            return g.narrow(ctx.dim, lo, hi - lo).contiguous(), None, None
+        _count("reduce_scatter", g)
+        return (collectives.scatter_dim(g, ctx.dim, _group(), model_size()),
+                None, None)
 
 
 def copy_to_model(x: torch.Tensor) -> torch.Tensor:
@@ -110,10 +137,14 @@ def reduce_from_model(x: torch.Tensor) -> torch.Tensor:
     return x if model_size() == 1 else _ReduceFromModel.apply(x)
 
 
-def gather_from_model(x: torch.Tensor, dim: int) -> torch.Tensor:
+def gather_from_model(x: torch.Tensor, dim: int,
+                      whole_grad: bool = False) -> torch.Tensor:
     """The whole tensor of which ``x`` is this rank's slice of dim ``dim``
-    (equal slices, in rank order)."""
-    return x if model_size() == 1 else _GatherFromModel.apply(x, dim)
+    (equal slices, in rank order). Its gradient is summed over 'model'
+    (each rank's is its part), or with ``whole_grad`` taken as it is (each
+    rank's is the whole one)."""
+    return x if model_size() == 1 else _GatherFromModel.apply(
+        x, dim % x.dim(), whole_grad)
 
 
 def max_over_model(x: torch.Tensor) -> torch.Tensor:
@@ -122,5 +153,6 @@ def max_over_model(x: torch.Tensor) -> torch.Tensor:
     if model_size() == 1:
         return x.detach()
     out = x.detach().clone(memory_format=torch.contiguous_format)
+    _count("all_reduce", out)
     dist.all_reduce(out, op=dist.ReduceOp.MAX, group=_group())
     return out

@@ -371,7 +371,14 @@ def lm_loss(params, batch, cfg: ModelConfig, total=None,
         h_in = L.rmsnorm(h[:, :-1].contiguous(), mp["norm_h"], cfg.norm_eps)
         e_in = L.rmsnorm(embed_tokens(params, labels[:, :-1], cfg),
                          mp["norm_e"], cfg.norm_eps)
-        x2 = torch.cat([h_in, e_in], dim=-1) @ mp["proj"]
+        x2 = torch.cat([h_in, e_in], dim=-1)
+        if mp["proj"].shape[1] != cfg.d_model:
+            # this rank's output columns over 'model', gathered whole; the
+            # MTP block after it takes its whole gradient on every rank
+            x2 = tp.gather_from_model(tp.copy_to_model(x2) @ mp["proj"], -1,
+                                      whole_grad=True)
+        else:
+            x2 = x2 @ mp["proj"]
         x2, _ = block_apply(mp["block"], x2, cfg.period[0], cfg,
                             positions[:-1])
         x2 = L.rmsnorm(x2, mp["final_norm"], cfg.norm_eps)

@@ -223,15 +223,17 @@ def test_the_port_refuses_what_it_does_not_run():
     attention with ``seq_shard`` under a 'model' axis above 1 but no token
     split registered runs plain attention on whole sequences (the
     reference's behaviour where 'model' does not divide S); a mesh shape
-    other than (1, 1) with no process group raises."""
-    cfg = tget("jamba_1_5_large_398b", smoke=True)
+    other than (1, 1) with no process group raises. xLSTM raises; the
+    dense decoders and Jamba (Mamba) make theirs."""
+    cfg = tget("xlstm_125m", smoke=True)
     with pytest.raises(NotImplementedError, match="item 6e2b"):
         make_train_step(cfg, adamw(1e-3), device="cpu",
                         mesh={"data": 1, "model": 2})
     make_train_step(dataclasses.replace(cfg, pure_dp=True), adamw(1e-3),
                     device="cpu", mesh={"data": 1, "model": 2})
-    make_train_step(tget("smollm_360m", smoke=True), adamw(1e-3),
-                    device="cpu", mesh={"data": 1, "model": 2})
+    for arch in ("smollm_360m", "jamba_1_5_large_398b"):
+        make_train_step(tget(arch, smoke=True), adamw(1e-3), device="cpu",
+                        mesh={"data": 1, "model": 2})
     dcfg = dataclasses.replace(tget("h2o_danube_1_8b", smoke=True),
                                seq_shard=True)
     p = {k: torch.randn(dcfg.d_model, dcfg.d_model) * 0.1

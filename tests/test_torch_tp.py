@@ -14,13 +14,20 @@ run on the same weights (every rank draws them from the seed) and batches:
 * stablelm SMOKE: an untied head (vocab columns over 'model'), MHA;
 * granite SMOKE with a vocab of 255, which 'model' does not divide: the
   embedding stays whole, and the lookup and the loss run replicated;
-* Qwen3-MoE SMOKE: 8 experts, 4 a rank.
+* Qwen3-MoE SMOKE: 8 experts, 4 a rank;
+* DeepSeek-V3 SMOKE: MLA (wdq / wdkv / wuq / wukv by columns, wo by rows,
+  2 of 4 heads a rank), its dense prefix, 4 of 8 experts a rank and the
+  MTP module (``proj`` by its output columns);
+* Jamba SMOKE: Mamba over d_inner (``in_proj``'s [x | z] columns split
+  contiguously: rank 0 holds x's, rank 1 z's), attention with 2 / 1
+  heads a rank, its real MoE layers and dense SwiGLUs.
 
 Also each rank's params and AdamW moments at rest against the rules'
 slices of the one-process run's, the first step at rank 0 against the
 reference's step (jitted, no mesh) on the same weights, both attention
-paths by name, and a (1, 2) checkpoint resumed by one process and at
-(2, 1).
+paths by name, ``mla_apply`` and ``mamba_apply`` on each rank's slices
+against the whole layer with the collectives each runs, and a (1, 2)
+checkpoint resumed by one process and at (2, 1).
 """
 import dataclasses
 
@@ -39,6 +46,7 @@ from repro_torch.layout import local_shard
 from repro_torch.models import layers as tlayers
 from repro_torch.models import model_api
 from repro_torch.models import partitioning as part
+from repro_torch.models import ssm as tssm
 from repro_torch.models import tensor_parallel as tp
 from repro_torch.models.module import tree_leaves, tree_map
 from repro_torch.optim.optimizers import Optimizer, adamw, warmup_cosine
@@ -52,14 +60,27 @@ ARCHS = {"smollm": ("smollm_360m", {}, 16),
          "danube": ("h2o_danube_1_8b", {}, 32),
          "stablelm": ("stablelm_3b", {}, 16),
          "granite": ("granite_3_2b", {"vocab": 255}, 16),
-         "qwen3": ("qwen3_moe_235b_a22b", {}, 16)}
+         "qwen3": ("qwen3_moe_235b_a22b", {}, 16),
+         "deepseek": ("deepseek_v3_671b", {}, 16),
+         # a seq that Jamba SMOKE's mamba_chunk of 8 divides
+         "jamba": ("jamba_1_5_large_398b", {}, 16)}
+# the seed of a config's weights and batches where it is not 0. DeepSeek
+# SMOKE at seed 0: one element of the prefix's wdkv gradient is 3.9e-8 in
+# one process and -3.6e-8 at (1, 4) (2.6e-7 of the leaf's largest, float32
+# sums in another order), and AdamW's first update, lr g / (|g| + 1e-8),
+# moves it by about lr either way, past PARAM_TOL; the moments of the
+# leaves after it then differ by ~1e-4 of their largest. At seeds 1-3 the
+# (1, 4) run's params are within 1.6e-5, 2.8e-6 and 4.0e-6
+SEEDS = {"deepseek": 1}
 # the reference's first step: a batch of REF_BATCH rows
 REF_BATCH = 4
 
 
 def _train(key, shape=None, steps=STEPS, more=None, **kw):
-    """``train`` of ``ARCHS[key]``, its overrides updated by ``more``."""
+    """``train`` of ``ARCHS[key]`` (seed ``SEEDS[key]`` unless ``kw`` gives
+    one), its overrides updated by ``more``."""
     arch, over, seq = ARCHS[key]
+    kw.setdefault("seed", SEEDS.get(key, 0))
     return train(arch, steps=steps, batch=BATCH, seq=seq, lr=LR, device="cpu",
                  mesh_shape=shape, overrides={**over, **(more or {})} or None,
                  log_every=steps, **kw)
@@ -153,6 +174,90 @@ def _attn_paths(tmp):
     return out
 
 
+# the mixers split over d_inner or heads: (config, its overrides, init,
+# apply, the dim of each leaf that 'model' splits; a leaf not named stays
+# whole), and the collectives over 'model' that one call runs forward and
+# backward on each rank
+MIXERS = {
+    # 'model' divides the heads: each rank its heads. Forward: the two
+    # latents gathered, the output summed; backward: their reduce-scatters,
+    # and the gradients of x, wkr, q_norm and kv_norm summed
+    "mla": ("deepseek_v3_671b", {}, tlayers.mla_init,
+            lambda p, x, cfg, pos: tlayers.mla_apply(p, x, cfg, pos),
+            {"wdq": 1, "wdkv": 1, "wuq": 1, "wukv": 1, "wo": 0},
+            {"all_gather": 2, "all_reduce": 1}, {"reduce_scatter": 2,
+                                                 "all_reduce": 4}),
+    # 2 heads over 4 ranks: wuq and wukv gathered too, every head on every
+    # rank, then each rank's columns of the output into its rows of wo
+    "mla_every_head": ("deepseek_v3_671b", {"n_heads": 2}, tlayers.mla_init,
+                       lambda p, x, cfg, pos: tlayers.mla_apply(p, x, cfg, pos),
+                       {"wdq": 1, "wdkv": 1, "wuq": 1, "wukv": 1, "wo": 0},
+                       {"all_gather": 4, "all_reduce": 1},
+                       {"reduce_scatter": 4, "all_reduce": 4}),
+    # forward: x @ in_proj gathered, (dt_r, B, C) and the output summed;
+    # backward: the reduce-scatter, and the gradients of x, of the summed
+    # (dt_r, B, C) and of dt_bias summed
+    "mamba": ("jamba_1_5_large_398b", {}, tssm.mamba_init,
+              lambda p, x, cfg, pos: tssm.mamba_apply(p, x, cfg),
+              {"in_proj": 1, "conv": 0, "x_proj": 0, "dt_proj": 1,
+               "A_log": 0, "D": 0, "out_proj": 0},
+              {"all_gather": 1, "all_reduce": 2}, {"reduce_scatter": 1,
+                                                   "all_reduce": 3}),
+}
+# the mixers run at (1, 2); at (1, 4) "mla_every_head" besides
+MIXERS_AT_2 = ("mla", "mamba")
+MIXER_SEQ = 16
+
+
+def _mixer_paths(shape, keys=MIXERS_AT_2):
+    """The mixers ``keys`` of ``MIXERS`` (float32 SMOKE widths) on random
+    whole weights with no mesh, and at ``shape`` on this rank's slices:
+    outputs, input gradients and every weight's gradient (gathered over
+    'model'), the collectives each pass ran (``tp.counts``), and this
+    rank's ``in_proj`` slice."""
+    out = {}
+    mesh = make_mesh(shape, ("data", "model"))
+    m, i = shape[1], mesh.get_coordinate()[1]
+    for key in keys:
+        arch, over, init, apply, dims, _, _ = MIXERS[key]
+        cfg = dataclasses.replace(get(arch, smoke=True), **over)
+        g = torch.Generator().manual_seed(7)
+        whole = init(g, cfg, torch.float32)
+        # A_log, D and dt_bias start at constants: draw them, so a rank on
+        # the wrong channels shows
+        for k in ("A_log", "D", "dt_bias"):
+            if k in whole:
+                whole[k] = whole[k] + 0.5 * torch.rand(whole[k].shape,
+                                                       generator=g)
+        x = torch.randn(2, MIXER_SEQ, cfg.d_model, generator=g)
+        dy = torch.randn(2, MIXER_SEQ, cfg.d_model, generator=g)
+        pos = torch.arange(MIXER_SEQ)
+        counted = {}
+
+        def run(p):
+            p = {k: v.detach().requires_grad_(True) for k, v in p.items()}
+            xi = x.clone().requires_grad_(True)
+            tp.counts.clear()
+            y = apply(p, xi, cfg, pos)
+            counted["fwd"] = dict(tp.counts)
+            tp.counts.clear()
+            y.backward(dy)
+            counted["bwd"] = dict(tp.counts)
+            return y.detach(), xi.grad, {k: v.grad for k, v in p.items()}
+
+        want = run(whole)
+        local = {k: torch.tensor_split(v, m, dims[k])[i].contiguous()
+                 if k in dims else v for k, v in whole.items()}
+        with part.use_mesh(mesh):
+            y, dx, dp = run(local)
+        got_dp = {k: SH.gather_dim(v, dims[k], mesh.get_group("model"), m)
+                  if k in dims else v for k, v in dp.items()}
+        out[key] = {"want": want, "got": (y, dx, got_dp),
+                    "counts": dict(counted), "local": local,
+                    "whole": whole, "d_inner": cfg.d_inner}
+    return out
+
+
 JOBS = {key: (lambda d, key=key: _tp_run(key)) for key in ARCHS}
 JOBS.update({f"ref_{key}": (lambda d, key=key: _ref_step(key, d))
              for key in ARCHS})
@@ -162,6 +267,7 @@ JOBS["resume"] = lambda d: {"losses": (r := _train(
     "smollm", (2, 1), steps=STEPS + 2, ckpt_dir=f"{d}/ckpt"))["losses"],
     "start_step": r["start_step"]}
 JOBS["attn"] = _attn_paths
+JOBS["mixers"] = lambda d: _mixer_paths((1, 2))
 
 
 def _reference_weights(tmp, key):
@@ -244,7 +350,8 @@ class _Rank:
 
 
 # leaves the rules split over 'model' at (1, 2), of each SMOKE tree
-SPLIT = {"smollm": 8, "danube": 9, "stablelm": 9, "granite": 7, "qwen3": 9}
+SPLIT = {"smollm": 8, "danube": 9, "stablelm": 9, "granite": 7, "qwen3": 9,
+         "deepseek": 33, "jamba": 79}
 
 
 @pytest.mark.parametrize("key", list(ARCHS))
@@ -314,6 +421,65 @@ def test_attention_replicated_where_model_does_not_divide_the_heads(
         for a, b in [(y, wy), (dx, wdx)] + [(dp[k], wdp[k]) for k in wdp]:
             assert a.shape == b.shape
             assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+
+
+def assert_mixer_equal(rec):
+    """A mixer on this rank's slices against the whole layer: the output to
+    1e-5 of its largest, the input's and every weight's gradient (gathered
+    over 'model') to 1e-4 of its largest + 1e-6."""
+    (y, dx, dp), (wy, wdx, wdp) = rec["got"], rec["want"]
+    assert y.shape == wy.shape
+    assert float((y - wy).abs().max()) <= 1e-5 * float(wy.abs().max())
+    assert set(dp) == set(wdp)
+    for name, a, b in [("x", dx, wdx)] + [(k, dp[k], wdp[k]) for k in wdp]:
+        assert a.shape == b.shape, name
+        tol = 1e-4 * float(b.abs().max()) + 1e-6
+        assert float((a - b).abs().max()) <= tol, (name, a, b)
+
+
+def assert_mixer_collectives(rec, key):
+    """The collectives of one forward and one backward are the design's
+    (``MIXERS``), and the backward reduce-scatters as many bytes as the
+    forward gathered."""
+    got = {d: {k: n for k, n in c.items() if not k.endswith("_bytes")}
+           for d, c in rec["counts"].items()}
+    assert got == {"fwd": MIXERS[key][5], "bwd": MIXERS[key][6]}
+    assert rec["counts"]["fwd"]["all_gather_bytes"] == \
+        rec["counts"]["bwd"]["reduce_scatter_bytes"] > 0
+
+
+@pytest.mark.parametrize("key", MIXERS_AT_2)
+def test_mixer_on_slices_equals_the_whole_layer(world2, key):
+    """``mla_apply`` / ``mamba_apply`` at (1, 2), each rank on its slices,
+    equal the whole layer with no mesh: output and every gradient."""
+    for r in world2[1]:
+        assert_mixer_equal(r["mixers"][key])
+
+
+@pytest.mark.parametrize("key", MIXERS_AT_2)
+def test_mixer_collectives_are_the_designs(world2, key):
+    """An MLA call gathers its two latents and sums its output (backward:
+    two reduce-scatters, the sums of x's, wkr's and the norms'
+    gradients); a Mamba call gathers x @ in_proj and sums (dt_r, B, C) and
+    its output (backward: a reduce-scatter, the sums of x's, (dt_r, B,
+    C)'s and dt_bias's gradients)."""
+    for r in world2[1]:
+        assert_mixer_collectives(r["mixers"][key], key)
+
+
+def test_mamba_rank_takes_its_channels_of_x_and_z(world2):
+    """``in_proj``'s columns are [x | z] and the rules split them
+    contiguously: at (1, 2) rank 0 holds x's columns of every channel and
+    rank 1 z's. Each rank still runs its channels of both: its output
+    equals the whole layer's (splitting its own product into halves would
+    run rank 0 on x's channels twice)."""
+    for i, r in enumerate(world2[1]):
+        rec = r["mixers"]["mamba"]
+        di = rec["d_inner"]
+        whole, local = rec["whole"]["in_proj"], rec["local"]["in_proj"]
+        assert torch.equal(local, whole[:, i * di:(i + 1) * di])
+        y, wy = rec["got"][0], rec["want"][0]
+        assert float((y - wy).abs().max()) <= 1e-5 * float(wy.abs().max())
 
 
 def test_checkpoint_at_two_ranks_resumes_at_one(world2, one):

@@ -9,7 +9,8 @@ llava-next-mistral-7b (a vlm backbone on image-patch embeddings), and
 training Jamba (through the selective scan's backward kernel) and
 xlstm-125m, training over meshes (data, ZeRO-3 and tensor parallelism),
 and ring context-parallel attention with the tokens over 'model', and
-training that way, and DeepSeek-V3's MLA and Jamba's Mamba layers trained
+training that way, and DeepSeek-V3's MLA, Jamba's Mamba layers, xLSTM's
+mLSTM / sLSTM, whisper's encoder-decoder and llava's backbone trained
 tensor-parallel.
 
   python3 chip_smoke.py
@@ -192,14 +193,14 @@ time,
      phase 20 (launches from ``per_train_step``: the scan's training forward
      twice a Mamba layer under remat, its backward once); then Jamba's rate
      witness: ``JAMBA_WITNESS_CUT`` (attention + 1 Mamba layer) at 3e-4 in
-     bf16 and in float32 (both loss and grad-norm curves), and 4 float32
+     bf16 and in float32 (both loss and grad-norm curves), and 2 float32
      steps of Jamba SMOKE at 3e-4 on the card and the CPU in lockstep, at
      SMOKE's N 4 and at Jamba's N 16;
   29. float32 training parity card vs CPU (phase 14's tolerances): Jamba
      SMOKE with its real MoE layers, and every gradient of one full-width
      Mamba layer at 2 x 32 tokens;
   30. trains xlstm-125m at full width cut to ``XLSTM_TRAIN_CUT`` (two
-     sLSTM + mLSTM periods of its six), 4 steps of 8 x 512, eager and
+     sLSTM + mLSTM periods of its six), 3 steps of 8 x 512, eager and
      graphed, with bit-equal losses that fall, step time and peak memory;
   31. trains smollm-360M as phase 13 through ``launch.train.train`` in a
      process group of one rank over NCCL (``init_process_group`` with a
@@ -218,7 +219,7 @@ time,
      ``GLOO_DEADLINE_S``), eager: the port's collectives on CUDA
      tensors under gloo (all-reduce, all-gather, reduce-scatter; the phase
      fails if gloo refuses one), then
-     smollm-360M at full width cut to 2 layers, float32, 4 steps of 8 x 128,
+     smollm-360M at full width cut to 2 layers, float32, 2 steps of 8 x 128,
      data-parallel and ZeRO-3, against one rank on the same weights and
      batches (losses and grad norms to 1e-4 relative, params to lr / 4:
      a missing last update moves most weights by about lr);
@@ -230,9 +231,9 @@ time,
      over gloo as phase 32's, eager, each through ``launch.train.train(
      mesh_shape=(1, 2))``: (a) smollm-360M (15 / 5 heads: every head on
      every rank) and smollm-360m+padheads (8 / 4 heads a rank) cut to 2
-     layers, float32, 4 steps of 8 x 128, against one rank (losses and grad
+     layers, float32, 2 steps of 8 x 128, against one rank (losses and grad
      norms to 1e-5 relative, params to lr / 4); (b) smollm-360m+padheads
-     whole, bf16, 4 steps of 8 x 512: each rank's launches against
+     whole, bf16, 2 steps of 8 x 512: each rank's launches against
      ``per_train_step``, its flash calls all at q 8x8x512x64, kv 8x4, losses
      within 2e-2 of phase 33's eager run, step ms and peak memory a rank;
      (c) Qwen3-MoE at its widths cut to 1 layer (64 experts and 32 / 2
@@ -268,7 +269,7 @@ time,
      ``train()`` on the same weights and batches, run here while the ranks
      start: (a) float32 at (2, 2), 2 steps of 2 x 4,096 (losses and grad
      norms to 1e-5 relative, rank 0's params to lr / 4); (b) bf16 at (1, 4),
-     3 steps of 2 x 8,192: losses within 2e-2, each rank's launches against
+     2 steps of 2 x 8,192: losses within 2e-2, each rank's launches against
      ``per_train_step`` and its flash calls at the ring's shapes (rank i:
      (min(i, 2) + 1) x 2,048 keys), step ms, peak memory and the ring's
      staged copies a step a rank;
@@ -276,7 +277,7 @@ time,
      ranks on the one card over gloo as phase 34's, eager, each through
      ``launch.train.train(mesh_shape=(1, 2))``: (a) float32 DeepSeek SMOKE
      (MLA, a dense prefix of 1, MoE with a shared expert, MTP; seed 1) and
-     Jamba SMOKE (its real MoE), 4 steps of 8 x 128, against one process on
+     Jamba SMOKE (its real MoE), 2 steps of 8 x 128, against one process on
      the card run here while the ranks start (losses and grad norms to 1e-5
      relative, rank 0's params to lr / 4); (b) bf16 at the published widths,
      2 steps of 8 x 512: DeepSeek-V3 cut to its 3 MLA prefix layers (64 of
@@ -284,12 +285,32 @@ time,
      (8,192 of 16,384 channels a rank), losses within 2e-2 of phases 20 and
      28's eager runs; every run's launches against ``per_train_step``, its
      collectives over 'model' (``tensor_parallel.counts``) against
-     ``tp_collectives_per_step``, (b)'s flash and scan calls at the rank's
-     shapes; step ms, the host seconds of it in gloo, peak memory and the
+     ``tensor_parallel.collectives_per_step``, (b)'s flash and scan calls at
+     the rank's shapes; step ms, the host seconds of it in gloo, peak memory and the
      collectives a step a rank (phase 34 prints and checks its collectives
      too); phase 2 holds the D-192 flash forward and backward at 64 heads,
      the scan's training forward and backward at 8,192 channels, Jamba's
      attention at 32 / 4 heads and RMSNorm over rows of 1,536 and 512;
+  38. tensor parallelism over 'model' for xLSTM (mLSTM / sLSTM), whisper's
+     encoder-decoder and llava's backbone at (1, 2), two ranks on the one
+     card over gloo as phase 37's (``tp_train_runs``): (a) float32 SMOKE,
+     2 steps of 8 x 128 (whisper 8 x 64), against one process on the card
+     run here while the ranks start (losses and grad norms to 1e-5
+     relative, rank 0's params to lr / 4); (b) bf16 at the published
+     widths, 2 steps: xlstm-125m cut to 4 layers (8 x 512) against phase
+     30's eager losses, whisper-small whole (8 x (1,500 frames + 448
+     tokens); 6 of 12 heads a rank in the encoder, the decoder's self and
+     cross attention) against phase 25's, llava-next-mistral-7b cut to 2
+     layers (8 x (2,880 patches + 192 tokens); 16 / 4 of 32 / 8 heads a
+     rank) against phase 27's bf16 rate witness, all within 2e-2;
+     every run's launches and collectives as phase 37's, (b)'s flash calls
+     at the rank's shapes, xLSTM's mLSTM norms over the whole d_inner, and
+     llava's text rows looked up through the vocab split outside the step
+     (``launch.train.frontend_counts``: one all-reduce of the rows a step,
+     no gathered table); step ms, gloo ms, peak memory and collectives a
+     step a rank; phase 2 holds the bf16 flash forward and backward at the
+     ranks' encoder, decoder self-attention, cross-attention and llava
+     shapes;
 Every path runs with the launch counts set to 0 just before it and read just
 after; a graphed path's counts include its warm-up calls (``WARMUP`` eager
 calls before capture), and a replay adds what the capture recorded. Then it prints the kernel table as one JSON line (the rows of
@@ -301,8 +322,8 @@ phases 24-25 and 26-27; the scan's training forward and backward those of
 phase 28; the G-2 shape of smollm-360m+padheads those of phase 33; the
 ranks' shapes of phase 34 the launches of both ranks; the ring's shapes
 the bf16 launches of phase 35's four ranks, and of phase 36's (b) for
-those with the window; the ranks' shapes of phase 37 the launches of (b)'s
-two ranks) and,
+those with the window; the ranks' shapes of phases 37 and 38 the
+launches of their (b)'s two ranks) and,
 last,
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
 with no CUDA device, or outside a checkout, it exits non-zero at once. Each
@@ -603,7 +624,7 @@ CP_ROWS = {
 # r 1); (b) bf16 at (1, 4) (L 2,048, r 2: the ring rows' shapes with the
 # window)
 CPT_RUNS = (("f32", (2, 2), 2, 4096, 2, dict(CP_MODEL_CUT, dtype="float32")),
-            ("bf16", (1, CP_WORLD), 2, CP_MODEL_SEQ, 3, dict(CP_MODEL_CUT)))
+            ("bf16", (1, CP_WORLD), 2, CP_MODEL_SEQ, 2, dict(CP_MODEL_CUT)))
 # (a): losses and grad norms against one process, float32 sums in another
 # order; params within lr / 4 (a missing last update moves most weights by
 # about lr); (b): losses against one process's eager bf16 run
@@ -625,7 +646,7 @@ CPT_DEADLINE_S = 240
 # losses of phases 20 and 28's one-process eager runs (the same weights,
 # batches and first-step rate): DeepSeek-V3 cut to its 3 MLA prefix layers,
 # Jamba cut to attention + 1 Mamba layer with its dense SwiGLU
-TPM_F32_STEPS = 4
+TPM_F32_STEPS = 2
 TPM_BF16_STEPS = 2
 # seconds phase 37's two ranks may take before they are killed
 TPM_DEADLINE_S = 240
@@ -673,12 +694,36 @@ TP_MIXER_ROWS = {
         "training at (1, 2), both ranks (phase 37)")
        for tag, width in (("q", 1536), ("kv", 512)) for kernel in ("rmsnorm", "rmsnorm_bwd")},
 }
+# a rank's flash shapes in phase 38 (b), (case, b, hq, hkv, sq, skv, hd,
+# causal): whisper-small's 6 of 12 heads of 64 in the encoder, the
+# decoder's self attention and cross attention; llava's 16 / 4 of 32 / 8
+# heads of 128 over 2,880 patches and 192 text tokens; and the rows of the
+# kernel table counted on both ranks of phase 38
+TP_FAMILY_SHAPES = {
+    "whisper_enc": ("TP rank whisper encoder 8x6/6x1500x1500x64 not causal",
+                    8, 6, 6, 1500, 1500, 64, False),
+    "whisper_self": ("TP rank whisper decoder causal 8x6/6x448x448x64",
+                     8, 6, 6, 448, 448, 64, True),
+    "whisper_cross": ("TP rank whisper cross 8x6/6x448x1500x64 not causal",
+                      8, 6, 6, 448, 1500, 64, False),
+    "llava": ("TP rank llava causal 8x16/4x3072x3072x128", 8, 16, 4, 3072, 3072, 128, True)}
+TP_FAMILY_ROWS = {
+    f"flash_attention{bwd}_tp_{tag}": (
+        f"flash_attention{bwd}", f"src/repro_torch/csrc/flash_attention{bwd}_sm90.cu",
+        "src/repro/kernels/flash_attention.py:84", case + (" with L" if bwd else ""),
+        "bfloat16", f"{what} tensor-parallel training at (1, 2), both ranks (phase 38)")
+    for tag, (case, *_shape) in TP_FAMILY_SHAPES.items()
+    for what in ["llava-next-mistral-7b (2 layers)" if tag == "llava"
+                 else "whisper-small (12 + 12 layers)"]
+    for bwd in ("", "_bwd")}
 # phase 34's runs: (a) float32 lockstep at GLOO_CUT, GLOO_STEPS steps of 8 x
-# GLOO_SEQ; (b) smollm-360m+padheads whole, bf16, PADHEADS_TRAIN_STEPS steps
+# GLOO_SEQ; (b) smollm-360m+padheads whole, bf16, TP_PADHEADS_STEPS steps
 # of 8 x 512 (phase 33's eager run is its one-rank oracle); (c) Qwen3-MoE at
 # QWEN_TRAIN_CUT, bf16, TP_MOE_STEPS steps of 8 x 512 (the first steps of
 # phase 21's eager run, whose rate schedule is the same for them)
 TP_MOE_STEPS = 2
+# (b)'s steps: the first of phase 33's eager run
+TP_PADHEADS_STEPS = 2
 # (a) against one rank: float32 sums over two ranks in another order
 TP_F32_TOL = 1e-5
 # (b), (c): bf16 against one rank
@@ -688,7 +733,7 @@ TP_DEADLINE_S = 240
 # phase 32: two ranks on the one card over gloo, smollm-360M at full width
 # cut to 2 layers, float32, steps of 8 x GLOO_SEQ
 GLOO_CUT = dict(n_layers=2, dtype="float32")
-GLOO_STEPS, GLOO_SEQ = 4, 128
+GLOO_STEPS, GLOO_SEQ = 2, 128
 # seconds phase 32's two ranks may take (~25 s on the H100) before they are
 # killed and the phase fails; each collective of theirs times out sooner
 GLOO_DEADLINE_S = 240
@@ -714,11 +759,17 @@ LLAVA_TRAIN_LR = 1e-5
 DEEPSEEK_TRAIN_CUT = dict(n_layers=3, mtp=False)
 QWEN_TRAIN_CUT = dict(n_layers=1)
 MOE_TRAIN_STEPS = 8
+# steps of phases 27 and 28's rate witnesses (llava and Jamba cut to 2
+# layers at 3e-4, bf16 and float32, with the trainer's schedule for them),
+# which their card-vs-CPU lockstep steps follow
+WITNESS_STEPS = 4
 # steps of phase 27's float32 llava card-vs-CPU lockstep (each ~25 s on the
-# host: the CPU step and the copies of 0.7 B params and their AdamW state)
+# host: the CPU step and the copies of 0.7 B params and their AdamW state):
+# two, so that the second step's loss and grad norm are taken from the
+# params and state of the first AdamW update on each side
 LLAVA_LOCKSTEP_STEPS = 2
 # steps of phase 28's float32 Jamba SMOKE card-vs-CPU lockstep
-RATE_LOCKSTEP_STEPS = 4
+RATE_LOCKSTEP_STEPS = 2
 # smollm-360M training in phase 13: steps of 8 x 512 tokens
 TRAIN_STEPS = 16
 
@@ -748,7 +799,7 @@ JAMBA_WITNESS_CUT = dict(n_layers=2, n_experts=0, top_k=0, d_expert=0,
 # sLSTM + mLSTM periods (an eager step launches ~20 k kernels a layer, ~9 s a
 # step at 12 layers), steps of 8 x 512 tokens
 XLSTM_TRAIN_CUT = dict(n_layers=4)
-XLSTM_TRAIN_STEPS = 4
+XLSTM_TRAIN_STEPS = 3
 # DeepSeek-V3 at its published widths, cut to what one 80 GB card holds: the
 # 3 dense-FFN layers of its prefix and 2 MLA + MoE layers (26.6 B params,
 # 53.2 GB bf16; a third MoE layer would not fit), without the MTP module,
@@ -761,6 +812,27 @@ TPM_RUNS = (("deepseek_f32", "deepseek_v3_671b", True, {}, TPM_F32_STEPS, GLOO_S
              TPM_BF16_STEPS, 512, 0),
             ("jamba_bf16", "jamba_1_5_large_398b", False, JAMBA_WITNESS_CUT,
              TPM_BF16_STEPS, 512, 0))
+# phase 38: tensor parallelism over 'model' for xLSTM (mLSTM / sLSTM),
+# whisper's encoder-decoder and llava's backbone at (1, 2), two gloo ranks
+# sharing the card, eager, each run (label, arch, smoke, overrides, steps,
+# tokens a row, seed) through launch.train.train(mesh_shape=(1, 2)), 8 rows
+# a step: (a) float32 lockstep at SMOKE widths against one process on the
+# card, run here while the ranks start (whisper SMOKE's decoder holds 64
+# positions); (b) bf16 at the published widths: xlstm-125m cut to
+# XLSTM_TRAIN_CUT against phase 30's first eager losses, whisper-small whole
+# (8 x (1,500 frames + 448 tokens)) against phase 25's, llava-next-mistral-7b
+# cut to TPF_LLAVA_CUT (8 x (2,880 patches + 192 tokens)) against phase 27's
+# bf16 rate witness (the same cut, weights, batches and first-step rate)
+TPF_LLAVA_CUT = dict(n_layers=2)
+TPF_RUNS = (("xlstm_f32", "xlstm_125m", True, {}, TPM_F32_STEPS, GLOO_SEQ, 0),
+            ("whisper_f32", "whisper_small", True, {}, TPM_F32_STEPS, 64, 0),
+            ("llava_f32", "llava_next_mistral_7b", True, {}, TPM_F32_STEPS, GLOO_SEQ, 0),
+            ("xlstm_bf16", "xlstm_125m", False, XLSTM_TRAIN_CUT, TPM_BF16_STEPS, 512, 0),
+            ("whisper_bf16", "whisper_small", False, {}, TPM_BF16_STEPS, 448, 0),
+            ("llava_bf16", "llava_next_mistral_7b", False, TPF_LLAVA_CUT, TPM_BF16_STEPS,
+             3072, 0))
+# seconds phase 38's two ranks may take before they are killed
+TPF_DEADLINE_S = 240
 # seconds after which the script dumps every thread's stack to standard error
 # and exits non-zero (a run must end within 1,200 s; a whole run takes ~700-830)
 WATCHDOG_S = 1100
@@ -1168,6 +1240,7 @@ def phase_kernels(rms, fla, dec, scan):
     rows += gqa_rows(fla, randn, PADHEADS_CASE, (8, 16, 8, 512, 64))
     rows += gqa_rows(fla, randn, TP_PADHEADS_CASE, TP_PADHEADS_SHAPE, (torch.bfloat16,))
     rows += gqa_rows(fla, randn, TP_QWEN_CASE, TP_QWEN_SHAPE, (torch.bfloat16,))
+    rows += tp_family_rows(fla, randn)
     rows += ring_rows(fla, randn)
     rows += optimizer_rows(gen)
     return rows
@@ -1346,6 +1419,59 @@ def tp_mixer_rows(fla, scan, randn):
         plain=lambda: scan.mamba_scan_bwd_plain(*pargs), library=None,
         n_bytes=nbytes(u, dts, dy, A, Bm, Cm, D, *got), ops=10 * elems * n, exps=elems * n,
         ops_dtype="float32", plain_iters=3, scaled=True, leafwise=True, plain_events=True))
+    return rows
+
+
+def tp_family_rows(fla, randn):
+    """The bf16 flash forward (timed against SDPA) and backward with the
+    forward's L at a rank's shapes of phase 38 (``TP_FAMILY_SHAPES``):
+    whisper-small's 6 of 12 heads of 64 in the encoder (1,500 positions,
+    not causal) and cross attention (448 queries, 1,500 keys), held per
+    element to SCALED_LIMIT as whisper's rows are (sums over 1,500 keys);
+    its decoder's self attention (448 causal positions) and llava's 16 / 4
+    of 32 / 8 heads of 128 over 3,072 causal positions, held to ``TOL`` as
+    the other causal rows (a causal row's first queries see few keys, so
+    its |dV| there is far above the rms), llava's plain versions a batch
+    element at a time (``per_batch``)."""
+    rows = []
+    dt = torch.bfloat16
+    for tag, (case, b, hq, hkv, sq, skv, hd, causal) in TP_FAMILY_SHAPES.items():
+        llava = tag == "llava"
+        plain_f = per_batch(fla.flash_attention_plain, 3) if llava else fla.flash_attention_plain
+        plain_b = (per_batch(fla.flash_attention_bwd_plain, 5) if llava
+                   else fla.flash_attention_bwd_plain)
+        q, do = randn((b, hq, sq, hd), dt), randn((b, hq, sq, hd), dt)
+        k, v = randn((b, hkv, skv, hd), dt), randn((b, hkv, skv, hd), dt)
+        args = (q, k, v, causal, None, 0)
+        pairs = sq * (sq + 1) // 2 if causal else sq * skv
+        iters = 3 if llava else 5
+        rows.append(compare(
+            "flash_attention", case, "bfloat16", fla.flash_attention_cuda(*args),
+            plain_f(*args), "attn", scaled=not causal,
+            run=lambda a=args: fla.flash_attention_cuda(*a), plain=lambda a=args: plain_f(*a),
+            library=lambda q=q, k=k, v=v, c=causal: F.scaled_dot_product_attention(
+                q, k, v, is_causal=c, enable_gqa=True),
+            n_bytes=2 * nbytes(q) + 2 * nbytes(k), ops=4 * b * hq * hd * pairs,
+            plain_iters=iters))
+        rows[-1]["instance"] = fla.INSTANCES[dt]
+        o, lse = fla.flash_attention_cuda(*args, return_lse=True)
+        bargs = (q, k, v, o, do, causal, None, 0)
+        ql, kl, vl = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+
+        def lib_f(ql=ql, kl=kl, vl=vl, c=causal):
+            return F.scaled_dot_product_attention(ql, kl, vl, is_causal=c, enable_gqa=True)
+
+        rows.append(compare(
+            "flash_attention_bwd", case + " with L", "bfloat16",
+            fla.flash_attention_bwd_cuda(*bargs, lse=lse), plain_b(*bargs), "attn_bwd",
+            scaled=not causal, run=lambda a=bargs, l=lse: fla.flash_attention_bwd_cuda(*a, lse=l),
+            plain=lambda a=bargs: plain_b(*a),
+            library=lambda f=lib_f, ins=(ql, kl, vl), do=do: torch.autograd.grad(f(), ins, do),
+            library_fwd=lib_f, n_bytes=4 * nbytes(q) + 4 * nbytes(k),
+            ops=10 * b * hq * hd * pairs, plain_iters=iters))
+        rows[-1]["instance"] = fla.INSTANCES[dt]
+        del q, k, v, do, o, lse, ql, kl, vl
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -2819,109 +2945,6 @@ def timed_collectives() -> dict:
     return spent
 
 
-def tp_collectives_per_step(cfg, m: int, seq: int) -> dict:
-    """The collectives over 'model' of one train step of ``cfg`` at a
-    'model' axis of ``m`` (``models.tensor_parallel.counts``: all-reduces,
-    all-gathers, reduce-scatters), as the port's layers run them where the
-    rules split a leaf (a width that ``m`` divides). A block: attention
-    with each rank its heads sums its output (forward) and x's gradient
-    (backward); with every head on every rank it also gathers each split
-    wq / wk / wv (forward; their reduce-scatters backward) and sums the
-    gradient of a whole one; MLA gathers its two latents and sums its
-    output (backward: the reduce-scatters, and the sums of x's, wkr's and
-    the two norms' gradients); Mamba gathers x @ in_proj and sums (dt_r, B,
-    C) and its output (backward: the reduce-scatter, and the sums of x's,
-    (dt_r, B, C)'s and dt_bias's gradients); a split SwiGLU sums its output
-    and x's gradient; a split MoE sums its output and, backward, the
-    tokens' and each dispatch group's weights' gradients (a split shared
-    expert as a SwiGLU). A vocab split sums the embedding lookup, and each
-    256-position chunk of the loss's maximum and sums, and backward h's
-    gradient. MTP adds its lookup, its ``proj``'s gather (forward only: its
-    block's gradient is whole on every rank) and the sum of its input's
-    gradient, its block and its loss over S - 1 positions. Remat runs each
-    period's forward again in the backward, up to its last saved tensor
-    (``torch.utils.checkpoint``'s early stop): all but its closing sum; the
-    dense prefix and MTP run once."""
-    zero = collections.Counter
-
-    def swiglu(width):
-        return (zero(all_reduce=1), zero(all_reduce=1)) if width % m == 0 else (zero(), zero())
-
-    def mixer(kind):
-        if kind == "attn":
-            h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-            split = [(h * hd) % m == 0] + [(hkv * hd) % m == 0] * 2
-            if not any(split):
-                return zero(), zero()
-            fwd, bwd = zero(all_reduce=1), zero(all_reduce=1)
-            if not (all(split) and h % m == 0 and hkv % m == 0):
-                fwd["all_gather"] += sum(split)
-                bwd["reduce_scatter"] += sum(split)
-                bwd["all_reduce"] += 3 - sum(split)
-            return fwd, bwd
-        if kind == "mla":
-            widths = (cfg.q_lora_rank, cfg.kv_lora_rank, cfg.n_heads)
-            if any(w % m for w in widths):
-                fail(f"tp_collectives_per_step: {cfg.name}'s MLA widths {widths} at {m}")
-            return zero(all_gather=2, all_reduce=1), zero(reduce_scatter=2, all_reduce=4)
-        if kind == "mamba":
-            if cfg.d_inner % m:
-                return zero(), zero()
-            return zero(all_gather=1, all_reduce=2), zero(reduce_scatter=1, all_reduce=3)
-        fail(f"tp_collectives_per_step: no count for the {kind} mixer")
-
-    def ffn(kind, width=None):
-        if kind is None:
-            return zero(), zero()
-        if kind == "mlp":
-            return swiglu(width or cfg.d_ff)
-        fwd, bwd = zero(), zero()
-        if cfg.n_experts % m == 0:
-            fwd["all_reduce"] += 1
-            bwd["all_reduce"] += 1 + max(1, cfg.moe_dispatch_groups)
-        if cfg.n_shared_experts:
-            f, b = swiglu(cfg.n_shared_experts * cfg.d_expert)
-            fwd, bwd = fwd + f, bwd + b
-        return fwd, bwd
-
-    def block(spec):
-        (f1, b1), (f2, b2) = mixer(spec[0]), ffn(spec[1])
-        return f1 + f2, b1 + b2
-
-    def loss(s):
-        if cfg.vocab % m:
-            return zero(), zero()
-        return zero(all_reduce=2 * -(-s // min(256, s))), zero(all_reduce=1)
-
-    total = collections.Counter()
-    once = [(cfg.period[0][0], "mlp")] * cfg.first_k_dense
-    if cfg.mtp:
-        once.append(cfg.period[0])
-    for spec in once:
-        f, b = block(spec)
-        total += f + b
-    period_f, period_b = zero(), zero()
-    for spec in cfg.period:
-        f, b = block(spec)
-        period_f, period_b = period_f + f, period_b + b
-    again = period_f.copy()
-    if period_f["all_reduce"]:
-        # the recompute stops at the last tensor the backward saved: the
-        # period's closing sum (of its last mixer or FFN) does not run again
-        again["all_reduce"] -= 1
-    for _ in range(cfg.n_periods):
-        total += period_f + period_b + (again if cfg.remat else zero())
-    lookups = 1 + bool(cfg.mtp)
-    if cfg.vocab % m == 0:
-        total["all_reduce"] += lookups
-    for s in [seq] + ([seq - 1] if cfg.mtp else []):
-        f, b = loss(s)
-        total += f + b
-    if cfg.mtp and cfg.d_model % m == 0:
-        total += zero(all_gather=1, all_reduce=1)
-    return dict(sorted(total.items()))
-
-
 def gloo_ranks(fn, world: int, rdir: Path, deadline_s: float, what: str, meanwhile=None):
     """Runs ``fn(rank, world, port, str(rdir))`` in ``world`` spawned
     processes, the parent serving their ``TCPStore`` on 127.0.0.1 (a free
@@ -3027,7 +3050,7 @@ def tp_rank(rank: int, world: int, port: int, tmp: str) -> None:
                           "params": tree_map(lambda a: a.cpu(), whole) if rank == 0 else None}
             del r, whole
         for label, arch, steps, over in (
-                ("padheads_bf16", "smollm_360m_padheads", PADHEADS_TRAIN_STEPS, None),
+                ("padheads_bf16", "smollm_360m_padheads", TP_PADHEADS_STEPS, None),
                 ("qwen3", "qwen3_moe_235b_a22b", TP_MOE_STEPS, QWEN_TRAIN_CUT)):
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
@@ -3056,19 +3079,21 @@ def collectives_text(per_step: dict) -> str:
                      for k in ("all_reduce", "all_gather", "reduce_scatter") if k in per_step)
 
 
-def tpm_rank(rank: int, world: int, port: int, tmp: str) -> None:
-    """Rank ``rank`` of phase 37 (tensor parallelism over 'model' for MLA
-    and Mamba at (1, ``world``), the ranks on the one card over gloo,
-    eager; the parent serves the ``TCPStore`` on 127.0.0.1:``port``): each
-    run of TPM_RUNS through ``launch.train.train(mesh_shape=(1, world))``,
-    with its losses, grad norms, step seconds, peak memory, launch counts,
-    the shapes of its flash, scan and RMSNorm calls, its collectives over
-    'model' (``tensor_parallel.counts``) and the host seconds spent in gloo
-    (``timed_collectives``); rank 0 writes the float32 runs' whole params,
-    gathered. Results to ``tmp``."""
+def tp_train_runs(runs, rank: int, world: int, port: int, tmp: str) -> None:
+    """Rank ``rank`` of ``world`` tensor-parallel ranks at (1, ``world``) on
+    the one card over gloo, eager (the parent serves the ``TCPStore`` on
+    127.0.0.1:``port``): each run of ``runs`` (label, arch, smoke,
+    overrides, steps, tokens a row, seed) through
+    ``launch.train.train(mesh_shape=(1, world))``, 8 rows a step, with its
+    losses, grad norms, step seconds, peak memory, launch counts, the
+    shapes of its flash, scan and RMSNorm calls, its collectives over
+    'model' (``tensor_parallel.counts``), the trainer's collectives outside
+    the step (``launch.train.frontend_counts``) and the host seconds spent
+    in gloo (``timed_collectives``); rank 0 writes the SMOKE runs' whole
+    params, gathered. Results to ``tmp``."""
     import torch.distributed as dist
     from repro_torch.launch import shardings as SH
-    from repro_torch.launch.train import train
+    from repro_torch.launch import train as train_mod
     from repro_torch.models import tensor_parallel as tp
     from repro_torch.models.module import tree_map
 
@@ -3077,22 +3102,24 @@ def tpm_rank(rank: int, world: int, port: int, tmp: str) -> None:
     spent = timed_collectives()
     out = {}
     try:
-        for label, arch, smoke, over, steps, seq, seed in TPM_RUNS:
+        for label, arch, smoke, over, steps, seq, seed in runs:
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
             for fn in kern.values():
                 fn.launches = 0
             shapes.clear()
             tp.counts.clear()
+            train_mod.frontend_counts.clear()
             spent.clear()
-            r = train(arch, smoke=smoke, steps=steps, batch=8, seq=seq, seed=seed,
-                      device="cuda", graphs=False, overrides=over or None,
-                      mesh_shape=(1, world), log_every=steps)
+            r = train_mod.train(arch, smoke=smoke, steps=steps, batch=8, seq=seq, seed=seed,
+                                device="cuda", graphs=False, overrides=over or None,
+                                mesh_shape=(1, world), log_every=steps)
             out[label] = {"losses": r["losses"], "grad_norms": r["grad_norms"],
                           "step_s": r["step_s"],
                           "max_memory_allocated": torch.cuda.max_memory_allocated(),
                           "counts": {name: fn.launches for name, fn in kern.items()},
                           "shapes": dict(shapes), "collectives": dict(tp.counts),
+                          "frontend": dict(train_mod.frontend_counts),
                           "gloo_s": dict(spent), "params": None}
             if smoke:
                 whole = SH.gather_tree(r["params"], r["shardings"], r["mesh"])
@@ -3105,53 +3132,56 @@ def tpm_rank(rank: int, world: int, port: int, tmp: str) -> None:
         dist.destroy_process_group()
 
 
-def phase_tp_mixers(kern, side, zero, report, frontend_totals, out_dir, took,
-                    bf16_oracles) -> None:
-    """Phase 37: tensor parallelism over 'model' for MLA and Mamba at (1,
-    2), two ranks on the one card over gloo (``tpm_rank``). (a) each
-    float32 run of TPM_RUNS against one process's ``train()`` on the card,
-    run here while the ranks start (losses and grad norms to TP_F32_TOL,
-    rank 0's params to lr / 4); (b) each bf16 run's losses against
-    ``bf16_oracles[label]``'s first ones (TP_BF16_TOL), its flash calls at
-    the rank's heads, its scan calls at the rank's channels; every run's
-    launches against ``per_train_step`` and its collectives over 'model'
-    against ``tp_collectives_per_step``. Fills ``report["tp_mixers"]`` and
-    the launches of TP_MIXER_ROWS (``frontend_totals``)."""
-    from repro_torch.configs import get
+def tpm_rank(rank: int, world: int, port: int, tmp: str) -> None:
+    """Rank ``rank`` of phase 37 (MLA and Mamba): ``tp_train_runs`` of
+    TPM_RUNS."""
+    tp_train_runs(TPM_RUNS, rank, world, port, tmp)
+
+
+def tpf_rank(rank: int, world: int, port: int, tmp: str) -> None:
+    """Rank ``rank`` of phase 38 (xLSTM, whisper, llava): ``tp_train_runs``
+    of TPF_RUNS."""
+    tp_train_runs(TPF_RUNS, rank, world, port, tmp)
+
+
+def tp_oracles(kern, side, zero, runs, per):
+    """One process's eager ``train()`` on the card, no mesh, of each SMOKE
+    run of ``runs``, with its launches against ``per[label]``: losses, grad
+    norms and params on the host, by label."""
     from repro_torch.launch.train import train
     from repro_torch.models.module import tree_map
 
-    world = 2
-    cfgs = {label: dataclasses.replace(get(arch, smoke=smoke), **over)
-            for label, arch, smoke, over, *_rest in TPM_RUNS}
-    per = {label: per_train_step(cfg) for label, cfg in cfgs.items()}
-    lr = 3e-4
-
-    def oracles():
-        """One process's eager ``train()`` of each float32 run, no mesh."""
-        got = {}
-        for label, arch, smoke, over, steps, seq, seed in TPM_RUNS:
-            if not smoke:
-                continue
-            r = drive(kern, side, zero(**{k: v * steps for k, v in per[label].items()}),
-                      lambda: train(arch, smoke=True, steps=steps, batch=8, seq=seq, seed=seed,
-                                    device="cuda", graphs=False, overrides=over or None,
-                                    log_every=steps),
-                      f"one-process {label} training")
-            got[label] = {"losses": r["losses"], "grad_norms": r["grad_norms"],
-                          "params": tree_map(lambda a: a.cpu(), r["params"])}
-            del r
+    got = {}
+    for label, arch, smoke, over, steps, seq, seed in runs:
+        if not smoke:
+            continue
+        r = drive(kern, side, zero(**{k: v * steps for k, v in per[label].items()}),
+                  lambda: train(arch, smoke=smoke, steps=steps, batch=8, seq=seq, seed=seed,
+                                device="cuda", graphs=False, overrides=over or None,
+                                log_every=steps),
+                  f"one-process {label} training")
+        got[label] = {"losses": r["losses"], "grad_norms": r["grad_norms"],
+                      "params": tree_map(lambda a: a.cpu(), r["params"])}
+        del r
         torch.cuda.empty_cache()
-        return got
+    return got
 
-    torch.cuda.empty_cache()
-    one, ranks = gloo_ranks(tpm_rank, world, out_dir / "tpm", TPM_DEADLINE_S,
-                            "two tensor-parallel ranks (MLA, Mamba)", oracles)
-    rec = report["tp_mixers"] = {}
-    for label, arch, smoke, over, steps, seq, seed in TPM_RUNS:
+
+def check_tp_runs(runs, ranks, one, bf16_oracles, cfgs, per, zero, world):
+    """Each run of ``runs`` on every rank: SMOKE (float32) runs' losses and
+    grad norms against ``one`` to TP_F32_TOL and rank 0's params to lr / 4,
+    the others' losses against ``bf16_oracles`` to TP_BF16_TOL; launches
+    against ``per_train_step``, collectives over 'model' against
+    ``tensor_parallel.collectives_per_step``. Returns the runs' records by
+    label."""
+    from repro_torch.models.tensor_parallel import collectives_per_step
+
+    lr = 3e-4
+    rec = {}
+    for label, arch, smoke, over, steps, seq, seed in runs:
         cfg = cfgs[label]
         want = zero(**{k: v * steps for k, v in per[label].items()})
-        want_coll = {k: v * steps for k, v in tp_collectives_per_step(cfg, world, seq).items()}
+        want_coll = {k: v * steps for k, v in collectives_per_step(cfg, world, seq).items()}
         run = rec[label] = {"arch": arch, "smoke": smoke, "overrides": over, "steps": steps,
                             "batch": [8, seq], "seed": seed, "ranks": []}
         if smoke:
@@ -3180,6 +3210,7 @@ def phase_tp_mixers(kern, side, zero, report, frontend_totals, out_dir, took,
                 "gloo_s_a_step": sum(got["gloo_s"].values()) / steps,
                 "max_memory_allocated": got["max_memory_allocated"], "launches": got["counts"],
                 "collectives_a_step": {k: n / steps for k, n in got["collectives"].items()},
+                "frontend_a_step": {k: n / steps for k, n in got["frontend"].items()},
                 "shapes": {str(k): n for k, n in got["shapes"].items()}})
         if smoke:
             run["param_max_err"] = max(
@@ -3189,8 +3220,70 @@ def phase_tp_mixers(kern, side, zero, report, frontend_totals, out_dir, took,
             if not run["param_max_err"] <= lr / 4:
                 fail(f"tensor parallelism ({label}): rank 0's params differ from one "
                      f"process's by {run['param_max_err']} (tol {lr / 4})")
+    return rec
+
+
+def tp_rank_line(run) -> str:
+    """A run's step ms, gloo ms, peak memory and collectives a rank."""
+    return ("step " + "/".join(f"{r['median_step_s'] * 1e3:.1f}" for r in run["ranks"])
+            + " ms a rank (mean " + "/".join(f"{r['mean_step_s'] * 1e3:.1f}"
+                                             for r in run["ranks"])
+            + ", of it in gloo " + "/".join(f"{r['gloo_s_a_step'] * 1e3:.1f}"
+                                            for r in run["ranks"])
+            + "), peak " + "/".join(f"{r['max_memory_allocated'] / 2**30:.2f}"
+                                    for r in run["ranks"])
+            + " GiB a rank, collectives over 'model' a step a rank "
+            + collectives_text(run["ranks"][0]["collectives_a_step"]))
+
+
+def tp_runs_text(rec, f32, bf16) -> str:
+    """Phases 37 / 38's line: (a) the float32 runs ``f32`` against one
+    process, (b) the bf16 runs ``bf16`` against their oracles."""
+    return ("(a) float32 SMOKE against one process: " + "; ".join(
+        f"{label.split('_')[0]} losses "
+        f"{max(r['max_rel_err']['losses'] for r in rec[label]['ranks']):.2e}, grad norms "
+        f"{max(r['max_rel_err']['grad_norms'] for r in rec[label]['ranks']):.2e} rel (tol "
+        f"{TP_F32_TOL:g}), params {rec[label]['param_max_err']:.2e} (tol "
+        f"{rec[label]['param_tol']:.2e}), {tp_rank_line(rec[label])}" for label in f32)
+        + "; (b) bf16 at the published widths: " + "; ".join(
+        f"{label.split('_')[0]} losses "
+        f"{[round(x, 4) for x in rec[label]['ranks'][0]['losses']]} vs one process "
+        f"{[round(x, 4) for x in rec[label]['one_process_losses']]} (max rel "
+        f"{max(r['max_rel_err']['losses'] for r in rec[label]['ranks']):.2e}, tol "
+        f"{TP_BF16_TOL:g}), {tp_rank_line(rec[label])}" for label in bf16))
+
+
+def phase_tp_mixers(kern, side, zero, report, frontend_totals, out_dir, took,
+                    bf16_oracles) -> None:
+    """Phase 37: tensor parallelism over 'model' for MLA and Mamba at (1,
+    2), two ranks on the one card over gloo (``tpm_rank``). (a) each
+    float32 run of TPM_RUNS against one process's ``train()`` on the card,
+    run here while the ranks start (losses and grad norms to TP_F32_TOL,
+    rank 0's params to lr / 4); (b) each bf16 run's losses against
+    ``bf16_oracles[label]``'s first ones (TP_BF16_TOL), its flash calls at
+    the rank's heads, its scan calls at the rank's channels; every run's
+    launches against ``per_train_step`` and its collectives over 'model'
+    against ``tensor_parallel.collectives_per_step`` (``check_tp_runs``). Fills
+    ``report["tp_mixers"]`` and the launches of TP_MIXER_ROWS
+    (``frontend_totals``)."""
+    from repro_torch.configs import get
+
+    world = 2
+    cfgs = {label: dataclasses.replace(get(arch, smoke=smoke), **over)
+            for label, arch, smoke, over, *_rest in TPM_RUNS}
+    per = {label: per_train_step(cfg) for label, cfg in cfgs.items()}
+    torch.cuda.empty_cache()
+    one, ranks = gloo_ranks(tpm_rank, world, out_dir / "tpm", TPM_DEADLINE_S,
+                            "two tensor-parallel ranks (MLA, Mamba)",
+                            lambda: tp_oracles(kern, side, zero, TPM_RUNS, per))
+    rec = report["tp_mixers"] = check_tp_runs(TPM_RUNS, ranks, one, bf16_oracles, cfgs, per,
+                                              zero, world)
+    for label, arch, smoke, over, steps, seq, seed in TPM_RUNS:
+        if smoke:
             continue
         # (b): the kernels at the rank's shapes
+        cfg = cfgs[label]
+        want = zero(**{k: v * steps for k, v in per[label].items()})
         b, s = 8, seq
         if cfg.mla:
             qk = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
@@ -3227,34 +3320,115 @@ def phase_tp_mixers(kern, side, zero, report, frontend_totals, out_dir, took,
                 frontend_totals[name] = sum(r[label]["counts"][kernel] for r in ranks)
     del ranks, one
     torch.cuda.empty_cache()
-
-    def rank_line(run):
-        return ("step " + "/".join(f"{r['median_step_s'] * 1e3:.1f}" for r in run["ranks"])
-                + " ms a rank (mean " + "/".join(f"{r['mean_step_s'] * 1e3:.1f}"
-                                                 for r in run["ranks"])
-                + ", of it in gloo " + "/".join(f"{r['gloo_s_a_step'] * 1e3:.1f}"
-                                                for r in run["ranks"])
-                + "), peak " + "/".join(f"{r['max_memory_allocated'] / 2**30:.2f}"
-                                        for r in run["ranks"])
-                + f" GiB a rank, collectives over 'model' a step a rank "
-                + collectives_text(run["ranks"][0]["collectives_a_step"]))
-
     print("[37 tp mla mamba] (1, 2) over 'model', two ranks on the one card over gloo, eager: "
-          "(a) float32 SMOKE against one process: " + "; ".join(
-              f"{label.split('_')[0]} losses "
-              f"{max(r['max_rel_err']['losses'] for r in rec[label]['ranks']):.2e}, grad norms "
-              f"{max(r['max_rel_err']['grad_norms'] for r in rec[label]['ranks']):.2e} rel (tol "
-              f"{TP_F32_TOL:g}), params {rec[label]['param_max_err']:.2e} (tol "
-              f"{rec[label]['param_tol']:.2e}), {rank_line(rec[label])}"
-              for label in ("deepseek_f32", "jamba_f32"))
-          + "; (b) bf16 at the published widths: " + "; ".join(
-              f"{label.split('_')[0]} losses "
-              f"{[round(x, 4) for x in rec[label]['ranks'][0]['losses']]} vs one process "
-              f"{[round(x, 4) for x in rec[label]['one_process_losses']]} (max rel "
-              f"{max(r['max_rel_err']['losses'] for r in rec[label]['ranks']):.2e}, tol "
-              f"{TP_BF16_TOL:g}), {rank_line(rec[label])}"
-              for label in ("deepseek_bf16", "jamba_bf16"))
+          + tp_runs_text(rec, ("deepseek_f32", "jamba_f32"), ("deepseek_bf16", "jamba_bf16"))
           + f" {took('37 tp mla mamba')}", flush=True)
+
+
+def tp_family_shapes(cfg, world: int, seq: int) -> dict:
+    """A rank's flash calls of one bf16 train step of phase 38 by
+    TP_FAMILY_SHAPES tag: {tag: ((q shape, k shape), forward calls,
+    backward calls)}, from ``cfg``'s heads over ``world`` ranks (each rank
+    its heads) and ``seq``: whisper's encoder, the decoder's self and cross
+    attention (each layer twice forward under remat, once backward);
+    llava's decoder over its patches and text. Fails where one is not
+    the shape that phase 2 times (TP_FAMILY_SHAPES)."""
+    b, hd, twice = 8, cfg.hd, 2 if cfg.remat else 1
+    hq, hkv = cfg.n_heads // world, cfg.n_kv_heads // world
+    if cfg.is_encdec:
+        enc = cfg.encoder_seq
+        calls = {"whisper_enc": ((hq, hkv, enc, enc, False), cfg.encoder_layers),
+                 "whisper_self": ((hq, hkv, seq, seq, True), cfg.n_layers),
+                 "whisper_cross": ((hq, hkv, seq, enc, False), cfg.n_layers)}
+    else:
+        calls = {"llava": ((hq, hkv, seq, seq, True), cfg.n_layers)}
+    out = {}
+    for tag, ((q_h, k_h, sq, skv, causal), layers) in calls.items():
+        got = (b, q_h, k_h, sq, skv, hd, causal)
+        if tuple(TP_FAMILY_SHAPES[tag][1:]) != got:
+            fail(f"phase 38: {cfg.name}'s {tag} rank shape {got} is not phase 2's "
+                 f"{TP_FAMILY_SHAPES[tag][1:]}")
+        out[tag] = (((b, q_h, sq, hd), (b, k_h, skv, hd)), twice * layers, layers)
+    return out
+
+
+def phase_tp_families(kern, side, zero, report, frontend_totals, out_dir, took,
+                      bf16_oracles) -> None:
+    """Phase 38: tensor parallelism over 'model' for xLSTM (mLSTM / sLSTM),
+    whisper's encoder-decoder and llava's backbone at (1, 2), two ranks on
+    the one card over gloo (``tpf_rank``). (a) each float32 run of TPF_RUNS
+    against one process's ``train()`` on the card, run here while the
+    ranks start; (b) each bf16 run's losses against ``bf16_oracles[label]``
+    (phases 30, 25 and 27's eager runs of the same weights, batches and
+    first-step rate: llava's is its rate witness at 2 layers, 3e-4, bf16);
+    every run's launches and
+    collectives as phase 37's (``check_tp_runs``); (b)'s flash calls at the
+    rank's heads (``tp_family_shapes``), xLSTM's mLSTM norms over the whole
+    d_inner, and llava's text lookup outside the step: one all-reduce over
+    'model' of its rows a step, no gathered table. Fills
+    ``report["tp_families"]`` and the launches of TP_FAMILY_ROWS
+    (``frontend_totals``)."""
+    from repro_torch.configs import get
+
+    world = 2
+    cfgs = {label: dataclasses.replace(get(arch, smoke=smoke), **over)
+            for label, arch, smoke, over, *_rest in TPF_RUNS}
+    per = {label: per_train_step(cfg) for label, cfg in cfgs.items()}
+    torch.cuda.empty_cache()
+    one, ranks = gloo_ranks(tpf_rank, world, out_dir / "tpf", TPF_DEADLINE_S,
+                            "two tensor-parallel ranks (xLSTM, whisper, llava)",
+                            lambda: tp_oracles(kern, side, zero, TPF_RUNS, per))
+    rec = report["tp_families"] = check_tp_runs(TPF_RUNS, ranks, one, bf16_oracles, cfgs, per,
+                                                zero, world)
+    for label, arch, smoke, over, steps, seq, seed in TPF_RUNS:
+        cfg = cfgs[label]
+        if cfg.family == "vlm":
+            # the text rows of 8 x (seq - img_tokens) tokens, summed over 'model'
+            rows = 8 * (seq - cfg.img_tokens) * cfg.d_model * (2 if cfg.dtype == "bfloat16" else 4)
+            want_front = {"all_reduce": steps, "all_reduce_bytes": steps * rows}
+            for i, r in enumerate(ranks):
+                if r[label]["frontend"] != want_front:
+                    fail(f"tensor parallelism ({label}) rank {i}: the trainer's collectives "
+                         f"outside the step {r[label]['frontend']}, want {want_front}")
+            rec[label]["frontend_bytes_a_step"] = rows
+        if smoke:
+            continue
+        if cfg.family == "ssm":
+            # mLSTM's norm over the whole d_inner on every rank, twice under remat
+            n = sum(mixer == "mlstm" for mixer, _ in cfg.blocks())
+            for tag, calls in (("rmsnorm", 2 * n * steps), ("rmsnorm_bwd", n * steps)):
+                for i, r in enumerate(ranks):
+                    got = sum(c for (t, xs, *_x), c in r[label]["shapes"].items()
+                              if t == tag and xs == (8, seq, cfg.d_inner))
+                    if got != calls:
+                        fail(f"tensor parallelism ({label}) rank {i}: {got} {tag} calls over "
+                             f"the whole d_inner {cfg.d_inner}, want {calls}")
+            continue
+        want_sh = {}
+        for tag, ((q, k), fwd, bwd) in tp_family_shapes(cfg, world, seq).items():
+            want_sh[("fwd", q, k, 0, None, "torch.bfloat16")] = fwd * steps
+            want_sh[("bwd", q, k, 0, None, "torch.bfloat16")] = bwd * steps
+            for name, (kernel, *_rest) in TP_FAMILY_ROWS.items():
+                if name.endswith(f"_tp_{tag}"):
+                    way = "bwd" if kernel.endswith("_bwd") else "fwd"
+                    frontend_totals[name] = sum(
+                        r[label]["shapes"].get((way, q, k, 0, None, "torch.bfloat16"), 0)
+                        for r in ranks)
+        for i, r in enumerate(ranks):
+            got = {k: n for k, n in r[label]["shapes"].items()
+                   if k[0] in ("fwd", "bwd")}
+            if got != want_sh:
+                fail(f"tensor parallelism ({label}) rank {i}: flash calls {got}, want {want_sh}")
+    del ranks, one
+    torch.cuda.empty_cache()
+    llava = rec["llava_bf16"]
+    print("[38 tp xlstm whisper llava] (1, 2) over 'model', two ranks on the one card over "
+          "gloo, eager: " + tp_runs_text(rec, ("xlstm_f32", "whisper_f32", "llava_f32"),
+                                         ("xlstm_bf16", "whisper_bf16", "llava_bf16"))
+          + f"; llava's text lookup outside the step {llava['frontend_bytes_a_step'] / 1e6:.2f} "
+          "MB a step a rank (one all-reduce over 'model'; the whole table would be "
+          f"{cfgs['llava_bf16'].vocab * cfgs['llava_bf16'].d_model * 2 / 1e6:.1f} MB) "
+          f"{took('38 tp xlstm whisper llava')}", flush=True)
 
 
 def cp_inputs(shape, dtype, seed):
@@ -3812,6 +3986,7 @@ def main() -> int:
                                           make_train_step)
     from repro_torch.launch.train import _frontend_batch, train
     from repro_torch.models import encdec, frontends, model_api, transformer
+    from repro_torch.models.tensor_parallel import collectives_per_step
     from repro_torch.optim.optimizers import adamw, warmup_cosine
     from repro_torch.models.module import param_bytes, param_count, tree_map
 
@@ -5029,17 +5204,17 @@ def main() -> int:
     # The rate witness: (1) the phase's batches, 8 x 3,072, at 3e-4 through
     # launch.train.train, cut to 2 layers, bf16 and then float32 (the
     # float32 kernels and GEMMs, none of the bf16 path): the two loss curves;
-    # (2) float32 at 3e-4 with the trainer's 8-step schedule, its first
-    # LLAVA_LOCKSTEP_STEPS steps on the card and on the CPU from the same
+    # (2) float32 at 3e-4 with the trainer's WITNESS_STEPS-step schedule, its
+    # first LLAVA_LOCKSTEP_STEPS steps on the card and on the CPU from the same
     # params and state, on 2 x (96 patches + 32 tokens)
     lt["rate_witness"] = wit = {"lr": 3e-4, "layers": 2}
     for dn in ("bfloat16", "float32"):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        out = drive(kern, side, zero(**{k: v * MOE_TRAIN_STEPS for k, v in pt.items()}),
+        out = drive(kern, side, zero(**{k: v * WITNESS_STEPS for k, v in pt.items()}),
                     lambda: train("llava_next_mistral_7b", smoke=False,
-                                  steps=MOE_TRAIN_STEPS, batch=8, seq=3072, lr=3e-4,
-                                  log_every=MOE_TRAIN_STEPS, device="cuda", graphs=False,
+                                  steps=WITNESS_STEPS, batch=8, seq=3072, lr=3e-4,
+                                  log_every=WITNESS_STEPS, device="cuda", graphs=False,
                                   overrides=dict(n_layers=2, dtype=dn)),
                     f"llava rate witness ({dn})")
         if not all(math.isfinite(x) for x in out["losses"]):
@@ -5062,7 +5237,7 @@ def main() -> int:
     wit["lockstep"] = ls = drive(
         kern, side, zero(**{k: v * LLAVA_LOCKSTEP_STEPS for k, v in pt.items()}),
         lambda: lockstep_train(pcfg, p_gpu, witness_batch, LLAVA_LOCKSTEP_STEPS,
-                               MOE_TRAIN_STEPS, 3e-4, make_train_step, adamw,
+                               WITNESS_STEPS, 3e-4, make_train_step, adamw,
                                warmup_cosine),
         "llava rate witness (lockstep)")
     del p_gpu
@@ -5070,7 +5245,7 @@ def main() -> int:
     if not ls["ok"]:
         fail(f"llava float32 lockstep training card vs CPU differs: {ls}")
     print(f"[27 llava rate witness] llava widths cut to 2 layers at the trainer's AdamW "
-          f"3e-4, {MOE_TRAIN_STEPS} steps of 8 x (2880 patches + 192 tokens) through "
+          f"3e-4, {WITNESS_STEPS} steps of 8 x (2880 patches + 192 tokens) through "
           f"launch.train.train: bf16 losses "
           f"{[round(x, 4) for x in wit['bfloat16']['losses']]}, float32 losses "
           f"{[round(x, 4) for x in wit['float32']['losses']]} (grad norms bf16 "
@@ -5100,8 +5275,8 @@ def main() -> int:
     # Jamba's rate witness: phase 28's loss at 3e-4 falls but not monotone.
     # (1) the witness cut, 8 x 512 through launch.train.train at 3e-4, in
     # bf16 and in float32 (the float32 kernels and GEMMs): the two loss and
-    # grad-norm curves; (2) float32 at 3e-4 with the trainer's 8-step
-    # schedule, its first RATE_LOCKSTEP_STEPS steps on the card and on the
+    # grad-norm curves; (2) float32 at 3e-4 with the trainer's
+    # WITNESS_STEPS-step schedule, its first RATE_LOCKSTEP_STEPS steps on the card and on the
     # CPU from the same params and state (Jamba SMOKE, 2 x 128 tokens), at
     # SMOKE's N 4 and at Jamba's N 16, whose backward instance alone keeps
     # its exponentials and walks 8-step sub-stages over four lanes a channel
@@ -5111,10 +5286,10 @@ def main() -> int:
     for dn in ("bfloat16", "float32"):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        out = drive(kern, side, zero(**{k: v * MOE_TRAIN_STEPS for k, v in wpt.items()}),
+        out = drive(kern, side, zero(**{k: v * WITNESS_STEPS for k, v in wpt.items()}),
                     lambda: train("jamba_1_5_large_398b", smoke=False,
-                                  steps=MOE_TRAIN_STEPS, batch=8, seq=512, lr=3e-4,
-                                  log_every=MOE_TRAIN_STEPS, device="cuda", graphs=False,
+                                  steps=WITNESS_STEPS, batch=8, seq=512, lr=3e-4,
+                                  log_every=WITNESS_STEPS, device="cuda", graphs=False,
                                   overrides=dict(JAMBA_WITNESS_CUT, dtype=dn)),
                     f"Jamba rate witness ({dn})")
         if not all(math.isfinite(x) for x in out["losses"]):
@@ -5139,7 +5314,7 @@ def main() -> int:
             kern, side, zero(**{k: v * RATE_LOCKSTEP_STEPS
                                 for k, v in per_train_step(jcfg_s).items()}),
             lambda: lockstep_train(jcfg_s, jp_gpu, jamba_witness_batch, RATE_LOCKSTEP_STEPS,
-                                   MOE_TRAIN_STEPS, 3e-4, make_train_step, adamw,
+                                   WITNESS_STEPS, 3e-4, make_train_step, adamw,
                                    warmup_cosine),
             f"Jamba rate witness (lockstep, N {n_state})")
         del jp_gpu
@@ -5151,7 +5326,7 @@ def main() -> int:
     jw["max_loss_gap"] = max(abs(a - b) for a, b in zip(wl["bfloat16"], wl["float32"]))
     print(f"[28 jamba rate witness] jamba-1.5-large widths, attention + 1 Mamba layer, "
           f"dense FFN ({jw['float32']['params'] / 1e9:.2f} B params) at the trainer's AdamW "
-          f"3e-4, {MOE_TRAIN_STEPS} steps of 8 x 512 through launch.train.train: bf16 losses "
+          f"3e-4, {WITNESS_STEPS} steps of 8 x 512 through launch.train.train: bf16 losses "
           f"{[round(x, 4) for x in wl['bfloat16']]}, float32 losses "
           f"{[round(x, 4) for x in wl['float32']]} (largest gap {jw['max_loss_gap']:.4f}; "
           f"grad norms bf16 {[round(x, 1) for x in jw['bfloat16']['grad_norms']]}, float32 "
@@ -5434,7 +5609,7 @@ def main() -> int:
                  f"by {rec['param_max_err']}")
     del one_f32
     for label, arch, over, steps, oracle, shape in (
-            ("padheads_bf16", "smollm_360m_padheads", {}, PADHEADS_TRAIN_STEPS,
+            ("padheads_bf16", "smollm_360m_padheads", {}, TP_PADHEADS_STEPS,
              ph["train"]["eager"], TP_PADHEADS_SHAPE),
             ("qwen3", "qwen3_moe_235b_a22b", QWEN_TRAIN_CUT, TP_MOE_STEPS,
              mt["qwen3_moe"]["eager"], TP_QWEN_SHAPE)):
@@ -5447,7 +5622,7 @@ def main() -> int:
                             "one_rank_max_memory_allocated": oracle["max_memory_allocated"],
                             "ranks": []}
         acfg = dataclasses.replace(get(arch), **over)
-        want_coll = {k: v * steps for k, v in tp_collectives_per_step(acfg, 2, 512).items()}
+        want_coll = {k: v * steps for k, v in collectives_per_step(acfg, 2, 512).items()}
         for i, r in enumerate(ranks):
             got = r[label]
             if got["counts"] != zero(**want):
@@ -5509,6 +5684,10 @@ def main() -> int:
     # 37. tensor parallelism over 'model' for MLA and Mamba at (1, 2)
     phase_tp_mixers(kern, side, zero, report, frontend_totals, out_dir, took,
                     {"deepseek_bf16": mt["deepseek"]["eager"], "jamba_bf16": jw["bfloat16"]})
+    # 38. tensor parallelism over 'model' for xLSTM, whisper and llava at (1, 2)
+    phase_tp_families(kern, side, zero, report, frontend_totals, out_dir, took,
+                      {"xlstm_bf16": xt["eager"], "whisper_bf16": wr["train"]["eager"],
+                       "llava_bf16": lt["rate_witness"]["bfloat16"]})
 
     # the kernel table: main-path shapes, bf16; launches over every main path
     table = []
@@ -5532,6 +5711,7 @@ def main() -> int:
     path_rows.update(TP_ROWS)
     path_rows.update(CP_ROWS)
     path_rows.update(TP_MIXER_ROWS)
+    path_rows.update(TP_FAMILY_ROWS)
     launched = {**mla_totals, **frontend_totals}
     for name, (kernel, source, replaces, case, dn, path) in path_rows.items():
         r = next(r for r in rows if r["kernel"] == kernel and r["case"] == case

@@ -81,8 +81,9 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer,
     squares over the axis in rank order, and updates the slices.
 
     A 'model' axis above 1 without ``cfg.pure_dp`` is tensor parallelism
-    (:mod:`repro_torch.models.tensor_parallel`), for the families of
-    :func:`tensor_parallel_supported` (others raise NotImplementedError):
+    (:mod:`repro_torch.models.tensor_parallel`), for every family (the
+    decoders' attention, MLA, Mamba, mLSTM and sLSTM mixers, dense and MoE
+    FFNs, the encoder-decoder, the vlm backbone):
     a leaf that ``shardings`` shard over 'model' stays this rank's slice
     of it through the step (ZeRO-3 gathers only its 'data' slice), and so
     do its gradient, with no collective over 'model', and its AdamW
@@ -126,13 +127,6 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer,
             f"axis of {shape['model']}; the reference trains seq_shard with "
             "pure_dp only")
     tensor_parallel = shape.get("model", 1) > 1 and not cfg.pure_dp
-    if tensor_parallel and not tensor_parallel_supported(cfg):
-        raise NotImplementedError(
-            f"{cfg.name}: tensor parallelism over a 'model' axis of "
-            f"{shape['model']} runs the decoders of attention, MLA and Mamba "
-            "mixers (the dense decoders, Qwen3-MoE, DeepSeek-V3, Jamba); "
-            "mLSTM / sLSTM, the encoder-decoder and the vlm come with "
-            "ROADMAP.md queue 1, item 6e2b")
     f_axis = None if mesh is None else fsdp_axis(mesh)
     f_size = shape.get(f_axis, 1)
 
@@ -222,18 +216,6 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer,
     if dev.type != "cuda" or not graphs:
         return train_step
     return GraphedStep(train_step, 2, dev, mutates=(0, 1), name="train")
-
-
-def tensor_parallel_supported(cfg: ModelConfig) -> bool:
-    """Whether the port trains ``cfg`` tensor-parallel over 'model': the
-    decoder-only families whose mixers are attention, MLA or Mamba, with a
-    dense SwiGLU or a MoE FFN (the dense decoders, Qwen3-MoE, DeepSeek-V3
-    with its dense prefix and MTP, Jamba). mLSTM / sLSTM (xLSTM), the
-    encoder-decoder (whisper) and the vlm (llava) come with ROADMAP.md
-    queue 1, item 6e2b."""
-    return (cfg.family in ("dense", "moe", "hybrid") and not cfg.is_encdec
-            and all(mixer in ("attn", "mla", "mamba")
-                    for mixer, _ in cfg.period))
 
 
 def _dp_axes(cfg: ModelConfig, mesh, batch: int) -> tuple:

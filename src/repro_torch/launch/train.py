@@ -28,7 +28,10 @@ reads the loss and the grad norm (one sync). Params and optimizer state are
 the graph's own tensors, written in place; a resumed checkpoint is copied
 into them. ``train(..., graphs=False)`` runs the step eagerly. The vlm and
 audio families get the stub frontends' patches or frames each step, drawn
-from a generator of the (seed, step) pair.
+from a generator of the (seed, step) pair. Under a mesh the vlm's text rows
+are looked up in each rank's slices of the embedding (vocab-parallel over
+'model', the rows' columns gathered over the fsdp axis under ZeRO-3), never
+in a gathered table; ``frontend_counts`` counts those collectives.
 
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 6
   PYTHONPATH=src python -m repro_torch.launch.train --full --steps 10 \\
@@ -44,6 +47,7 @@ published widths; whisper-small trains whole (``--arch whisper_small
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
 import time
 from typing import Optional
@@ -58,15 +62,24 @@ from repro_torch.configs import get
 from repro_torch.data.pipeline import Prefetcher, SyntheticLM
 from repro_torch.launch import shardings as SH
 from repro_torch.launch.graphs import GraphedStep
-from repro_torch.launch.mesh import batch_axes, make_mesh
+from repro_torch.launch.mesh import batch_axes, fsdp_axis, make_mesh
 from repro_torch.launch.steps import make_train_step
+from repro_torch.layout import mesh_shape, shard_dim
 from repro_torch.models import frontends, model_api
 from repro_torch.models import partitioning as part
+from repro_torch.models import tensor_parallel as tp
 from repro_torch.models.module import param_count, tree_map
 from repro_torch.optim.optimizers import adamw, warmup_cosine
 
 # ZeRO-3 above this many params, as the reference's dry-run decides
 FSDP_PARAMS = 8e9
+
+# the collectives this process ran outside the train step to build the vlm's
+# embeds: ``all_reduce`` (the vocab-parallel lookup's sum over 'model') and
+# ``all_gather`` (the looked-up rows' columns over the fsdp axis under
+# ZeRO-3), each beside ``<kind>_bytes`` (the whole tensor's). The caller
+# resets it (``frontend_counts.clear()``)
+frontend_counts = collections.Counter()
 
 
 def train(arch: str, smoke: bool = True, steps: int = 50, batch: int = 8,
@@ -131,6 +144,7 @@ def _train(arch, smoke, steps, batch, seq, lr, ckpt_dir, ckpt_every,
     step_fn = make_train_step(cfg, optimizer, device=dev, graphs=graphs,
                               mesh=mesh, shardings=p_shards)
     rank0 = mesh is None or dist.get_rank() == 0
+    gather = None if mesh is None else _text_gather(mesh, p_shards)
 
     source = SyntheticLM(batch, seq, cfg.vocab, seed=seed)
     start_step = 0
@@ -157,10 +171,7 @@ def _train(arch, smoke, steps, batch, seq, lr, ckpt_dir, ckpt_every,
         for step in range(start_step, steps):
             raw = data.next_batch()
             ts = time.perf_counter()
-            front = params if cfg.family != "vlm" or p_shards is None else {
-                "embed": SH.gather_tree(params["embed"], p_shards["embed"],
-                                        mesh)}
-            b = _frontend_batch(cfg, front, raw, seed, step, seq, dev)
+            b = _frontend_batch(cfg, params, raw, seed, step, seq, dev, gather)
             params, opt_state, metrics = step_fn(params, opt_state, b)
             losses.append(float(metrics["loss"]))
             step_s.append(time.perf_counter() - ts)
@@ -200,14 +211,35 @@ def _frontend_generator(seed: int, step: int, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(int(state[0]))
 
 
-def _frontend_batch(cfg, params, raw, seed: int, step: int, seq: int, dev):
+def _text_gather(mesh, shardings):
+    """Where ZeRO-3 holds the embedding's columns over the fsdp axis (of
+    more than one rank): the all-gather of looked-up rows' columns over it,
+    counted in ``frontend_counts``; else None."""
+    axis = fsdp_axis(mesh)
+    dim = None if axis is None else shard_dim(shardings["embed"], mesh, axis)
+    if dim is None or mesh_shape(mesh)[axis] == 1:
+        return None
+    group, size = mesh.get_group(axis), mesh_shape(mesh)[axis]
+
+    def gather(rows):
+        out = SH.gather_dim(rows, rows.dim() - 2 + dim, group, size)
+        frontend_counts["all_gather"] += 1
+        frontend_counts["all_gather_bytes"] += out.numel() * out.element_size()
+        return out
+    return gather
+
+
+def _frontend_batch(cfg, params, raw, seed: int, step: int, seq: int, dev,
+                    gather=None):
     """The step's batch: the data pipeline's tokens and labels, and for the
     modality families the stub frontend's output, as the reference builds
     it outside its jitted step. vlm: ``embeds`` = [image patches; the
     embedding of the first ``seq - img_tokens`` tokens] with all ``seq``
     labels, made with no gradient (data to the step, as in the reference:
-    the embedding takes no gradient through it). audio: ``frames`` beside
-    the tokens."""
+    the embedding takes no gradient through it); ``params`` may hold this
+    rank's slices of the embedding (``fuse_vlm_inputs``: the lookup's sum
+    over 'model', and ``gather`` for its columns, counted in
+    ``frontend_counts``). audio: ``frames`` beside the tokens."""
     b = {"inputs": raw["inputs"], "labels": raw["labels"]}
     if cfg.family == "vlm":
         with torch.no_grad():
@@ -216,9 +248,11 @@ def _frontend_batch(cfg, params, raw, seed: int, step: int, seq: int, dev):
                 device=dev)
             text = torch.as_tensor(raw["inputs"][:, :seq - cfg.img_tokens],
                                    device=dev)
-            b = {"embeds": frontends.fuse_vlm_inputs(params, patches, text,
-                                                     cfg),
-                 "labels": raw["labels"]}
+            before = tp.counts.copy()
+            embeds = frontends.fuse_vlm_inputs(params, patches, text, cfg,
+                                               gather)
+            frontend_counts.update(tp.counts - before)
+            b = {"embeds": embeds, "labels": raw["labels"]}
     elif cfg.family == "audio":
         b["frames"] = frontends.audio_frames(
             _frontend_generator(seed, step, dev), cfg, len(raw["inputs"]),

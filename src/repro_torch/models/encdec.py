@@ -20,6 +20,14 @@ Entry points:
 Where the reference scans over the layer axis the port loops in Python; each
 stacked leaf is taken apart once (``transformer._unstack``) outside the
 checkpointed layers, so its gradient is written once.
+
+Tensor parallelism over 'model' (:mod:`.tensor_parallel`) is read from the
+leaves, as in the decoder-only model: the encoder's and the decoder's self
+attention and MLPs run ``attn_apply`` / ``mlp_apply``'s split paths, cross
+attention its heads (``cross_kv``, ``layers.cross_attn_apply``), and the
+tied embedding is vocab-parallel where it holds a slice of the vocab
+(``transformer.embed_tokens`` and ``_chunked_ce``); ``enc_pos`` and
+``dec_pos`` are whole. Decoding under a mesh is not ported.
 """
 from __future__ import annotations
 
@@ -31,9 +39,10 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import resolve_device
 from repro_torch.kernels import ops
 from . import layers as L
+from . import tensor_parallel as tp
 from .config import ModelConfig
 from .module import embed_init, normal_init, stack_init, tree_map
-from .transformer import _chunked_ce, _dtype, _layer, _unstack
+from .transformer import _chunked_ce, _dtype, _layer, _unstack, embed_tokens
 
 Params = Dict[str, Any]
 
@@ -96,7 +105,7 @@ def encode(params, frames, cfg: ModelConfig) -> torch.Tensor:
         x = x + L.attn_apply(bp["attn"], h, cfg, positions, causal=False,
                              use_rope=False)
         h = L.rmsnorm(x, bp["ln2"], cfg.norm_eps)
-        return x + L.mlp_apply(bp["mlp"], h)
+        return x + L.mlp_apply(bp["mlp"], h, width=cfg.d_ff)
 
     remat = cfg.remat and torch.is_grad_enabled()
     for bp in _unstack(params["encoder"], cfg.encoder_layers):
@@ -107,11 +116,12 @@ def encode(params, frames, cfg: ModelConfig) -> torch.Tensor:
 def _kv_all_layers(x: torch.Tensor, w: torch.Tensor,
                    cfg: ModelConfig) -> torch.Tensor:
     """x (B, S, D) through every layer's projection w (L, D, Hkv * hd) in
-    one product -> (L, B, Hkv, S, hd), contiguous."""
+    one product -> (L, B, Hkv, S, hd), contiguous (Hkv: the heads of w's
+    columns, this rank's under tensor parallelism)."""
     n, d, e = w.shape
     b, s, _ = x.shape
     y = x.reshape(b * s, d) @ w.permute(1, 0, 2).reshape(d, n * e)
-    return y.reshape(b, s, n, cfg.n_kv_heads, cfg.hd).permute(
+    return y.reshape(b, s, n, e // cfg.hd, cfg.hd).permute(
         2, 0, 3, 1, 4).contiguous()
 
 
@@ -119,17 +129,27 @@ def cross_kv(params, enc_states, cfg: ModelConfig
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Every decoder layer's cross-attention K/V of the encoder states:
     (L, B, Hkv, S_enc, hd) x2, contiguous (the decode kernel reads each
-    layer's slice as a contiguous cache)."""
+    layer's slice as a contiguous cache). Under tensor parallelism
+    (``layers.attn_split``) the K/V of this rank's heads from its columns
+    of wk / wv, or, where each rank runs every head, of every head (split
+    wk / wv gathered whole); either way the encoder states go through
+    ``copy_to_model``, since each rank's gradient of them is partial."""
     cross = params["decoder"]["cross"]
-    return (_kv_all_layers(enc_states, cross["wk"], cfg),
-            _kv_all_layers(enc_states, cross["wv"], cfg))
+    wk, wv = cross["wk"], cross["wv"]
+    split, own = L.attn_split(cross, cfg)
+    if any(split):
+        enc_states = tp.copy_to_model(enc_states)
+        if not own:
+            wk, wv = L.every_head((wk, wv), split[1:3])
+    return (_kv_all_layers(enc_states, wk, cfg),
+            _kv_all_layers(enc_states, wv, cfg))
 
 
 def decode_train(params, enc_states, tokens, cfg: ModelConfig) -> torch.Tensor:
     """Teacher-forced decoder pass. tokens: (B, S). Returns the final-normed
     hidden states (B, S, D)."""
     s = tokens.shape[1]
-    x = params["embed"][tokens] + params["dec_pos"][:s][None]
+    x = embed_tokens(params, tokens, cfg) + params["dec_pos"][:s][None]
     positions = torch.arange(s, device=x.device)
     ck, cv = cross_kv(params, enc_states, cfg)
 
@@ -140,7 +160,7 @@ def decode_train(params, enc_states, tokens, cfg: ModelConfig) -> torch.Tensor:
         h = L.rmsnorm(x, bp["ln_x"], cfg.norm_eps)
         x = x + L.cross_attn_apply(bp["cross"], h, (ck, cv), cfg)
         h = L.rmsnorm(x, bp["ln2"], cfg.norm_eps)
-        return x + L.mlp_apply(bp["mlp"], h)
+        return x + L.mlp_apply(bp["mlp"], h, width=cfg.d_ff)
 
     remat = cfg.remat and torch.is_grad_enabled()
     for bp, k, v in zip(_unstack(params["decoder"], cfg.n_layers),

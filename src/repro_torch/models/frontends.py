@@ -12,6 +12,7 @@ import torch
 
 from repro_torch import resolve_device
 from .config import ModelConfig
+from .transformer import embed_tokens
 
 
 def _normal(gen: torch.Generator, shape, device) -> torch.Tensor:
@@ -34,8 +35,14 @@ def image_patches(gen: torch.Generator, cfg: ModelConfig, batch: int,
     return _normal(gen, (batch, cfg.img_tokens, cfg.d_model), device)
 
 
-def fuse_vlm_inputs(params, patches, tokens, cfg: ModelConfig) -> torch.Tensor:
+def fuse_vlm_inputs(params, patches, tokens, cfg: ModelConfig,
+                    gather=None) -> torch.Tensor:
     """[img patches; text embeds] -> (B, img_tokens + text_len, D) in the
-    embedding's dtype."""
-    text = params["embed"][tokens]
+    embedding's dtype. The text rows come from ``transformer.embed_tokens``:
+    vocab-parallel where ``embed`` holds this rank's rows over 'model'.
+    ``gather`` maps rows whose columns are this rank's slice (ZeRO-3 holds
+    the embedding's columns over its fsdp axis) to whole rows."""
+    text = embed_tokens(params, tokens, cfg)
+    if gather is not None:
+        text = gather(text)
     return torch.cat([patches.to(text.dtype), text], dim=1)

@@ -93,9 +93,8 @@ def attn_apply(p, x, cfg: ModelConfig, positions, causal=True,
     output, summed over the ranks."""
     b, s, d = x.shape
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    wq, wk, wv, wo = p["wq"], p["wk"], p["wv"], p["wo"]
-    split = (wq.shape[1] != h * hd, wk.shape[1] != hkv * hd,
-             wv.shape[1] != hkv * hd, wo.shape[0] != h * hd)
+    wq, wk, wv = p["wq"], p["wk"], p["wv"]
+    split, own = attn_split(p, cfg)
     if cfg.seq_shard and any(split):
         raise NotImplementedError(
             f"{cfg.name}: seq_shard with projections split over 'model' "
@@ -107,18 +106,13 @@ def attn_apply(p, x, cfg: ModelConfig, positions, causal=True,
             f"{cfg.name}: attention under a token split over 'model' runs "
             "the ring, which takes causal attention of a seq_shard config "
             f"(seq_shard {cfg.seq_shard}, causal {causal})")
-    # wq and wo share the width h * hd, which 'model' divides wherever it
-    # divides wk's: a split leaves wq and wo split, wk / wv perhaps whole
     cols = None
     if any(split):
-        m = tp.model_size()
         x = tp.copy_to_model(x)
-        if all(split) and h % m == 0 and hkv % m == 0:
-            h, hkv = h // m, hkv // m          # this rank's heads
-        else:                                   # every head on every rank
-            wq, wk, wv = (tp.gather_from_model(w, 1) if sp
-                          else tp.copy_to_model(w)
-                          for w, sp in zip((wq, wk, wv), split))
+        if own:
+            h, hkv = h // tp.model_size(), hkv // tp.model_size()
+        else:
+            wq, wk, wv = every_head((wq, wk, wv), split)
             cols = slice(*tp.local_range(h * hd))
     q = (x @ wq).reshape(b, s, h, hd)
     k = (x @ wk).reshape(b, s, hkv, hd)
@@ -135,6 +129,37 @@ def attn_apply(p, x, cfg: ModelConfig, positions, causal=True,
                                      part.seq_axis(), window=cfg.window)
     else:
         out = ops.flash_attention(qt, kt, vt, causal=causal, window=cfg.window)
+    return _attn_out(out, p["wo"], split, cols)
+
+
+def attn_split(p, cfg: ModelConfig):
+    """How tensor parallelism splits an attention's leaves ``p`` (one
+    layer's, or the decoder's stacked cross-attention ones: the widths are
+    the last two dims): which of wq / wk / wv / wo hold this rank's slice
+    over 'model' (wq / wk / wv by columns, wo by rows), and whether each
+    rank runs its heads (``tensor_parallel.own_heads``) or every rank runs
+    every head. wq and wo share the width h * hd, which 'model' divides
+    wherever it divides wk's: a split leaves wq and wo split, wk / wv
+    perhaps whole."""
+    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    split = (p["wq"].shape[-1] != h * hd, p["wk"].shape[-1] != hkv * hd,
+             p["wv"].shape[-1] != hkv * hd, p["wo"].shape[-2] != h * hd)
+    return split, tp.own_heads(split, h, hkv, tp.model_size())
+
+
+def every_head(ws, split):
+    """Projections ``ws`` whole on every rank, where every rank runs every
+    head: a split one (its flag in ``split``) gathered over its columns,
+    a whole one through ``copy_to_model``."""
+    return tuple(tp.gather_from_model(w, w.dim() - 1) if sp
+                 else tp.copy_to_model(w) for w, sp in zip(ws, split))
+
+
+def _attn_out(out, wo, split, cols):
+    """Attention's output (B, H, S, D), this rank's heads or every head,
+    through wo: whole, or this rank's rows of wo (on its columns ``cols``
+    of the output where it ran every head), summed over 'model'."""
+    b, h, s, hd = out.shape
     out = out.transpose(1, 2).reshape(b, s, h * hd)
     if cols is not None:
         out = out[..., cols]
@@ -146,13 +171,31 @@ def attn_apply(p, x, cfg: ModelConfig, positions, causal=True,
 def cross_attn_apply(p, x, kv_cache, cfg: ModelConfig) -> torch.Tensor:
     """Cross attention against precomputed encoder K/V: x (B, S, D) ->
     (B, S, D); ``kv_cache`` = (k, v), each (B, Hkv, S_enc, hd). Every query
-    sees every key (no mask, no RoPE), so Sq and S_enc differ freely."""
+    sees every key (no mask, no RoPE), so Sq and S_enc differ freely.
+
+    Tensor parallelism is read from the leaves (:func:`attn_split`). Where
+    each rank runs its heads, ``kv_cache`` holds the K/V of this rank's
+    heads (``encdec.cross_kv``), q comes from its columns of wq and its
+    output goes through its rows of wo. Otherwise every rank runs every
+    head, as :func:`attn_apply` does: wq gathered whole (the K/V of every
+    head), then each rank's columns of the attention output through its
+    rows of wo. The ranks' outputs are summed."""
     b, s, _ = x.shape
     h, hd = cfg.n_heads, cfg.hd
-    q = (x @ p["wq"]).reshape(b, s, h, hd).transpose(1, 2)
+    wq = p["wq"]
+    split, own = attn_split(p, cfg)
+    cols = None
+    if any(split):
+        x = tp.copy_to_model(x)
+        if own:
+            h //= tp.model_size()
+        else:
+            wq, = every_head((wq,), split)
+            cols = slice(*tp.local_range(h * hd))
+    q = (x @ wq).reshape(b, s, h, hd).transpose(1, 2)
     k, v = kv_cache
     out = ops.flash_attention(q, k, v, causal=False, window=None)
-    return out.transpose(1, 2).reshape(b, s, h * hd) @ p["wo"]
+    return _attn_out(out, p["wo"], split, cols)
 
 
 def attn_make_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,

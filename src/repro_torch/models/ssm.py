@@ -9,7 +9,8 @@ reference, which returns a new cache, they write the new states into the
 given cache tensors in place (``copy_``): the model's ``decode_step`` hands
 each layer views into the stacked cache and keeps no returned copy. Under
 tensor parallelism (:mod:`.tensor_parallel`) ``mamba_apply`` runs this
-rank's channels of d_inner.
+rank's channels of d_inner, ``mlstm_apply`` and ``slstm_apply`` their
+projections' slices around a recurrence that runs whole on every rank.
 """
 from __future__ import annotations
 
@@ -223,18 +224,47 @@ def _mlstm_chunk(q, k, v, logf, logi, state):
 
 
 def mlstm_apply(p, x, cfg: ModelConfig) -> torch.Tensor:
+    """Prefill mLSTM, x: (B, S, D) -> (B, S, D).
+
+    Tensor parallelism (:mod:`.tensor_parallel`) is read from the leaves:
+    where ``in_proj`` holds fewer than its 2 d_inner columns, ``conv``,
+    ``wq``, ``wk``, ``wv`` and ``out_proj`` hold this rank's rows [lo, hi)
+    of d_inner, and ``norm``, ``w_gates`` and ``gate_bias`` are whole (the
+    rules' split). As in :func:`mamba_apply`, ``x @ in_proj`` is gathered
+    whole (its [x | z] columns are split contiguously) and each rank takes
+    channels [lo, hi) of x and of z and runs the conv on them. Its rows of
+    ``wq`` / ``wk`` / ``wv`` give partial q / k / v over the whole d_inner,
+    summed over 'model' in one all-reduce; the chunked recurrence and the
+    RMSNorm over d_inner then run whole on every rank (so the heads need
+    not split). The rank's channels of h, gated by z, go through its rows
+    of ``out_proj``, and the ranks' outputs are summed. Every whole tensor
+    that enters that work (x, the summed q / k / v, ``w_gates``,
+    ``gate_bias`` and the norm's scale) goes through ``copy_to_model``: each
+    rank's gradient of it is partial, and the sum is the whole one."""
     b, s, d = x.shape
     hh = cfg.n_heads
     di = cfg.d_inner
     dh = di // hh
-    xz = x @ p["in_proj"]
-    xin, z = xz.chunk(2, dim=-1)
+    w_gates, gate_bias, norm = p["w_gates"], p["gate_bias"], p["norm"]
+    split = p["in_proj"].shape[1] != 2 * di
+    if split:
+        lo, hi = tp.local_range(di)
+        x = tp.copy_to_model(x)
+        xz = tp.gather_from_model(x @ p["in_proj"], -1)
+        xin, z = xz[..., lo:hi], xz[..., di + lo:di + hi]
+        w_gates, gate_bias, norm = (tp.copy_to_model(t)
+                                    for t in (w_gates, gate_bias, norm))
+    else:
+        xin, z = (x @ p["in_proj"]).chunk(2, dim=-1)
     xc, _ = _causal_conv(xin, p["conv"])
     xc = F.silu(xc)
-    q = (xc @ p["wq"]).reshape(b, s, hh, dh).transpose(1, 2)
-    k = (xc @ p["wk"]).reshape(b, s, hh, dh).transpose(1, 2)
-    v = (xin @ p["wv"]).reshape(b, s, hh, dh).transpose(1, 2)
-    gates = x.float() @ p["w_gates"] + p["gate_bias"]
+    qkv = (xc @ p["wq"], xc @ p["wk"], xin @ p["wv"])
+    if split:
+        # the ranks' partial products over their rows of d_inner, summed
+        qkv = tp.copy_to_model(tp.reduce_from_model(
+            torch.cat(qkv, dim=-1))).split(di, dim=-1)
+    q, k, v = (t.reshape(b, s, hh, dh).transpose(1, 2) for t in qkv)
+    gates = x.float() @ w_gates + gate_bias
     logf = F.logsigmoid(gates[..., :hh]).transpose(1, 2)
     logi = gates[..., hh:].transpose(1, 2)                     # (B,H,S)
     # the reference's adaptive chunk: at most 32 chunks
@@ -253,7 +283,9 @@ def mlstm_apply(p, x, cfg: ModelConfig) -> torch.Tensor:
             logi[:, :, c0:c0 + w], state)
         hs.append(hc)
     h = torch.cat(hs, dim=2).transpose(1, 2).reshape(b, s, di)
-    h = rmsnorm(h.to(x.dtype), p["norm"], cfg.norm_eps)
+    h = rmsnorm(h.to(x.dtype), norm, cfg.norm_eps)
+    if split:
+        return tp.reduce_from_model((h[..., lo:hi] * F.silu(z)) @ p["out_proj"])
     return (h * F.silu(z)) @ p["out_proj"]
 
 
@@ -342,9 +374,24 @@ def _slstm_cell(p, wx_t, state, cfg: ModelConfig):
 
 
 def slstm_apply(p, x, cfg: ModelConfig) -> torch.Tensor:
-    """Sequential loop over time (non-associative recurrence)."""
+    """Sequential loop over time (non-associative recurrence).
+
+    Tensor parallelism (:mod:`.tensor_parallel`) is read from the leaves:
+    where ``w`` holds fewer than its 4 D columns, it holds this rank's
+    slice of [i | f | z | o] (split contiguously, as ``in_proj`` in
+    :func:`mamba_apply`) and ``out_proj`` its rows of D; ``r`` and ``b``
+    are whole. ``x @ w`` is gathered whole (the gather's backward sums the
+    ranks' partial gradients of it), the time loop runs whole on every rank
+    with ``r`` and ``b`` through ``copy_to_model``, and the rank's channels
+    of h go through its rows of ``out_proj``; the ranks' outputs are
+    summed."""
     b, s, d = x.shape
-    wx = x @ p["w"]                                            # (B,S,4D)
+    split = p["w"].shape[1] != 4 * d
+    if split:
+        wx = tp.gather_from_model(tp.copy_to_model(x) @ p["w"], -1)
+        p = dict(p, r=tp.copy_to_model(p["r"]), b=tp.copy_to_model(p["b"]))
+    else:
+        wx = x @ p["w"]                                        # (B,S,4D)
     state = tuple(torch.zeros((b, d), dtype=torch.float32, device=x.device)
                   for _ in range(4))
     hs = []
@@ -352,6 +399,9 @@ def slstm_apply(p, x, cfg: ModelConfig) -> torch.Tensor:
         h, state = _slstm_cell(p, wx[:, t], state, cfg)
         hs.append(h)
     h = torch.stack(hs, dim=1).to(x.dtype)
+    if split:
+        lo, hi = tp.local_range(d)
+        return tp.reduce_from_model(h[..., lo:hi] @ p["out_proj"])
     return h @ p["out_proj"]
 
 

@@ -32,7 +32,9 @@ alike: ``all_reduce`` (the sums of :func:`reduce_from_model`,
 ``all_gather`` (:func:`gather_from_model`) and ``reduce_scatter`` (its
 backward), each beside ``<kind>_bytes``, the bytes of the whole tensor (the
 sum's, the gathered one's, the one scattered). The caller resets it
-(``counts.clear()``).
+(``counts.clear()``). :func:`collectives_per_step` says what it should hold
+after one train step of a config: the design, which the tests and the
+card's runs hold ``counts`` to.
 """
 from __future__ import annotations
 
@@ -76,6 +78,16 @@ def local_range(n: int) -> Tuple[int, int]:
     step = n // model_size()
     lo = model_index() * step
     return lo, lo + step
+
+
+def own_heads(split, h: int, hkv: int, m: int) -> bool:
+    """Whether each of the ``m`` ranks of 'model' runs its own heads of an
+    attention with ``h`` / ``hkv`` heads whose projections are split as
+    ``split`` says (a flag a leaf: this rank holds a slice of it): every
+    projection split and ``m`` dividing both head counts. Otherwise every
+    rank runs every head, the split projections gathered whole, as GSPMD
+    runs the reference."""
+    return all(split) and h % m == 0 and hkv % m == 0
 
 
 def _group():
@@ -156,3 +168,166 @@ def max_over_model(x: torch.Tensor) -> torch.Tensor:
     _count("all_reduce", out)
     dist.all_reduce(out, op=dist.ReduceOp.MAX, group=_group())
     return out
+
+
+def collectives_per_step(cfg, m: int, seq: int) -> dict:
+    """The collectives over 'model' of one train step of ``cfg`` at a
+    'model' axis of ``m`` (:data:`counts`: all-reduces,
+    all-gathers, reduce-scatters), as the port's layers run them where the
+    rules split a leaf (a width that ``m`` divides). A block: attention
+    with each rank its heads sums its output (forward) and x's gradient
+    (backward); with every head on every rank it also gathers each split
+    wq / wk / wv (forward; their reduce-scatters backward) and sums the
+    gradient of a whole one; MLA gathers its two latents and sums its
+    output (backward: the reduce-scatters, and the sums of x's, wkr's and
+    the two norms' gradients); Mamba gathers x @ in_proj and sums (dt_r, B,
+    C) and its output (backward: the reduce-scatter, and the sums of x's,
+    (dt_r, B, C)'s and dt_bias's gradients); mLSTM gathers x @ in_proj and
+    sums q / k / v (one tensor) and its output (backward: the
+    reduce-scatter, and the sums of x's, q / k / v's, the norm's, w_gates'
+    and gate_bias' gradients); sLSTM gathers x @ w and sums its output
+    (backward: the reduce-scatter, and the sums of x's, r's and b's
+    gradients); a split SwiGLU sums its output and x's gradient; a split
+    MoE sums its output and, backward, the tokens' and each dispatch
+    group's weights' gradients (a split shared expert as a SwiGLU). An
+    encoder-decoder: each encoder layer an attention and a SwiGLU block,
+    each decoder layer self attention, cross attention (as attention, its
+    q side: the output summed, x's gradient summed; every head on every
+    rank gathers a split wq) and a SwiGLU, and ``cross_kv`` once a step
+    (backward: the encoder states' gradient summed; every head on every
+    rank gathers split wk / wv). A vocab split sums the embedding lookup
+    (the decoder's; a vlm's text rows, which its trainer looks up outside
+    the step, count as one), and each 256-position chunk of the loss's
+    maximum and sums, and backward h's gradient. MTP adds its lookup, its
+    ``proj``'s gather (forward only: its block's gradient is whole on every
+    rank) and the sum of its input's gradient, its block and its loss over
+    S - 1 positions. Remat runs each period's (an encoder-decoder's each
+    layer's) forward again in the backward, up to its last saved tensor
+    (``torch.utils.checkpoint``'s early stop): all but its closing sum; the
+    dense prefix and MTP run once."""
+    zero = collections.Counter
+
+    def swiglu(width):
+        return (zero(all_reduce=1), zero(all_reduce=1)) if width % m == 0 else (zero(), zero())
+
+    def attn_split():
+        """Which of wq / wk / wv the rules split, and whether each rank
+        runs its heads."""
+        h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+        split = [(h * hd) % m == 0] + [(hkv * hd) % m == 0] * 2
+        return split, own_heads(split, h, hkv, m)
+
+    def mixer(kind):
+        if kind == "attn":
+            split, own = attn_split()
+            if not any(split):
+                return zero(), zero()
+            fwd, bwd = zero(all_reduce=1), zero(all_reduce=1)
+            if not own:
+                fwd["all_gather"] += sum(split)
+                bwd["reduce_scatter"] += sum(split)
+                bwd["all_reduce"] += 3 - sum(split)
+            return fwd, bwd
+        if kind == "mla":
+            widths = (cfg.q_lora_rank, cfg.kv_lora_rank, cfg.n_heads)
+            if any(w % m for w in widths):
+                raise ValueError(f"{cfg.name}'s MLA widths {widths} at {m} ranks of 'model'")
+            return zero(all_gather=2, all_reduce=1), zero(reduce_scatter=2, all_reduce=4)
+        if kind == "mamba":
+            if cfg.d_inner % m:
+                return zero(), zero()
+            return zero(all_gather=1, all_reduce=2), zero(reduce_scatter=1, all_reduce=3)
+        if kind == "mlstm":
+            if cfg.d_inner % m:
+                return zero(), zero()
+            return zero(all_gather=1, all_reduce=2), zero(reduce_scatter=1, all_reduce=5)
+        if kind == "slstm":
+            if cfg.d_model % m:
+                return zero(), zero()
+            return zero(all_gather=1, all_reduce=1), zero(reduce_scatter=1, all_reduce=3)
+        raise ValueError(f"no count for the {kind} mixer")
+
+    def cross():
+        """Cross attention's q side a layer (wq is split wherever wk is),
+        and ``cross_kv`` once."""
+        split, own = attn_split()
+        if not any(split):
+            return (zero(), zero()), (zero(), zero())
+        q = (zero(all_reduce=1), zero(all_reduce=1))
+        kv = (zero(), zero(all_reduce=1))
+        if not own:
+            q[0]["all_gather"] += 1
+            q[1]["reduce_scatter"] += 1
+            kv[0]["all_gather"] += sum(split[1:])
+            kv[1]["reduce_scatter"] += sum(split[1:])
+            kv[1]["all_reduce"] += 2 - sum(split[1:])
+        return q, kv
+
+    def ffn(kind, width=None):
+        if kind is None:
+            return zero(), zero()
+        if kind == "mlp":
+            return swiglu(width or cfg.d_ff)
+        fwd, bwd = zero(), zero()
+        if cfg.n_experts % m == 0:
+            fwd["all_reduce"] += 1
+            bwd["all_reduce"] += 1 + max(1, cfg.moe_dispatch_groups)
+        if cfg.n_shared_experts:
+            f, b = swiglu(cfg.n_shared_experts * cfg.d_expert)
+            fwd, bwd = fwd + f, bwd + b
+        return fwd, bwd
+
+    def block(spec):
+        (f1, b1), (f2, b2) = mixer(spec[0]), ffn(spec[1])
+        return f1 + f2, b1 + b2
+
+    def loss(s):
+        if cfg.vocab % m:
+            return zero(), zero()
+        return zero(all_reduce=2 * -(-s // min(256, s))), zero(all_reduce=1)
+
+    def again(fwd):
+        """A checkpointed forward run again in the backward: the recompute
+        stops at the last tensor the backward saved, so the closing sum (of
+        its last mixer or FFN) does not run again."""
+        if not cfg.remat:
+            return zero()
+        out = fwd.copy()
+        if out["all_reduce"]:
+            out["all_reduce"] -= 1
+        return out
+
+    total = collections.Counter()
+    if cfg.is_encdec:
+        enc_f, enc_b = block(("attn", "mlp"))
+        (q_f, q_b), (kv_f, kv_b) = cross()
+        self_f, self_b = mixer("attn")
+        mlp_f, mlp_b = swiglu(cfg.d_ff)
+        # a decoder layer: self attention, cross attention, the MLP
+        dec_f, dec_b = self_f + q_f + mlp_f, self_b + q_b + mlp_b
+        for f, b, n in ((enc_f, enc_b, cfg.encoder_layers), (dec_f, dec_b, cfg.n_layers)):
+            for _ in range(n):
+                total += f + b + again(f)
+        total += kv_f + kv_b
+    else:
+        once = [(cfg.period[0][0], "mlp")] * cfg.first_k_dense
+        if cfg.mtp:
+            once.append(cfg.period[0])
+        for spec in once:
+            f, b = block(spec)
+            total += f + b
+        period_f, period_b = zero(), zero()
+        for spec in cfg.period:
+            f, b = block(spec)
+            period_f, period_b = period_f + f, period_b + b
+        for _ in range(cfg.n_periods):
+            total += period_f + period_b + again(period_f)
+    lookups = 1 + bool(cfg.mtp)
+    if cfg.vocab % m == 0:
+        total["all_reduce"] += lookups
+    for s in [seq] + ([seq - 1] if cfg.mtp else []):
+        f, b = loss(s)
+        total += f + b
+    if cfg.mtp and cfg.d_model % m == 0:
+        total += zero(all_gather=1, all_reduce=1)
+    return dict(sorted(total.items()))

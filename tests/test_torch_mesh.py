@@ -216,19 +216,17 @@ def test_partitioning_state_and_constrain():
 
 
 def test_the_port_refuses_what_it_does_not_run():
-    """Tensor parallelism (a 'model' axis above 1 without ``pure_dp``) of
-    a family the port does not split yet raises its ROADMAP item when the
-    step is made (the dense decoders make theirs); training ``seq_shard``
+    """Tensor parallelism (a 'model' axis above 1 without ``pure_dp``)
+    makes its step for every family: xLSTM (mLSTM / sLSTM), the dense
+    decoders and Jamba (Mamba) make theirs; training ``seq_shard``
     under a 'model' axis above 1 makes its step (the tokens over 'model');
     attention with ``seq_shard`` under a 'model' axis above 1 but no token
     split registered runs plain attention on whole sequences (the
     reference's behaviour where 'model' does not divide S); a mesh shape
-    other than (1, 1) with no process group raises. xLSTM raises; the
-    dense decoders and Jamba (Mamba) make theirs."""
+    other than (1, 1) with no process group raises."""
     cfg = tget("xlstm_125m", smoke=True)
-    with pytest.raises(NotImplementedError, match="item 6e2b"):
-        make_train_step(cfg, adamw(1e-3), device="cpu",
-                        mesh={"data": 1, "model": 2})
+    make_train_step(cfg, adamw(1e-3), device="cpu",
+                    mesh={"data": 1, "model": 2})
     make_train_step(dataclasses.replace(cfg, pure_dp=True), adamw(1e-3),
                     device="cpu", mesh={"data": 1, "model": 2})
     for arch in ("smollm_360m", "jamba_1_5_large_398b"):

@@ -20,13 +20,25 @@ run on the same weights (every rank draws them from the seed) and batches:
   MTP module (``proj`` by its output columns);
 * Jamba SMOKE: Mamba over d_inner (``in_proj``'s [x | z] columns split
   contiguously: rank 0 holds x's, rank 1 z's), attention with 2 / 1
-  heads a rank, its real MoE layers and dense SwiGLUs.
+  heads a rank, its real MoE layers and dense SwiGLUs;
+* xLSTM SMOKE: mLSTM (``in_proj`` as Mamba's, conv / wq / wk / wv /
+  out_proj by d_inner rows, the recurrence whole on every rank: its 2
+  heads need not split) and sLSTM (``w``'s [i | f | z | o] columns split
+  contiguously, ``out_proj`` by rows, the time loop whole);
+* whisper SMOKE: the encoder's and the decoder's attention and MLPs, cross
+  attention with 2 of 4 heads a rank (``cross_kv`` of this rank's heads),
+  its tied vocab of 256 split; and with a vocab of 255, which stays whole;
+* llava SMOKE: the dense backbone on ``embeds`` whose text rows the
+  trainer looks up through the vocab split (never a gathered table).
 
 Also each rank's params and AdamW moments at rest against the rules'
 slices of the one-process run's, the first step at rank 0 against the
 reference's step (jitted, no mesh) on the same weights, both attention
-paths by name, ``mla_apply`` and ``mamba_apply`` on each rank's slices
-against the whole layer with the collectives each runs, and a (1, 2)
+paths by name, ``mla_apply``, ``mamba_apply``, ``mlstm_apply``,
+``slstm_apply`` and cross attention on each rank's slices against the
+whole layer with the collectives each runs, each run's collectives over
+'model' against ``tensor_parallel.collectives_per_step``, llava's text
+lookup through the split against the whole table's rows, and a (1, 2)
 checkpoint resumed by one process and at (2, 1).
 """
 import dataclasses
@@ -41,8 +53,11 @@ from repro_torch.data.pipeline import SyntheticLM
 from repro_torch.launch import shardings as SH
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.launch.steps import make_train_step
+from repro_torch.launch import train as train_mod
+from repro_torch.launch.mesh import batch_axes
 from repro_torch.launch.train import train
 from repro_torch.layout import local_shard
+from repro_torch.models import encdec as tencdec
 from repro_torch.models import layers as tlayers
 from repro_torch.models import model_api
 from repro_torch.models import partitioning as part
@@ -63,7 +78,14 @@ ARCHS = {"smollm": ("smollm_360m", {}, 16),
          "qwen3": ("qwen3_moe_235b_a22b", {}, 16),
          "deepseek": ("deepseek_v3_671b", {}, 16),
          # a seq that Jamba SMOKE's mamba_chunk of 8 divides
-         "jamba": ("jamba_1_5_large_398b", {}, 16)}
+         "jamba": ("jamba_1_5_large_398b", {}, 16),
+         # two mLSTM chunks of 16
+         "xlstm": ("xlstm_125m", {}, 32),
+         # 16 decoder tokens beside 32 frames
+         "whisper": ("whisper_small", {}, 16),
+         "whisper255": ("whisper_small", {"vocab": 255}, 16),
+         # 8 image patches and 8 text tokens
+         "llava": ("llava_next_mistral_7b", {}, 16)}
 # the seed of a config's weights and batches where it is not 0. DeepSeek
 # SMOKE at seed 0: one element of the prefix's wdkv gradient is 3.9e-8 in
 # one process and -3.6e-8 at (1, 4) (2.6e-7 of the leaf's largest, float32
@@ -90,7 +112,9 @@ def _tp_run(key, shape=(1, 2), **kw):
     """A mesh run's losses, grad norms, whole params (gathered), and at
     rest each leaf's placements with its slice and AdamW moments, and this
     rank's mesh coordinate."""
+    tp.counts.clear()
     r = _train(key, shape, **kw)
+    counted = dict(tp.counts)
     rest = []
     tree_map(lambda t, pl, mu, nu: rest.append((tuple(pl), t, mu, nu)),
              r["params"], r["shardings"], r["opt_state"]["mu"],
@@ -98,7 +122,7 @@ def _tp_run(key, shape=(1, 2), **kw):
     return {"losses": r["losses"], "grad_norms": r["grad_norms"],
             "params": SH.gather_tree(r["params"], r["shardings"], r["mesh"]),
             "at_rest": rest, "coord": tuple(r["mesh"].get_coordinate()),
-            "shape": tuple(r["mesh"].shape)}
+            "shape": tuple(r["mesh"].shape), "collectives": counted}
 
 
 def _capture():
@@ -203,10 +227,56 @@ MIXERS = {
                "A_log": 0, "D": 0, "out_proj": 0},
               {"all_gather": 1, "all_reduce": 2}, {"reduce_scatter": 1,
                                                    "all_reduce": 3}),
+    # forward: x @ in_proj gathered, the partial q / k / v (one tensor) and
+    # the output summed; backward: the reduce-scatter, and the gradients of
+    # x, of the summed q / k / v, of the norm's scale, w_gates and
+    # gate_bias summed
+    "mlstm": ("xlstm_125m", {}, tssm.mlstm_init,
+              lambda p, x, cfg, pos: tssm.mlstm_apply(p, x, cfg),
+              {"in_proj": 1, "conv": 0, "wq": 0, "wk": 0, "wv": 0,
+               "out_proj": 0},
+              {"all_gather": 1, "all_reduce": 2}, {"reduce_scatter": 1,
+                                                   "all_reduce": 5}),
+    # forward: x @ w gathered, the output summed; backward: the
+    # reduce-scatter, and the gradients of x, r and b summed
+    "slstm": ("xlstm_125m", {}, tssm.slstm_init,
+              lambda p, x, cfg, pos: tssm.slstm_apply(p, x, cfg),
+              {"w": 1, "out_proj": 0},
+              {"all_gather": 1, "all_reduce": 1}, {"reduce_scatter": 1,
+                                                   "all_reduce": 3}),
+    # cross attention of x against itself as the encoder states, wk / wv
+    # in the decoder's stacked layout (one layer): each rank its heads.
+    # Forward: the output summed; backward: the gradients of x as the
+    # queries' input and as the encoder states (cross_kv) summed
+    "cross": ("whisper_small", {}, lambda g, cfg, dt: _stack_kv(
+        tlayers.attn_init(g, cfg, dt)), lambda p, x, cfg, pos: _cross(p, x, cfg),
+              {"wq": 1, "wk": 2, "wv": 2, "wo": 0},
+              {"all_reduce": 1}, {"all_reduce": 2}),
+    # 2 heads over 4 ranks: wq, wk and wv gathered too, every head on every
+    # rank, then each rank's columns of the output into its rows of wo
+    "cross_every_head": ("whisper_small", {"n_heads": 2, "n_kv_heads": 2},
+                         lambda g, cfg, dt: _stack_kv(tlayers.attn_init(g, cfg, dt)),
+                         lambda p, x, cfg, pos: _cross(p, x, cfg),
+                         {"wq": 1, "wk": 2, "wv": 2, "wo": 0},
+                         {"all_gather": 3, "all_reduce": 1},
+                         {"reduce_scatter": 3, "all_reduce": 2}),
 }
-# the mixers run at (1, 2); at (1, 4) "mla_every_head" besides
-MIXERS_AT_2 = ("mla", "mamba")
+# the mixers run at (1, 2); at (1, 4) the "*_every_head" ones besides
+MIXERS_AT_2 = ("mla", "mamba", "mlstm", "slstm", "cross")
 MIXER_SEQ = 16
+
+
+def _stack_kv(p):
+    """Attention leaves with wk / wv in the decoder's stacked layout of one
+    layer, (1, D, Hkv * hd), as ``encdec.cross_kv`` takes them."""
+    return dict(p, wk=p["wk"][None], wv=p["wv"][None])
+
+
+def _cross(p, x, cfg):
+    """Cross attention of ``x`` against the K/V that ``cross_kv`` makes of
+    ``x`` itself (one layer)."""
+    k, v = tencdec.cross_kv({"decoder": {"cross": p}}, x, cfg)
+    return tlayers.cross_attn_apply(p, x, (k[0], v[0]), cfg)
 
 
 def _mixer_paths(shape, keys=MIXERS_AT_2):
@@ -268,6 +338,33 @@ JOBS["resume"] = lambda d: {"losses": (r := _train(
     "start_step": r["start_step"]}
 JOBS["attn"] = _attn_paths
 JOBS["mixers"] = lambda d: _mixer_paths((1, 2))
+JOBS["lookup"] = lambda d: _text_lookup((1, 2), fsdp=False)
+
+
+def _text_lookup(shape, fsdp):
+    """llava SMOKE's ``embeds`` as the trainer builds them (its
+    ``_frontend_batch``) at a mesh of ``shape`` from this rank's slices of
+    the embedding (ZeRO-3 over 'data' with ``fsdp``), and with no mesh from
+    the whole table; the trainer's collectives (``frontend_counts``) and
+    this rank's embedding shape."""
+    arch, over, seq = ARCHS["llava"]
+    cfg = get(arch, smoke=True)
+    params = model_api(cfg).init(torch.Generator().manual_seed(3), cfg,
+                                 device="cpu")
+    mesh = make_mesh(shape, ("data", "model"))
+    shardings = SH.param_shardings(cfg, params, mesh, fsdp)
+    local = SH.shard_tree(params, shardings, mesh)
+    raw = SyntheticLM(BATCH, seq, cfg.vocab, seed=3).next_batch()
+    cpu = torch.device("cpu")
+    want = train_mod._frontend_batch(cfg, params, raw, 3, 0, seq, cpu)
+    train_mod.frontend_counts.clear()
+    with part.use_mesh(mesh, batch_axes(mesh)):
+        got = train_mod._frontend_batch(
+            cfg, local, raw, 3, 0, seq, cpu,
+            train_mod._text_gather(mesh, shardings))
+    return {"want": want["embeds"], "got": got["embeds"],
+            "counts": dict(train_mod.frontend_counts),
+            "embed": tuple(local["embed"].shape)}
 
 
 def _reference_weights(tmp, key):
@@ -289,9 +386,20 @@ def _reference_weights(tmp, key):
     jparams = jmodel_api(jcfg).init(jax.random.PRNGKey(1), jcfg)
     tparams = from_jax_params(jax.tree.map(np.asarray, jparams), tcfg,
                               device="cpu")
-    toks = np.random.default_rng(1).integers(0, jcfg.vocab,
-                                             (REF_BATCH, seq + 1), np.int32)
+    rng = np.random.default_rng(1)
+    toks = rng.integers(0, jcfg.vocab, (REF_BATCH, seq + 1), np.int32)
     batch = {"inputs": toks[:, :-1], "labels": toks[:, 1:]}
+    if jcfg.family == "audio":
+        batch["frames"] = (0.02 * rng.standard_normal(
+            (REF_BATCH, jcfg.encoder_seq, jcfg.d_model))).astype(np.float32)
+    elif jcfg.family == "vlm":
+        # the trainer's batch: the fused embeds, data to the step
+        from repro.models import frontends as jfrontends
+        patches = (0.02 * rng.standard_normal(
+            (REF_BATCH, jcfg.img_tokens, jcfg.d_model))).astype(np.float32)
+        batch = {"embeds": np.asarray(jfrontends.fuse_vlm_inputs(
+            jparams, jnp.asarray(patches), toks[:, :seq - jcfg.img_tokens],
+            jcfg)), "labels": toks[:, 1:]}
     torch.save((tparams, batch), f"{tmp}/ref_{key}.pt")
     capture = JOptimizer(lambda p: {}, lambda g, s, p: (p, g))
     step = jax.jit(jmake_train_step(jcfg, capture, clip_norm=1e30))
@@ -351,7 +459,8 @@ class _Rank:
 
 # leaves the rules split over 'model' at (1, 2), of each SMOKE tree
 SPLIT = {"smollm": 8, "danube": 9, "stablelm": 9, "granite": 7, "qwen3": 9,
-         "deepseek": 33, "jamba": 79}
+         "deepseek": 33, "jamba": 79, "xlstm": 9, "whisper": 19,
+         "whisper255": 18, "llava": 9}
 
 
 @pytest.mark.parametrize("key", list(ARCHS))
@@ -359,7 +468,7 @@ def test_slices_at_rest_are_the_rules(world2, one, key):
     """Each rank's params and AdamW moments at rest are ``local_shard`` of
     the one-process run's under ``param_shardings``: the same shapes, and
     values to ``PARAM_TOL`` (params) or 1e-4 of the leaf's largest moment.
-    Granite's vocab of 255 leaves its embedding whole."""
+    Granite's and whisper's vocab of 255 leave the embedding whole."""
     want = one[key]
     whole = []          # in the order of the ranks' lists (tree_map's)
     tree_map(lambda *leaves: whole.append(leaves), want["params"],
@@ -377,7 +486,7 @@ def test_slices_at_rest_are_the_rules(world2, one, key):
                 tol = PARAM_TOL if a is t else 1e-4 * float(b.abs().max())
                 assert float((a - b).abs().max()) <= tol
         assert split == SPLIT[key]
-    if key == "granite":
+    if key in ("granite", "whisper255"):
         assert not any(p.is_shard() for p in world2[1][0][key]["at_rest"][0][0])
 
 
@@ -440,18 +549,21 @@ def assert_mixer_equal(rec):
 def assert_mixer_collectives(rec, key):
     """The collectives of one forward and one backward are the design's
     (``MIXERS``), and the backward reduce-scatters as many bytes as the
-    forward gathered."""
+    forward gathered (none, for a mixer that gathers nothing)."""
     got = {d: {k: n for k, n in c.items() if not k.endswith("_bytes")}
            for d, c in rec["counts"].items()}
     assert got == {"fwd": MIXERS[key][5], "bwd": MIXERS[key][6]}
-    assert rec["counts"]["fwd"]["all_gather_bytes"] == \
-        rec["counts"]["bwd"]["reduce_scatter_bytes"] > 0
+    gathered = rec["counts"]["fwd"].get("all_gather_bytes", 0)
+    assert gathered == rec["counts"]["bwd"].get("reduce_scatter_bytes", 0)
+    assert (gathered > 0) == ("all_gather" in MIXERS[key][5])
 
 
 @pytest.mark.parametrize("key", MIXERS_AT_2)
 def test_mixer_on_slices_equals_the_whole_layer(world2, key):
-    """``mla_apply`` / ``mamba_apply`` at (1, 2), each rank on its slices,
-    equal the whole layer with no mesh: output and every gradient."""
+    """``mla_apply`` / ``mamba_apply`` / ``mlstm_apply`` / ``slstm_apply``
+    and cross attention (``cross_kv`` + ``cross_attn_apply``) at (1, 2),
+    each rank on its slices, equal the whole layer with no mesh: output and
+    every gradient."""
     for r in world2[1]:
         assert_mixer_equal(r["mixers"][key])
 
@@ -462,9 +574,61 @@ def test_mixer_collectives_are_the_designs(world2, key):
     two reduce-scatters, the sums of x's, wkr's and the norms'
     gradients); a Mamba call gathers x @ in_proj and sums (dt_r, B, C) and
     its output (backward: a reduce-scatter, the sums of x's, (dt_r, B,
-    C)'s and dt_bias's gradients)."""
+    C)'s and dt_bias's gradients); an mLSTM call gathers x @ in_proj and
+    sums q / k / v in one tensor and its output (backward: a
+    reduce-scatter, the sums of x's, q / k / v's, the norm's, w_gates' and
+    gate_bias' gradients); an sLSTM call gathers x @ w and sums its output
+    (backward: a reduce-scatter, the sums of x's, r's and b's gradients);
+    cross attention sums its output (backward: the sums of the queries'
+    input's and the encoder states' gradients)."""
     for r in world2[1]:
         assert_mixer_collectives(r["mixers"][key], key)
+
+
+def assert_design_collectives(run, key, steps=STEPS):
+    """A run's collectives over 'model' (``tensor_parallel.counts``, every
+    step of ``train()``, the vlm's text lookup included) are
+    ``tensor_parallel.collectives_per_step`` of its config at its 'model'
+    axis, a step at a time."""
+    arch, over, seq = ARCHS[key]
+    cfg = dataclasses.replace(get(arch, smoke=True), **over)
+    m = run["shape"][1]
+    want = {k: n * steps for k, n in
+            tp.collectives_per_step(cfg, m, seq).items()}
+    got = {k: n for k, n in run["collectives"].items()
+           if not k.endswith("_bytes")}
+    assert got == want, (key, m, got, want)
+
+
+@pytest.mark.parametrize("key", list(ARCHS))
+def test_collectives_a_step_are_the_designs(world2, key):
+    """Each SMOKE run at (1, 2) runs the collectives over 'model' that
+    ``tensor_parallel.collectives_per_step`` counts for it (phases 34, 37
+    and 38 hold the card's runs to that count): remat's recompute, the
+    encoder-decoder's blocks, cross attention and ``cross_kv``, a whole
+    or split vocab, the vlm's text lookup outside the step."""
+    for r in world2[1]:
+        assert_design_collectives(r[key], key)
+
+
+def assert_text_lookup(rec, embed, counts):
+    """The embeds built from this rank's slices of the embedding equal the
+    whole table's bit for bit (a sum of one row and zeros; a gather), the
+    rank held ``embed`` of it, and the trainer counted ``counts``."""
+    assert rec["embed"] == embed
+    assert rec["got"].shape == rec["want"].shape
+    assert torch.equal(rec["got"], rec["want"])
+    assert rec["counts"] == counts
+
+
+def test_vlm_text_lookup_through_the_vocab_split(world2):
+    """At (1, 2) the trainer looks llava's text rows up in this rank's half
+    of the vocab and sums them over 'model' (one all-reduce of the rows):
+    it never gathers the table."""
+    rows = BATCH * (ARCHS["llava"][2] - 8) * 64 * 4
+    for r in world2[1]:
+        assert_text_lookup(r["lookup"], (128, 64),
+                           {"all_reduce": 1, "all_reduce_bytes": rows})
 
 
 def test_mamba_rank_takes_its_channels_of_x_and_z(world2):

@@ -311,6 +311,41 @@ time,
      step a rank; phase 2 holds the bf16 flash forward and backward at the
      ranks' encoder, decoder self-attention, cross-attention and llava
      shapes;
+  39. two ranks on the one card over gloo, eager (``serve_mesh_rank``):
+     (a) ``optim.compress.cross_pod_allreduce_int8`` at mesh (2, 1, 1)
+     ("pod", "data", "model") over smollm-360M's bf16 gradients from one
+     backward of each rank's 8 x 512 tokens (362.1 M elements): every
+     element within one quantization step (the larger pod scale; a bf16
+     leaf's own rounding beside it) of the exact mean, the mean of 32
+     draws on a 1 M-element slice within 4 steps / sqrt(32) of it, the
+     exchange's ms and its bytes on the wire against float32's; (b)
+     elastic: ``simulate_pod_failure(smollm-360m, 2, 1)`` printed, 2 steps
+     of smollm-360M cut to 2 layers, float32, at (2, 1) with a checkpoint,
+     then the survivor (rank 0 alone) ``reshard_checkpoint`` onto one rank
+     and 2 more steps: losses within 1e-5 relative of one process's 4
+     straight steps (run here while the ranks start), params within lr /
+     4; (c) decode at (1, 2) through ``make_decode_step(mesh=, shardings=,
+     cache_shardings=)``: float32, 8 teacher-forced steps of smollm-360M cut
+     to 2 layers (5 KV heads: the caches' length over 'model') and of
+     h2o-danube SMOKE (2 KV heads: the heads over 'model'), logits within
+     1e-5 of one process, tokens equal; bf16 smollm-360M whole (the length
+     layout) and Qwen3-MoE 1 layer (the heads layout) serving 8 x (16 +
+     16), teacher-forced by one process's greedy tokens: logits against
+     its eager run over ROW_SCALED_LIMIT, held to SERVE_BF16_FLOOR times
+     the distance of one process's float32 run from it, token agreement,
+     ms a step, peak memory and decode calls a rank; phase 2 holds decode
+     attention with its log-sum-exp L at every decode shape and at a
+     rank's half of smollm's 32 slots (L to 1e-4), timed with and
+     without L;
+  40. the dry-run (started with phase 39, CPU only): ``python -m
+     repro_torch.launch.dryrun --arch smollm_360m`` with ``--shape
+     decode_32k`` and ``train_4k`` each print ``-> ok``; the dry-run of
+     phase 13's cell (smollm-360M train, 8 x 512, mesh (1, 1)) holds
+     phase 13's param and optimizer bytes exactly, its peak printed
+     beside phase 13's ``max_memory_allocated`` with the ratio.
+Phase 2 also measures the host cost a call of the kernels' operators
+(``torch.library`` custom ops): each entry through its operator against
+its wrapper called directly, back to back.
 Every path runs with the launch counts set to 0 just before it and read just
 after; a graphed path's counts include its warm-up calls (``WARMUP`` eager
 calls before capture), and a replay adds what the capture recorded. Then it prints the kernel table as one JSON line (the rows of
@@ -323,7 +358,9 @@ phase 28; the G-2 shape of smollm-360m+padheads those of phase 33; the
 ranks' shapes of phase 34 the launches of both ranks; the ring's shapes
 the bf16 launches of phase 35's four ranks, and of phase 36's (b) for
 those with the window; the ranks' shapes of phases 37 and 38 the
-launches of their (b)'s two ranks) and,
+launches of their (b)'s two ranks; decode attention with L at a rank's
+half of smollm's cache the launches of phase 39's bf16 smollm run on both
+ranks) and,
 last,
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
 with no CUDA device, or outside a checkout, it exits non-zero at once. Each
@@ -761,8 +798,9 @@ QWEN_TRAIN_CUT = dict(n_layers=1)
 MOE_TRAIN_STEPS = 8
 # steps of phases 27 and 28's rate witnesses (llava and Jamba cut to 2
 # layers at 3e-4, bf16 and float32, with the trainer's schedule for them),
-# which their card-vs-CPU lockstep steps follow
-WITNESS_STEPS = 4
+# which their card-vs-CPU lockstep steps follow (3 since phases 39-40 were
+# added, 4 before; phases 37-38 take the first 2, whose rates are the same)
+WITNESS_STEPS = 3
 # steps of phase 27's float32 llava card-vs-CPU lockstep (each ~25 s on the
 # host: the CPU step and the copies of 0.7 B params and their AdamW state):
 # two, so that the second step's loss and grad norm are taken from the
@@ -770,8 +808,65 @@ WITNESS_STEPS = 4
 LLAVA_LOCKSTEP_STEPS = 2
 # steps of phase 28's float32 Jamba SMOKE card-vs-CPU lockstep
 RATE_LOCKSTEP_STEPS = 2
-# smollm-360M training in phase 13: steps of 8 x 512 tokens
-TRAIN_STEPS = 16
+# smollm-360M training in phase 13 (and phase 31, equal to it bit for bit):
+# steps of 8 x 512 tokens; 8 since phases 39-40 were added (16 before), to
+# keep the script under 1,000 s of phases
+TRAIN_STEPS = 8
+
+# phase 39: two gloo ranks on the one card. (a) cross_pod_allreduce_int8 at
+# mesh (2, 1, 1) ("pod", "data", "model") over smollm-360M's bf16 gradient
+# tree from one backward of 8 x 512 tokens (each rank its own batch), one
+# draw on the whole bucket and COMPRESS_DRAWS on its first COMPRESS_SLICE
+# elements; (b) elastic: smollm-360M cut to ELASTIC_CUT, ELASTIC_STEPS
+# steps of 8 x ELASTIC_SEQ at (2, 1), checkpointed at the half; the
+# survivor (rank 0, its group destroyed) reshards the checkpoint onto one
+# rank and takes the rest, against one process's straight run (here, while
+# the ranks start); (c) decode at (1, 2): float32 SERVE_F32_STEPS teacher-
+# forced steps of each SERVE_F32_RUNS (the length layout, the heads
+# layout) against one process on the rank, and bf16 SERVE_BF16_RUNS serving
+# 8 x (SERVE_PROMPT + SERVE_NEW), teacher-forced by one process's greedy
+# tokens (its eager run on the rank)
+COMPRESS_SLICE = 1 << 20
+COMPRESS_DRAWS = 32
+ELASTIC_CUT = dict(n_layers=2, dtype="float32")
+ELASTIC_STEPS, ELASTIC_SEQ, ELASTIC_LR = 4, 128, 3e-4
+# (b): losses against one process, float32 sums in another order; params
+# within lr / 4 (phase 32's rule)
+ELASTIC_TOL = 1e-5
+SERVE_F32_RUNS = (("smollm_f32", "smollm_360m", False, dict(n_layers=2, dtype="float32")),
+                  ("danube_smoke", "h2o_danube_1_8b", True, {}))
+SERVE_F32_STEPS = 8
+SERVE_F32_TOL = 1e-5
+SERVE_BF16_RUNS = (("smollm_bf16", "smollm_360m", {}),
+                   ("qwen3_bf16", "qwen3_moe_235b_a22b", dict(n_layers=1)))
+# 32 steps, not phases 4-8's 64 + 64: a step at (1, 2) takes ~0.5 s a rank
+# (a gloo collective every ~3.5 ms, four a layer), so 128 steps would pass
+# the phase's time; the cut is in steps, as the working rule asks
+SERVE_PROMPT, SERVE_NEW = 16, 16
+# a rank's half of smollm-360M's cache of SERVE_PROMPT + SERVE_NEW slots at
+# (1, 2): its length over 'model' (5 KV heads), read with L
+DECODE_RANK_CASE = "8x15/5x16x64 ragged length"
+# bf16 logits under a mesh against one process: ROW_SCALED_LIMIT bounds
+# one kernel's rounding, and a whole model's decode moves further than that
+# from rounding alone (on an NVIDIA H100 80GB HBM3, over these 32 steps,
+# one process's float32 run on the same weights and tokens sat 2.97x
+# (smollm-360M) and 20.4x (Qwen3-MoE 1 layer: its top-k routing flips)
+# past it from the bf16 run). The mesh run is held to SERVE_BF16_FLOOR
+# times that floor, measured in the same call; its ratio to
+# ROW_SCALED_LIMIT itself is reported beside it
+SERVE_BF16_FLOOR = 2.0
+SERVE_MESH_ROWS = {
+    "decode_attention_lse_rank": (
+        "decode_attention", "src/repro_torch/csrc/decode_attention.cu",
+        "src/repro/kernels/decode_attention.py:61", DECODE_RANK_CASE + " with L", "bfloat16",
+        "smollm-360M serving at (1, 2), the cache's length over 'model', both ranks "
+        "(phase 39)")}
+# seconds phase 39's two ranks may take before they are killed
+SERVE_MESH_DEADLINE_S = 150
+# phase 40: the dry-run's CLI cells (subprocesses, CPU only), and the
+# dry-run of phase 13's own cell, each within this many seconds
+DRYRUN_CELLS = (("smollm_360m", "decode_32k"), ("smollm_360m", "train_4k"))
+DRYRUN_TIMEOUT_S = 80
 
 # Jamba at its published widths, cut to what the port runs: one period of 8
 # layers (attention at 0, Mamba at 1-7) with a dense SwiGLU of Jamba's own
@@ -1160,11 +1255,15 @@ def phase_kernels(rms, fla, dec, scan):
                     ops=4 * b * hq * hd * pairs))
                 rows[-1]["instance"] = fla.INSTANCES[dtype]
         # decode attention: the serving cache (64 + 64 + 1 slots), ragged
-        # length; and a long context (4096 slots), where the split pays
+        # length; and a long context (4096 slots), where the split pays; each
+        # also with its log-sum-exp L (phase 39's ranks combine by it), and
+        # a rank's half of smollm's 128-slot cache at (1, 2) (DECODE_LSE_CASE)
         for case, hq, hkv, s, hd in (
                 ("8x15/5x129x64 ragged length", 15, 5, 129, 64),
                 ("8x64/8x129x128 ragged length", 64, 8, 129, 128),
-                ("8x15/5x4096x64 ragged length", 15, 5, 4096, 64)):
+                ("8x15/5x4096x64 ragged length", 15, 5, 4096, 64),
+                (DECODE_RANK_CASE, 15, 5, 16, 64)):
+            rank_case = case == DECODE_RANK_CASE
             q = randn((8, hq, hd), dtype)
             k, v = randn((8, hkv, s, hd), dtype), randn((8, hkv, s, hd), dtype)
             length = torch.randint(1, s + 1, (8,), generator=gen, device="cuda",
@@ -1172,6 +1271,24 @@ def phase_kernels(rms, fla, dec, scan):
             valid = int(length.sum())
             mask = (torch.arange(s, device="cuda") < length[:, None])[:, None, None, :]
             ke, ve = (t.repeat_interleave(hq // hkv, dim=1) for t in (k, v))
+            library = (lambda q=q, ke=ke, ve=ve, m=mask:
+                       F.scaled_dot_product_attention(q[:, :, None], ke, ve, attn_mask=m))
+            n_bytes = (2 * hkv * hd * valid + 2 * q.numel()) * q.element_size()
+            # with L: timed in bf16 (the path's dtype), checked in float32
+            timed_l = dict(
+                run=lambda q=q, k=k, v=v, n=length:
+                    dec.decode_attention_cuda(q, k, v, n, return_lse=True),
+                plain=lambda q=q, k=k, v=v, n=length:
+                    dec.decode_attention_plain(q, k, v, n, return_lse=True),
+                library=library, n_bytes=n_bytes + 4 * 8 * hq,
+                ops=4 * hq * hd * valid) if dtype == torch.bfloat16 else {}
+            rows.append(compare(
+                "decode_attention", f"{case} with L", dn,
+                dec.decode_attention_cuda(q, k, v, length, return_lse=True),
+                dec.decode_attention_plain(q, k, v, length, return_lse=True), "attn_lse",
+                **timed_l))
+            if rank_case:           # a rank's half of the cache is read with L only
+                continue
             rows.append(compare(
                 "decode_attention", case, dn,
                 dec.decode_attention_cuda(q, k, v, length),
@@ -1180,11 +1297,7 @@ def phase_kernels(rms, fla, dec, scan):
                     dec.decode_attention_cuda(q, k, v, n),
                 plain=lambda q=q, k=k, v=v, n=length:
                     dec.decode_attention_plain(q, k, v, n),
-                library=lambda q=q, ke=ke, ve=ve, m=mask:
-                    F.scaled_dot_product_attention(q[:, :, None], ke, ve,
-                                                   attn_mask=m),
-                n_bytes=(2 * hkv * hd * valid + 2 * q.numel()) * q.element_size(),
-                ops=4 * hq * hd * valid))
+                library=library, n_bytes=n_bytes, ops=4 * hq * hd * valid))
             if dtype == torch.bfloat16:
                 rows[-1].update(split_sweep(dec, q, k, v, length))
         # the selective scan at Jamba's prefill shape: u, B, C in the model
@@ -1243,7 +1356,35 @@ def phase_kernels(rms, fla, dec, scan):
     rows += tp_family_rows(fla, randn)
     rows += ring_rows(fla, randn)
     rows += optimizer_rows(gen)
+    rows.append({"operator_costs": operator_costs(rms, fla, dec, randn)})
     return rows
+
+
+def operator_costs(rms, fla, dec, randn) -> dict:
+    """The operator layer's host cost a call (``torch.library`` custom ops,
+    ``kernels._checks``): back-to-back ms of each entry the models call
+    (``ops.*``, through its operator) against its wrapper called directly,
+    at small bf16 shapes where the host sets the rate, in turns (direct,
+    operator, operator, direct)."""
+    from repro_torch.kernels import ops
+    x, s = randn((8, 960), torch.bfloat16), randn((960,), torch.float32)
+    q, k = randn((8, 15, 64), torch.bfloat16), randn((8, 5, 129, 64), torch.bfloat16)
+    n = torch.full((8,), 100, dtype=torch.int32, device="cuda")
+    fq, fk = randn((2, 15, 77, 64), torch.bfloat16), randn((2, 5, 77, 64), torch.bfloat16)
+    pairs = {"rmsnorm 8x960": (lambda: rms.rmsnorm_cuda(x, s, 1e-5),
+                               lambda: ops.rmsnorm(x, s, 1e-5)),
+             "decode_attention 8x15/5x129x64": (
+                 lambda: dec.decode_attention_cuda(q, k, k, n),
+                 lambda: ops.decode_attention(q, k, k, n)),
+             "flash_attention 2x15/5x77x77x64": (
+                 lambda: fla.flash_attention_cuda(fq, fk, fk, True),
+                 lambda: ops.flash_attention(fq, fk, fk, True))}
+    out = {}
+    for name, (direct, op) in pairs.items():
+        d1, o1, o2, d2 = (launch_ms(f) for f in (direct, op, op, direct))
+        out[name] = {"direct_ms": (d1, d2), "operator_ms": (o1, o2),
+                     "cost_us": ((o1 + o2) - (d1 + d2)) / 2 * 1e3}
+    return out
 
 
 def gqa_rows(fla, randn, case, shape, dtypes=(torch.bfloat16, torch.float32)):
@@ -3962,6 +4103,403 @@ def phase_cp_train(kern, side, zero, report, frontend_totals, out_dir, took) -> 
           + f" {took('36 cp train')}", flush=True)
 
 
+def compress_run(rank: int, world: int) -> dict:
+    """Phase 39 (a) on one rank: smollm-360M's bf16 gradients from one
+    backward of this rank's 8 x 512 tokens, exchanged as int8 over 'pod'
+    at mesh (world, 1, 1): each element against the exact mean (a float32
+    all-reduce), within one quantization step of the larger pod scale (and
+    a bf16 leaf's own rounding); COMPRESS_DRAWS exchanges of the first
+    COMPRESS_SLICE elements, whose mean is within 4 steps / sqrt(draws) of
+    the exact mean (unbiased rounding); the ms of the whole exchange and
+    the bytes on the wire against float32's."""
+    import torch.distributed as dist
+    from repro_torch.configs import get
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model_api
+    from repro_torch.models.module import tree_leaves, tree_map
+    from repro_torch.optim import compress
+
+    cfg = get("smollm_360m")
+    api = model_api(cfg)
+    params = api.init(torch.Generator(device="cuda").manual_seed(SEED), cfg, device="cuda")
+    toks = torch.randint(0, cfg.vocab, (8, 513), device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(SEED + 100 + rank))
+    p = tree_map(lambda a: a.detach().requires_grad_(True), params)
+    loss, _ = api.loss(p, {"inputs": toks[:, :-1], "labels": toks[:, 1:]}, cfg)
+    loss.backward()
+    grads = tree_map(lambda a: a.grad, p)
+    del p, params, loss
+    mesh = make_mesh((world, 1, 1), ("pod", "data", "model"))
+    n = sum(g.numel() for g in tree_leaves(grads))
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = compress.cross_pod_allreduce_int8(grads, mesh, torch.Generator(
+        device="cuda").manual_seed(SEED + 42))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3
+    flat, meta = compress.flatten_bucket(grads)
+    exact = flat.clone()
+    dist.all_reduce(exact)
+    exact /= world
+    step = flat.abs().max() / 127
+    dist.all_reduce(step, op=dist.ReduceOp.MAX)
+    step = float(step)
+    worst = 0.0
+    for got, near in zip(tree_leaves(out),
+                         tree_leaves(compress.unflatten_bucket(exact, meta))):
+        own = 2.0 ** -8 * near.float().abs() if got.dtype == torch.bfloat16 else 0.0
+        worst = max(worst, float(((got.float() - near.float()).abs()
+                                  / (step + own)).max()))
+    del out
+    part = {"s": flat[:COMPRESS_SLICE].clone()}
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 43)
+    acc = torch.zeros_like(part["s"])
+    for _ in range(COMPRESS_DRAWS):
+        acc += compress.cross_pod_allreduce_int8(part, mesh, gen)["s"]
+    s_step = part["s"].abs().max() / 127
+    dist.all_reduce(s_step, op=dist.ReduceOp.MAX)
+    bias = float(((acc / COMPRESS_DRAWS - exact[:COMPRESS_SLICE]).abs()).max())
+    bias_limit = 4 * float(s_step) / COMPRESS_DRAWS ** 0.5
+    return {"elements": n, "ms": ms, "step": step, "max_err_over_step": worst,
+            "slice_bias": bias, "slice_bias_limit": bias_limit,
+            "wire_bytes_int8": n + 4, "wire_bytes_float32": 4 * n}
+
+
+def decode_run(cfg, params, feed, steps: int, max_len: int, mesh=None) -> dict:
+    """``steps`` decode steps of ``cfg`` on the card, eagerly, the tokens of
+    step t ``feed(t, logits of step t - 1)`` (8 rows): one process, or under
+    ``mesh`` this rank's slices of the params and caches (the rules'
+    placements). Returns the logits, the greedy tokens, the ms of each step
+    (host clock, synchronised) and the cache's 'k' shape a layer."""
+    from repro_torch.launch import shardings as SH
+    from repro_torch.launch.steps import make_decode_step
+    from repro_torch.models import model_api
+
+    api = model_api(cfg)
+    cache = api.init_cache(cfg, 8, max_len, device="cuda")
+    shardings = csh = None
+    if mesh is not None:
+        shardings = SH.param_shardings(cfg, params, mesh, False)
+        csh = SH.cache_shardings(cfg, cache, mesh)
+        params = SH.shard_tree(params, shardings, mesh)
+        cache = SH.shard_tree(cache, csh, mesh)
+    step = make_decode_step(cfg, device="cuda", graphs=False, mesh=mesh,
+                            shardings=shardings, cache_shardings=csh)
+    logits, tokens, ms, prev = [], [], [], None
+    for t in range(steps):
+        tok = feed(t, prev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        nxt, prev, cache = step(params, cache, tok, t)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        logits.append(prev.clone())
+        tokens.append(nxt.clone())
+    return {"logits": logits, "tokens": torch.stack(tokens, 1), "ms": ms,
+            "cache_k": tuple(cache["stack"]["pos0"]["k"].shape)}
+
+
+def row_scaled_ratio(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The worst |got - want| over ROW_SCALED_LIMIT of ``want``."""
+    w = want.float()
+    rms = w.square().mean().sqrt()
+    floor = w.square().mean(-1, keepdim=True).sqrt().clamp(min=float(rms))
+    return float(((got.float() - w).abs() / (BF16_ULP_SHARE * w.abs()
+                                             + BF16_RMS_SHARE * floor)).max())
+
+
+def serve_runs(rank: int, world: int, kern) -> dict:
+    """Phase 39 (c) on one rank at (1, world): the float32 runs against one
+    process on this rank, then the bf16 serving runs, each with this
+    rank's decode-attention launches (counters set to 0 just before the
+    mesh run and read just after), its peak memory and ms a step."""
+    from repro_torch.configs import get
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model_api
+    from repro_torch.models.module import tree_map
+
+    mesh = make_mesh((1, world), ("data", "model"))
+    out = {}
+    for label, arch, smoke, over in SERVE_F32_RUNS:
+        cfg = dataclasses.replace(get(arch, smoke=smoke), **over)
+        params = model_api(cfg).init(torch.Generator(device="cuda").manual_seed(SEED), cfg,
+                                     device="cuda")
+        toks = torch.randint(0, cfg.vocab, (8, SERVE_F32_STEPS), device="cuda",
+                             generator=torch.Generator(device="cuda").manual_seed(SEED + 7))
+        feed = lambda t, _prev, toks=toks: toks[:, t]                    # noqa: E731
+        one = decode_run(cfg, params, feed, SERVE_F32_STEPS, 2 * SERVE_F32_STEPS)
+        got = decode_run(cfg, params, feed, SERVE_F32_STEPS, 2 * SERVE_F32_STEPS, mesh)
+        out[label] = {
+            "max_abs_err": max(float((a - b).abs().max())
+                               for a, b in zip(got["logits"], one["logits"])),
+            "tokens_equal": bool(torch.equal(got["tokens"], one["tokens"])),
+            "cache_k": got["cache_k"], "heads": cfg.n_kv_heads}
+        del params, one, got
+    for label, arch, over in SERVE_BF16_RUNS:
+        torch.cuda.empty_cache()
+        cfg = dataclasses.replace(get(arch), **over)
+        params = model_api(cfg).init(torch.Generator(device="cuda").manual_seed(SEED), cfg,
+                                     device="cuda")
+        prompts = torch.randint(0, cfg.vocab, (8, SERVE_PROMPT), device="cuda",
+                                generator=torch.Generator(device="cuda").manual_seed(SEED + 8))
+        n = SERVE_PROMPT + SERVE_NEW
+
+        def greedy(t, prev):
+            return prompts[:, t] if t < SERVE_PROMPT else torch.argmax(prev, -1).to(torch.int32)
+        one = decode_run(cfg, params, greedy, n, n)
+        teacher = lambda t, _prev: prompts[:, t] if t < SERVE_PROMPT \
+            else one["tokens"][:, t - 1]                                 # noqa: E731
+        torch.cuda.reset_peak_memory_stats()
+        for fn in kern.values():
+            fn.launches = 0
+        got = decode_run(cfg, params, teacher, n, n, mesh)
+        launches = {name: fn.launches for name, fn in kern.items()}
+        by_step = [row_scaled_ratio(a, b) for a, b in zip(got["logits"], one["logits"])]
+        # bf16's own distance: one process in float32 on the same weights
+        # and tokens, against the bf16 one, under the same limit
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        p32 = tree_map(lambda a: a.float(), params)
+        f32 = decode_run(cfg32, p32, teacher, n, n)
+        del p32
+        floor = [row_scaled_ratio(b, a) for a, b in zip(f32["logits"], one["logits"])]
+        out[label] = {
+            "err_over_limit": max(by_step), "err_by_step": by_step,
+            "bf16_vs_f32_over_limit": max(floor), "bf16_vs_f32_by_step": floor,
+            "f32_token_agreement": float((f32["tokens"] == one["tokens"]).float().mean()),
+            "token_agreement": float((got["tokens"] == one["tokens"]).float().mean()),
+            "median_step_ms": statistics.median(got["ms"][1:]),
+            "one_median_step_ms": statistics.median(one["ms"][1:]),
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "launches": launches, "cache_k": got["cache_k"], "heads": cfg.n_kv_heads}
+        del params, one, got, f32
+    return out
+
+
+def elastic_survivor(tmp: str) -> dict:
+    """Phase 39 (b)'s survivor, alone (its process group destroyed): the
+    checkpoint of the half resharded onto one rank (``reshard_checkpoint``
+    with no placements: whole tensors), then the rest of the steps, on the
+    data state the checkpoint holds, with the trainer's optimizer."""
+    from repro_torch.configs import get
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import elastic
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import _frontend_batch
+    from repro_torch.models import model_api
+    from repro_torch.models.module import tree_map
+    from repro_torch.optim.optimizers import adamw, warmup_cosine
+
+    cfg = dataclasses.replace(get("smollm_360m"), **ELASTIC_CUT)
+    opt = adamw(warmup_cosine(ELASTIC_LR, warmup=max(ELASTIC_STEPS // 10, 1),
+                              total=ELASTIC_STEPS))
+    params = model_api(cfg).init(torch.Generator(device="cuda").manual_seed(SEED), cfg,
+                                 device="cuda")
+    half = ELASTIC_STEPS // 2
+    (params, state), extra = elastic.reshard_checkpoint(
+        f"{tmp}/ck", half, (params, opt.init(params)))
+    source = SyntheticLM(8, ELASTIC_SEQ, cfg.vocab, seed=SEED)
+    source.restore(extra["data"])
+    step = make_train_step(cfg, opt, device="cuda", graphs=False)
+    losses = []
+    for i in range(half, ELASTIC_STEPS):
+        b = _frontend_batch(cfg, params, source.next_batch(), SEED, i, ELASTIC_SEQ, "cuda")
+        params, state, m = step(params, state, b)
+        losses.append(float(m["loss"]))
+    return {"losses": losses, "params": tree_map(lambda a: a.cpu(), params)}
+
+
+def serve_mesh_rank(rank: int, world: int, port: int, tmp: str) -> None:
+    """Rank ``rank`` of phase 39 (two ranks on the one card over gloo,
+    eager): (a) ``compress_run``; (b) ``launch.train.train`` at (world, 1)
+    with a checkpoint at the half, then, its group destroyed, rank 0 the
+    survivor (``elastic_survivor``); (c) ``serve_runs``. Writes its results
+    to ``tmp``."""
+    import torch.distributed as dist
+    from repro_torch.launch.train import train
+
+    gloo_join(rank, world, port)
+    kern = kernel_wrappers()
+    out = {}
+    try:
+        out["compress"] = compress_run(rank, world)
+        torch.cuda.empty_cache()
+        r = train("smollm_360m", smoke=False, steps=ELASTIC_STEPS, batch=8, seq=ELASTIC_SEQ,
+                  lr=ELASTIC_LR, device="cuda", graphs=False, overrides=ELASTIC_CUT,
+                  mesh_shape=(world, 1), ckpt_dir=f"{tmp}/ck", ckpt_every=ELASTIC_STEPS // 2,
+                  log_every=ELASTIC_STEPS, seed=SEED)
+        out["elastic"] = {"losses": r["losses"]}
+        del r
+        out["serve"] = serve_runs(rank, world, kern)
+    finally:
+        dist.destroy_process_group()
+    if rank == 0:
+        out["survivor"] = elastic_survivor(tmp)
+    torch.save(out, f"{tmp}/rank{rank}.pt")
+
+
+def dryrun_procs(tmp: Path) -> list:
+    """Phase 40's subprocesses, started together (CPU only): the CLI's
+    DRYRUN_CELLS, and the dry-run of phase 13's own cell (smollm-360M
+    train, 8 x 512, mesh (1, 1)), whose record goes to ``tmp``."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = [(f"{arch} {shape}", subprocess.Popen(
+        [sys.executable, "-W", "ignore", "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)) for arch, shape in DRYRUN_CELLS]
+    code = ("import dataclasses, json, sys\n"
+            "from repro_torch.launch import dryrun\n"
+            "r = dryrun.run_cell('smollm_360m', 'train_4k', mesh_dims=(1, 1), seq=512, "
+            "batch=8)\n"
+            f"open({str(tmp / 'cell13.json')!r}, 'w').write(r.to_json())\n"
+            "print('-> ' + r.status)\n")
+    procs.append(("phase 13's cell", subprocess.Popen(
+        [sys.executable, "-W", "ignore", "-c", code], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    return procs
+
+
+def phase_serve_mesh(kern, totals, zero, report, frontend_totals, out_dir, took,
+                     train_rec) -> None:
+    """Phases 39 and 40. 39: ``serve_mesh_rank`` on two ranks, and here,
+    while they start, ``simulate_pod_failure`` and the one-process oracle
+    of (b); (a)'s, (b)'s and (c)'s limits; (c)'s smollm decode launches
+    are the launches of SERVE_MESH_ROWS. 40: the dry-run's subprocesses
+    (started with phase 39): each prints ``-> ok``, and the dry-run of
+    phase 13's cell holds phase 13's param and optimizer bytes exactly,
+    its peak printed beside phase 13's ``max_memory_allocated``."""
+    from repro_torch.configs import get
+    from repro_torch.launch import elastic
+    from repro_torch.launch.train import train
+    from repro_torch.models.module import tree_leaves
+
+    tmp = out_dir / "serve_mesh"
+    dry = dryrun_procs(out_dir)
+
+    def meanwhile():
+        plans = elastic.simulate_pod_failure(get("smollm_360m"), 2, 1)
+        one = train("smollm_360m", smoke=False, steps=ELASTIC_STEPS, batch=8,
+                    seq=ELASTIC_SEQ, lr=ELASTIC_LR, device="cuda", graphs=False,
+                    overrides=ELASTIC_CUT, log_every=ELASTIC_STEPS, seed=SEED)
+        return plans, {"losses": one["losses"],
+                       "params": [a.cpu() for a in tree_leaves(one["params"])]}
+
+    try:
+        (plans, one), ranks = gloo_ranks(serve_mesh_rank, 2, tmp, SERVE_MESH_DEADLINE_S,
+                                         "two serving ranks (compress, elastic, decode)",
+                                         meanwhile)
+    except BaseException:
+        for _, proc in dry:
+            proc.kill()
+        raise
+    rec = report["serve_mesh"] = {"plans": [dataclasses.asdict(p) for p in plans]}
+    print(f"[39 elastic] simulate_pod_failure(smollm-360m, 2, 1): before "
+          f"{dataclasses.asdict(plans[0])}; after {dataclasses.asdict(plans[1])}", flush=True)
+    # (a)
+    problems = []
+    comp = rec["compress"] = [r["compress"] for r in ranks]
+    for i, c in enumerate(comp):
+        if not (c["max_err_over_step"] <= 1.0 and c["slice_bias"] <= c["slice_bias_limit"]):
+            problems.append(f"int8 cross-pod all-reduce rank {i}: {c}")
+    # (b)
+    surv = ranks[0]["survivor"]
+    want = one["losses"][ELASTIC_STEPS // 2:]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(surv["losses"], want))
+    first = max(abs(a - b) / abs(b) for r in ranks
+                for a, b in zip(r["elastic"]["losses"], one["losses"]))
+    p_err = max(float((a - b).abs().max()) for a, b in
+                zip(tree_leaves(surv["params"]), one["params"]))
+    rec["elastic"] = {"survivor_losses": surv["losses"], "one_losses": one["losses"],
+                      "loss_max_rel_err": rel, "ranks_loss_max_rel_err": first,
+                      "param_max_err": p_err}
+    if not (rel <= ELASTIC_TOL and first <= ELASTIC_TOL and p_err <= ELASTIC_LR / 4):
+        problems.append(f"elastic resume: {rec['elastic']} (tol {ELASTIC_TOL}, params "
+                        f"{ELASTIC_LR / 4})")
+    # (c)
+    serve = rec["serve"] = [r["serve"] for r in ranks]
+    for i, sv in enumerate(serve):
+        for label, *_ in SERVE_F32_RUNS:
+            r = sv[label]
+            if not (r["max_abs_err"] <= SERVE_F32_TOL and r["tokens_equal"]):
+                problems.append(f"decode at (1, 2) {label} rank {i}: {r}")
+        for label, *_ in SERVE_BF16_RUNS:
+            r = sv[label]
+            floor = max(1.0, r["bf16_vs_f32_over_limit"])
+            if not r["err_over_limit"] <= SERVE_BF16_FLOOR * floor:
+                problems.append(f"decode at (1, 2) {label} rank {i}: logits "
+                                f"{r['err_over_limit']} of {ROW_SCALED_LIMIT}, float32's "
+                                f"{r['bf16_vs_f32_over_limit']} (x{SERVE_BF16_FLOOR:g})")
+            if r["launches"]["decode_attention"] == 0:
+                problems.append(f"decode at (1, 2) {label} rank {i} launched no decode "
+                                "attention")
+    frontend_totals["decode_attention_lse_rank"] = sum(
+        sv["smollm_bf16"]["launches"]["decode_attention"] for sv in serve)
+    print("[39 serve mesh] two ranks on the one card over gloo, eager: (a) int8 cross-pod "
+          "all-reduce of smollm-360M's bf16 gradients at (2, 1, 1), "
+          f"{comp[0]['elements']:,} elements: " + " / ".join(
+              f"{c['ms']:.1f} ms" for c in comp)
+          + f" a rank, wire {comp[0]['wire_bytes_int8']:,} B against float32's "
+          f"{comp[0]['wire_bytes_float32']:,}; worst error over one step "
+          + " / ".join(f"{c['max_err_over_step']:.3f}" for c in comp)
+          + f"; mean of {COMPRESS_DRAWS} draws on {COMPRESS_SLICE:,} elements off by "
+          + " / ".join(f"{c['slice_bias']:.3e}" for c in comp)
+          + f" (limit {comp[0]['slice_bias_limit']:.3e}); (b) elastic: 2 steps at (2, 1), "
+          f"checkpoint, the survivor's 2 steps alone: losses {surv['losses']} against one "
+          f"process's {want} (max rel {rel:.2e}, the ranks' first steps {first:.2e}; tol "
+          f"{ELASTIC_TOL:g}), params {p_err:.2e} (tol {ELASTIC_LR / 4:.2e}); (c) decode at "
+          "(1, 2): float32 " + ", ".join(
+              f"{label} cache k {serve[0][label]['cache_k']} of {serve[0][label]['heads']} KV "
+              f"heads, max abs err " + " / ".join(f"{sv[label]['max_abs_err']:.2e}" for sv in serve)
+              for label, *_ in SERVE_F32_RUNS) + f" (tol {SERVE_F32_TOL:g}), tokens equal; bf16 "
+          + "; ".join(
+              f"{label} cache k {serve[0][label]['cache_k']}: logits at "
+              + " / ".join(f"{sv[label]['err_over_limit']:.3f}" for sv in serve)
+              + " of their limit, tokens agree "
+              + " / ".join(f"{sv[label]['token_agreement']:.4f}" for sv in serve)
+              + ", median step " + " / ".join(f"{sv[label]['median_step_ms']:.2f}" for sv in serve)
+              + f" ms a rank (one process {serve[0][label]['one_median_step_ms']:.2f}), peak "
+              + " / ".join(f"{sv[label]['max_memory_allocated'] / 2**30:.2f}" for sv in serve)
+              + " GiB a rank, decode calls " + " / ".join(
+                  str(sv[label]["launches"]["decode_attention"]) for sv in serve)
+              + "; logits against one process's float32 run at "
+              + " / ".join(f"{sv[label]['bf16_vs_f32_over_limit']:.3f}" for sv in serve)
+              + " of the limit, its tokens agree "
+              + f"{serve[0][label]['f32_token_agreement']:.4f}"
+              for label, *_ in SERVE_BF16_RUNS) + f" {took('39 serve mesh')}", flush=True)
+    if problems:
+        fail("; ".join(problems))
+    # 40: the dry-run's subprocesses
+    outs = {}
+    for name, proc in dry:
+        try:
+            text, _ = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            for _, p in dry:
+                p.kill()
+            fail(f"dry-run {name} still running after {DRYRUN_TIMEOUT_S} s")
+        outs[name] = text
+        if proc.returncode != 0 or "-> ok" not in text:
+            fail(f"dry-run {name}: exit {proc.returncode}, {text[-2000:]}")
+    cell = json.loads((out_dir / "cell13.json").read_text())
+    if cell["param_bytes_per_device"] != train_rec["param_bytes"] or \
+            cell["opt_bytes_per_device"] != train_rec["opt_bytes"]:
+        fail(f"the dry-run of phase 13's cell holds {cell['param_bytes_per_device']} param "
+             f"and {cell['opt_bytes_per_device']} optimizer bytes, phase 13's tensors "
+             f"{train_rec['param_bytes']} and {train_rec['opt_bytes']}")
+    peak13 = train_rec["eager"]["max_memory_allocated"]
+    rec["dryrun"] = {"cli": {k: v.strip().splitlines()[-1] for k, v in outs.items()},
+                     "cell13": cell, "phase13_max_memory_allocated": peak13,
+                     "peak_ratio": cell["peak_bytes_per_device"] / peak13}
+    print("[40 dryrun] " + "; ".join(f"{k}: {v.strip().splitlines()[-1].strip()}"
+                                     for k, v in outs.items() if k in
+                                     {f"{a} {s}" for a, s in DRYRUN_CELLS})
+          + f"; phase 13's cell (smollm-360M train 8x512, mesh (1, 1)): param / optimizer "
+          f"bytes {cell['param_bytes_per_device']:.0f} / {cell['opt_bytes_per_device']:.0f} "
+          f"= phase 13's tensors, flops {cell['flops']:.4e}, dry-run peak "
+          f"{cell['peak_bytes_per_device'] / 2**30:.2f} GiB beside phase 13's eager "
+          f"max_memory_allocated {peak13 / 2**30:.2f} GiB (ratio "
+          f"{rec['dryrun']['peak_ratio']:.3f}) {took('40 dryrun')}", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3988,7 +4526,7 @@ def main() -> int:
     from repro_torch.models import encdec, frontends, model_api, transformer
     from repro_torch.models.tensor_parallel import collectives_per_step
     from repro_torch.optim.optimizers import adamw, warmup_cosine
-    from repro_torch.models.module import param_bytes, param_count, tree_map
+    from repro_torch.models.module import param_bytes, param_count, tree_leaves, tree_map
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4477,7 +5015,13 @@ def main() -> int:
 
     # 2. kernels against their plain versions
     rows = phase_kernels(rms, fla, dec, scan)
+    report["operator_costs"] = op_costs = rows.pop()["operator_costs"]
     report["kernels"] = rows
+    print("[2 operators] host cost a call of the operator layer (back-to-back ms, "
+          "direct / through the operator, in turns): " + "; ".join(
+              f"{k} {c['direct_ms'][0]:.4f} {c['operator_ms'][0]:.4f} {c['operator_ms'][1]:.4f} "
+              f"{c['direct_ms'][1]:.4f}: {c['cost_us']:.1f} us" for k, c in op_costs.items()),
+          flush=True)
     for r in rows:
         timing = "" if "ms" not in r else (
             f" | device ms {r['ms']:.4f} over {r['kernels_per_call']:g} kernel(s) "
@@ -4752,6 +5296,9 @@ def main() -> int:
             del out
     tr["graphed"]["capture"] = capture_report(out["capture"], zero(**per_t),
                                               "smollm training")
+    # the bytes of the trained tensors: phase 40's dry-run of this cell
+    tr["param_bytes"] = sum(t.numel() * t.element_size() for t in tree_leaves(out["params"]))
+    tr["opt_bytes"] = sum(t.numel() * t.element_size() for t in tree_leaves(out["opt_state"]))
     for key in ("losses", "grad_norms"):
         if tr["graphed"][key] != tr["eager"][key]:
             fail(f"training: graphed {key} {tr['graphed'][key]} differ from eager "
@@ -5688,6 +6235,9 @@ def main() -> int:
     phase_tp_families(kern, side, zero, report, frontend_totals, out_dir, took,
                       {"xlstm_bf16": xt["eager"], "whisper_bf16": wr["train"]["eager"],
                        "llava_bf16": lt["rate_witness"]["bfloat16"]})
+    # 39. int8 cross-pod all-reduce, elastic resume and decode at (1, 2);
+    # 40. the dry-run (started with 39)
+    phase_serve_mesh(kern, totals, zero, report, frontend_totals, out_dir, took, tr)
 
     # the kernel table: main-path shapes, bf16; launches over every main path
     table = []
@@ -5712,6 +6262,7 @@ def main() -> int:
     path_rows.update(CP_ROWS)
     path_rows.update(TP_MIXER_ROWS)
     path_rows.update(TP_FAMILY_ROWS)
+    path_rows.update(SERVE_MESH_ROWS)
     launched = {**mla_totals, **frontend_totals}
     for name, (kernel, source, replaces, case, dn, path) in path_rows.items():
         r = next(r for r in rows if r["kernel"] == kernel and r["case"] == case

@@ -1,7 +1,24 @@
-"""Argument checks shared by the kernel wrappers."""
+"""Argument checks shared by the kernel wrappers, and the route a call
+takes.
+
+Each kernel entry (``ops.*``) runs its plain version on a real CPU tensor
+(:func:`plain`), and otherwise calls its operator, a ``torch.library``
+custom op of the ``repro_torch`` namespace: on a CUDA tensor the kernel, on
+a fake or meta tensor (``FakeTensorMode``, the dry-run) its shape-only
+version, which materialises nothing, and under :func:`operators_on_cpu` on
+a real CPU tensor the plain version behind the operator (the attention,
+RMSNorm and optimizer operators; the scan's have none), so that a
+dispatch mode (``FlopCounterMode``) sees the same operators on the CPU as
+on fakes.
+"""
 from __future__ import annotations
 
+import contextlib
+from typing import Optional
+
+import numpy as np
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 # dtype codes of the C entry points (csrc/common.cuh)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -55,3 +72,50 @@ def require_no_grad(name: str, *tensors: torch.Tensor) -> None:
         raise NotImplementedError(
             f"{name}: the CUDA kernel has no backward (it serves decoding, as "
             "the reference's does)")
+
+
+_ROUTE = {"operators_on_cpu": False}
+
+
+def plain(name: str, t: torch.Tensor) -> bool:
+    """Whether a call of kernel ``name`` on ``t`` takes the plain version
+    directly (a real CPU tensor, outside :func:`operators_on_cpu`) or its
+    operator (a CUDA or fake tensor, or a CPU one inside). Any other tensor
+    (a meta one) raises ValueError: it has no kernel and no plain version."""
+    if isinstance(t, FakeTensor):
+        return False
+    kind = t.device.type
+    if kind == "cpu":
+        return not _ROUTE["operators_on_cpu"]
+    if kind != "cuda":
+        raise ValueError(f"{name}: the kernel takes tensors on one CUDA "
+                         f"device, got {t.device}")
+    return False
+
+
+@contextlib.contextmanager
+def operators_on_cpu():
+    """Real CPU tensors go through the kernels' operators too (each runs its
+    plain version there), as CUDA and fake tensors do."""
+    prev = _ROUTE["operators_on_cpu"]
+    _ROUTE["operators_on_cpu"] = True
+    try:
+        yield
+    finally:
+        _ROUTE["operators_on_cpu"] = prev
+
+
+# the H100's SMs: the launch plans of a kernel whose operator runs on a fake
+# tensor (the dry-run plans rank 0's program for the card)
+H100_SMS = 132
+
+
+def visible_pairs(sq: int, skv: int, causal: bool, window: Optional[int],
+                  offset: int) -> int:
+    """(query, key) pairs an attention of ``sq`` rows against ``skv`` keys
+    computes, row i at absolute position i + offset: keys j <= i + offset
+    when causal, j > i + offset - window with a window (``ref._mask``)."""
+    a = np.arange(offset, offset + sq, dtype=np.int64)
+    hi = np.minimum(a, skv - 1) if causal else np.full_like(a, skv - 1)
+    lo = np.maximum(a - window + 1, 0) if window is not None else 0
+    return int(np.clip(hi - lo + 1, 0, None).sum())

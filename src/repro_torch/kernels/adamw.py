@@ -15,7 +15,10 @@ versions in :mod:`.ref`:
   m and v float32), reading lr, the bias corrections and the clip's scale
   from 0-d device tensors, so a CUDA graph replays them as they change.
 
-The kernels take contiguous tensors and refuse others.
+The kernels take contiguous tensors and refuse others. Each is an operator
+(``repro_torch::sumsq``, ``clip_finalize``, ``adamw_update``; see
+``_checks``), counted as 2 flops an element (``sumsq``), 1 a partial sum
+and 17 an element of the update.
 """
 from __future__ import annotations
 
@@ -23,10 +26,11 @@ from typing import Any, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch import collectives
 from . import _build
-from ._checks import DTYPE_CODES, require_cuda
+from ._checks import DTYPE_CODES, H100_SMS, plain, require_cuda
 from .ref import adamw_update_ref as adamw_update_plain
 from .ref import clip_finalize_ref as clip_finalize_plain
 from .ref import global_norm_scale_ref as global_norm_scale_plain
@@ -93,15 +97,18 @@ def sumsq_cuda(g: torch.Tensor, partial: torch.Tensor) -> None:
 sumsq_cuda.launches = 0
 
 
-def clip_finalize_cuda(partial: torch.Tensor,
-                       max_norm: float) -> Tuple[torch.Tensor, torch.Tensor]:
+def clip_finalize_cuda(partial: torch.Tensor, max_norm: float,
+                       out: Optional[torch.Tensor] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch ``clip_finalize``: the sums of squares in ``partial``
-    (contiguous float32) -> (norm, scale), 0-d float32 on the device."""
+    (contiguous float32) -> (norm, scale), 0-d float32 on the device, the
+    two elements of ``out`` (a float32 tensor of 2, made if None)."""
     require_cuda("clip_finalize", partial)
     if partial.dtype != torch.float32 or not partial.is_contiguous() \
             or partial.numel() == 0:
         raise ValueError("clip_finalize: partial must be non-empty contiguous float32")
-    out = torch.empty(2, dtype=torch.float32, device=partial.device)
+    if out is None:
+        out = torch.empty(2, dtype=torch.float32, device=partial.device)
     _build.check(_build.load().adamw_clip_finalize(
         partial.data_ptr(), partial.numel(), float(max_norm), out.data_ptr(),
         _build.stream_handle(partial)), "adamw_clip_finalize")
@@ -112,24 +119,71 @@ def clip_finalize_cuda(partial: torch.Tensor,
 clip_finalize_cuda.launches = 0
 
 
+@torch.library.custom_op("repro_torch::sumsq", mutates_args=("partial",),
+                         device_types="cuda")
+def sumsq_op(g: torch.Tensor, partial: torch.Tensor) -> None:
+    sumsq_cuda(g, partial)
+
+
+@sumsq_op.register_kernel("cpu")
+def _(g, partial):
+    partial.zero_()
+    partial[0] = sumsq_plain(g)
+
+
+@sumsq_op.register_fake
+def _(g, partial):
+    return None
+
+
+@torch.library.custom_op("repro_torch::clip_finalize", mutates_args=(),
+                         device_types="cuda")
+def clip_finalize_op(partial: torch.Tensor, max_norm: float) -> torch.Tensor:
+    """(norm, scale) as one float32 tensor of 2."""
+    out = torch.empty(2, dtype=torch.float32, device=partial.device)
+    clip_finalize_cuda(partial, max_norm, out)
+    return out
+
+
+@clip_finalize_op.register_kernel("cpu")
+def _(partial, max_norm):
+    return torch.stack(clip_finalize_plain(partial, max_norm))
+
+
+@clip_finalize_op.register_fake
+def _(partial, max_norm):
+    return partial.new_empty((2,))
+
+
+@register_flop_formula(torch.ops.repro_torch.sumsq, get_raw=True)
+def _(g, *args, out_val=None, **kwargs) -> int:
+    return 2 * g.numel()
+
+
+@register_flop_formula(torch.ops.repro_torch.clip_finalize, get_raw=True)
+def _(partial, *args, out_val=None, **kwargs) -> int:
+    return partial.numel()
+
+
 def global_norm_scale_cuda(grads: List[torch.Tensor],
                            max_norm: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The clip's (norm, scale) over ``grads`` on the card: ``sumsq`` per
-    leaf into one workspace, each leaf at a fixed offset, then
-    ``clip_finalize`` over all of it."""
+    """The clip's (norm, scale) over ``grads`` through the operators (on
+    the card the kernels): ``sumsq`` per leaf into one workspace, each leaf
+    at a fixed offset, then ``clip_finalize`` over all of it."""
     partial, _ = _sumsq_partials(grads)
-    return clip_finalize_cuda(partial, max_norm)
+    return tuple(clip_finalize_op(partial, max_norm).unbind())
 
 
 def _sumsq_partials(grads: List[torch.Tensor]) -> Tuple[torch.Tensor, List[int]]:
     """(workspace, blocks of each leaf): ``sumsq`` per leaf into one
-    workspace, each leaf at a fixed offset."""
-    require_cuda("global_norm_scale", *grads)
-    n_sm = _build.sm_count(grads[0].device.index)
+    workspace, each leaf at a fixed offset; the card's launch plan (an
+    H100's for a tensor off the card)."""
+    dev = grads[0].device
+    n_sm = _build.sm_count(dev.index) if dev.type == "cuda" else H100_SMS
     blocks = [sumsq_blocks(g.numel(), g.dtype, n_sm) for g in grads]
-    partial = torch.empty(sum(blocks), dtype=torch.float32, device=grads[0].device)
+    partial = torch.empty(sum(blocks), dtype=torch.float32, device=dev)
     for g, piece in zip(grads, torch.split(partial, blocks)):
-        sumsq_cuda(g, piece)
+        sumsq_op(g, piece)
     return partial, blocks
 
 
@@ -149,20 +203,21 @@ def global_norm_scale(grads: List[torch.Tensor], max_norm: float,
     leaf no flag marks is counted once. With one rank in each group these
     are the unsharded call's partials, in its order."""
     splits = [(flags, group) for flags, group in splits if any(flags)]
+    on_plain = plain("global_norm_scale", grads[0])
     if not splits:
-        if grads[0].device.type == "cpu":
+        if on_plain:
             return global_norm_scale_plain(grads, max_norm)
         return global_norm_scale_cuda(grads, max_norm)
-    if grads[0].device.type == "cpu":
+    if on_plain:
         partial, blocks = torch.stack([sumsq_plain(g) for g in grads]), \
             [1] * len(grads)
     else:
         partial, blocks = _sumsq_partials(grads)
     for flags, group in splits:
         partial, blocks = _every_rank(partial, blocks, flags, group)
-    if grads[0].device.type == "cpu":
+    if on_plain:
         return norm_scale_plain(list(partial.unbind()), max_norm)
-    return clip_finalize_cuda(partial, max_norm)
+    return tuple(clip_finalize_op(partial, max_norm).unbind())
 
 
 def _every_rank(partial: torch.Tensor, blocks: List[int],
@@ -218,9 +273,39 @@ def adamw_update_cuda(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
 adamw_update_cuda.launches = 0
 
 
-def adamw_update(p, g, m, v, lr, c1, c2, scale=None, **hyper) -> None:
-    """One leaf's AdamW update in place: the kernel for CUDA tensors, the
-    plain version for CPU ones (arguments as :func:`adamw_update_cuda`)."""
-    if p.device.type == "cpu":
-        return adamw_update_plain(p, g, m, v, lr, c1, c2, scale, **hyper)
-    return adamw_update_cuda(p, g, m, v, lr, c1, c2, scale, **hyper)
+@torch.library.custom_op("repro_torch::adamw_update", mutates_args=("p", "m", "v"),
+                         device_types="cuda")
+def adamw_update_op(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
+                    v: torch.Tensor, lr: torch.Tensor, c1: torch.Tensor,
+                    c2: torch.Tensor, scale: Optional[torch.Tensor], b1: float,
+                    b2: float, eps: float, weight_decay: float) -> None:
+    adamw_update_cuda(p, g, m, v, lr, c1, c2, scale, b1=b1, b2=b2, eps=eps,
+                      weight_decay=weight_decay)
+
+
+@adamw_update_op.register_kernel("cpu")
+def _(p, g, m, v, lr, c1, c2, scale, b1, b2, eps, weight_decay):
+    adamw_update_plain(p, g, m, v, lr, c1, c2, scale, b1=b1, b2=b2, eps=eps,
+                       weight_decay=weight_decay)
+
+
+@adamw_update_op.register_fake
+def _(p, g, m, v, lr, c1, c2, scale, b1, b2, eps, weight_decay):
+    return None
+
+
+@register_flop_formula(torch.ops.repro_torch.adamw_update, get_raw=True)
+def _(p, *args, out_val=None, **kwargs) -> int:
+    return 17 * p.numel()
+
+
+def adamw_update(p, g, m, v, lr, c1, c2, scale=None, b1: float = 0.9,
+                 b2: float = 0.95, eps: float = 1e-8,
+                 weight_decay: float = 0.1) -> None:
+    """One leaf's AdamW update in place: the plain version for real CPU
+    tensors, the operator otherwise (arguments as
+    :func:`adamw_update_cuda`)."""
+    if plain("adamw_update", p):
+        return adamw_update_plain(p, g, m, v, lr, c1, c2, scale, b1=b1, b2=b2,
+                                  eps=eps, weight_decay=weight_decay)
+    adamw_update_op(p, g, m, v, lr, c1, c2, scale, b1, b2, eps, weight_decay)

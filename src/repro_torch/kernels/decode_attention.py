@@ -7,16 +7,23 @@ cache, masked to ``kpos < length[b]``. ``window`` is applied as
 ``decode_attention_ref`` applies it (the Pallas kernel ignores it). A CUDA
 tensor goes to the kernel, a CPU tensor to :func:`decode_attention_plain`.
 The kernel splits the cache over several blocks (:func:`split_plan`) and
-combines their partial results in the same launch.
+combines their partial results in the same launch. With ``return_lse`` it
+also writes each row's log-sum-exp L, by which ranks that each hold a
+part of the cache combine their partial outputs
+(``tensor_parallel.combine_partials``). The kernel is an operator
+(``repro_torch::decode_attention``, see ``_checks``), counted as 4 D flops
+a slot a q head over every slot (a shape-only count: the valid lengths are
+data).
 """
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from . import _build
-from ._checks import (DTYPE_CODES, require_cuda, require_head_dim,
+from ._checks import (DTYPE_CODES, plain, require_cuda, require_head_dim,
                       require_no_grad)
 from .ref import decode_attention_ref as decode_attention_plain
 
@@ -50,11 +57,13 @@ def split_plan(b: int, hkv: int, g: int, s: int, n_sm: int) -> Tuple[int, int]:
 def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           length: Optional[torch.Tensor] = None,
                           window: Optional[int] = None,
-                          scale: Optional[float] = None) -> torch.Tensor:
+                          scale: Optional[float] = None,
+                          return_lse: bool = False):
     """Launch the kernel. q: (B, Hq, D); k/v: (B, Hkv, S, D), contiguous
     and 16-byte aligned, bf16 or f32; length: (B,) int32 on the same device
     (None: all S valid; the kernel then reads no length) -> (B, Hq, D) in
-    q's dtype."""
+    q's dtype; with ``return_lse`` (o, L), L (B, Hq) float32, -inf for a
+    row with no valid slot (its output 0), written by the same launch."""
     if q.dim() != 3 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"decode_attention: want q (B,Hq,D), k = v "
                          f"(B,Hkv,S,D); got {tuple(q.shape)}, {tuple(k.shape)},"
@@ -84,32 +93,70 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          "aligned (the kernel reads rows in 16-byte vectors)")
     scale = scale if scale is not None else d ** -0.5
     o = torch.empty_like(q)
+    lse = (torch.empty((b, hq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     if b == 0:
-        return o
+        return (o, lse) if return_lse else o
     n_split, chunk = split_plan(b, hkv, hq // hkv, s, _build.sm_count(q.device.index))
     lib = _build.load()
     _build.check(lib.decode_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if length is None else length.data_ptr(),
-        o.data_ptr(), b, hq, hkv, s, d, n_split, chunk,
+        o.data_ptr(), None if lse is None else lse.data_ptr(),
+        b, hq, hkv, s, d, n_split, chunk,
         -1 if window is None else int(window), float(scale),
         DTYPE_CODES[q.dtype], _build.stream_handle(q)),
         "decode_attention_fwd")
     decode_attention_cuda.launches += 1
-    return o
+    return (o, lse) if return_lse else o
 
 
 decode_attention_cuda.launches = 0
 
 
+@torch.library.custom_op("repro_torch::decode_attention", mutates_args=(),
+                         device_types="cuda")
+def decode_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        length: Optional[torch.Tensor], window: Optional[int],
+                        scale: Optional[float], with_lse: bool
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel as an operator: (o, L), L empty unless ``with_lse``."""
+    if with_lse:
+        return decode_attention_cuda(q, k, v, length, window, scale, True)
+    return (decode_attention_cuda(q, k, v, length, window, scale),
+            q.new_empty((0,), dtype=torch.float32))
+
+
+@decode_attention_op.register_kernel("cpu")
+def _(q, k, v, length, window, scale, with_lse):
+    if with_lse:
+        return decode_attention_plain(q, k, v, length, window, scale, True)
+    return (decode_attention_plain(q, k, v, length, window, scale),
+            q.new_empty((0,), dtype=torch.float32))
+
+
+@decode_attention_op.register_fake
+def _(q, k, v, length, window, scale, with_lse):
+    return torch.empty_like(q), q.new_empty(
+        q.shape[:2] if with_lse else (0,), dtype=torch.float32)
+
+
+@register_flop_formula(torch.ops.repro_torch.decode_attention, get_raw=True)
+def _(q, k, *args, out_val=None, **kwargs) -> int:
+    b, hq, d = q.shape
+    return 4 * b * hq * d * k.shape[2]
+
+
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      length: Optional[torch.Tensor] = None,
                      window: Optional[int] = None,
-                     scale: Optional[float] = None) -> torch.Tensor:
-    """The kernel for CUDA tensors, the plain version for CPU tensors. The
+                     scale: Optional[float] = None, return_lse: bool = False):
+    """The plain version for real CPU tensors, the operator otherwise. The
     kernel has no backward (serving only): on the card a call that autograd
-    would need a gradient of raises."""
-    if q.device.type == "cpu":
-        return decode_attention_plain(q, k, v, length, window, scale)
+    would need a gradient of raises. With ``return_lse`` -> (o, L)."""
+    if plain("decode_attention", q):
+        return decode_attention_plain(q, k, v, length, window, scale,
+                                      return_lse)
     require_no_grad("decode_attention", q, k, v)
-    return decode_attention_cuda(q, k, v, length, window, scale)
+    o, lse = decode_attention_op(q, k, v, length, window, scale, return_lse)
+    return (o, lse) if return_lse else o

@@ -16,16 +16,26 @@ gradient of a CUDA call, :class:`_FlashAttention` runs the forward kernel
 and, for the backward, :func:`flash_attention_bwd_cuda` (plain version:
 :func:`flash_attention_bwd_plain`). L follows the convention
 ``P = exp(scale * s - L)``, +inf for a row that sees no key.
+
+Both kernels are operators (``repro_torch::flash_attention_fwd`` /
+``_bwd``, see ``_checks``): the CUDA kernel, the plain version on the CPU,
+and a shape-only version for fake tensors, with a flop formula for
+``FlopCounterMode``: 4 D flops a (query, key) pair a q head forward (the
+causal half and the window's band only, as the kernel skips the rest;
+GQA's shared K/V rows count once a q head), 10 D backward (its five
+products: S and dP recomputed, dQ, dK, dV).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from . import _build
-from ._checks import DTYPE_CODES, require_cuda, require_head_dim
+from ._checks import (DTYPE_CODES, plain, require_cuda, require_head_dim,
+                      visible_pairs)
 from .ref import attention_bwd_ref as flash_attention_bwd_plain
 from .ref import attention_ref as flash_attention_plain
 
@@ -275,26 +285,92 @@ flash_attention_bwd_cuda.copies = 0
 flash_attention_bwd_cuda.lse_forwards = 0
 
 
+@torch.library.custom_op("repro_torch::flash_attention_fwd", mutates_args=(),
+                         device_types="cuda")
+def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       causal: bool, window: Optional[int], offset: int,
+                       scale: Optional[float], with_lse: bool
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward as an operator: (o, L), L empty unless ``with_lse``."""
+    if with_lse:
+        return flash_attention_cuda(q, k, v, causal, window, offset, scale,
+                                    return_lse=True)
+    return (flash_attention_cuda(q, k, v, causal, window, offset, scale),
+            q.new_empty((0,), dtype=torch.float32))
+
+
+@flash_attention_op.register_kernel("cpu")
+def _(q, k, v, causal, window, offset, scale, with_lse):
+    if with_lse:
+        return flash_attention_plain(q, k, v, causal, window, offset, scale,
+                                     return_lse=True)
+    return (flash_attention_plain(q, k, v, causal, window, offset, scale),
+            q.new_empty((0,), dtype=torch.float32))
+
+
+@flash_attention_op.register_fake
+def _(q, k, v, causal, window, offset, scale, with_lse):
+    b, hq, sq, _ = q.shape
+    return torch.empty_like(q), q.new_empty(
+        (b, hq, sq) if with_lse else (0,), dtype=torch.float32)
+
+
+@torch.library.custom_op("repro_torch::flash_attention_bwd", mutates_args=(),
+                         device_types="cuda")
+def flash_attention_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           o: torch.Tensor, do: torch.Tensor, causal: bool,
+                           window: Optional[int], offset: int,
+                           scale: Optional[float], lse: Optional[torch.Tensor]
+                           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward as an operator: (dq, dk, dv)."""
+    return flash_attention_bwd_cuda(q, k, v, o, do, causal, window, offset,
+                                    scale, lse=lse)
+
+
+@flash_attention_bwd_op.register_kernel("cpu")
+def _(q, k, v, o, do, causal, window, offset, scale, lse):
+    return flash_attention_bwd_plain(q, k, v, o, do, causal, window, offset,
+                                     scale, lse=lse)
+
+
+@flash_attention_bwd_op.register_fake
+def _(q, k, v, o, do, causal, window, offset, scale, lse):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+def _pair_flops(q, k, causal, window, offset) -> int:
+    b, hq, sq, d = q.shape
+    return b * hq * d * visible_pairs(sq, k.shape[2], causal, window, offset)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_fwd, get_raw=True)
+def _(q, k, v, causal, window, offset, *args, out_val=None, **kwargs) -> int:
+    return 4 * _pair_flops(q, k, causal, window, offset)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_bwd, get_raw=True)
+def _(q, k, v, o, do, causal, window, offset, *args, out_val=None,
+      **kwargs) -> int:
+    return 10 * _pair_flops(q, k, causal, window, offset)
+
+
 class _FlashAttention(torch.autograd.Function):
-    """The forward kernel, and the backward kernel for its gradient; the bf16
-    forward also writes the log-sum-exp its backward reads."""
+    """The forward operator, and the backward operator for its gradient; the
+    bf16 forward also writes the log-sum-exp its backward reads."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, offset, scale):
-        lse = None
-        if INSTANCES[q.dtype] == "wgmma":
-            o, lse = flash_attention_cuda(q, k, v, causal, window, offset, scale,
-                                          return_lse=True)
-        else:
-            o = flash_attention_cuda(q, k, v, causal, window, offset, scale)
-        ctx.save_for_backward(q, k, v, o, lse)
+        with_lse = INSTANCES[q.dtype] == "wgmma"
+        o, lse = flash_attention_op(q, k, v, causal, window, offset, scale,
+                                    with_lse)
+        ctx.save_for_backward(q, k, v, o, lse if with_lse else None)
         ctx.args = (causal, window, offset, scale)
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd_cuda(q, k, v, o, do, *ctx.args, lse=lse)
+        dq, dk, dv = flash_attention_bwd_op(q, k, v, o, do, *ctx.args, lse)
         return dq, dk, dv, None, None, None, None
 
 
@@ -302,11 +378,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window: Optional[int] = None,
                     offset: int = 0,
                     scale: Optional[float] = None) -> torch.Tensor:
-    """The kernel for CUDA tensors (through :class:`_FlashAttention` when
-    autograd needs their gradient), the plain version for CPU tensors."""
-    if q.device.type == "cpu":
+    """The plain version for real CPU tensors; otherwise the operator
+    (through :class:`_FlashAttention` when autograd needs a gradient)."""
+    if plain("flash_attention", q):
         return flash_attention_plain(q, k, v, causal, window, offset, scale)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return _FlashAttention.apply(q, k, v, causal, window, offset, scale)
-    return flash_attention_cuda(q, k, v, causal, window, offset, scale)
+    return flash_attention_op(q, k, v, causal, window, offset, scale, False)[0]

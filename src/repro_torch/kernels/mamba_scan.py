@@ -10,15 +10,22 @@ differentiates. Where autograd needs a gradient of a CUDA call,
 the state every ``STATE_EVERY`` steps (:func:`mamba_scan_train_cuda`), and
 for the backward :func:`mamba_scan_bwd_cuda`, whose plain version is
 :func:`mamba_scan_bwd_plain` (the reference differentiates its jnp scan).
+The three launches are operators (``repro_torch::mamba_scan_fwd``,
+``_train``, ``_bwd``; see ``_checks``), counted as 6 flops a state element
+a step forward (the decay and input multiply-adds, the readout) and 14
+backward. Their kernel is the launcher on every device, with no CPU
+version behind them: a real CPU tensor that reaches one (under
+``operators_on_cpu``) raises, as a CPU tensor given to a launcher does.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional, Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from . import _build
-from ._checks import DTYPE_CODES, require_cuda
+from ._checks import DTYPE_CODES, plain, require_cuda
 from .ref import mamba_scan_bwd_ref as mamba_scan_bwd_plain
 from .ref import mamba_scan_ref as mamba_scan_plain
 from .ref import mamba_scan_states_ref as mamba_scan_states_plain
@@ -225,14 +232,84 @@ def mamba_scan_bwd_cuda(u: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 mamba_scan_bwd_cuda.launches = 0
 
 
+@torch.library.custom_op("repro_torch::mamba_scan_fwd", mutates_args=())
+def mamba_scan_op(u: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                  B: torch.Tensor, C: torch.Tensor, D: torch.Tensor,
+                  h0: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+    return mamba_scan_cuda(u, dt, A, B, C, D, h0)
+
+
+def _fake_fwd(u, A):
+    return torch.empty_like(u), u.new_empty((u.shape[0], u.shape[2], A.shape[1]),
+                                            dtype=torch.float32)
+
+
+@mamba_scan_op.register_fake
+def _(u, dt, A, B, C, D, h0):
+    return _fake_fwd(u, A)
+
+
+@torch.library.custom_op("repro_torch::mamba_scan_train", mutates_args=())
+def mamba_scan_train_op(u: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                        B: torch.Tensor, C: torch.Tensor, D: torch.Tensor,
+                        h0: Optional[torch.Tensor]
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    return mamba_scan_train_cuda(u, dt, A, B, C, D, h0)
+
+
+@mamba_scan_train_op.register_fake
+def _(u, dt, A, B, C, D, h0):
+    bt, t, d_in = u.shape
+    hs = u.new_empty((bt, n_states(t), d_in, A.shape[1]), dtype=torch.float32)
+    return (*_fake_fwd(u, A), hs)
+
+
+@torch.library.custom_op("repro_torch::mamba_scan_bwd", mutates_args=())
+def mamba_scan_bwd_op(u: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                      B: torch.Tensor, C: torch.Tensor, D: torch.Tensor,
+                      hs: torch.Tensor, dy: torch.Tensor,
+                      dh_t: Optional[torch.Tensor]) -> List[torch.Tensor]:
+    return list(mamba_scan_bwd_cuda(u, dt, A, B, C, D, hs, dy, dh_t))
+
+
+@mamba_scan_bwd_op.register_fake
+def _(u, dt, A, B, C, D, hs, dy, dh_t):
+    bt, t, d_in = u.shape
+    n = A.shape[1]
+    f32 = dict(dtype=torch.float32)
+    return [torch.empty_like(u), u.new_empty(u.shape, **f32),
+            u.new_empty((d_in, n), **f32), u.new_empty((bt, t, n)),
+            u.new_empty((bt, t, n)), u.new_empty((d_in,), **f32),
+            u.new_empty((bt, d_in, n), **f32)]
+
+
+def _state_steps(u, A) -> int:
+    return u.shape[0] * u.shape[1] * u.shape[2] * A.shape[1]
+
+
+@register_flop_formula(torch.ops.repro_torch.mamba_scan_fwd, get_raw=True)
+def _(u, dt, A, *args, out_val=None, **kwargs) -> int:
+    return 6 * _state_steps(u, A)
+
+
+@register_flop_formula(torch.ops.repro_torch.mamba_scan_train, get_raw=True)
+def _(u, dt, A, *args, out_val=None, **kwargs) -> int:
+    return 6 * _state_steps(u, A)
+
+
+@register_flop_formula(torch.ops.repro_torch.mamba_scan_bwd, get_raw=True)
+def _(u, dt, A, *args, out_val=None, **kwargs) -> int:
+    return 14 * _state_steps(u, A)
+
+
 class _MambaScan(torch.autograd.Function):
-    """The forward's training instance, and the backward kernel for its
+    """The forward's training operator, and the backward operator for its
     gradient. A gradient autograd does not pass (h_T's, when the caller
     drops it) reaches the kernel as a null pointer, not a tensor of zeros."""
 
     @staticmethod
     def forward(ctx, u, dt, A, B, C, D, h0):
-        y, h_t, hs = mamba_scan_train_cuda(u, dt, A, B, C, D, h0)
+        y, h_t, hs = mamba_scan_train_op(u, dt, A, B, C, D, h0)
         ctx.set_materialize_grads(False)
         ctx.save_for_backward(u, dt, A, B, C, D, hs)
         ctx.h0 = None if h0 is None else h0.dtype
@@ -243,8 +320,8 @@ class _MambaScan(torch.autograd.Function):
         u, dt, A, B, C, D, hs = ctx.saved_tensors
         if dy is None:
             dy = torch.zeros_like(u)
-        du, ddt, dA, dB, dC, dD, dh0 = mamba_scan_bwd_cuda(u, dt, A, B, C, D, hs, dy,
-                                                           dh_t)
+        du, ddt, dA, dB, dC, dD, dh0 = mamba_scan_bwd_op(u, dt, A, B, C, D, hs, dy,
+                                                         dh_t)
         # dt is float32 (the kernel takes no other); A, D and h0 are read as
         # float32 and their gradients go back in their own dtypes
         return (du, ddt, dA.to(A.dtype), dB, dC, dD.to(D.dtype),
@@ -254,11 +331,11 @@ class _MambaScan(torch.autograd.Function):
 def mamba_scan(u: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                B: torch.Tensor, C: torch.Tensor, D: torch.Tensor,
                h0: Optional[torch.Tensor] = None):
-    """The kernel for CUDA tensors (through :class:`_MambaScan` when
-    autograd needs their gradient), the plain version for CPU tensors."""
-    if u.device.type == "cpu":
+    """The plain version for real CPU tensors; otherwise the operator
+    (through :class:`_MambaScan` when autograd needs their gradient)."""
+    if plain("mamba_scan", u):
         return mamba_scan_plain(u, dt, A, B, C, D, h0)
     if torch.is_grad_enabled() and any(x is not None and x.requires_grad
                                        for x in (u, dt, A, B, C, D, h0)):
         return _MambaScan.apply(u, dt, A, B, C, D, h0)
-    return mamba_scan_cuda(u, dt, A, B, C, D, h0)
+    return mamba_scan_op(u, dt, A, B, C, D, h0)

@@ -128,11 +128,16 @@ def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          length: Optional[torch.Tensor] = None,
                          window: Optional[int] = None,
-                         scale: Optional[float] = None) -> torch.Tensor:
+                         scale: Optional[float] = None,
+                         return_lse: bool = False):
     """Single-token attention against a KV cache.
 
     q: (B, Hq, D); k/v: (B, Hkv, S, D); ``length``: (B,) valid cache length
-    (the new token sits at position length-1). Returns (B, Hq, D).
+    (the new token sits at position length-1). Returns (B, Hq, D); with
+    ``return_lse`` also L, (B, Hq) float32: the log-sum-exp of each row's
+    scaled logits over its valid keys, -inf for a row with none, whose
+    output is then 0 (the kernel's convention; without ``return_lse`` such
+    a row averages V, as the reference's does).
     """
     b, hq, d = q.shape
     _, hkv, s, _ = k.shape
@@ -151,7 +156,12 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          torch.full_like(logits, NEG_INF))
     p = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgk,bhkd->bhgd", p, v.float())
-    return out.reshape(b, hq, d).to(q.dtype)
+    if not return_lse:
+        return out.reshape(b, hq, d).to(q.dtype)
+    lse = torch.logsumexp(logits.masked_fill(~valid[:, None, None],
+                                             float("-inf")), dim=-1)
+    out = out.masked_fill(~valid.any(dim=-1)[:, None, None, None], 0.0)
+    return out.reshape(b, hq, d).to(q.dtype), lse.reshape(b, hq)
 
 
 def mamba_scan_ref(u: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,

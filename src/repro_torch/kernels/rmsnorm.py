@@ -6,14 +6,19 @@ tensor goes to the kernel, one read and one write of x; a CPU tensor goes to
 the plain version, :func:`rmsnorm_plain`, which autograd differentiates.
 Where autograd needs a gradient of a CUDA call, :class:`_RMSNorm` runs the
 forward kernel and, for the backward, :func:`rmsnorm_bwd_cuda`, whose plain
-version is :func:`rmsnorm_bwd_plain`.
+version is :func:`rmsnorm_bwd_plain`. Both kernels are operators
+(``repro_torch::rmsnorm_fwd`` / ``_bwd``, see ``_checks``), counted as 4
+and 10 flops an element.
 """
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from . import _build
-from ._checks import DTYPE_CODES, require_cuda
+from ._checks import DTYPE_CODES, plain, require_cuda
 from .ref import rmsnorm_bwd_ref as rmsnorm_bwd_plain
 from .ref import rmsnorm_ref as rmsnorm_plain
 
@@ -97,28 +102,71 @@ def rmsnorm_bwd_cuda(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
 rmsnorm_bwd_cuda.launches = 0
 
 
+@torch.library.custom_op("repro_torch::rmsnorm_fwd", mutates_args=(),
+                         device_types="cuda")
+def rmsnorm_op(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+    return rmsnorm_cuda(x, scale, eps)
+
+
+@rmsnorm_op.register_kernel("cpu")
+def _(x, scale, eps):
+    return rmsnorm_plain(x, scale, eps)
+
+
+@rmsnorm_op.register_fake
+def _(x, scale, eps):
+    return torch.empty_like(x)
+
+
+@torch.library.custom_op("repro_torch::rmsnorm_bwd", mutates_args=(),
+                         device_types="cuda")
+def rmsnorm_bwd_op(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
+                   eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    return rmsnorm_bwd_cuda(x, scale, dy, eps)
+
+
+@rmsnorm_bwd_op.register_kernel("cpu")
+def _(x, scale, dy, eps):
+    return rmsnorm_bwd_plain(x, scale, dy, eps)
+
+
+@rmsnorm_bwd_op.register_fake
+def _(x, scale, dy, eps):
+    return torch.empty_like(x), torch.empty_like(scale)
+
+
+@register_flop_formula(torch.ops.repro_torch.rmsnorm_fwd, get_raw=True)
+def _(x, *args, out_val=None, **kwargs) -> int:
+    return 4 * x.numel()
+
+
+@register_flop_formula(torch.ops.repro_torch.rmsnorm_bwd, get_raw=True)
+def _(x, *args, out_val=None, **kwargs) -> int:
+    return 10 * x.numel()
+
+
 class _RMSNorm(torch.autograd.Function):
-    """The forward kernel, and the backward kernel for its gradient."""
+    """The forward operator, and the backward operator for its gradient."""
 
     @staticmethod
     def forward(ctx, x, scale, eps):
         ctx.eps = eps
         ctx.save_for_backward(x, scale)
-        return rmsnorm_cuda(x, scale, eps)
+        return rmsnorm_op(x, scale, eps)
 
     @staticmethod
     def backward(ctx, dy):
         x, scale = ctx.saved_tensors
-        dx, dscale = rmsnorm_bwd_cuda(x, scale, dy, ctx.eps)
+        dx, dscale = rmsnorm_bwd_op(x, scale, dy, ctx.eps)
         return dx, dscale, None
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
             eps: float = 1e-6) -> torch.Tensor:
-    """The kernel for a CUDA tensor (through :class:`_RMSNorm` when autograd
-    needs its gradient), the plain version for a CPU tensor."""
-    if x.device.type == "cpu":
+    """The plain version for a real CPU tensor; otherwise the operator
+    (through :class:`_RMSNorm` when autograd needs its gradient)."""
+    if plain("rmsnorm", x):
         return rmsnorm_plain(x, scale, eps)
     if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
         return _RMSNorm.apply(x, scale, eps)
-    return rmsnorm_cuda(x, scale, eps)
+    return rmsnorm_op(x, scale, eps)

@@ -247,8 +247,28 @@ def _all_reduce(x: torch.Tensor, mesh, axes) -> torch.Tensor:
     return x
 
 
-def make_prefill_step(cfg: ModelConfig, device="cuda",
-                      graphs: bool = True) -> Callable:
+def _zero3_whole(params, shardings, mesh):
+    """``params`` with every leaf that ``shardings`` shard over
+    ``fsdp_axis(mesh)`` gathered whole over it (ZeRO-3 at rest -> the
+    step's tree); a leaf's slice over 'model' stays this rank's."""
+    f_axis = None if mesh is None else fsdp_axis(mesh)
+    if shardings is None or f_axis is None:
+        return params
+    f_size = mesh_shape(mesh)[f_axis]
+    group = mesh.get_group(f_axis)
+    return tree_map(lambda a, pl: a if shard_dim(pl, mesh, f_axis) is None
+                    else SH.gather_dim(a, shard_dim(pl, mesh, f_axis), group,
+                                       f_size), params, shardings)
+
+
+def _rows(mesh, axes, n: int):
+    """[lo, hi) of this rank's rows of ``n`` split over ``axes``."""
+    index, count = coordinate(mesh, axes) if axes else (0, 1)
+    return n // count * index, n // count * (index + 1)
+
+
+def make_prefill_step(cfg: ModelConfig, device="cuda", graphs: bool = True,
+                      mesh=None, shardings=None) -> Callable:
     """Inference prefill: full no-grad forward, last-token logits.
 
     The returned ``prefill_step(params, batch)`` takes ``batch["inputs"]``
@@ -259,35 +279,66 @@ def make_prefill_step(cfg: ModelConfig, device="cuda",
     ``device``. On a CUDA
     device (unless ``graphs=False``) each (B, S) is captured once and
     replayed; the logits returned are the graph's output, which the next
-    call of the same shape overwrites."""
+    call of the same shape overwrites.
+
+    With a ``mesh`` (every family) the step takes the global batch and runs
+    this rank's rows over the axes of :func:`_dp_axes`; ``params`` hold this
+    rank's slices as ``shardings`` (the params' placements) lay them out:
+    the ZeRO-3 leaves are gathered over the fsdp axis before the forward,
+    the 'model' slices stay (tensor parallelism, as in training), and the
+    logits of this rank's rows come back whole over the vocab."""
     dev = resolve_device(device)
 
     @torch.no_grad()
     def prefill_step(params, batch):
         _require_on(params, dev)
-        if cfg.is_encdec:
-            enc = encdec.encode(
-                params, torch.as_tensor(batch["frames"], device=dev), cfg)
-            h = encdec.decode_train(
-                params, enc, torch.as_tensor(batch["inputs"], device=dev), cfg)
-            return (h[:, -1] @ params["embed"].T).float()
-        if "embeds" in batch:
-            x = torch.as_tensor(batch["embeds"], device=dev).to(
-                transformer._dtype(cfg))
-        else:
-            x = transformer.embed_tokens(
-                params, torch.as_tensor(batch["inputs"], device=dev), cfg)
-        positions = torch.arange(x.shape[1], device=dev)
-        h, _ = transformer.forward(params, x, cfg, positions)
-        return transformer.logits_fn(params, h[:, -1:], cfg)[:, 0]
+        n_rows = len(next(iter(batch.values())))
+        axes = () if mesh is None else _dp_axes(cfg, mesh, n_rows)
+        lo, hi = _rows(mesh, axes, n_rows)
+        b = {k: torch.as_tensor(v, device=dev)[lo:hi] for k, v in batch.items()}
+        params = _zero3_whole(params, shardings, mesh)
+        with part.use_mesh(mesh, axes):
+            if cfg.is_encdec:
+                enc = encdec.encode(params, b["frames"], cfg)
+                h = encdec.decode_train(params, enc, b["inputs"], cfg)
+                return transformer.whole_vocab(
+                    (h[:, -1] @ params["embed"].T).float(), cfg)
+            if "embeds" in b:
+                x = b["embeds"].to(transformer._dtype(cfg))
+            else:
+                x = transformer.embed_tokens(params, b["inputs"], cfg)
+            positions = torch.arange(x.shape[1], device=dev)
+            h, _ = transformer.forward(params, x, cfg, positions)
+            return transformer.whole_vocab(
+                transformer.logits_fn(params, h[:, -1:], cfg)[:, 0], cfg)
 
     if dev.type != "cuda" or not graphs:
         return prefill_step
     return GraphedStep(prefill_step, 1, dev, name="prefill")
 
 
-def make_decode_step(cfg: ModelConfig, device="cuda",
-                     graphs: bool = True) -> Callable:
+def cache_length_axes(cache, cache_shardings, mesh) -> tuple:
+    """The mesh axes that ``cache_shardings`` (the placements of ``cache``,
+    ``shardings.cache_shardings``) put on the length of the KV caches
+    ('k' leaves), in mesh order: () where the length is whole."""
+    found = set()
+
+    def one(path, leaf):
+        if path[-1] != "k":
+            return
+        pl = cache_shardings
+        for key in path:
+            pl = pl[key]
+        length_dim = leaf.dim() - 2
+        found.update(axis for axis, dim, _ in SH.sharded_axes(pl, mesh)
+                     if dim == length_dim)
+    SH.map_with_path(one, cache)
+    return tuple(a for a in mesh_shape(mesh) if a in found)
+
+
+def make_decode_step(cfg: ModelConfig, device="cuda", graphs: bool = True,
+                     mesh=None, shardings=None,
+                     cache_shardings=None) -> Callable:
     """``serve_step(params, cache, tokens, pos) -> (next (B,) int32, logits,
     cache)``; the cache is updated in place. ``pos`` is the absolute
     position, a Python int or a 0-d integer tensor on the device.
@@ -297,15 +348,39 @@ def make_decode_step(cfg: ModelConfig, device="cuda",
     the graph's buffers before each replay (the reference's jitted step
     takes them as traced arguments), the cache is written in place (the
     reference donates it), and ``next`` and ``logits`` are the graph's
-    outputs, overwritten by the next step."""
+    outputs, overwritten by the next step.
+
+    With a ``mesh`` the step takes the global ``tokens`` and runs this
+    rank's rows over the batch axes of the rules' ``batch_pspec`` (those of
+    the caches' rows); ``params`` hold this rank's slices as ``shardings``
+    lay them out (ZeRO-3 leaves gathered over the fsdp axis first), and
+    ``cache`` this rank's slice as ``cache_shardings`` lay it out: the KV
+    heads over 'model', or the length over 'model', or with batch 1 over
+    every axis (``layers.attn_decode`` runs each). It returns this rank's
+    rows: the greedy tokens and the logits whole over the vocab. The
+    attention and MoE decoders run under a 'model' axis above 1; MLA,
+    Mamba, mLSTM / sLSTM and whisper's decoder raise NotImplementedError
+    there (``tensor_parallel.refuse_decode``)."""
     dev = resolve_device(device)
     api = model_api(cfg)
 
     @torch.no_grad()
     def serve_step(params, cache, tokens, pos):
         _require_on(params, dev)
-        logits, cache = api.decode_step(
-            params, cache, torch.as_tensor(tokens, device=dev), pos, cfg)
+        tokens = torch.as_tensor(tokens, device=dev)
+        if mesh is None:
+            logits, cache = api.decode_step(params, cache, tokens, pos, cfg)
+            return torch.argmax(logits, dim=-1).to(torch.int32), logits, cache
+        entry = SH.batch_pspec(mesh, len(tokens), 0)[0]
+        axes = () if entry is None else (entry,) if isinstance(entry, str) \
+            else tuple(entry)
+        lo, hi = _rows(mesh, axes, len(tokens))
+        length_axes = () if cache_shardings is None else \
+            cache_length_axes(cache, cache_shardings, mesh)
+        params = _zero3_whole(params, shardings, mesh)
+        with part.use_mesh(mesh, axes, cache_axes=length_axes):
+            logits, cache = api.decode_step(params, cache, tokens[lo:hi], pos,
+                                            cfg)
         return torch.argmax(logits, dim=-1).to(torch.int32), logits, cache
 
     if dev.type != "cuda" or not graphs:

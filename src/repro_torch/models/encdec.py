@@ -218,7 +218,10 @@ def decode_step(params, cache, tokens, pos, cfg: ModelConfig):
     params' device (a Python int is turned into one here), never read on
     the host: ``dec_pos`` is read at it by ``index_select``, so one CUDA
     graph of the step serves every position. Returns (logits (B, V) f32,
-    cache); the self caches are updated in place."""
+    cache); the self caches are updated in place. Under a 'model' axis
+    above 1 it raises NotImplementedError
+    (``tensor_parallel.refuse_decode``)."""
+    tp.refuse_decode(cfg, "whisper's decoder")
     x = params["embed"][tokens]
     pos = torch.as_tensor(pos, device=x.device)
     x = x + params["dec_pos"].index_select(0, pos.long().view(1))

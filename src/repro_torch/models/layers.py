@@ -155,6 +155,22 @@ def every_head(ws, split):
                  else tp.copy_to_model(w) for w, sp in zip(ws, split))
 
 
+def _columns_whole(parts, split):
+    """``parts`` (B, w) products, each this rank's columns over 'model'
+    where ``split`` flags it, else whole -> each whole: the split ones'
+    columns gathered in one all-gather of their concatenation (no
+    gradient: serving)."""
+    cut = [p for p, sp in zip(parts, split) if sp]
+    if not cut:
+        return parts
+    widths = [p.shape[-1] for p in cut]
+    b, m = cut[0].shape[0], tp.model_size()
+    every = tp.gather_from_model(torch.cat(cut, dim=-1), -1).reshape(
+        b, m, sum(widths)).split(widths, dim=-1)
+    whole = iter(w.reshape(b, -1) for w in every)
+    return [next(whole) if sp else p for p, sp in zip(parts, split)]
+
+
 def _attn_out(out, wo, split, cols):
     """Attention's output (B, H, S, D), this rank's heads or every head,
     through wo: whole, or this rank's rows of wo (on its columns ``cols``
@@ -218,25 +234,83 @@ def attn_decode(p, x, cache, pos: torch.Tensor, cfg: ModelConfig,
     The new token's K/V are written into ``cache`` in place at slot ``pos``
     (``pos % C`` with a window) by ``index_copy_`` (the reference returns an
     updated copy); the returned cache is the same dict.
-    """
+
+    Under a mesh the cache holds this rank's slice in one of the layouts of
+    ``launch.shardings.cache_pspec`` (the batch rows are the step's):
+    (a) the KV heads over 'model' (fewer than ``cfg.n_kv_heads`` here):
+    each rank runs its heads and its rows of wo (sliced here where the
+    leaves are whole), and the ranks' outputs are summed, as in
+    :func:`attn_apply`; (b) the length over 'model' and (c) with batch 1
+    the length over every axis (``partitioning.cache_axes()``): every rank
+    runs every head, the columns of x @ wq / wk / wv that split leaves
+    give each rank gathered whole in one all-gather (one token a row: the
+    products are far smaller than the weights that :func:`every_head`
+    would gather), only the rank whose slice holds the slot writes the new
+    K/V (the
+    others write their old values back), each attends over its valid
+    slots, clamp(min(pos + 1, C) - r C / M, 0, C / M) of its C / M, with
+    its log-sum-exp, and the ranks combine
+    (``tensor_parallel.combine_partials``); then its rows of a split wo
+    on its columns of the output, summed over 'model'."""
     b, d = x.shape
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = (x @ p["wq"]).reshape(b, 1, h, hd)
-    k = (x @ p["wk"]).reshape(b, 1, hkv, hd)
-    v = (x @ p["wv"]).reshape(b, 1, hkv, hd)
+    wq, wk, wv, wo = p["wq"], p["wk"], p["wv"], p["wo"]
+    split, _ = attn_split(p, cfg)
+    cols, summed = None, any(split)
+    local_heads = cache["k"].shape[1]
+    own = local_heads != hkv
+    if own:                                     # (a) this rank's KV heads
+        g = h // hkv
+        lo, hi = tp.local_range(hkv)
+        q_cols, kv_cols = slice(lo * g * hd, hi * g * hd), slice(lo * hd, hi * hd)
+        wq = wq if split[0] else wq[:, q_cols]
+        wk = wk if split[1] else wk[:, kv_cols]
+        wv = wv if split[2] else wv[:, kv_cols]
+        wo = wo if split[3] else wo[q_cols]
+        h, hkv, summed = h // hkv * local_heads, local_heads, True
+    elif split[3]:
+        cols = slice(*tp.local_range(h * hd))
+    q, k, v = _columns_whole([x @ w for w in (wq, wk, wv)],
+                             (False,) * 3 if own else split[:3])
+    q = q.reshape(b, 1, h, hd)
+    k = k.reshape(b, 1, hkv, hd)
+    v = v.reshape(b, 1, hkv, hd)
     if use_rope:
         q = apply_rope(q, pos.view(1), cfg.rope_theta)
         k = apply_rope(k, pos.view(1), cfg.rope_theta)
     c = cache["k"].shape[2]
-    slot = (pos % c if cfg.window else pos).long().view(1)
-    cache["k"].index_copy_(2, slot, k.transpose(1, 2).to(cache["k"].dtype))
-    cache["v"].index_copy_(2, slot, v.transpose(1, 2).to(cache["v"].dtype))
-    length = torch.clamp(pos + 1, max=c).to(torch.int32).view(1).expand(b)
+    axes = part.cache_axes()
+    r, n = part.cache_index()
+    whole = c * n
+    slot = (pos % whole if cfg.window else pos).long().view(1)
+    k, v = k.transpose(1, 2).to(cache["k"].dtype), v.transpose(1, 2).to(cache["v"].dtype)
+    if axes:
+        # this rank's slot, and its own old values where another owns it
+        local = slot - r * c
+        owned = (local >= 0) & (local < c)
+        slot = torch.clamp(local, 0, c - 1)
+        k = torch.where(owned, k, cache["k"].index_select(2, slot))
+        v = torch.where(owned, v, cache["v"].index_select(2, slot))
+    cache["k"].index_copy_(2, slot, k)
+    cache["v"].index_copy_(2, slot, v)
     # With a window ring buffer every slot < length is valid (all within the
     # last `window` positions), so no masking beyond `length` is needed.
-    out = ops.decode_attention(q.reshape(b, h, hd), cache["k"], cache["v"],
-                               length=length.contiguous())
-    return out.reshape(b, h * hd) @ p["wo"], cache
+    length = torch.clamp(pos + 1, max=whole)
+    if axes:
+        length = torch.clamp(length - r * c, 0, c)
+    length = length.to(torch.int32).view(1).expand(b).contiguous()
+    qd = q.reshape(b, h, hd)
+    if axes:
+        out, lse = ops.decode_attention(qd, cache["k"], cache["v"],
+                                        length=length, return_lse=True)
+        out = tp.combine_partials(out, lse, axes)
+    else:
+        out = ops.decode_attention(qd, cache["k"], cache["v"], length=length)
+    out = out.reshape(b, h * hd)
+    if cols is not None:
+        out = out[..., cols]
+    out = out @ wo
+    return (tp.reduce_from_model(out) if summed else out), cache
 
 
 # --------------------------------------------------------------------------
@@ -379,12 +453,15 @@ def mla_decode(p, x, cache, pos: torch.Tensor, cfg: ModelConfig,
     k_rope are written into ``cache`` in place at slot ``pos`` by
     ``index_copy_``; keys at slots <= pos are attended (a mask built on the
     device). Returns (out (B, D), cache), the same cache dict.
+    Under a 'model' axis above 1 it raises NotImplementedError
+    (``tensor_parallel.refuse_decode``).
 
     ``absorbed=True`` maps the queries into the latent space (q_nope W_uk)
     and attends over c_kv directly; ``absorbed=False`` decompresses the
     whole cache every step. Both are plain PyTorch einsums with the
     reference's dtypes (float32 over the cache), as the reference's are
     XLA einsums, not Pallas kernels."""
+    tp.refuse_decode(cfg, "MLA")
     b, _ = x.shape
     h, dn, dv = cfg.n_heads, cfg.qk_nope_head_dim, cfg.v_head_dim
     q_nope, q_rope, c_kv_new, k_rope_new = _mla_qkv(p, x[:, None, :], cfg,

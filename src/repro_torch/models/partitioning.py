@@ -13,6 +13,11 @@ never raises on a spec it cannot apply.
 mean over the batch: the mean of a per-rank mean over the ranks that hold
 the batch's rows (the registered batch axes).
 
+A decode step whose KV caches hold a slice of their length on each rank
+(``launch.steps.make_decode_step`` under a mesh) registers
+``cache_axes``, the axes that split it; attention's decode then attends
+over its slice and the ranks combine (``layers.attn_decode``).
+
 A caller that gives each rank a contiguous shard of the tokens registers
 ``seq_axis="model"`` (the reference's ``input_pspec`` puts tokens on
 'model'): the train step does, for a ``seq_shard`` config whose tokens it
@@ -33,24 +38,27 @@ import torch.distributed as dist
 
 from repro_torch.layout import coordinate, mesh_shape, named
 
-_STATE = {"mesh": None, "batch_axes": ("data",), "seq_axis": None}
+_STATE = {"mesh": None, "batch_axes": ("data",), "seq_axis": None,
+          "cache_axes": ()}
 
 
 def set_mesh(mesh, batch_axes: Tuple[str, ...] = ("data",),
-             seq_axis: Optional[str] = None):
+             seq_axis: Optional[str] = None, cache_axes: Tuple[str, ...] = ()):
     if seq_axis not in (None, "model"):
         raise ValueError(f"seq_axis {seq_axis!r}: the tokens split over "
                          "'model' only")
     _STATE["mesh"] = mesh
     _STATE["batch_axes"] = tuple(batch_axes)
     _STATE["seq_axis"] = seq_axis
+    _STATE["cache_axes"] = tuple(cache_axes)
 
 
 @contextlib.contextmanager
 def use_mesh(mesh, batch_axes: Tuple[str, ...] = ("data",),
-             seq_axis: Optional[str] = None):
-    prev = (_STATE["mesh"], _STATE["batch_axes"], _STATE["seq_axis"])
-    set_mesh(mesh, batch_axes, seq_axis)
+             seq_axis: Optional[str] = None, cache_axes: Tuple[str, ...] = ()):
+    prev = (_STATE["mesh"], _STATE["batch_axes"], _STATE["seq_axis"],
+            _STATE["cache_axes"])
+    set_mesh(mesh, batch_axes, seq_axis, cache_axes)
     try:
         yield
     finally:
@@ -64,6 +72,25 @@ def current_mesh():
 
 def batch_axes() -> Tuple[str, ...]:
     return _STATE["batch_axes"]
+
+
+def cache_axes() -> Tuple[str, ...]:
+    """The axes of size above 1 that the registered decode step's KV
+    caches split their length over, in mesh order (the rules' layouts
+    (b) and (c): ``launch.shardings.cache_pspec``); () with none."""
+    mesh = _STATE["mesh"]
+    if mesh is None:
+        return ()
+    shape = mesh_shape(mesh)
+    return tuple(a for a in _STATE["cache_axes"] if shape.get(a, 1) > 1)
+
+
+def cache_index() -> Tuple[int, int]:
+    """(index, count) of this rank over :func:`cache_axes`: its slice of a
+    cache of C slots holds slots [index * C / count, (index + 1) * C /
+    count)."""
+    axes = cache_axes()
+    return coordinate(_STATE["mesh"], axes) if axes else (0, 1)
 
 
 def seq_axis() -> Optional[str]:

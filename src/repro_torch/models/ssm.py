@@ -143,6 +143,7 @@ def mamba_make_cache(cfg: ModelConfig, batch: int, dtype, device="cpu"):
 
 def mamba_decode(p, x, cache, cfg: ModelConfig):
     """x: (B, D). Returns (out (B, D), cache), the cache updated in place."""
+    tp.refuse_decode(cfg, "Mamba")
     xz = x @ p["in_proj"]
     xin, z = xz.chunk(2, dim=-1)
     xc, conv_state = _conv_step(xin, p["conv"], cache["conv"])
@@ -302,6 +303,7 @@ def mlstm_make_cache(cfg: ModelConfig, batch: int, dtype, device="cpu"):
 
 def mlstm_decode(p, x, cache, cfg: ModelConfig):
     """x: (B, D). Returns (out (B, D), cache), the cache updated in place."""
+    tp.refuse_decode(cfg, "mLSTM")
     b, d = x.shape
     hh = cfg.n_heads
     di = cfg.d_inner
@@ -413,6 +415,7 @@ def slstm_make_cache(cfg: ModelConfig, batch: int, dtype, device="cpu"):
 
 def slstm_decode(p, x, cache, cfg: ModelConfig):
     """x: (B, D). Returns (out (B, D), cache), the cache updated in place."""
+    tp.refuse_decode(cfg, "sLSTM")
     wx = x @ p["w"]
     h, (h2, c, n, m) = _slstm_cell(
         p, wx, (cache["h"], cache["c"], cache["n"], cache["m"]), cfg)

@@ -170,6 +170,50 @@ def max_over_model(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def combine_partials(out: torch.Tensor, lse: torch.Tensor,
+                     axes: Tuple[str, ...]) -> torch.Tensor:
+    """Attention over a cache split over the mesh ``axes``: each rank's
+    ``out`` (B, H, D) and log-sum-exp ``lse`` (B, H) float32 over its slice
+    (-inf where it holds no valid slot) -> the output over the whole cache,
+    the same on every rank. One all-gather an axis brings every rank's
+    (out, L) of the axis, which are weighted by exp(L - max L) and summed,
+    as the decode kernel's blocks combine within a cluster; the combined
+    (out, L) goes on to the next axis. No gradient (serving); a gather over
+    'model' is counted in :data:`counts`."""
+    mesh = part.current_mesh()
+    shape = mesh_shape(mesh)
+    axes = [a for a in axes if shape.get(a, 1) > 1]
+    if not axes:
+        return out
+    both = torch.cat([out.float(), lse[..., None]], dim=-1)
+    for a in axes:
+        every = collectives.gather_dim(both.unsqueeze(0), 0, mesh.get_group(a),
+                                       shape[a])
+        if a == AXIS:
+            _count("all_gather", every)
+        outs, lses = every[..., :-1], every[..., -1]
+        top = lses.amax(dim=0)
+        w = torch.exp(lses - torch.where(torch.isfinite(top), top, 0.0))
+        den = w.sum(dim=0)
+        num = (outs * w[..., None]).sum(dim=0)
+        merged = torch.where(den[..., None] > 0,
+                             num / torch.clamp(den[..., None], min=1e-30), 0.0)
+        both = torch.cat([merged, (top + torch.log(den))[..., None]], dim=-1)
+    return both[..., :-1].to(out.dtype)
+
+
+def refuse_decode(cfg, what: str) -> None:
+    """NotImplementedError where a 'model' axis above 1 is registered: the
+    decode of ``what`` does not run split over 'model' (ROADMAP item 6g2);
+    it never runs on whole weights in its place."""
+    m = model_size()
+    if m > 1:
+        raise NotImplementedError(
+            f"{cfg.name}: {what} decode under a 'model' axis of {m} is not "
+            "ported (ROADMAP item 6g2: decode under a mesh for MLA, Mamba, "
+            "mLSTM / sLSTM and whisper)")
+
+
 def collectives_per_step(cfg, m: int, seq: int) -> dict:
     """The collectives over 'model' of one train step of ``cfg`` at a
     'model' axis of ``m`` (:data:`counts`: all-reduces,

@@ -180,7 +180,7 @@ def block_decode(bp, x, cache, spec, cfg: ModelConfig, pos: torch.Tensor):
             y, _ = M.moe_apply(bp["ffn"], h2[:, None, :], cfg)
             y = y[:, 0]
         else:
-            y = L.mlp_apply(bp["ffn"], h2)
+            y = L.mlp_apply(bp["ffn"], h2, width=cfg.d_ff)
         x = x + y
     return x, cache
 
@@ -426,8 +426,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 def decode_step(params, cache, tokens, pos, cfg: ModelConfig):
     """tokens: (B,) int; pos: absolute position, a 0-d integer tensor on the
     params' device (a Python int is turned into one here). Returns (logits
-    (B, V) f32, cache); the cache is updated in place."""
-    x = params["embed"][tokens]
+    (B, V) f32, cache); the cache is updated in place. Under tensor
+    parallelism the lookup is vocab-parallel (:func:`embed_tokens`) and the
+    logits of this rank's vocab slice are gathered whole over 'model'; the
+    mixers read their layouts from their leaves and caches
+    (``layers.attn_decode``; the others refuse a 'model' axis above 1)."""
+    x = embed_tokens(params, tokens, cfg)
     pos = torch.as_tensor(pos, device=x.device)
     for bp, bc in zip(params.get("prefix", []), cache.get("prefix", [])):
         x, _ = block_decode(bp, x, bc, _prefix_spec(cfg), cfg, pos)
@@ -437,4 +441,12 @@ def decode_step(params, cache, tokens, pos, cfg: ModelConfig):
             x, _ = block_decode(_layer(params["stack"][key], j), x,
                                 _layer(cache["stack"][key], j), spec, cfg, pos)
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    return logits_fn(params, x, cfg), cache
+    return whole_vocab(logits_fn(params, x, cfg), cfg), cache
+
+
+def whole_vocab(logits: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """``logits`` (..., V) of this rank's vocab slice over 'model' gathered
+    whole (in rank order); whole logits as they are."""
+    if logits.shape[-1] == cfg.vocab:
+        return logits
+    return tp.gather_from_model(logits, -1)

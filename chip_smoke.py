@@ -333,13 +333,28 @@ time,
      16), teacher-forced by one process's greedy tokens: logits against
      its eager run over ROW_SCALED_LIMIT, held to SERVE_BF16_FLOOR times
      the distance of one process's float32 run from it, token agreement,
-     ms a step, peak memory and decode calls a rank; phase 2 holds decode
-     attention with its log-sum-exp L at every decode shape and at a
-     rank's half of smollm's 32 slots (L to 1e-4), timed with and
-     without L;
+     ms a step, peak memory and decode calls a rank; the other mixers at
+     (1, 2): float32 DeepSeek SMOKE (MLA's latent cache, its length over
+     'model'), Jamba SMOKE (Mamba's states, d_inner over 'model'), xLSTM
+     SMOKE (mLSTM's conv and C, sLSTM's h and c) and whisper SMOKE (its
+     self caches in attention's layouts, the cross K/V of encoded frames)
+     as the float32 runs above; bf16 DeepSeek-V3 cut to its 3 MLA prefix
+     layers, Jamba cut to attention + 1 Mamba layer, xlstm-125m and
+     whisper-small whole (on encoded stub frames) as the bf16 runs above,
+     each also with its cache bytes a rank beside one process's; every
+     run's collectives of a step (``tensor_parallel.counts``) against
+     ``tensor_parallel.collectives_per_decode_step`` and every bf16 run's
+     decode-attention calls against its attention layers (none for MLA and
+     xLSTM); phase 2 holds decode attention with its log-sum-exp L at every
+     decode shape and at a rank's half of smollm's 32 slots (L to 1e-4),
+     timed with and without L, and at a rank's 6 of whisper-small's 12
+     cross heads read in place from the whole cache;
   40. the dry-run (started with phase 39, CPU only): ``python -m
-     repro_torch.launch.dryrun --arch smollm_360m`` with ``--shape
-     decode_32k`` and ``train_4k`` each print ``-> ok``; the dry-run of
+     repro_torch.launch.dryrun`` with ``--arch smollm_360m --shape
+     decode_32k`` and ``train_4k``, ``--arch xlstm_125m --shape train_4k``
+     (its sLSTM loop cut and extrapolated) and ``--arch deepseek_v3_671b
+     --shape decode_32k`` (MLA split over 'model') each print ``-> ok``;
+     the dry-run of
      phase 13's cell (smollm-360M train, 8 x 512, mesh (1, 1)) holds
      phase 13's param and optimizer bytes exactly, its peak printed
      beside phase 13's ``max_memory_allocated`` with the ratio.
@@ -360,7 +375,8 @@ the bf16 launches of phase 35's four ranks, and of phase 36's (b) for
 those with the window; the ranks' shapes of phases 37 and 38 the
 launches of their (b)'s two ranks; decode attention with L at a rank's
 half of smollm's cache the launches of phase 39's bf16 smollm run on both
-ranks) and,
+ranks, and at a rank's heads of whisper's cross K/V those of its bf16
+whisper-small run) and,
 last,
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
 with no CUDA device, or outside a checkout, it exits non-zero at once. Each
@@ -823,7 +839,8 @@ TRAIN_STEPS = 8
 # rank and takes the rest, against one process's straight run (here, while
 # the ranks start); (c) decode at (1, 2): float32 SERVE_F32_STEPS teacher-
 # forced steps of each SERVE_F32_RUNS (the length layout, the heads
-# layout) against one process on the rank, and bf16 SERVE_BF16_RUNS serving
+# layout, and the other mixers' layouts) against one process on the rank,
+# and bf16 SERVE_BF16_RUNS serving
 # 8 x (SERVE_PROMPT + SERVE_NEW), teacher-forced by one process's greedy
 # tokens (its eager run on the rank)
 COMPRESS_SLICE = 1 << 20
@@ -834,7 +851,13 @@ ELASTIC_STEPS, ELASTIC_SEQ, ELASTIC_LR = 4, 128, 3e-4
 # within lr / 4 (phase 32's rule)
 ELASTIC_TOL = 1e-5
 SERVE_F32_RUNS = (("smollm_f32", "smollm_360m", False, dict(n_layers=2, dtype="float32")),
-                  ("danube_smoke", "h2o_danube_1_8b", True, {}))
+                  ("danube_smoke", "h2o_danube_1_8b", True, {}),
+                  # MLA's latent cache, Mamba's states, mLSTM / sLSTM's,
+                  # whisper's self and cross caches (its encoded frames)
+                  ("deepseek_smoke", "deepseek_v3_671b", True, {}),
+                  ("jamba_smoke", "jamba_1_5_large_398b", True, {}),
+                  ("xlstm_smoke", "xlstm_125m", True, {}),
+                  ("whisper_smoke", "whisper_small", True, {}))
 SERVE_F32_STEPS = 8
 SERVE_F32_TOL = 1e-5
 SERVE_BF16_RUNS = (("smollm_bf16", "smollm_360m", {}),
@@ -861,11 +884,23 @@ SERVE_MESH_ROWS = {
         "src/repro/kernels/decode_attention.py:61", DECODE_RANK_CASE + " with L", "bfloat16",
         "smollm-360M serving at (1, 2), the cache's length over 'model', both ranks "
         "(phase 39)")}
+# a rank's heads of whisper-small's cross K/V at (1, 2): 6 of its 12 heads,
+# read in place from the whole cache of every head (the rules split the
+# cross K/V by rows only), every slot valid
+WHISPER_CROSS_RANK_CASE = "8x6/6 of 12x1500x64 every slot"
+SERVE_MESH_ROWS["decode_attention_cross_rank"] = (
+    "decode_attention", "src/repro_torch/csrc/decode_attention.cu",
+    "src/repro/kernels/decode_attention.py:61", WHISPER_CROSS_RANK_CASE, "bfloat16",
+    "whisper-small serving at (1, 2): each rank its 6 heads of self and cross "
+    "attention, both ranks (phase 39)")
 # seconds phase 39's two ranks may take before they are killed
-SERVE_MESH_DEADLINE_S = 150
+SERVE_MESH_DEADLINE_S = 240
 # phase 40: the dry-run's CLI cells (subprocesses, CPU only), and the
-# dry-run of phase 13's own cell, each within this many seconds
-DRYRUN_CELLS = (("smollm_360m", "decode_32k"), ("smollm_360m", "train_4k"))
+# dry-run of phase 13's own cell, each within this many seconds; xLSTM's
+# train cell cuts its sLSTM loop (ROADMAP's fault F4), DeepSeek's decode
+# cell runs MLA's decode split over 'model'
+DRYRUN_CELLS = (("smollm_360m", "decode_32k"), ("smollm_360m", "train_4k"),
+                ("xlstm_125m", "train_4k"), ("deepseek_v3_671b", "decode_32k"))
 DRYRUN_TIMEOUT_S = 80
 
 # Jamba at its published widths, cut to what the port runs: one period of 8
@@ -928,6 +963,14 @@ TPF_RUNS = (("xlstm_f32", "xlstm_125m", True, {}, TPM_F32_STEPS, GLOO_SEQ, 0),
              3072, 0))
 # seconds phase 38's two ranks may take before they are killed
 TPF_DEADLINE_S = 240
+# phase 39 (c)'s bf16 runs of MLA, Mamba, mLSTM / sLSTM and whisper's
+# decoder split over 'model', at their published widths: DeepSeek-V3's 3 MLA
+# prefix layers (dense SwiGLU), Jamba's attention + 1 Mamba layer (dense
+# SwiGLU), xlstm-125m whole, whisper-small whole on encoded stub frames
+SERVE_BF16_RUNS += (("deepseek_bf16", "deepseek_v3_671b", dict(n_layers=3, mtp=False)),
+                    ("jamba_bf16", "jamba_1_5_large_398b", JAMBA_WITNESS_CUT),
+                    ("xlstm_bf16", "xlstm_125m", {}),
+                    ("whisper_bf16", "whisper_small", {}))
 # seconds after which the script dumps every thread's stack to standard error
 # and exits non-zero (a run must end within 1,200 s; a whole run takes ~700-830)
 WATCHDOG_S = 1100
@@ -1300,6 +1343,20 @@ def phase_kernels(rms, fla, dec, scan):
                 library=library, n_bytes=n_bytes, ops=4 * hq * hd * valid))
             if dtype == torch.bfloat16:
                 rows[-1].update(split_sweep(dec, q, k, v, length))
+        # a rank's 6 heads of whisper-small's cross K/V of 12 at (1, 2): read
+        # in place (a batch stride of 12 heads), every slot valid
+        q = randn((8, 6, 64), dtype)
+        whole_k, whole_v = randn((8, 12, 1500, 64), dtype), randn((8, 12, 1500, 64), dtype)
+        k, v = whole_k[:, 6:], whole_v[:, 6:]
+        rows.append(compare(
+            "decode_attention", WHISPER_CROSS_RANK_CASE, dn,
+            dec.decode_attention_cuda(q, k, v), dec.decode_attention_plain(q, k, v), "attn",
+            run=lambda q=q, k=k, v=v: dec.decode_attention_cuda(q, k, v),
+            plain=lambda q=q, k=k, v=v: dec.decode_attention_plain(q, k, v),
+            library=lambda q=q, k=k, v=v:
+                F.scaled_dot_product_attention(q[:, :, None], k, v),
+            n_bytes=(2 * k.numel() + 2 * q.numel()) * q.element_size(),
+            ops=4 * q.numel() * 1500, scaled=True))
         # the selective scan at Jamba's prefill shape: u, B, C in the model
         # dtype, dt float32 (softplus promotes), A and D float32; A both as
         # Mamba initialises it, -(1..N) on every channel, and drawn per (d, n)
@@ -4169,14 +4226,28 @@ def decode_run(cfg, params, feed, steps: int, max_len: int, mesh=None) -> dict:
     """``steps`` decode steps of ``cfg`` on the card, eagerly, the tokens of
     step t ``feed(t, logits of step t - 1)`` (8 rows): one process, or under
     ``mesh`` this rank's slices of the params and caches (the rules'
-    placements). Returns the logits, the greedy tokens, the ms of each step
-    (host clock, synchronised) and the cache's 'k' shape a layer."""
+    placements). An encoder-decoder's cross K/V are those of stub frames
+    drawn from SEED (encoded by one process). Returns the logits, the
+    greedy tokens, the ms of each step (host clock, synchronised), the
+    shape of the cache's first leaf, the bytes of the cache this process
+    holds, and the collectives of the second step
+    (``tensor_parallel.counts``)."""
     from repro_torch.launch import shardings as SH
     from repro_torch.launch.steps import make_decode_step
-    from repro_torch.models import model_api
+    from repro_torch.models import encdec, model_api
+    from repro_torch.models import tensor_parallel as tp
+    from repro_torch.models.module import tree_leaves
 
-    api = model_api(cfg)
-    cache = api.init_cache(cfg, 8, max_len, device="cuda")
+    if cfg.is_encdec:
+        frames = torch.randn((8, cfg.encoder_seq, cfg.d_model), device="cuda",
+                             generator=torch.Generator(device="cuda").manual_seed(SEED + 9))
+        with torch.no_grad():
+            enc = encdec.encode(params, frames, cfg)
+        cache = encdec.init_cache(cfg, 8, max_len, enc_states=enc, params=params,
+                                  device="cuda")
+        del enc
+    else:
+        cache = model_api(cfg).init_cache(cfg, 8, max_len, device="cuda")
     shardings = csh = None
     if mesh is not None:
         shardings = SH.param_shardings(cfg, params, mesh, False)
@@ -4185,18 +4256,35 @@ def decode_run(cfg, params, feed, steps: int, max_len: int, mesh=None) -> dict:
         cache = SH.shard_tree(cache, csh, mesh)
     step = make_decode_step(cfg, device="cuda", graphs=False, mesh=mesh,
                             shardings=shardings, cache_shardings=csh)
-    logits, tokens, ms, prev = [], [], [], None
+    logits, tokens, ms, prev, counted = [], [], [], None, {}
     for t in range(steps):
         tok = feed(t, prev)
+        tp.counts.clear()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         nxt, prev, cache = step(params, cache, tok, t)
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
+        if t == 1:
+            counted = {k: v for k, v in tp.counts.items() if not k.endswith("_bytes")}
         logits.append(prev.clone())
         tokens.append(nxt.clone())
+    leaves = tree_leaves(cache)
     return {"logits": logits, "tokens": torch.stack(tokens, 1), "ms": ms,
-            "cache_k": tuple(cache["stack"]["pos0"]["k"].shape)}
+            "cache_k": tuple(leaves[0].shape),
+            "state_bytes": sum(t.numel() * t.element_size() for t in leaves),
+            "counts": counted}
+
+
+def decode_calls(cfg) -> int:
+    """Decode-attention calls a step of ``cfg``: one an attention layer
+    (self and cross for an encoder-decoder), none for MLA or a recurrent
+    mixer."""
+    if cfg.is_encdec:
+        return 2 * cfg.n_layers
+    mixers = [cfg.period[0][0]] * cfg.first_k_dense + \
+        [mixer for mixer, _ in cfg.period] * cfg.n_periods
+    return mixers.count("attn")
 
 
 def row_scaled_ratio(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -4216,6 +4304,7 @@ def serve_runs(rank: int, world: int, kern) -> dict:
     from repro_torch.configs import get
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import model_api
+    from repro_torch.models import tensor_parallel as tp
     from repro_torch.models.module import tree_map
 
     mesh = make_mesh((1, world), ("data", "model"))
@@ -4233,7 +4322,9 @@ def serve_runs(rank: int, world: int, kern) -> dict:
             "max_abs_err": max(float((a - b).abs().max())
                                for a, b in zip(got["logits"], one["logits"])),
             "tokens_equal": bool(torch.equal(got["tokens"], one["tokens"])),
-            "cache_k": got["cache_k"], "heads": cfg.n_kv_heads}
+            "cache_k": got["cache_k"], "heads": cfg.n_kv_heads,
+            "counts": got["counts"],
+            "design": tp.collectives_per_decode_step(cfg, {"data": 1, "model": world}, 8)}
         del params, one, got
     for label, arch, over in SERVE_BF16_RUNS:
         torch.cuda.empty_cache()
@@ -4263,6 +4354,10 @@ def serve_runs(rank: int, world: int, kern) -> dict:
         del p32
         floor = [row_scaled_ratio(b, a) for a, b in zip(f32["logits"], one["logits"])]
         out[label] = {
+            "counts": got["counts"],
+            "design": tp.collectives_per_decode_step(cfg, {"data": 1, "model": world}, 8),
+            "state_bytes": got["state_bytes"], "one_state_bytes": one["state_bytes"],
+            "decode_calls_design": decode_calls(cfg) * n,
             "err_over_limit": max(by_step), "err_by_step": by_step,
             "bf16_vs_f32_over_limit": max(floor), "bf16_vs_f32_by_step": floor,
             "f32_token_agreement": float((f32["tokens"] == one["tokens"]).float().mean()),
@@ -4421,6 +4516,11 @@ def phase_serve_mesh(kern, totals, zero, report, frontend_totals, out_dir, took,
             r = sv[label]
             if not (r["max_abs_err"] <= SERVE_F32_TOL and r["tokens_equal"]):
                 problems.append(f"decode at (1, 2) {label} rank {i}: {r}")
+        for label, *_ in SERVE_F32_RUNS + SERVE_BF16_RUNS:
+            r = sv[label]
+            if r["counts"] != r["design"]:
+                problems.append(f"decode at (1, 2) {label} rank {i}: a step's collectives "
+                                f"{r['counts']}, the design's {r['design']}")
         for label, *_ in SERVE_BF16_RUNS:
             r = sv[label]
             floor = max(1.0, r["bf16_vs_f32_over_limit"])
@@ -4428,11 +4528,14 @@ def phase_serve_mesh(kern, totals, zero, report, frontend_totals, out_dir, took,
                 problems.append(f"decode at (1, 2) {label} rank {i}: logits "
                                 f"{r['err_over_limit']} of {ROW_SCALED_LIMIT}, float32's "
                                 f"{r['bf16_vs_f32_over_limit']} (x{SERVE_BF16_FLOOR:g})")
-            if r["launches"]["decode_attention"] == 0:
-                problems.append(f"decode at (1, 2) {label} rank {i} launched no decode "
-                                "attention")
+            if r["launches"]["decode_attention"] != r["decode_calls_design"]:
+                problems.append(f"decode at (1, 2) {label} rank {i} launched decode "
+                                f"attention {r['launches']['decode_attention']} times, "
+                                f"its layers {r['decode_calls_design']}")
     frontend_totals["decode_attention_lse_rank"] = sum(
         sv["smollm_bf16"]["launches"]["decode_attention"] for sv in serve)
+    frontend_totals["decode_attention_cross_rank"] = sum(
+        sv["whisper_bf16"]["launches"]["decode_attention"] for sv in serve)
     print("[39 serve mesh] two ranks on the one card over gloo, eager: (a) int8 cross-pod "
           "all-reduce of smollm-360M's bf16 gradients at (2, 1, 1), "
           f"{comp[0]['elements']:,} elements: " + " / ".join(
@@ -4449,7 +4552,8 @@ def phase_serve_mesh(kern, totals, zero, report, frontend_totals, out_dir, took,
           "(1, 2): float32 " + ", ".join(
               f"{label} cache k {serve[0][label]['cache_k']} of {serve[0][label]['heads']} KV "
               f"heads, max abs err " + " / ".join(f"{sv[label]['max_abs_err']:.2e}" for sv in serve)
-              for label, *_ in SERVE_F32_RUNS) + f" (tol {SERVE_F32_TOL:g}), tokens equal; bf16 "
+              for label, *_ in SERVE_F32_RUNS) + f" (tol {SERVE_F32_TOL:g}), tokens equal, "
+          "a step's collectives the design's; bf16 "
           + "; ".join(
               f"{label} cache k {serve[0][label]['cache_k']}: logits at "
               + " / ".join(f"{sv[label]['err_over_limit']:.3f}" for sv in serve)
@@ -4458,7 +4562,10 @@ def phase_serve_mesh(kern, totals, zero, report, frontend_totals, out_dir, took,
               + ", median step " + " / ".join(f"{sv[label]['median_step_ms']:.2f}" for sv in serve)
               + f" ms a rank (one process {serve[0][label]['one_median_step_ms']:.2f}), peak "
               + " / ".join(f"{sv[label]['max_memory_allocated'] / 2**30:.2f}" for sv in serve)
-              + " GiB a rank, decode calls " + " / ".join(
+              + " GiB a rank, state " + " / ".join(
+                  f"{sv[label]['state_bytes'] / 2**20:.2f}" for sv in serve)
+              + f" MiB a rank (one process {serve[0][label]['one_state_bytes'] / 2**20:.2f}), "
+              f"collectives a step {serve[0][label]['counts']}, decode calls " + " / ".join(
                   str(sv[label]["launches"]["decode_attention"]) for sv in serve)
               + "; logits against one process's float32 run at "
               + " / ".join(f"{sv[label]['bf16_vs_f32_over_limit']:.3f}" for sv in serve)

@@ -120,7 +120,7 @@ __global__ void __launch_bounds__(kThreads)
 decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const int* __restrict__ length,
                         T* __restrict__ o, float* __restrict__ lse, int Hq, int Hkv,
-                        int S, int G,
+                        int HkvMem, int S, int G,
                         int chunk, int window, float scale_log2) {
   using Sh = Shape<T, D>;
   constexpr int VEC = Sh::VEC, NV = Sh::NV, GS = Sh::GS, GPW = Sh::GPW;
@@ -169,7 +169,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < VEC; ++j) acc[g][j] = 0.f;
     }
-    const size_t kv_off = ((size_t)b * Hkv + kvh) * S * NV;
+    const size_t kv_off = ((size_t)b * HkvMem + kvh) * S * NV;
     const uint4* kb = reinterpret_cast<const uint4*>(k) + kv_off + gl;
     const uint4* vb = reinterpret_cast<const uint4*>(v) + kv_off + gl;
     for (int base = k_begin + worker; base - worker < k_end; base += WORKERS * kSteps) {
@@ -302,8 +302,9 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const int* length,
-                   void* o, float* lse, int B, int Hq, int Hkv, int S, int n_split, int chunk,
-                   int window, float scale_log2, cudaStream_t stream) {
+                   void* o, float* lse, int B, int Hq, int Hkv, int HkvMem, int S,
+                   int n_split, int chunk, int window, float scale_log2,
+                   cudaStream_t stream) {
   const int G = Hq / Hkv;
   const int n_tiles = (G + kRows - 1) / kRows;
   cudaLaunchConfig_t cfg = {};
@@ -321,27 +322,27 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* lengt
   const cudaError_t err = cudaLaunchKernelEx(
       &cfg, decode_attention_kernel<T, D>, static_cast<const T*>(q),
       static_cast<const T*>(k), static_cast<const T*>(v), length, static_cast<T*>(o),
-      lse, Hq, Hkv, S, G, chunk, window, scale_log2);
+      lse, Hq, Hkv, HkvMem, S, G, chunk, window, scale_log2);
   const cudaError_t last = cudaGetLastError();
   return err != cudaSuccess ? err : last;
 }
 
 template <typename T>
 cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v,
-                       const int* length, void* o, float* lse, int B, int Hq, int Hkv, int S,
-                       int n_split, int chunk, int window, float scale_log2,
-                       cudaStream_t st) {
+                       const int* length, void* o, float* lse, int B, int Hq, int Hkv,
+                       int HkvMem, int S, int n_split, int chunk, int window,
+                       float scale_log2, cudaStream_t st) {
   switch (D) {
-    case 16: return launch<T, 16>(q, k, v, length, o, lse, B, Hq, Hkv, S, n_split, chunk, window, scale_log2, st);
+    case 16: return launch<T, 16>(q, k, v, length, o, lse, B, Hq, Hkv, HkvMem, S, n_split, chunk, window, scale_log2, st);
     case 20:  // a row of 20 bf16 is 40 bytes, no whole number of 16-byte loads
       if constexpr (Shape<T, 16>::VEC == 4)
-        return launch<T, 20>(q, k, v, length, o, lse, B, Hq, Hkv, S, n_split, chunk, window, scale_log2, st);
+        return launch<T, 20>(q, k, v, length, o, lse, B, Hq, Hkv, HkvMem, S, n_split, chunk, window, scale_log2, st);
       else
         return cudaErrorInvalidValue;
-    case 32: return launch<T, 32>(q, k, v, length, o, lse, B, Hq, Hkv, S, n_split, chunk, window, scale_log2, st);
-    case 64: return launch<T, 64>(q, k, v, length, o, lse, B, Hq, Hkv, S, n_split, chunk, window, scale_log2, st);
-    case 80: return launch<T, 80>(q, k, v, length, o, lse, B, Hq, Hkv, S, n_split, chunk, window, scale_log2, st);
-    case 128: return launch<T, 128>(q, k, v, length, o, lse, B, Hq, Hkv, S, n_split, chunk, window, scale_log2, st);
+    case 32: return launch<T, 32>(q, k, v, length, o, lse, B, Hq, Hkv, HkvMem, S, n_split, chunk, window, scale_log2, st);
+    case 64: return launch<T, 64>(q, k, v, length, o, lse, B, Hq, Hkv, HkvMem, S, n_split, chunk, window, scale_log2, st);
+    case 80: return launch<T, 80>(q, k, v, length, o, lse, B, Hq, Hkv, HkvMem, S, n_split, chunk, window, scale_log2, st);
+    case 128: return launch<T, 128>(q, k, v, length, o, lse, B, Hq, Hkv, HkvMem, S, n_split, chunk, window, scale_log2, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -353,14 +354,18 @@ cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v,
 // each row's natural log-sum-exp of its scaled logits over the valid keys
 // (-inf for a row with no valid key, whose output is 0), written by the
 // block that writes the row's first output element; ranks that each hold
-// part of a cache combine their partial outputs by it. window < 0 means no sliding window. The
+// part of a cache combine their partial outputs by it. k and v hold kv_heads (>= Hkv)
+// heads of S x D a batch row, of which the kernel reads the first Hkv: a slice of a
+// cache's heads (a rank's) needs no copy. window < 0 means no sliding window. The
 // cache is cut into n_split (1..8) chunks of `chunk` keys covering S. q, k,
 // v and o must be 16-byte aligned. Returns a cudaError_t code.
 extern "C" int decode_attention_fwd(const void* q, const void* k, const void* v,
                                     const void* length, void* o, void* lse, int B, int Hq,
-                                    int Hkv, int S, int D, int n_split, int chunk,
-                                    int window, float scale, int dtype, void* stream) {
-  if (B <= 0 || Hkv <= 0 || Hq % Hkv != 0 || S <= 0) return cudaErrorInvalidValue;
+                                    int Hkv, int kv_heads, int S, int D, int n_split,
+                                    int chunk, int window, float scale, int dtype,
+                                    void* stream) {
+  if (B <= 0 || Hkv <= 0 || Hq % Hkv != 0 || S <= 0 || kv_heads < Hkv)
+    return cudaErrorInvalidValue;
   if (n_split < 1 || n_split > kMaxSplits || chunk < 1 ||
       (long long)n_split * chunk < S || (long long)(n_split - 1) * chunk >= S)
     return cudaErrorInvalidValue;
@@ -372,10 +377,10 @@ extern "C" int decode_attention_fwd(const void* q, const void* k, const void* v,
   const float scale_log2 = scale * 1.4426950408889634f;
   float* l = static_cast<float*>(lse);
   if (dtype == repro::kFloat32)
-    return dispatch_d<float>(D, q, k, v, len, o, l, B, Hq, Hkv, S, n_split, chunk, window,
-                             scale_log2, st);
+    return dispatch_d<float>(D, q, k, v, len, o, l, B, Hq, Hkv, kv_heads, S, n_split, chunk,
+                             window, scale_log2, st);
   if (dtype == repro::kBFloat16)
-    return dispatch_d<__nv_bfloat16>(D, q, k, v, len, o, l, B, Hq, Hkv, S, n_split, chunk,
-                                     window, scale_log2, st);
+    return dispatch_d<__nv_bfloat16>(D, q, k, v, len, o, l, B, Hq, Hkv, kv_heads, S,
+                                     n_split, chunk, window, scale_log2, st);
   return cudaErrorInvalidValue;
 }

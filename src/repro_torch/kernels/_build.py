@@ -49,10 +49,10 @@ SIGNATURES = {
     # out (6 ints): the head-dim-192 backward kernels' threads, shared
     # memory bytes and registers, dQ then dK/dV
     "flash_attention_bwd_d192_plan": [_P],
-    # q, k, v, length, o, lse (or null), B, Hq, Hkv, S, D, n_split, chunk,
-    # window, scale, dtype, stream
+    # q, k, v, length, o, lse (or null), B, Hq, Hkv, the heads a batch row
+    # of k / v holds, S, D, n_split, chunk, window, scale, dtype, stream
     "decode_attention_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                             _I, _I, _F, _I, _P],
+                             _I, _I, _I, _F, _I, _P],
     # u, dt, A, B, C, D, h0, y, hT, hs (null when serving), Bt, T, d_in, n,
     # B batch/time strides, C batch/time strides, u dtype, stream
     "mamba_scan_fwd": [_P] * 10 + [_I] * 4 + [_L] * 4 + [_I, _P],

@@ -60,7 +60,10 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           scale: Optional[float] = None,
                           return_lse: bool = False):
     """Launch the kernel. q: (B, Hq, D); k/v: (B, Hkv, S, D), contiguous
-    and 16-byte aligned, bf16 or f32; length: (B,) int32 on the same device
+    (or a slice of the heads of a contiguous (B, H, S, D), as a rank's
+    heads of a cache: every row of Hkv heads at a batch stride of H S D
+    elements) and 16-byte aligned, bf16 or f32; length: (B,) int32 on the
+    same device
     (None: all S valid; the kernel then reads no length) -> (B, Hq, D) in
     q's dtype; with ``return_lse`` (o, L), L (B, Hq) float32, -inf for a
     row with no valid slot (its output 0), written by the same launch."""
@@ -85,9 +88,12 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     require_head_dim("decode_attention", d, q.dtype)
     if window is not None and window < 1:
         raise ValueError(f"decode_attention: window {window} < 1")
-    if not all(t.is_contiguous() for t in (q, k, v, *given)):
-        raise ValueError("decode_attention: q, k, v and length must be "
-                         "contiguous")
+    kv_heads = heads_in_memory(k)
+    if not all(t.is_contiguous() for t in (q, *given)) or \
+            kv_heads is None or heads_in_memory(v) != kv_heads:
+        raise ValueError("decode_attention: q and length must be contiguous, "
+                         "k and v contiguous or slices of one batch stride "
+                         "of a contiguous cache's heads")
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("decode_attention: q, k and v must be 16-byte "
                          "aligned (the kernel reads rows in 16-byte vectors)")
@@ -103,7 +109,7 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if length is None else length.data_ptr(),
         o.data_ptr(), None if lse is None else lse.data_ptr(),
-        b, hq, hkv, s, d, n_split, chunk,
+        b, hq, hkv, kv_heads, s, d, n_split, chunk,
         -1 if window is None else int(window), float(scale),
         DTYPE_CODES[q.dtype], _build.stream_handle(q)),
         "decode_attention_fwd")
@@ -112,6 +118,19 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 decode_attention_cuda.launches = 0
+
+
+def heads_in_memory(t: torch.Tensor) -> Optional[int]:
+    """H, where ``t`` (B, Hkv, S, D) is Hkv consecutive heads of each row of
+    a contiguous (B, H, S, D), H >= Hkv (Hkv itself where ``t`` is
+    contiguous); None for any other layout."""
+    b, hkv, s, d = t.shape
+    if t.is_contiguous():
+        return hkv
+    if t[0].is_contiguous() and t.stride(0) % (s * d) == 0 and \
+            t.stride(0) >= hkv * s * d:
+        return t.stride(0) // (s * d)
+    return None
 
 
 @torch.library.custom_op("repro_torch::decode_attention", mutates_args=(),

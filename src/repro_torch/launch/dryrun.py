@@ -36,9 +36,26 @@ The record (:class:`CellResult`, the reference's fields and JSON):
 There is no scan-body correction and no sLSTM correction: the reference
 lowers the period body again because XLA's cost analysis counts a
 ``while`` body once, and adds the sLSTM time scan's flops by formula for
-the same reason. The port's layer loop and sLSTM time loop are Python, so
-every iteration is counted as it runs: ``body_repeats`` records
-``n_periods`` and ``extra_flops`` stays 0.
+the same reason. The port's layer loop is Python, so every layer is
+counted as it runs: ``body_repeats`` records ``n_periods`` and
+``extra_flops`` stays 0. The sLSTM time loop is Python too, and a step on
+fake tensors passes through four dispatch modes, so a train or prefill
+cell of a config with sLSTM layers would take an hour at 4k-32k tokens.
+There the cell is measured twice, with the loop cut to
+``CUT_STEPS`` = (2, 3) steps (:class:`CutLoop`, read by
+``ssm.slstm_apply`` for fake tensors only), and each count is
+extrapolated to the
+whole sequence: every step of the loop, forward and backward, costs the
+same, so flops, bytes, each collective's count and bytes, and every
+operator's flops are affine in the steps run (the skipped steps' places
+in the output are filled outside the count). The peak is not (it is a
+maximum): the first run measures how much live memory each loop's step
+adds (its saved tensors and its output), and the second holds an
+uncounted stand-in of that much for each skipped step, for as long as the
+loop's own steps hold theirs (to the end of the loop without grad; to the
+loop's backward with it); its peak is the cell's.
+``tests/test_torch_dryrun.py`` holds all of them equal to the whole
+loop's at 32 and 64 tokens.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch smollm-360m --shape train_4k
@@ -69,11 +86,14 @@ from repro_torch.launch.specs import (SHAPES, cell_plan, decode_input_specs,
 from repro_torch.launch.steps import (make_decode_step, make_prefill_step,
                                       make_train_step)
 from repro_torch.layout import sharded_axes
-from repro_torch.models import model_api
+from repro_torch.models import model_api, ssm
 from repro_torch.models import tensor_parallel as tp
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.module import tree_leaves, tree_map
 from repro_torch.optim.optimizers import pick_optimizer
+
+# the two lengths of the cut sLSTM loop whose counts are extrapolated
+CUT_STEPS = (2, 3)
 
 COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
                "collective-permute")
@@ -109,10 +129,15 @@ class OpCounter(TorchDispatchMode):
         self.coll: Dict[str, float] = {k: 0.0 for k in COLLECTIVES}
         self.coll["count"] = 0
 
+    # set while the dry-run makes what it leaves out of the count
+    paused = False
+
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
-        if func.namespace == "c10d":
+        if OpCounter.paused or func.namespace == "prim":
+            pass                    # a tensor's metadata read: no access
+        elif func.namespace == "c10d":
             name = func._schema.name.split("::")[1]
             if name in _C10D:
                 kind, at = _C10D[name]
@@ -195,13 +220,16 @@ def _start_fake_group(world: int) -> None:
 def run_cell(arch: str, shape_name: str, multi_pod: bool = False,
              fsdp_threshold: float = 8e9, *, mesh_dims=None, seq=None,
              batch=None, cfg: Optional[ModelConfig] = None,
-             detail: Optional[dict] = None) -> CellResult:
+             detail: Optional[dict] = None,
+             cut_loop: bool = True) -> CellResult:
     """The dry-run of one cell. ``mesh_dims`` ((data, model) or (pod,
     data, model)), ``seq``, ``batch`` and ``cfg`` replace the production
     mesh, the shape's sequence and batch and the arch's config (a smaller
     cell of the same kind). ``detail``, a dict, takes the flops by
     operator ('flops_by_op') and the collectives over 'model' that the
-    layers counted ('tp_counts', ``tensor_parallel.counts``)."""
+    layers counted ('tp_counts', ``tensor_parallel.counts``).
+    ``cut_loop=False`` runs every step of the sLSTM loop (the measurement
+    that the cut loop's extrapolation stands in for)."""
     shape = tuple(mesh_dims or ((2, 16, 16) if multi_pod else (16, 16)))
     mesh_name = "x".join(map(str, shape))
     cfg = cfg or get(arch)
@@ -216,16 +244,134 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False,
                      n_params=float(n_params), n_active=float(n_active),
                      body_repeats=cfg.n_periods)
     axes = ("pod", "data", "model") if len(shape) == 3 else ("data", "model")
+    detail = {} if detail is None else detail
+    fsdp = cfg.force_fsdp or n_params > fsdp_threshold
+    cut = cut_loop and kind != "decode" and seq > CUT_STEPS[1] and \
+        any(mixer == "slstm" for mixer, _ in cfg.period)
     _start_fake_group(math.prod(shape))
     try:
         mesh = make_mesh(shape, axes, device_type="cpu")
-        _run(res, cfg, mesh, kind, seq, batch,
-             cfg.force_fsdp or n_params > fsdp_threshold,
-             {} if detail is None else detail)
+        if not cut:
+            _run(res, cfg, mesh, kind, seq, batch, fsdp, detail)
+        else:
+            runs, grows = [], []
+            for steps in CUT_STEPS:
+                one, more = dataclasses.replace(res), {}
+                with CutLoop(steps, grows, measure=not runs):
+                    _run(one, cfg, mesh, kind, seq, batch, fsdp, more)
+                runs.append((one, more))
+            _extrapolate(res, detail, runs, seq)
     finally:
         dist.destroy_process_group()
     res.wall_s = time.time() - t0
     return res
+
+
+class _Hold(torch.autograd.Function):
+    """The identity on ``x`` that saves ``pad`` for its backward, which runs
+    once every use of ``x`` has its gradient. ``pad`` is an empty view of
+    the stand-in's storage: remat's recompute checks that it saves tensors
+    of the shapes the forward saved, and :class:`OpCounter` counts a
+    tensor's bytes wherever an operation reads its metadata."""
+
+    @staticmethod
+    def forward(ctx, x, pad):
+        ctx.save_for_backward(pad)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class CutLoop:
+    """The sLSTM time loop of fake tensors cut to ``steps`` steps
+    (``ssm.CUT_LOOP`` while it is entered). With ``measure``, each loop
+    appends to ``grows`` the live bytes that one of its steps adds (after
+    the first: that one also holds the state's first values); otherwise
+    each loop takes the next of ``grows``, in the same order of calls, and
+    holds a stand-in of that many bytes for each step it skips, through
+    ``wx``: the stand-in lives as long as the loop's inputs are needed
+    (its output stacked, and, with grad, until the loop's backward is
+    done), as the skipped steps' tensors would. The stand-in is made
+    outside :class:`OpCounter`'s count."""
+
+    def __init__(self, steps: int, grows: list, measure: bool):
+        self.steps, self.grows, self.measure = steps, grows, measure
+        self.calls = 0
+
+    def __enter__(self):
+        self.prev, ssm.CUT_LOOP = ssm.CUT_LOOP, self
+        return self
+
+    def __exit__(self, *exc):
+        ssm.CUT_LOOP = self.prev
+
+    def begin(self, wx, s: int):
+        n = min(s, self.steps)
+        if self.measure:
+            self.live = []
+            nbytes = 0
+        else:
+            nbytes = self.grows[self.calls] * (s - n)
+        self.calls += 1
+        OpCounter.paused = True
+        try:
+            self.pad = torch.empty((nbytes,), dtype=torch.uint8)[:0]
+            wx = _Hold.apply(wx, self.pad)
+        finally:
+            OpCounter.paused = False
+        return n, wx
+
+    def after_step(self):
+        if self.measure:
+            self.live.append(sum(
+                m["Total"] for m in
+                self.tracker.get_tracker_snapshot("current").values()))
+
+    def stack(self, hs, s: int):
+        """The loop's (B, ``s``, D) output from the outputs ``hs`` of the
+        steps it ran: their stack (counted: it is the whole loop's stack
+        at ``s`` steps), then the last one's values, detached, in the
+        skipped steps' places (uncounted, no gradient)."""
+        h = torch.stack(hs, dim=1)
+        if len(hs) == s:
+            return h
+        OpCounter.paused = True
+        try:
+            tail = hs[-1].detach()[:, None].expand(-1, s - len(hs), -1)
+            return torch.cat([h, tail], dim=1)
+        finally:
+            OpCounter.paused = False
+
+    def end(self):
+        if self.measure:
+            self.grows.append(self.live[1] - self.live[0])
+        self.pad = None
+
+
+def _extrapolate(res: CellResult, detail: dict, runs, seq: int) -> None:
+    """``res`` and ``detail`` at ``seq`` steps of the sLSTM loop from the
+    runs at ``CUT_STEPS`` steps, one step apart: each count at n + 1 steps
+    is the one at n plus one step's."""
+    (a, da), (b, db) = runs
+    more = seq - CUT_STEPS[1]
+
+    def line(x, y):
+        return y + (y - x) * more
+
+    def lines(x, y):
+        return {k: line(x.get(k, 0), y.get(k, 0)) for k in {**x, **y}}
+
+    for f in ("flops", "bytes_accessed"):
+        setattr(res, f, float(line(getattr(a, f), getattr(b, f))))
+    res.coll = lines(a.coll, b.coll)
+    # the second run holds the skipped steps' stand-ins
+    for f in ("peak_bytes_per_device", "param_bytes_per_device",
+              "opt_bytes_per_device", "cache_bytes_per_device", "optimizer"):
+        setattr(res, f, getattr(b, f))
+    detail["flops_by_op"] = lines(da["flops_by_op"], db["flops_by_op"])
+    detail["tp_counts"] = lines(da["tp_counts"], db["tp_counts"])
 
 
 def _run(res: CellResult, cfg: ModelConfig, mesh, kind: str, seq: int,
@@ -268,6 +414,8 @@ def _run(res: CellResult, cfg: ModelConfig, mesh, kind: str, seq: int,
     flops = FlopCounterMode(display=False)
     tracker = MemTracker()
     tracker.track_external(*held)
+    if ssm.CUT_LOOP is not None:
+        ssm.CUT_LOOP.tracker = tracker
     tp.counts.clear()
     with mode, tracker, flops, counter:
         if kind == "train":

@@ -320,11 +320,14 @@ def make_prefill_step(cfg: ModelConfig, device="cuda", graphs: bool = True,
 def cache_length_axes(cache, cache_shardings, mesh) -> tuple:
     """The mesh axes that ``cache_shardings`` (the placements of ``cache``,
     ``shardings.cache_shardings``) put on the length of the KV caches
-    ('k' leaves), in mesh order: () where the length is whole."""
+    ('k' leaves, (B, Hkv, C, hd)) and of MLA's compressed caches ('c_kv',
+    (B, S, r)), in mesh order: () where the length is whole. (The
+    recurrent states split a channel dim; their mixers read its axes from
+    the leaves' shapes, ``tensor_parallel.split_axes``.)"""
     found = set()
 
     def one(path, leaf):
-        if path[-1] != "k":
+        if path[-1] not in ("k", "c_kv"):
             return
         pl = cache_shardings
         for key in path:
@@ -356,11 +359,16 @@ def make_decode_step(cfg: ModelConfig, device="cuda", graphs: bool = True,
     lay them out (ZeRO-3 leaves gathered over the fsdp axis first), and
     ``cache`` this rank's slice as ``cache_shardings`` lay it out: the KV
     heads over 'model', or the length over 'model', or with batch 1 over
-    every axis (``layers.attn_decode`` runs each). It returns this rank's
-    rows: the greedy tokens and the logits whole over the vocab. The
-    attention and MoE decoders run under a 'model' axis above 1; MLA,
-    Mamba, mLSTM / sLSTM and whisper's decoder raise NotImplementedError
-    there (``tensor_parallel.refuse_decode``)."""
+    every axis (``layers.attn_decode`` runs each); MLA's latent cache its
+    length over 'model', or with batch 1 over ('data', 'model')
+    (``layers.mla_decode``); the Mamba, mLSTM and sLSTM states a channel
+    dim over 'model', or with batch 1 over every axis (``models.ssm``);
+    whisper's cross K/V its rows (``layers.cross_attn_decode``). It
+    returns this rank's rows: the greedy tokens and the logits whole over
+    the vocab. A step moves a token's activations between the ranks,
+    never a cache leaf or a whole weight (at batch 1 a recurrent state's
+    chunk takes its rows of the per-channel weights from the rank that
+    holds them: ``tensor_parallel.rows_for``)."""
     dev = resolve_device(device)
     api = model_api(cfg)
 

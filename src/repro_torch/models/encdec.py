@@ -37,12 +37,12 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
-from repro_torch.kernels import ops
 from . import layers as L
 from . import tensor_parallel as tp
 from .config import ModelConfig
 from .module import embed_init, normal_init, stack_init, tree_map
-from .transformer import _chunked_ce, _dtype, _layer, _unstack, embed_tokens
+from .transformer import (_chunked_ce, _dtype, _layer, _unstack, embed_tokens,
+                          whole_vocab)
 
 Params = Dict[str, Any]
 
@@ -218,14 +218,17 @@ def decode_step(params, cache, tokens, pos, cfg: ModelConfig):
     params' device (a Python int is turned into one here), never read on
     the host: ``dec_pos`` is read at it by ``index_select``, so one CUDA
     graph of the step serves every position. Returns (logits (B, V) f32,
-    cache); the self caches are updated in place. Under a 'model' axis
-    above 1 it raises NotImplementedError
-    (``tensor_parallel.refuse_decode``)."""
-    tp.refuse_decode(cfg, "whisper's decoder")
-    x = params["embed"][tokens]
+    cache); the self caches are updated in place.
+
+    Under tensor parallelism the lookup is vocab-parallel
+    (``transformer.embed_tokens``) and the logits of this rank's vocab
+    slice are gathered whole over 'model'; the self attention takes
+    ``layers.attn_decode``'s layouts of its cache, the cross attention
+    runs ``layers.cross_attn_decode`` on the fixed cross K/V (split by
+    batch only), and the MLP its hidden slice."""
+    x = embed_tokens(params, tokens, cfg)
     pos = torch.as_tensor(pos, device=x.device)
     x = x + params["dec_pos"].index_select(0, pos.long().view(1))
-    b = x.shape[0]
     ck, cv = cache["cross"]
     for j in range(cfg.n_layers):
         bp = _layer(params["decoder"], j)
@@ -234,10 +237,8 @@ def decode_step(params, cache, tokens, pos, cfg: ModelConfig):
                               cfg, use_rope=False)
         x = x + mx
         h = L.rmsnorm(x, bp["ln_x"], cfg.norm_eps)
-        q = (h @ bp["cross"]["wq"]).reshape(b, cfg.n_heads, cfg.hd)
-        ca = ops.decode_attention(q, ck[j], cv[j])
-        x = x + ca.reshape(b, -1) @ bp["cross"]["wo"]
+        x = x + L.cross_attn_decode(bp["cross"], h, (ck[j], cv[j]), cfg)
         h = L.rmsnorm(x, bp["ln2"], cfg.norm_eps)
-        x = x + L.mlp_apply(bp["mlp"], h)
+        x = x + L.mlp_apply(bp["mlp"], h, width=cfg.d_ff)
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    return (x @ params["embed"].T).float(), cache
+    return whole_vocab((x @ params["embed"].T).float(), cfg), cache

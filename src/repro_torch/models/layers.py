@@ -214,6 +214,38 @@ def cross_attn_apply(p, x, kv_cache, cfg: ModelConfig) -> torch.Tensor:
     return _attn_out(out, p["wo"], split, cols)
 
 
+def cross_attn_decode(p, x, kv, cfg: ModelConfig) -> torch.Tensor:
+    """One token's cross attention against the encoder's K/V: x (B, D) ->
+    (B, D); ``kv`` = (k, v), each (B, Hkv, S_enc, hd), every slot valid,
+    through the decode-attention kernel.
+
+    Tensor parallelism is read from the leaves (:func:`attn_split`), as in
+    :func:`cross_attn_apply`. The rules split these K/V by batch only
+    (``launch.shardings.cache_pspec``), so every rank holds every head of
+    its rows. Where each rank runs its heads, q comes from its columns of
+    ``wq`` and attends over its heads of k / v (a slice the kernel reads
+    in place), and its output goes through its rows of ``wo``. Otherwise
+    every rank runs every head: the columns of x @ wq that a split wq gives
+    each rank are gathered whole (a token's), then each rank's columns of
+    the output go through its rows of ``wo``. The ranks' outputs are
+    summed."""
+    b, _ = x.shape
+    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    k, v = kv
+    split, own = attn_split(p, cfg)
+    q, cols = x @ p["wq"], None
+    if own:
+        h //= tp.model_size()
+        if k.shape[1] == hkv:
+            lo, hi = tp.local_range(hkv)
+            k, v = k[:, lo:hi], v[:, lo:hi]
+    elif any(split):
+        q, = _columns_whole([q], split[:1])
+        cols = slice(*tp.local_range(h * hd))
+    out = ops.decode_attention(q.reshape(b, h, hd), k, v)
+    return _attn_out(out[:, :, None], p["wo"], split, cols)[:, 0]
+
+
 def attn_make_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
                     device="cpu"):
     hkv, hd = cfg.n_kv_heads, cfg.hd
@@ -284,15 +316,8 @@ def attn_decode(p, x, cache, pos: torch.Tensor, cfg: ModelConfig,
     whole = c * n
     slot = (pos % whole if cfg.window else pos).long().view(1)
     k, v = k.transpose(1, 2).to(cache["k"].dtype), v.transpose(1, 2).to(cache["v"].dtype)
-    if axes:
-        # this rank's slot, and its own old values where another owns it
-        local = slot - r * c
-        owned = (local >= 0) & (local < c)
-        slot = torch.clamp(local, 0, c - 1)
-        k = torch.where(owned, k, cache["k"].index_select(2, slot))
-        v = torch.where(owned, v, cache["v"].index_select(2, slot))
-    cache["k"].index_copy_(2, slot, k)
-    cache["v"].index_copy_(2, slot, v)
+    _owned_write(cache["k"], 2, slot, k, axes, r)
+    _owned_write(cache["v"], 2, slot, v, axes, r)
     # With a window ring buffer every slot < length is valid (all within the
     # last `window` positions), so no masking beyond `length` is needed.
     length = torch.clamp(pos + 1, max=whole)
@@ -445,6 +470,20 @@ def _einsum(spec: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.einsum(spec, a.to(dt), b.to(dt))
 
 
+def _owned_write(cache, dim: int, slot, new, axes, r: int):
+    """``new`` written at ``slot`` of dim ``dim`` of ``cache`` in place
+    (``index_copy_``). Under a split of that dim over ``axes`` (rank ``r``
+    of them holding slots [r C, (r + 1) C)) only the rank that holds the
+    slot writes it; the others write their old values back."""
+    if axes:
+        c = cache.shape[dim]
+        local = slot - r * c
+        owned = (local >= 0) & (local < c)
+        slot = torch.clamp(local, 0, c - 1)
+        new = torch.where(owned, new, cache.index_select(dim, slot))
+    cache.index_copy_(dim, slot, new)
+
+
 def mla_decode(p, x, cache, pos: torch.Tensor, cfg: ModelConfig,
                absorbed: bool = True):
     """One-token MLA decode against the compressed cache. x: (B, D);
@@ -453,38 +492,90 @@ def mla_decode(p, x, cache, pos: torch.Tensor, cfg: ModelConfig,
     k_rope are written into ``cache`` in place at slot ``pos`` by
     ``index_copy_``; keys at slots <= pos are attended (a mask built on the
     device). Returns (out (B, D), cache), the same cache dict.
-    Under a 'model' axis above 1 it raises NotImplementedError
-    (``tensor_parallel.refuse_decode``).
 
     ``absorbed=True`` maps the queries into the latent space (q_nope W_uk)
     and attends over c_kv directly; ``absorbed=False`` decompresses the
     whole cache every step. Both are plain PyTorch einsums with the
     reference's dtypes (float32 over the cache), as the reference's are
-    XLA einsums, not Pallas kernels."""
-    tp.refuse_decode(cfg, "MLA")
+    XLA einsums, not Pallas kernels.
+
+    Under tensor parallelism (the leaves split as in :func:`mla_apply`:
+    each rank its heads) the cache holds this rank's slice of its length,
+    over 'model' or with batch 1 over ('data', 'model')
+    (``partitioning.cache_axes()``), and every rank attends over its own
+    slots for every head, as the heads share the latent. Each rank
+    computes q of its heads (its columns of ``wuq``) and q_lat = q_nope
+    W_uk (its columns of ``wukv``); q_lat and q_rope are gathered over
+    'model' (a token's, (B, H, r + dr)). The new token's latents are whole
+    on every rank (gathered before their norms); the slot's holder writes
+    them, the others write their old values back. Each rank's softmax
+    over its valid slots gives its o_lat (B, H, r) with its log-sum-exp,
+    and the ranks combine (``tensor_parallel.combine_partials``); its
+    heads of o_lat go through W_uv and its rows of ``wo``, summed over
+    'model'. ``absorbed=False`` would need every head's W_uk / W_uv on
+    every rank and raises NotImplementedError under a split; so does a
+    split that leaves the heads whole (as :func:`mla_apply` raises)."""
     b, _ = x.shape
-    h, dn, dv = cfg.n_heads, cfg.qk_nope_head_dim, cfg.v_head_dim
+    h, dn, dr, dv = (cfg.n_heads, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
+                     cfg.v_head_dim)
+    r_kv = cfg.kv_lora_rank
+    widths = {"wdq": cfg.q_lora_rank, "wdkv": r_kv, "wuq": h * (dn + dr),
+              "wukv": h * (dn + dv)}
+    split = {k: p[k].shape[1] != n for k, n in widths.items()}
+    split_wo = p["wo"].shape[0] != h * dv
+    if any(split.values()) and not (split_wo and split["wuq"] and
+                                    split["wukv"] and h % tp.model_size() == 0):
+        raise NotImplementedError(
+            f"{cfg.name}: MLA decode with {sorted(k for k in split if split[k])}"
+            f" split over 'model' (wo split {split_wo}) does not give each "
+            f"rank its heads of {h}")
+    axes = part.cache_axes()
+    if (split_wo or axes) and not absorbed:
+        raise NotImplementedError(
+            f"{cfg.name}: MLA decode with absorbed=False under a split over "
+            "'model' or of the cache's length: it decompresses the cache "
+            "with every head's W_uk / W_uv")
+    hl = p["wuq"].shape[1] // (dn + dr)                 # this rank's heads
     q_nope, q_rope, c_kv_new, k_rope_new = _mla_qkv(p, x[:, None, :], cfg,
                                                     pos.view(1))
     slot = pos.long().view(1)
-    cache["c_kv"].index_copy_(1, slot, c_kv_new.to(cache["c_kv"].dtype))
-    cache["k_rope"].index_copy_(1, slot,
-                                k_rope_new[:, :, 0].to(cache["k_rope"].dtype))
-    scale = (dn + cfg.qk_rope_head_dim) ** -0.5
+    rank, _ = part.cache_index()
+    _owned_write(cache["c_kv"], 1, slot, c_kv_new.to(cache["c_kv"].dtype),
+                 axes, rank)
+    _owned_write(cache["k_rope"], 1, slot,
+                 k_rope_new[:, :, 0].to(cache["k_rope"].dtype), axes, rank)
+    scale = (dn + dr) ** -0.5
     s_max = cache["c_kv"].shape[1]
-    valid = torch.arange(s_max, device=x.device) <= pos
+    valid = torch.arange(s_max, device=x.device) + rank * s_max <= pos
     c_kv = cache["c_kv"].float()
     k_rope = cache["k_rope"].float()
-    wukv = p["wukv"].reshape(cfg.kv_lora_rank, h, dn + dv)
+    wukv = p["wukv"].reshape(r_kv, hl, dn + dv)
     wk, wv = wukv[:, :, :dn], wukv[:, :, dn:]          # (r, h, dn), (r, h, dv)
     neg = torch.full((), -1e30, dtype=torch.float32, device=x.device)
     if absorbed:
         q_lat = _einsum("bhd,rhd->bhr", q_nope[:, 0], wk)
+        q_rope = q_rope[:, 0]
+        if split_wo:                          # every head's queries
+            both = tp.gather_from_model(
+                torch.cat([q_lat, q_rope.to(q_lat.dtype)], dim=-1), 1)
+            q_lat, q_rope = both.split([r_kv, dr], dim=-1)
         logits = _einsum("bhr,bsr->bhs", q_lat, c_kv)
-        logits = logits + _einsum("bhd,bsd->bhs", q_rope[:, 0], k_rope)
-        logits = torch.where(valid[None, None], logits * scale, neg)
-        w = torch.softmax(logits, dim=-1)
-        o_lat = _einsum("bhs,bsr->bhr", w, c_kv)
+        logits = logits + _einsum("bhd,bsd->bhs", q_rope, k_rope)
+        if axes:
+            logits = torch.where(valid[None, None], logits * scale,
+                                 float("-inf"))
+            lse = torch.logsumexp(logits, dim=-1)
+            w = torch.exp(logits - torch.where(torch.isfinite(lse), lse,
+                                               0.0)[..., None])
+            o_lat = tp.combine_partials(_einsum("bhs,bsr->bhr", w, c_kv),
+                                        lse, axes)
+        else:
+            logits = torch.where(valid[None, None], logits * scale, neg)
+            w = torch.softmax(logits, dim=-1)
+            o_lat = _einsum("bhs,bsr->bhr", w, c_kv)
+        if split_wo:                          # this rank's heads
+            lo = tp.model_index() * hl
+            o_lat = o_lat[:, lo:lo + hl]
         out = _einsum("bhr,rhd->bhd", o_lat, wv)
     else:
         kv = _einsum("bsr,rhd->bshd", c_kv, wukv)
@@ -494,8 +585,8 @@ def mla_decode(p, x, cache, pos: torch.Tensor, cfg: ModelConfig,
         logits = torch.where(valid[None, None], logits * scale, neg)
         w = torch.softmax(logits, dim=-1)
         out = _einsum("bhs,bshd->bhd", w, v)
-    out = out.to(x.dtype).reshape(b, h * dv)
-    return out @ p["wo"], cache
+    out = out.to(x.dtype).reshape(b, hl * dv) @ p["wo"]
+    return (tp.reduce_from_model(out) if split_wo else out), cache
 
 
 # --------------------------------------------------------------------------

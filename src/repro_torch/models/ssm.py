@@ -18,12 +18,21 @@ from typing import Dict
 
 import torch
 import torch.nn.functional as F
+from torch._subclasses.fake_tensor import is_fake
 
 from repro_torch.kernels import ops
 from . import tensor_parallel as tp
 from .config import ModelConfig
 from .layers import rmsnorm, rmsnorm_init
 from .module import dense_init, normal_init
+
+# The dry-run's cut of the sLSTM time loop (``launch.dryrun.CutLoop``), set
+# while it measures a cell at two short loops and extrapolates to the whole
+# sequence: ``begin(wx, s)`` -> (the steps to run, wx), ``after_step()``
+# after each, ``stack(hs, s)`` -> the (B, s, D) output of the steps run,
+# ``end()``. Only fake tensors read it: real tensors run every step
+# whatever it holds.
+CUT_LOOP = None
 
 
 def _update(cache: Dict, new: Dict) -> Dict:
@@ -141,20 +150,64 @@ def mamba_make_cache(cfg: ModelConfig, batch: int, dtype, device="cpu"):
                              device=device)}
 
 
+def _model_rows(n: int, split: bool) -> slice:
+    """The rows of ``n`` (d_inner or d_model) that this rank's leaves hold
+    over 'model' where the rules split them, else all."""
+    return slice(*tp.local_range(n)) if split else slice(0, n)
+
+
+def _to_weight_rows(t: torch.Tensor, axes, rows: slice) -> torch.Tensor:
+    """``t`` (B, chunk), this rank's chunk over ``axes`` of a state's
+    channels, as the channels ``rows`` that its weights' rows take: the
+    chunk itself where the two are one (the state over 'model', or whole
+    with whole weights), else gathered whole (a token's activations) and
+    cut."""
+    if rows.stop - rows.start == t.shape[-1]:
+        return t
+    return (tp.gather_over(t, -1, axes) if axes else t)[:, rows]
+
+
 def mamba_decode(p, x, cache, cfg: ModelConfig):
-    """x: (B, D). Returns (out (B, D), cache), the cache updated in place."""
-    tp.refuse_decode(cfg, "Mamba")
+    """x: (B, D). Returns (out (B, D), cache), the cache updated in place.
+
+    Under tensor parallelism (the leaves split as in :func:`mamba_apply`)
+    the cache holds this rank's chunk of d_inner, in a layout of
+    ``launch.shardings.cache_pspec``: the channels over 'model' (those of
+    its weights' rows), or with batch 1 over every axis
+    (``tp.split_axes``). Each rank steps its chunk's channels only: ``x @
+    in_proj`` gathered whole over 'model' (a token's [x | z]), the chunk's
+    conv and ``ops.mamba_step`` on its state, with its rows of ``conv``,
+    ``A_log`` and ``D`` (``tp.rows_for``: at batch 1 a chunk lies in
+    another rank's slice of them, and only its rows are sent); its partial
+    ``xc @ x_proj`` summed over 'model' gives (dt_r, B, C), dt comes from
+    its columns of ``dt_proj``, and its rows of ``out_proj`` take the gated
+    output, summed over 'model'. At batch 1 the chunk's xc, the slice's dt
+    and the chunk's gated output are gathered (a token's activations) to
+    meet the weights' rows. No state leaf and no whole weight moves."""
+    di, r, n = cfg.d_inner, cfg.dt_rank, cfg.ssm_state
+    split = p["in_proj"].shape[1] != 2 * di
+    axes = tp.split_axes(di, cache["conv"].shape[-1])
+    lo, hi = tp.chunk_range(di, axes)
+    rows = _model_rows(di, split)
     xz = x @ p["in_proj"]
-    xin, z = xz.chunk(2, dim=-1)
-    xc, conv_state = _conv_step(xin, p["conv"], cache["conv"])
+    if split:
+        xz = tp.gather_from_model(xz, -1)
+    xin, z = xz[:, lo:hi], xz[:, di + lo:di + hi]
+    conv, A_log, D = tp.rows_for([p["conv"], p["A_log"], p["D"]], di, axes)
+    xc, conv_state = _conv_step(xin, conv, cache["conv"])
     xc = F.silu(xc)
-    r, n = cfg.dt_rank, cfg.ssm_state
-    proj = xc @ p["x_proj"]
+    proj = _to_weight_rows(xc, axes, rows) @ p["x_proj"]
+    if split:
+        proj = tp.reduce_from_model(proj)
     dt_r, Bm, Cm = torch.split(proj, [r, n, n], dim=-1)
-    dt = F.softplus(dt_r @ p["dt_proj"] + p["dt_bias"])
-    A = -torch.exp(p["A_log"])
-    y, h = ops.mamba_step(xc, dt, A, Bm, Cm, p["D"], cache["h"])
-    out = (y * F.silu(z)) @ p["out_proj"]
+    dt = F.softplus(dt_r @ p["dt_proj"] + p["dt_bias"][rows])
+    if rows != slice(lo, hi):
+        dt = (tp.gather_from_model(dt, -1) if split else dt)[:, lo:hi]
+    A = -torch.exp(A_log)
+    y, h = ops.mamba_step(xc, dt, A, Bm, Cm, D, cache["h"])
+    out = _to_weight_rows(y * F.silu(z), axes, rows) @ p["out_proj"]
+    if split:
+        out = tp.reduce_from_model(out)
     return out, _update(cache, {"conv": conv_state, "h": h})
 
 
@@ -302,19 +355,40 @@ def mlstm_make_cache(cfg: ModelConfig, batch: int, dtype, device="cpu"):
 
 
 def mlstm_decode(p, x, cache, cfg: ModelConfig):
-    """x: (B, D). Returns (out (B, D), cache), the cache updated in place."""
-    tp.refuse_decode(cfg, "mLSTM")
+    """x: (B, D). Returns (out (B, D), cache), the cache updated in place.
+
+    Under tensor parallelism (the leaves split as in :func:`mlstm_apply`)
+    ``conv`` holds this rank's chunk of d_inner (over 'model', or with
+    batch 1 over every axis, stepped with its rows of the conv weight as
+    in :func:`mamba_decode`), ``C`` (B, H, dh, dh), whose last dim is the
+    keys' (C = sum of v k^T), its slice of that dim over 'model', and ``n``
+    / ``m`` are whole. Each rank's rows of ``wq`` / ``wk`` / ``wv`` give
+    partial q / k / v over the whole d_inner, summed in one all-reduce (xc
+    gathered first where its chunk is not those rows); the gates, ``n``
+    and ``m`` run whole on every rank; its key columns of ``C`` are
+    updated with its columns of k, and C q over them is summed over
+    'model' (a token's numerator, (B, d_inner)). The norm over the whole
+    d_inner follows on every rank, and its rows of ``out_proj`` take its
+    channels, summed over 'model'."""
     b, d = x.shape
     hh = cfg.n_heads
     di = cfg.d_inner
     dh = di // hh
+    split = p["in_proj"].shape[1] != 2 * di
+    axes = tp.split_axes(di, cache["conv"].shape[-1])
+    lo, hi = tp.chunk_range(di, axes)
+    rows = _model_rows(di, split)
     xz = x @ p["in_proj"]
-    xin, z = xz.chunk(2, dim=-1)
-    xc, conv_state = _conv_step(xin, p["conv"], cache["conv"])
-    xc = F.silu(xc)
-    q = (xc @ p["wq"]).reshape(b, hh, dh).float()
-    k = (xc @ p["wk"]).reshape(b, hh, dh).float()
-    v = (xin @ p["wv"]).reshape(b, hh, dh).float()
+    if split:
+        xz = tp.gather_from_model(xz, -1)
+    xin, z = xz.split(di, dim=-1)
+    conv, = tp.rows_for([p["conv"]], di, axes)
+    xc, conv_state = _conv_step(xin[:, lo:hi], conv, cache["conv"])
+    xc = F.silu(_to_weight_rows(xc, axes, rows))
+    qkv = (xc @ p["wq"], xc @ p["wk"], xin[:, rows] @ p["wv"])
+    if split:
+        qkv = tp.reduce_from_model(torch.cat(qkv, dim=-1)).split(di, dim=-1)
+    q, k, v = (t.reshape(b, hh, dh).float() for t in qkv)
     gates = x.float() @ p["w_gates"] + p["gate_bias"]
     logf = F.logsigmoid(gates[..., :hh])
     logi = gates[..., hh:]
@@ -322,15 +396,20 @@ def mlstm_decode(p, x, cache, cfg: ModelConfig):
     fc = torch.exp(logf + cache["m"] - m)
     ic = torch.exp(logi - m)
     scale = dh ** -0.5
+    keys = slice(*tp.chunk_range(dh, tp.split_axes(dh, cache["C"].shape[-1])))
     C = fc[..., None, None] * cache["C"] + ic[..., None, None] * \
-        torch.einsum("bhd,bhe->bhde", v, k)
+        torch.einsum("bhd,bhe->bhde", v, k[..., keys])
     n = fc[..., None] * cache["n"] + ic[..., None] * k
-    num = torch.einsum("bhde,bhe->bhd", C, q) * scale
+    num = torch.einsum("bhde,bhe->bhd", C, q[..., keys]) * scale
+    if keys.stop - keys.start != dh:
+        num = tp.reduce_from_model(num)
     den = torch.maximum(torch.abs(torch.einsum("bhd,bhd->bh", n, q) * scale),
                         torch.exp(-m))
     h = (num / den[..., None]).reshape(b, di)
     h = rmsnorm(h.to(x.dtype), p["norm"], cfg.norm_eps)
-    out = (h * F.silu(z)) @ p["out_proj"]
+    out = (h[:, rows] * F.silu(z[:, rows])) @ p["out_proj"]
+    if split:
+        out = tp.reduce_from_model(out)
     return out, _update(cache, {"conv": conv_state, "C": C, "n": n, "m": m})
 
 
@@ -397,10 +476,18 @@ def slstm_apply(p, x, cfg: ModelConfig) -> torch.Tensor:
     state = tuple(torch.zeros((b, d), dtype=torch.float32, device=x.device)
                   for _ in range(4))
     hs = []
-    for t in range(s):
+    cut = CUT_LOOP if CUT_LOOP is not None and is_fake(x) else None
+    n, wx = (s, wx) if cut is None else cut.begin(wx, s)
+    for t in range(n):
         h, state = _slstm_cell(p, wx[:, t], state, cfg)
         hs.append(h)
-    h = torch.stack(hs, dim=1).to(x.dtype)
+        if cut is not None:
+            cut.after_step()
+    if cut is None:
+        h = torch.stack(hs, dim=1).to(x.dtype)
+    else:
+        h = cut.stack(hs, s).to(x.dtype)
+        cut.end()
     if split:
         lo, hi = tp.local_range(d)
         return tp.reduce_from_model(h[..., lo:hi] @ p["out_proj"])
@@ -414,10 +501,31 @@ def slstm_make_cache(cfg: ModelConfig, batch: int, dtype, device="cpu"):
 
 
 def slstm_decode(p, x, cache, cfg: ModelConfig):
-    """x: (B, D). Returns (out (B, D), cache), the cache updated in place."""
-    tp.refuse_decode(cfg, "sLSTM")
+    """x: (B, D). Returns (out (B, D), cache), the cache updated in place.
+
+    Under tensor parallelism (the leaves split as in :func:`slstm_apply`)
+    ``h`` and ``c`` hold this rank's chunk of d_model (over 'model', or
+    with batch 1 over every axis) and ``n`` / ``m`` are whole: ``x @ w``
+    and the chunks of h and c (one tensor: a token's, (2, B, D)) are
+    gathered whole, the cell runs whole on every rank, as the loop of
+    :func:`slstm_apply` does, and each rank keeps its chunks of the new h
+    and c; its rows of ``out_proj`` take its channels of h, summed over
+    'model'."""
+    d = cfg.d_model
+    split = p["w"].shape[1] != 4 * d
+    axes = tp.split_axes(d, cache["h"].shape[-1])
+    lo, hi = tp.chunk_range(d, axes)
     wx = x @ p["w"]
-    h, (h2, c, n, m) = _slstm_cell(
-        p, wx, (cache["h"], cache["c"], cache["n"], cache["m"]), cfg)
-    out = h.to(x.dtype) @ p["out_proj"]
-    return out, _update(cache, {"h": h2, "c": c, "n": n, "m": m})
+    if split:
+        wx = tp.gather_from_model(wx, -1)
+    hc = torch.stack([cache["h"], cache["c"]])
+    if axes:
+        hc = tp.gather_over(hc, -1, axes)
+    h, (h2, c, n, m) = _slstm_cell(p, wx, (hc[0], hc[1], cache["n"], cache["m"]),
+                                   cfg)
+    rows = _model_rows(d, split)
+    out = h.to(x.dtype)[:, rows] @ p["out_proj"]
+    if split:
+        out = tp.reduce_from_model(out)
+    return out, _update(cache, {"h": h2[:, lo:hi], "c": c[:, lo:hi], "n": n,
+                                "m": m})

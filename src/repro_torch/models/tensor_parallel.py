@@ -39,6 +39,7 @@ card's runs hold ``counts`` to.
 from __future__ import annotations
 
 import collections
+import math
 from typing import Tuple
 
 import torch
@@ -178,8 +179,8 @@ def combine_partials(out: torch.Tensor, lse: torch.Tensor,
     the same on every rank. One all-gather an axis brings every rank's
     (out, L) of the axis, which are weighted by exp(L - max L) and summed,
     as the decode kernel's blocks combine within a cluster; the combined
-    (out, L) goes on to the next axis. No gradient (serving); a gather over
-    'model' is counted in :data:`counts`."""
+    (out, L) goes on to the next axis. No gradient (serving); each gather
+    is counted in :data:`counts`."""
     mesh = part.current_mesh()
     shape = mesh_shape(mesh)
     axes = [a for a in axes if shape.get(a, 1) > 1]
@@ -189,8 +190,7 @@ def combine_partials(out: torch.Tensor, lse: torch.Tensor,
     for a in axes:
         every = collectives.gather_dim(both.unsqueeze(0), 0, mesh.get_group(a),
                                        shape[a])
-        if a == AXIS:
-            _count("all_gather", every)
+        _count_on("all_gather", every, a)
         outs, lses = every[..., :-1], every[..., -1]
         top = lses.amax(dim=0)
         w = torch.exp(lses - torch.where(torch.isfinite(top), top, 0.0))
@@ -202,16 +202,248 @@ def combine_partials(out: torch.Tensor, lse: torch.Tensor,
     return both[..., :-1].to(out.dtype)
 
 
-def refuse_decode(cfg, what: str) -> None:
-    """NotImplementedError where a 'model' axis above 1 is registered: the
-    decode of ``what`` does not run split over 'model' (ROADMAP item 6g2);
-    it never runs on whole weights in its place."""
-    m = model_size()
-    if m > 1:
-        raise NotImplementedError(
-            f"{cfg.name}: {what} decode under a 'model' axis of {m} is not "
-            "ported (ROADMAP item 6g2: decode under a mesh for MLA, Mamba, "
-            "mLSTM / sLSTM and whisper)")
+def split_axes(whole: int, local: int) -> Tuple[str, ...]:
+    """The mesh axes that split a dim of ``whole`` items into this rank's
+    ``local`` ones, as the rules lay a decode state out
+    (``launch.shardings.cache_pspec``): () where it is whole, ('model',),
+    or with batch 1 every axis of size above 1, in mesh order. ValueError
+    for any other split."""
+    if local == whole:
+        return ()
+    mesh = part.current_mesh()
+    shape = {} if mesh is None else mesh_shape(mesh)
+    if whole == local * shape.get(AXIS, 1):
+        return (AXIS,)
+    every = tuple(a for a, n in shape.items() if n > 1)
+    if whole == local * math.prod(shape[a] for a in every):
+        return every
+    raise ValueError(f"a dim of {whole} held as {local} on a mesh {shape}: "
+                     "not a layout of the decode rules")
+
+
+def _count_on(kind: str, t: torch.Tensor, axis: str) -> None:
+    """:data:`counts` of a collective over ``axis``: ``kind`` over 'model',
+    ``kind:axis`` over another axis."""
+    _count(kind if axis == AXIS else f"{kind}:{axis}", t)
+
+
+def gather_over(x: torch.Tensor, dim: int, axes: Tuple[str, ...]
+                ) -> torch.Tensor:
+    """The whole tensor of which ``x`` is this rank's chunk of dim ``dim``
+    over ``axes`` (chunks in the order of the ranks' coordinate over them,
+    the first axis slowest, as ``layout.local_shard`` cuts them): one
+    all-gather an axis, the last first. No gradient (serving); counted in
+    :data:`counts`."""
+    mesh = part.current_mesh()
+    shape = mesh_shape(mesh)
+    for a in reversed(axes):
+        x = collectives.gather_dim(x, dim % x.dim(), mesh.get_group(a),
+                                   shape[a])
+        _count_on("all_gather", x, a)
+    return x
+
+
+def chunk_range(n: int, axes: Tuple[str, ...]) -> Tuple[int, int]:
+    """[lo, hi) of this rank's chunk of ``n`` items split over ``axes``
+    (:func:`split_axes`; the whole of them with none)."""
+    index, count = coordinate(part.current_mesh(), axes) if axes else (0, 1)
+    return index * (n // count), (index + 1) * (n // count)
+
+
+def rows_for(ws, n: int, axes: Tuple[str, ...]) -> list:
+    """Rows [lo, hi) of each leaf of ``ws``: this rank's chunk of dim 0 of
+    ``n`` rows over ``axes`` (:func:`split_axes`), where each leaf holds
+    all ``n`` rows or this rank's slice of them over 'model' (the rules'
+    split of a weight). Whole leaves and chunks within this rank's slice
+    are cut here. With batch 1 a decode state's chunks are finer than the
+    weights' slices and lie across them (chunk q of every axis holds rows
+    that slice q // (chunks a slice) of 'model' holds): there every rank
+    of a 'model' group sends the rows that the others' chunks want of its
+    slice, all leaves in one float32 message a peer, and receives its own
+    (``collectives.p2p``; :data:`counts` 'permute' once a call, its bytes
+    this rank's sent and received). Only a chunk's rows move, never a
+    whole leaf. No gradient (serving)."""
+    lo, hi = chunk_range(n, axes)
+    c = hi - lo
+    m, me = model_size(), model_index()
+    out, split = list(ws), [i for i, w in enumerate(ws) if w.shape[0] != n]
+    for i, w in enumerate(ws):
+        if i not in split:
+            out[i] = w[lo:lo + c]
+    if not split:
+        return out
+    per = n // m
+    if axes[-1:] != (AXIS,) or per % c:
+        raise ValueError(f"rows_for: a chunk of {c} of {n} rows over {axes} "
+                         f"against slices of {per} over 'model'")
+    if axes == (AXIS,):
+        return [w if i in split else out[i] for i, w in enumerate(ws)]
+    outer = lo // c // m
+
+    def flat(w, start):
+        return w[start:start + c].reshape(c, -1).float()
+
+    sends = []
+    for peer in range(m):
+        start = (outer * m + peer) * c
+        if peer != me and start // per == me:
+            sends.append((torch.cat([flat(ws[i], start - me * per)
+                                     for i in split], dim=1), peer))
+    owner = lo // per
+    widths = [ws[i][0].numel() for i in split]
+    if owner == me:
+        got = torch.cat([flat(ws[i], lo - me * per) for i in split], dim=1)
+        recvs = []
+    else:
+        got = torch.empty((c, sum(widths)), dtype=torch.float32,
+                          device=ws[split[0]].device)
+        recvs = [(got, owner)]
+    collectives.p2p(sends, recvs, _group())
+    counts["permute"] += 1
+    counts["permute_bytes"] += sum(t.numel() * 4 for t, _ in sends + recvs)
+    for i, part_ in zip(split, got.split(widths, dim=1)):
+        w = ws[i]
+        out[i] = part_.reshape((c,) + tuple(w.shape[1:])).to(w.dtype)
+    return out
+
+
+def collectives_per_decode_step(cfg, mesh_shape: dict, batch: int) -> dict:
+    """The collectives of one decode step of ``cfg`` on one rank of a mesh
+    of ``mesh_shape`` (``{axis: size}``) serving ``batch`` rows
+    (:data:`counts`, by kind: 'all_reduce', 'all_gather' over 'model',
+    'all_gather:<axis>' over another axis, 'permute' for
+    :func:`rows_for`'s exchange), as the decoders run them on the rules'
+    layouts of the params and caches (the caches' lengths taken to divide
+    as the rules would split them). The rows split over the batch axes
+    where they divide the batch (``cache_pspec``'s ``b_ok``), and then a
+    cache's KV heads, its length or a state's channels go over 'model';
+    otherwise (batch 1) the length or the channels go over every axis, MLA's
+    length over ('data', 'model'). A layer: attention with each rank its KV
+    heads sums its output; with the length split, the split projections'
+    columns of the token are gathered, each length axis gathers the
+    partials (``combine_partials``), and a split output is summed. MLA
+    gathers its two latents and the queries of every head, each length
+    axis the partials, and sums its output. Mamba gathers x @ in_proj and
+    sums (dt_r, B, C) and its output; with its channels over more than
+    'model', it also gathers its chunk's xc and gated output over each of
+    those axes, dt over 'model', and exchanges its rows of the per-channel
+    weights. mLSTM gathers x @ in_proj and sums q / k / v, C q and its
+    output; with its conv's channels over more than 'model', it gathers xc
+    over those axes and exchanges its conv rows. sLSTM gathers x @ w and
+    its chunks of h and c over their axes, and sums its output. A split
+    SwiGLU or MoE sums its output (the shared expert as a SwiGLU). The
+    encoder-decoder's layer: self attention, cross attention (its heads'
+    output summed; every head on every rank gathers the token's q first)
+    and the MLP. A vocab split sums the lookup and gathers the logits."""
+    shape = {a: n for a, n in mesh_shape.items()}
+    m = shape.get(AXIS, 1)
+    batch_axes = tuple(a for a in ("pod", "data") if a in shape)
+    rows = math.prod(shape[a] for a in batch_axes)
+    rows_split = batch % rows == 0 and batch >= rows
+    every = tuple(a for a, n in shape.items() if n > 1)
+    total = collections.Counter()
+
+    def gathers(axes):
+        return collections.Counter(
+            "all_gather" if a == AXIS else f"all_gather:{a}"
+            for a in axes if shape.get(a, 1) > 1)
+
+    def over(n, axes):
+        """``axes`` where they divide ``n`` (the rules' guard), else ()."""
+        axes = tuple(a for a in axes if shape.get(a, 1) > 1)
+        return axes if n % math.prod(shape[a] for a in axes) == 0 else ()
+
+    def state_axes(n):
+        return over(n, (AXIS,) if rows_split else every)
+
+    def attn():
+        h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+        split = [(h * hd) % m == 0 and m > 1] + [(hkv * hd) % m == 0 and m > 1] * 2
+        out = collections.Counter()
+        if rows_split and m > 1 and hkv % m == 0:
+            out["all_reduce"] += 1
+            return out
+        if any(split):
+            out["all_gather"] += 1
+            out["all_reduce"] += 1
+        return out + gathers((AXIS,) if rows_split else every)
+
+    def mla():
+        split = m > 1
+        out = gathers((AXIS,) if rows_split else ("data", AXIS))
+        if split:
+            out += collections.Counter(all_gather=3, all_reduce=1)
+        return out
+
+    def mamba():
+        split = m > 1 and cfg.d_inner % m == 0
+        axes = state_axes(cfg.d_inner)
+        out = collections.Counter()
+        if split:
+            out += collections.Counter(all_gather=1, all_reduce=2)
+        if axes not in ((), (AXIS,)):
+            out += gathers(axes) + gathers(axes)
+            if split:
+                out += collections.Counter(all_gather=1, permute=1)
+        return out
+
+    def mlstm():
+        split = m > 1 and cfg.d_inner % m == 0
+        axes = state_axes(cfg.d_inner)
+        out = collections.Counter()
+        if split:
+            out += collections.Counter(all_gather=1, all_reduce=2)
+            if (cfg.d_inner // cfg.n_heads) % m == 0:
+                out["all_reduce"] += 1
+        if axes not in ((), (AXIS,)):
+            out += gathers(axes)
+            if split:
+                out["permute"] += 1
+        return out
+
+    def slstm():
+        split = m > 1 and cfg.d_model % m == 0
+        out = gathers(state_axes(cfg.d_model))
+        if split:
+            out += collections.Counter(all_gather=1, all_reduce=1)
+        return out
+
+    def swiglu(width):
+        return collections.Counter(all_reduce=int(m > 1 and width % m == 0))
+
+    def ffn(kind):
+        if kind is None:
+            return collections.Counter()
+        if kind == "mlp":
+            return swiglu(cfg.d_ff)
+        out = collections.Counter(all_reduce=int(m > 1 and cfg.n_experts % m == 0))
+        if cfg.n_shared_experts:
+            out += swiglu(cfg.n_shared_experts * cfg.d_expert)
+        return out
+
+    mixers = {"attn": attn, "mla": mla, "mamba": mamba, "mlstm": mlstm,
+              "slstm": slstm}
+    if cfg.is_encdec:
+        h, hd = cfg.n_heads, cfg.hd
+        cross = collections.Counter()
+        if m > 1 and (h * hd) % m == 0:
+            cross["all_reduce"] += 1
+            if not (h % m == 0 and cfg.n_kv_heads % m == 0 and
+                    (cfg.n_kv_heads * hd) % m == 0):
+                cross["all_gather"] += 1
+        layer = attn() + cross + swiglu(cfg.d_ff)
+        for _ in range(cfg.n_layers):
+            total += layer
+    else:
+        for _ in range(cfg.first_k_dense):
+            total += mixers[cfg.period[0][0]]() + ffn("mlp")
+        for _ in range(cfg.n_periods):
+            for mixer, kind in cfg.period:
+                total += mixers[mixer]() + ffn(kind)
+    if m > 1 and cfg.vocab % m == 0:
+        total["all_reduce"] += 1
+        total["all_gather"] += 1
+    return dict(sorted((k, v) for k, v in total.items() if v))
 
 
 def collectives_per_step(cfg, m: int, seq: int) -> dict:

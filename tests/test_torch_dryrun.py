@@ -22,6 +22,16 @@ reference's, on the CPU.
 * The reference's XLA flops on the same one-device SMOKE cell beside the
   port's (``pytest -s`` prints the ratio).
 * The CLI's ``smollm_360m decode_32k`` cell prints ``-> ok``.
+* The sLSTM loop cut to two short lengths and extrapolated
+  (``dryrun.CutLoop``) against every step run, on xlstm-125m cut to one
+  sLSTM and one mLSTM layer at (2, 2), train and prefill cells at 32 and
+  64 tokens: flops, flops by operator, bytes, the collectives (both
+  counts) and the peak equal; and ``ssm.slstm_apply`` on real CPU tensors
+  bit-equal, outputs and gradients, inside ``CutLoop`` and outside it.
+* The decode cells of DeepSeek-V3, Jamba, xLSTM and whisper at 16x16 at a
+  cut depth (``decode_32k``; ``long_500k``, batch 1, for Jamba and xLSTM),
+  each in a process of its own: ``ok``, and the collectives over 'model'
+  and the cache's axes those of ``collectives_per_decode_step``.
 """
 import dataclasses
 import os
@@ -167,9 +177,48 @@ def _by_op(fc):
     return {str(k): v for k, v in fc.get_flop_counts()["Global"].items()}
 
 
+# F4: the cut xLSTM config of the sLSTM loop's comparison
+XLSTM_CUT = dict(n_layers=2)
+LOOP_SEQS = (32, 64)
+
+
+def _loop_cells():
+    """Each (shape, seq): the cell with the cut loop and with every step."""
+    cfg = dataclasses.replace(tget("xlstm_125m"), **XLSTM_CUT)
+    out = {}
+    for shape in ("train_4k", "prefill_32k"):
+        for seq in LOOP_SEQS:
+            for cut in (True, False):
+                detail = {}
+                r = dryrun.run_cell("xlstm_125m", shape, mesh_dims=(2, 2),
+                                    seq=seq, batch=8, cfg=cfg, detail=detail,
+                                    cut_loop=cut)
+                out[(shape, seq, cut)] = dict(detail, res=r)
+    return out
+
+
+# the decode cells at 16x16, each at a depth cut: (arch, shape, overrides)
+DECODE_CUTS = {"deepseek_v3_671b": dict(n_layers=4),
+               "jamba_1_5_large_398b": dict(n_layers=8),
+               "xlstm_125m": dict(n_layers=2),
+               "whisper_small": dict(n_layers=2, encoder_layers=2)}
+DECODE_CELLS = [(a, "decode_32k") for a in DECODE_CUTS] + [
+    ("jamba_1_5_large_398b", "long_500k"), ("xlstm_125m", "long_500k")]
+
+
+def _decode_cell(arch, shape):
+    cfg = dataclasses.replace(tget(arch), **DECODE_CUTS[arch])
+    detail = {}
+    r = dryrun.run_cell(arch, shape, cfg=cfg, detail=detail)
+    return dict(detail, res=r)
+
+
 JOBS = {"c11": lambda: _cell((1, 1)), "c21": lambda: _cell((2, 1)),
         "c41": lambda: _cell((4, 1)), "c12": lambda: _cell((1, 2)),
-        "c22": lambda: _cell((2, 2)), "real": _real_flops}
+        "c22": lambda: _cell((2, 2)), "real": _real_flops,
+        "loop": _loop_cells}
+JOBS.update({f"{a} {s}": (lambda a=a, s=s: _decode_cell(a, s))
+             for a, s in DECODE_CELLS})
 
 
 def _child(_, tmp, jobs):
@@ -258,3 +307,55 @@ def test_cli_cell_prints_ok():
          "smollm_360m", "--shape", "decode_32k"],
         capture_output=True, text=True, timeout=300, env=env, cwd=REPO)
     assert "-> ok" in out.stdout, out.stdout + out.stderr
+
+
+@pytest.mark.parametrize("shape", ["train_4k", "prefill_32k"])
+@pytest.mark.parametrize("seq", LOOP_SEQS)
+def test_cut_slstm_loop_equals_every_step(cells, shape, seq):
+    """The extrapolated counts of the cut loop equal the whole loop's."""
+    cut, full = cells["loop"][(shape, seq, True)], cells["loop"][(shape, seq, False)]
+    a, b = cut["res"], full["res"]
+    assert a.status == b.status == "ok", (a.reason, b.reason)
+    assert a.flops == b.flops > 0
+    assert cut["flops_by_op"] == full["flops_by_op"]
+    assert a.bytes_accessed == b.bytes_accessed
+    assert a.coll == b.coll and cut["tp_counts"] == full["tp_counts"]
+    assert a.peak_bytes_per_device == b.peak_bytes_per_device
+
+
+def test_slstm_on_real_tensors_ignores_the_cut_loop():
+    """``slstm_apply`` on real CPU tensors, inside ``CutLoop`` and outside
+    it: the same outputs and gradients, bit for bit."""
+    from repro_torch.models import ssm
+    cfg = tget("xlstm_125m", smoke=True)
+    p = ssm.slstm_init(torch.Generator().manual_seed(0), cfg, torch.float32)
+    x0 = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (2, 12, cfg.d_model)).astype(np.float32))
+
+    def run():
+        leaves = {k: v.detach().clone().requires_grad_(True)
+                  for k, v in p.items()}
+        x = x0.clone().requires_grad_(True)
+        y = ssm.slstm_apply(leaves, x, cfg)
+        y.square().sum().backward()
+        return [y.detach(), x.grad] + [leaves[k].grad for k in sorted(leaves)]
+
+    plain = run()
+    with dryrun.CutLoop(2, [], measure=True):
+        inside = run()
+    for a, b in zip(plain, inside):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("arch, shape", DECODE_CELLS)
+def test_decode_cells_of_the_split_mixers(cells, arch, shape):
+    """Each decode cell runs (``ok``) and its collectives over 'model' and
+    over the cache's axes are the design's for its mesh and batch."""
+    from repro_torch.models.tensor_parallel import collectives_per_decode_step
+    got = cells[f"{arch} {shape}"]
+    assert got["res"].status == "ok", got["res"].reason
+    cfg = dataclasses.replace(tget(arch), **DECODE_CUTS[arch])
+    want = collectives_per_decode_step(cfg, MESHES["16x16"],
+                                       specs.SHAPES[shape][1])
+    assert {k: v for k, v in got["tp_counts"].items()
+            if not k.endswith("_bytes")} == want
